@@ -1,0 +1,199 @@
+"""K1 radius moments and K2 sign votes of the SHOT LRF, and the fused LRF
+built on them.
+
+Port of point_cloud_donkey_tpu/ops/pallas/lrf_moments.py: `_moments_call`
+-> :func:`moments`, `_sign_votes_call` -> :func:`sign_votes`,
+`_prep_lanes` -> :func:`prep_shift`, `shot_lrf_pallas` ->
+:func:`shot_lrf_fused`.  The kernels are in csrc/lrf_moments.cu; the plain
+twins below compute the same sums with the same float operations, on
+exact coordinate differences (not the matmul identity).
+
+All tensors are batched over clouds: queries [B, Q, 3], points [B, N, 3],
+mask [B, N] bool.  Unlike the TPU layout, nothing is parked at 1e9: the
+point mask goes to the kernels explicitly.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from ...kernels import build
+from ..eigh3 import eigh3x3
+from . import check, f32, stream_of, uses_kernel
+
+MOMENT_ROWS = 10      # s0, s1 (x, y, z), s2 (xx, yy, zz, xy, xz, yz)
+_PAIR_BUDGET = 1 << 25  # elements per [B, chunk, N] temporary of the twins
+
+
+def _chunk(b: int, n: int) -> int:
+    return max(1, _PAIR_BUDGET // max(b * n, 1))
+
+
+def _check_common(q, p, mask):
+    b, n = p.shape[0], p.shape[1]
+    check("queries", q, torch.float32, (b, None, 3))
+    check("points", p, torch.float32, (b, n, 3))
+    check("mask", mask, torch.bool, (b, n))
+
+
+def moments_plain(q: torch.Tensor, p: torch.Tensor, mask: torch.Tensor,
+                  radius: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain twin of K1: (mom [B, Q, 10] f32, count [B, Q] i32)."""
+    b, nq, _ = q.shape
+    r = f32(radius)
+    r2 = f32(r * r)
+    mom = torch.zeros((b, nq, MOMENT_ROWS), dtype=q.dtype, device=q.device)
+    cnt = torch.zeros((b, nq), dtype=torch.int32, device=q.device)
+    px, py, pz = (p[..., i][:, None, :] for i in range(3))
+    m = mask[:, None, :]
+    step = _chunk(b, p.shape[1])
+    for q0 in range(0, nq, step):
+        qc = q[:, q0:q0 + step]
+        dx = qc[..., 0:1] - px
+        dy = qc[..., 1:2] - py
+        dz = qc[..., 2:3] - pz
+        d2 = dx * dx + dy * dy + dz * dz
+        in_r = (d2 <= r2) & m
+        w = torch.where(in_r, r - torch.sqrt(d2), torch.zeros_like(d2))
+        wx, wy, wz = w * px, w * py, w * pz
+        rows = [w, wx, wy, wz, wx * px, wy * py, wz * pz,
+                wx * py, wx * pz, wy * pz]
+        mom[:, q0:q0 + step] = torch.stack([x.sum(-1) for x in rows], -1)
+        cnt[:, q0:q0 + step] = in_r.sum(-1, dtype=torch.int32)
+    return mom, cnt
+
+
+def moments(q: torch.Tensor, p: torch.Tensor, mask: torch.Tensor,
+            radius: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K1: per query, the (r - d)-weighted moments over the in-radius
+    points of its cloud, and the in-radius count.  q [B, Q, 3], p [B, N, 3]
+    (centroid-shifted), mask [B, N] -> (mom [B, Q, 10], count [B, Q])."""
+    _check_common(q, p, mask)
+    if not uses_kernel(q, p, mask):
+        return moments_plain(q, p, mask, radius)
+    b, nq, _ = q.shape
+    mom = torch.empty((b, nq, MOMENT_ROWS), dtype=torch.float32,
+                      device=q.device)
+    cnt = torch.empty((b, nq), dtype=torch.int32, device=q.device)
+    if b and nq:
+        with torch.cuda.device(q.device):
+            err = build.lib().pcd_lrf_moments(
+                q.data_ptr(), p.data_ptr(), mask.data_ptr(), mom.data_ptr(),
+                cnt.data_ptr(), b, nq, p.shape[1], f32(radius), stream_of(q))
+        build.check(err, "lrf_moments")
+        build.count_launch("lrf_moments")
+    return mom, cnt
+
+
+def sign_votes_plain(q: torch.Tensor, p: torch.Tensor, mask: torch.Tensor,
+                     axes: torch.Tensor, radius: float,
+                     z_only: bool = False) -> torch.Tensor:
+    """Plain twin of K2: votes [B, Q, 2] i32."""
+    b, nq, _ = q.shape
+    r = f32(radius)
+    r2 = f32(r * r)
+    votes = torch.zeros((b, nq, 2), dtype=torch.int32, device=q.device)
+    px, py, pz = (p[..., i][:, None, :] for i in range(3))
+    m = mask[:, None, :]
+    step = _chunk(b, p.shape[1])
+    for q0 in range(0, nq, step):
+        qc = q[:, q0:q0 + step]
+        ac = axes[:, q0:q0 + step]
+        dx = px - qc[..., 0:1]
+        dy = py - qc[..., 1:2]
+        dz = pz - qc[..., 2:3]
+        in_r = ((dx * dx + dy * dy + dz * dz) <= r2) & m
+        dot_z = dx * ac[..., 3:4] + dy * ac[..., 4:5] + dz * ac[..., 5:6]
+        votes[:, q0:q0 + step, 1] = (in_r & (dot_z >= 0)).sum(
+            -1, dtype=torch.int32)
+        if not z_only:
+            dot_x = dx * ac[..., 0:1] + dy * ac[..., 1:2] + dz * ac[..., 2:3]
+            votes[:, q0:q0 + step, 0] = (in_r & (dot_x >= 0)).sum(
+                -1, dtype=torch.int32)
+    return votes
+
+
+def sign_votes(q: torch.Tensor, p: torch.Tensor, mask: torch.Tensor,
+               axes: torch.Tensor, radius: float,
+               z_only: bool = False) -> torch.Tensor:
+    """K2: per query, the in-radius counts with (p - q) . axis >= 0 for the
+    x (axes[..., 0:3]) and z (axes[..., 3:6]) candidates -> [B, Q, 2]
+    (x count is 0 when z_only)."""
+    _check_common(q, p, mask)
+    check("axes", axes, torch.float32, (q.shape[0], q.shape[1], 6))
+    if not uses_kernel(q, p, mask, axes):
+        return sign_votes_plain(q, p, mask, axes, radius, z_only)
+    b, nq, _ = q.shape
+    votes = torch.empty((b, nq, 2), dtype=torch.int32, device=q.device)
+    if b and nq:
+        with torch.cuda.device(q.device):
+            err = build.lib().pcd_sign_votes(
+                q.data_ptr(), p.data_ptr(), mask.data_ptr(), axes.data_ptr(),
+                votes.data_ptr(), b, nq, p.shape[1], f32(radius),
+                int(z_only), stream_of(q))
+        build.check(err, "sign_votes")
+        build.count_launch("sign_votes")
+    return votes
+
+
+def prep_shift(queries: torch.Tensor, points: torch.Tensor,
+               mask: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Shift queries and points by each cloud's masked centroid (the
+    conditioning step of `_prep_lanes`): (q_s [B, Q, 3], p_s [B, N, 3])."""
+    m = mask.to(points.dtype)
+    shift = (points * m[..., None]).sum(1) \
+        / torch.clamp(m.sum(1), min=1.0)[:, None]
+    return ((queries - shift[:, None, :]).contiguous(),
+            (points - shift[:, None, :]).contiguous())
+
+
+def cov_from_moments(mom: torch.Tensor, q_s: torch.Tensor,
+                     q_mask: torch.Tensor):
+    """(r - d)-weighted covariance about the (shifted) query from K1's
+    moments: cov = s2 - c s1^T - s1 c^T + s0 c c^T over s0, with c = 0 for
+    masked queries.  Returns (cov [B, Q, 3, 3], s0 [B, Q])."""
+    s0 = mom[..., 0]
+    s1 = mom[..., 1:4]
+    xx, yy, zz, xy, xz, yz = (mom[..., i] for i in range(4, 10))
+    s2 = torch.stack([torch.stack([xx, xy, xz], -1),
+                      torch.stack([xy, yy, yz], -1),
+                      torch.stack([xz, yz, zz], -1)], -2)
+    c = torch.where(q_mask[..., None], q_s, torch.zeros_like(q_s))
+    cov = (s2 - c[..., :, None] * s1[..., None, :]
+           - s1[..., :, None] * c[..., None, :]
+           + s0[..., None, None] * c[..., :, None] * c[..., None, :])
+    return cov / torch.clamp(s0, min=1e-30)[..., None, None], s0
+
+
+def shot_lrf_fused(queries: torch.Tensor, q_mask: torch.Tensor,
+                   points: torch.Tensor, mask: torch.Tensor, radius: float,
+                   min_neighbors: int = 5, z_only: bool = False
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """SHOT LRF via K1 -> closed-form EVD -> K2.  Returns (frames
+    [B, Q, 3, 3] rows = x, y, z axes, valid [B, Q]).  Sign rule: flip an
+    axis when fewer in-radius offsets point along it than against it; a
+    tie keeps the closed-form EVD's sign.  z_only skips the x vote (x/y
+    rows then keep the EVD's sign; only for callers that read z)."""
+    q_s, p_s = prep_shift(queries, points, mask)
+    mom, count = moments(q_s, p_s, mask, radius)
+    cov, s0 = cov_from_moments(mom, q_s, q_mask)
+    _, vecs = eigh3x3(cov)
+    v1 = vecs[..., :, 2]   # largest eigenvalue -> x axis candidate
+    v3 = vecs[..., :, 0]   # smallest -> z axis candidate
+    x_cand = torch.zeros_like(v1) if z_only else v1
+    axes = torch.cat([x_cand, v3], -1).contiguous()
+    votes = sign_votes(q_s, p_s, mask, axes, radius, z_only)
+    n_in = count
+    plus_z = votes[..., 1]
+    z_axis = torch.where((plus_z < n_in - plus_z)[..., None], -v3, v3)
+    if z_only:
+        x_axis = v1
+    else:
+        plus_x = votes[..., 0]
+        x_axis = torch.where((plus_x < n_in - plus_x)[..., None], -v1, v1)
+    y_axis = torch.linalg.cross(z_axis, x_axis)
+    frames = torch.stack([x_axis, y_axis, z_axis], dim=-2)
+    valid = q_mask & (count >= min_neighbors) & (s0 > 0)
+    return frames, valid

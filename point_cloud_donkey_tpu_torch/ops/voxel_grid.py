@@ -1,0 +1,78 @@
+"""Voxel-grid keypoints: per-voxel centroids in voxel-key order (port of
+point_cloud_donkey_tpu/ops/voxel_grid.py, batched over clouds).
+
+PCL semantics: voxel index = floor(p / leaf) - floor(min / leaf) per axis;
+output = mean of the points of each occupied voxel, ordered
+lexicographically by (i, j, k).  The order comes from three stable sorts
+(k, then j, then i), so equal keys keep the input order and no composite
+key can overflow.  Voxel ids at or past `capacity` are dropped, not
+clipped.  Valid rows come first in the output; the tile-compacted SHOT
+stage relies on it.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+
+class VoxelGridResult(NamedTuple):
+    centroids: torch.Tensor  # [..., K, 3] per-voxel means
+    mask: torch.Tensor       # [..., K] validity
+
+
+def voxel_grid(points: torch.Tensor,   # [N, 3] or [B, N, 3]
+               mask: torch.Tensor,     # [N] or [B, N]
+               leaf_size: float,
+               capacity: Optional[int] = None) -> VoxelGridResult:
+    single = points.dim() == 2
+    if single:
+        points, mask = points[None], mask[None]
+    b, n, _ = points.shape
+    cap = capacity or n
+
+    big = torch.full_like(points, float("inf"))
+    mn = torch.floor(torch.amin(torch.where(mask[..., None], points, big),
+                                dim=1) / leaf_size)                  # [B, 3]
+    ijk = (torch.floor(points / leaf_size) - mn[:, None, :])
+    # invalid points (and empty clouds) sort to the end
+    max_c = torch.iinfo(torch.int32).max
+    ijk = torch.where(mask[..., None] & torch.isfinite(ijk),
+                      ijk, float(max_c)).to(torch.int64)
+
+    # stable lexicographic order on (i, j, k): least significant key first
+    order = torch.arange(n, device=points.device).expand(b, n)
+    for axis in (2, 1, 0):
+        key = torch.gather(ijk[..., axis], 1, order)
+        _, perm = torch.sort(key, dim=1, stable=True)
+        order = torch.gather(order, 1, perm)
+    sorted_ijk = torch.gather(ijk, 1, order[..., None].expand(b, n, 3))
+    sorted_pts = torch.gather(points, 1, order[..., None].expand(b, n, 3))
+    sorted_valid = torch.gather(mask, 1, order)
+
+    is_new = torch.ones((b, n), dtype=torch.bool, device=points.device)
+    is_new[:, 1:] = torch.any(sorted_ijk[:, 1:] != sorted_ijk[:, :-1], dim=2)
+    is_new &= sorted_valid
+    seg = torch.cumsum(is_new.to(torch.int64), dim=1) - 1
+    # invalid points and voxel ids past capacity go to the dump slot
+    seg = torch.where(sorted_valid & (seg < cap), seg,
+                      torch.full_like(seg, cap))
+
+    sums = torch.zeros((b, cap + 1, 3), dtype=points.dtype,
+                       device=points.device)
+    sums.scatter_add_(1, seg[..., None].expand(b, n, 3),
+                      torch.where(sorted_valid[..., None], sorted_pts,
+                                  torch.zeros_like(sorted_pts)))
+    counts = torch.zeros((b, cap + 1), dtype=points.dtype,
+                         device=points.device)
+    counts.scatter_add_(1, seg, sorted_valid.to(points.dtype))
+    sums, counts = sums[:, :cap], counts[:, :cap]
+
+    out_mask = counts > 0
+    centroids = sums / torch.clamp(counts, min=1.0)[..., None]
+    centroids = torch.where(out_mask[..., None], centroids,
+                            torch.zeros_like(centroids))
+    if single:
+        centroids, out_mask = centroids[0], out_mask[0]
+    return VoxelGridResult(centroids=centroids, mask=out_mask)

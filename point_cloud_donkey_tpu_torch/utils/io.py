@@ -1,0 +1,223 @@
+"""Point-cloud files and file lists (port of the parts of
+point_cloud_donkey_tpu/utils/io.py that serving reads).
+
+  * `.pcd` (DATA ascii, binary and binary_compressed) and `.ply` (ascii and
+    binary) files; serving needs only the coordinates, so the readers
+    return xyz [N, 3] float32 and ignore every other field.
+  * file lists with a `# train|test [inst]` header followed by
+    `path label [instance]` lines; `#`-prefixed lines are comments
+    (reference: eval_tool/eval_helpers.h:100-177).
+"""
+
+from __future__ import annotations
+
+import struct
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional
+
+import numpy as np
+
+_PCD_DTYPES = {
+    ("F", 4): "<f4", ("F", 8): "<f8",
+    ("I", 1): "<i1", ("I", 2): "<i2", ("I", 4): "<i4",
+    ("U", 1): "<u1", ("U", 2): "<u2", ("U", 4): "<u4",
+}
+
+
+def _lzf_decompress(data: bytes, expected_size: int) -> bytes:
+    """LZF decompression (the format of PCL's binary_compressed PCDs)."""
+    out = bytearray()
+    i, n = 0, len(data)
+    while i < n:
+        ctrl = data[i]
+        i += 1
+        if ctrl < 32:                      # literal run of ctrl + 1 bytes
+            out += data[i:i + ctrl + 1]
+            i += ctrl + 1
+            continue
+        length = ctrl >> 5                 # back reference
+        if length == 7:
+            length += data[i]
+            i += 1
+        ref = len(out) - ((ctrl & 0x1F) << 8) - data[i] - 1
+        i += 1
+        if ref < 0:
+            raise ValueError("lzf: back reference before the start")
+        for _ in range(length + 2):
+            out.append(out[ref])
+            ref += 1
+    if len(out) != expected_size:
+        raise ValueError(f"lzf: expected {expected_size} bytes, got {len(out)}")
+    return bytes(out)
+
+
+def load_pcd(path: str) -> np.ndarray:
+    """xyz [N, 3] float32 of a PCD file."""
+    with open(path, "rb") as f:
+        data = f.read()
+    header: Dict[str, List[str]] = {}
+    offset = 0
+    while "DATA" not in header:
+        end = data.index(b"\n", offset)
+        parts = data[offset:end].decode("ascii", errors="replace").split()
+        offset = end + 1
+        if parts and not parts[0].startswith("#"):
+            header[parts[0]] = parts[1:]
+
+    fields = header["FIELDS"]
+    sizes = [int(s) for s in header["SIZE"]]
+    types = header["TYPE"]
+    counts = [int(c) for c in header.get("COUNT", ["1"] * len(fields))]
+    n = int(header["POINTS"][0])
+    mode = header["DATA"][0]
+    if not {"x", "y", "z"} <= set(fields):
+        raise ValueError(f"{path}: PCD without x, y, z fields")
+
+    if mode == "ascii":
+        width = sum(counts)
+        raw = np.array(data[offset:].split(), dtype=np.float64)
+        raw = raw[:n * width].reshape(n, width)
+        col = dict(zip(fields, np.cumsum([0] + counts[:-1])))
+        cols = [raw[:, col[a]] for a in "xyz"]
+    elif mode == "binary":
+        dtype = np.dtype([(f, _PCD_DTYPES[(t, s)], (c,))
+                          for f, s, t, c in zip(fields, sizes, types, counts)])
+        rec = np.frombuffer(data, dtype=dtype, count=n, offset=offset)
+        cols = [rec[a][:, 0] for a in "xyz"]
+    elif mode == "binary_compressed":
+        comp_size, raw_size = struct.unpack_from("<II", data, offset)
+        body = _lzf_decompress(data[offset + 8:offset + 8 + comp_size],
+                               raw_size)
+        # fields stored one after another (structure of arrays)
+        starts = np.cumsum([0] + [s * c * n for s, c in zip(sizes, counts)])
+        cols = []
+        for a in "xyz":
+            i = fields.index(a)
+            arr = np.frombuffer(body, dtype=_PCD_DTYPES[(types[i], sizes[i])],
+                                count=counts[i] * n, offset=int(starts[i]))
+            cols.append(arr.reshape(n, counts[i])[:, 0])
+    else:
+        raise ValueError(f"{path}: unsupported PCD DATA mode {mode!r}")
+    return np.stack([c.astype(np.float32) for c in cols], axis=1)
+
+
+_PLY_DTYPES = {
+    "float": "f4", "float32": "f4", "double": "f8", "float64": "f8",
+    "char": "i1", "int8": "i1", "uchar": "u1", "uint8": "u1",
+    "short": "i2", "int16": "i2", "ushort": "u2", "uint16": "u2",
+    "int": "i4", "int32": "i4", "uint": "u4", "uint32": "u4",
+}
+
+
+def load_ply(path: str) -> np.ndarray:
+    """xyz [N, 3] float32 of the vertex element of a PLY file."""
+    with open(path, "rb") as f:
+        data = f.read()
+    end = data.index(b"end_header\n") + len(b"end_header\n")
+    fmt = "ascii"
+    elements = []                      # [name, count, [(prop, type)]]
+    for line in data[:end].decode("ascii", errors="replace").splitlines():
+        parts = line.split()
+        if not parts:
+            continue
+        if parts[0] == "format":
+            fmt = parts[1]
+        elif parts[0] == "element":
+            elements.append([parts[1], int(parts[2]), []])
+        elif parts[0] == "property" and elements:
+            elements[-1][2].append((parts[-1], parts[1]))
+    if not elements or elements[0][0] != "vertex":
+        raise ValueError(f"{path}: the first PLY element must be vertex")
+    _, n, props = elements[0]
+    if any(typ == "list" for _, typ in props):
+        raise ValueError(f"{path}: list properties in the vertex element")
+    names = [name for name, _ in props]
+    if fmt == "ascii":
+        rows = data[end:].decode("ascii", errors="replace").splitlines()[:n]
+        raw = np.array([r.split() for r in rows], dtype=np.float64)
+        cols = [raw[:, names.index(a)] for a in "xyz"]
+    else:
+        order = "<" if "little" in fmt else ">"
+        dtype = np.dtype([(name, order + _PLY_DTYPES[typ])
+                          for name, typ in props])
+        rec = np.frombuffer(data, dtype=dtype, count=n, offset=end)
+        cols = [rec[a] for a in "xyz"]
+    return np.stack([c.astype(np.float32) for c in cols], axis=1)
+
+
+def load_cloud(path: str) -> np.ndarray:
+    """xyz [N, 3] float32 of a `.pcd` or `.ply` file (rows may be NaN)."""
+    if path.endswith(".pcd"):
+        return load_pcd(path)
+    if path.endswith(".ply"):
+        return load_ply(path)
+    if path.endswith(".off"):
+        raise NotImplementedError(
+            f"{path}: mesh sampling (.off) is not ported; convert the "
+            "meshes to PCD with the JAX package's cli/modelnet.py")
+    raise ValueError(f"unknown extension for {path}")
+
+
+def save_pcd(path: str, xyz: np.ndarray, binary: bool = False) -> None:
+    """Write xyz [N, 3] as a PCD file (DATA ascii, or binary)."""
+    xyz = np.ascontiguousarray(xyz, dtype="<f4").reshape(-1, 3)
+    n = len(xyz)
+    header = ("# .PCD v0.7 - Point Cloud Data file format\nVERSION 0.7\n"
+              "FIELDS x y z\nSIZE 4 4 4\nTYPE F F F\nCOUNT 1 1 1\n"
+              f"WIDTH {n}\nHEIGHT 1\nVIEWPOINT 0 0 0 1 0 0 0\nPOINTS {n}\n")
+    if binary:
+        with open(path, "wb") as f:
+            f.write((header + "DATA binary\n").encode("ascii"))
+            f.write(xyz.tobytes())
+        return
+    with open(path, "w") as f:
+        f.write(header + "DATA ascii\n")
+        for row in xyz:
+            f.write(" ".join(repr(float(v)) for v in row) + "\n")
+
+
+@dataclass
+class FileList:
+    mode: str  # "train" or "test"
+    filenames: List[str] = field(default_factory=list)
+    class_labels: List[int] = field(default_factory=list)
+    instance_labels: List[int] = field(default_factory=list)
+    using_instances: bool = False
+    # label string -> id, in first-seen order
+    class_map: Dict[str, int] = field(default_factory=dict)
+    instance_map: Dict[str, int] = field(default_factory=dict)
+
+
+def parse_file_list(path: str, class_map: Optional[Dict[str, int]] = None,
+                    instance_map: Optional[Dict[str, int]] = None
+                    ) -> FileList:
+    """Parse a `# train|test [inst]` file list.  Label strings become ids
+    in first-seen order; pass the training maps to keep the ids of a test
+    list consistent with them."""
+    with open(path) as f:
+        lines = [ln.split() for ln in f.read().splitlines() if ln.split()]
+    if not lines or lines[0][0] != "#" or len(lines[0]) < 2:
+        raise ValueError(f"{path}: missing '# train|test [inst]' header")
+    header = lines[0]
+    if header[1] not in ("train", "test"):
+        raise ValueError(f"{path}: mode must be train or test, "
+                         f"got {header[1]}")
+    if len(header) > 2 and header[2] == "detection":
+        raise ValueError("detection file list passed to classification parser")
+    fl = FileList(mode=header[1],
+                  using_instances=len(header) > 2 and header[2] == "inst",
+                  class_map=dict(class_map or {}),
+                  instance_map=dict(instance_map or {}))
+
+    def convert(label: str, mapping: Dict[str, int]) -> int:
+        return mapping.setdefault(label, len(mapping))
+
+    for tok in lines[1:]:
+        if tok[0].startswith("#"):
+            continue
+        fl.filenames.append(tok[0])
+        cid = convert(tok[1], fl.class_map)
+        fl.class_labels.append(cid)
+        fl.instance_labels.append(convert(tok[2], fl.instance_map)
+                                  if fl.using_instances else cid)
+    return fl

@@ -1,0 +1,53 @@
+"""The bench workload's data, numpy only: the .ism config that bench.py
+trains (bench.py:176-198) and its clouds drawn in bench.py's order from
+seed 42 -- five training clouds, one per class, then the rotated test
+batch.  Shared by the port's fixture generator (tests/torch_fixtures.py),
+its tests and chip_smoke.py, which must not import jax."""
+
+import numpy as np
+
+import shapes
+
+N_POINTS = 2048
+NUM_CLASSES = 5
+SEED = 42
+KEYPOINT_CAPACITY = 192   # bench.py's calibrated keypoint capacity
+
+BENCH_CONFIG = {
+    "ObjectConfig": {
+        "Children": {
+            "Clustering": {"Type": "None"},
+            "Codebook": {"Children": {"ActivationStrategy": {
+                "Parameters": {"K": 1}, "Type": "KNN"}}},
+            "FeatureWeighting": {"Type": "Uniform"},
+            "Features": {"Parameters": {
+                "Radius": 0.6, "ReferenceFrameRadius": 0.5,
+                "ReferenceFrameType": "SHOT"}, "Type": "SHOT"},
+            "GlobalFeatures": {"Type": "Dummy"},
+            "Keypoints": {"Parameters": {"LeafSize": 0.35},
+                          "Type": "VoxelGrid"},
+            "Voting": {"Parameters": {
+                "Bandwidth": 0.5, "SingleObjectMode": True,
+                "SingleObjectMaxType": "BandwidthVotes"},
+                "Type": "MeanShift"},
+        },
+        "Parameters": {"DistanceType": "ChiSquared", "NormalRadius": 0.25,
+                       "ConsistentNormalsMethod": 2,
+                       "BoundingBoxType": "AABB"},
+    }
+}
+
+
+def bench_clouds(batch: int, n: int = N_POINTS, seed: int = SEED):
+    """(train_clouds [5, n, 3], train_labels [5], clouds [batch, n, 3],
+    labels [batch]) in bench.py's draw order; cloud i has class i % 5."""
+    rng = np.random.default_rng(seed)
+    train = np.stack([shapes.make_instance(rng, c, n=n, rotate=False,
+                                           noise=0.005)
+                      for c in range(NUM_CLASSES)])
+    clouds = np.asarray([shapes.make_instance(rng, i % NUM_CLASSES, n=n,
+                                              rotate=True)
+                         for i in range(batch)],
+                        np.float32).reshape(batch, n, 3)
+    return (train, np.arange(NUM_CLASSES), clouds,
+            np.arange(batch) % NUM_CLASSES)

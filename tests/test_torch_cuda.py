@@ -1,0 +1,114 @@
+"""The port's CUDA kernels against their plain PyTorch twins, on the card.
+
+Every test here needs an NVIDIA GPU and skips without one.  The file
+imports no jax (the machine with the card has none), so it runs there on
+its own, without tests/conftest.py:
+
+    python -m pytest --noconftest -o addopts="" -m cuda tests/test_torch_cuda.py
+"""
+
+import os
+
+import numpy as np
+import pytest
+import torch
+
+import shapes
+from bench_data import KEYPOINT_CAPACITY
+from torch_parity import (assert_decisions_match, assert_topk_close,
+                          cuda_device, n, t)  # noqa: F401
+
+from point_cloud_donkey_tpu_torch.kernels import build
+from point_cloud_donkey_tpu_torch.models.codebook import (CodebookParams,
+                                                          load_codebook)
+from point_cloud_donkey_tpu_torch.models.pipeline import (IsmClassifier,
+                                                          PipelineConfig)
+from point_cloud_donkey_tpu_torch.ops.kernels import chisq as tchisq
+from point_cloud_donkey_tpu_torch.ops.kernels import lrf_moments as tlrfm
+from point_cloud_donkey_tpu_torch.ops.kernels import shot_fused as tshot
+from point_cloud_donkey_tpu_torch.ops.lrf import shot_lrf
+from point_cloud_donkey_tpu_torch.ops.normals import compute_normals_fast
+from point_cloud_donkey_tpu_torch.ops.voxel_grid import voxel_grid
+from point_cloud_donkey_tpu_torch.utils.config import IsmConfig
+
+pytestmark = pytest.mark.cuda
+
+DATA = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                    "point_cloud_donkey_tpu_torch", "data", "")
+
+
+@pytest.fixture(scope="module")
+def clouds():
+    rng = np.random.default_rng(11)
+    pts = np.stack([shapes.make_instance(rng, i % 5, n=2048, rotate=True)
+                    for i in range(4)])
+    return t(pts), torch.ones(pts.shape[:2], dtype=torch.bool)
+
+
+def test_moments_and_sign_votes_match_plain(cuda_device, clouds):
+    """K1: moments rtol 2e-4, counts +-1; K2: counts +-1 (the radius gate
+    is the same float computation, so in practice they are equal)."""
+    pts, mask = (x.to(cuda_device) for x in clouds)
+    q, p = tlrfm.prep_shift(pts, pts, mask)
+    mom, cnt = tlrfm.moments(q, p, mask, 0.25)
+    pmom, pcnt = tlrfm.moments_plain(q, p, mask, 0.25)
+    torch.testing.assert_close(mom, pmom, rtol=2e-4, atol=1e-5)
+    assert (cnt - pcnt).abs().max() <= 1
+    axes = torch.nn.functional.normalize(
+        torch.randn(*q.shape[:2], 6, device=cuda_device), dim=-1)
+    for z_only in (False, True):
+        v = tlrfm.sign_votes(q, p, mask, axes, 0.25, z_only)
+        pv = tlrfm.sign_votes_plain(q, p, mask, axes, 0.25, z_only)
+        assert (v - pv).abs().max() <= 1
+
+
+def test_shot_tiles_match_plain(cuda_device, clouds):
+    """K3 vs its twin on compacted bench keypoints: counts equal, raw
+    histograms within f32 summation order (atomics)."""
+    pts, mask = (x.to(cuda_device) for x in clouds)
+    nrm = compute_normals_fast(pts, mask, 0.25)
+    kres = voxel_grid(pts, mask, 0.35, capacity=KEYPOINT_CAPACITY)
+    lrf = shot_lrf(kres.centroids, kres.mask, pts, mask, 0.5)
+    gidx, alive, tile_cloud = tshot.compact_layout(kres.mask)
+    kp = torch.where(alive[:, None], kres.centroids.reshape(-1, 3)[gidx],
+                     torch.full((1, 3), 1e9, device=cuda_device))
+    fr = lrf.frames.reshape(-1, 3, 3)[gidx].contiguous()
+    h, c = tshot.shot_tiles(kp, fr, tile_cloud, pts, nrm, mask, 0.6)
+    ph, pc = tshot.shot_tiles_plain(kp, fr, tile_cloud, pts, nrm, mask, 0.6)
+    assert torch.equal(c, pc)
+    torch.testing.assert_close(h, ph, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("k", [1, 3])
+def test_chisq_topk_matches_plain(cuda_device, k):
+    g = torch.Generator().manual_seed(9)
+    a = torch.rand(300, 352, generator=g)
+    a[torch.rand(a.shape, generator=g) < 0.6] = 0.0
+    b = torch.rand(458, 352, generator=g)
+    b[torch.rand(b.shape, generator=g) < 0.6] = 0.0
+    b[7] = b[3]                                  # an exact tie
+    bmask = torch.rand(458, generator=g) > 0.05
+    a, b, bmask = a.to(cuda_device), b.to(cuda_device), bmask.to(cuda_device)
+    d, i = tchisq.chisq_topk(a, b, bmask, k)
+    pd, pi = tchisq.chisq_topk_plain(a, b, bmask, k)
+    assert_topk_close(d, i, pd, pi)
+
+
+def test_slice_matches_jax_reference(cuda_device):
+    """IsmClassifier on the card vs the committed JAX-CPU scores; every
+    kernel was launched."""
+    ref = np.load(DATA + "bench_reference.npz")
+    config = IsmConfig.load(DATA + "bench_codebook.ism")
+    cb = load_codebook(DATA + "bench_codebook.ism").to(cuda_device)
+    cfg = PipelineConfig.from_ism(config, cb.num_classes,
+                                  keypoint_capacity=KEYPOINT_CAPACITY)
+    model = IsmClassifier(cb, cfg,
+                          CodebookParams.from_config(config.child("Codebook")))
+    pts = t(ref["points"]).to(cuda_device)
+    mask = torch.ones(pts.shape[:2], dtype=torch.bool, device=cuda_device)
+    build.reset_launch_counts()
+    with torch.no_grad():
+        scores = model(pts, mask)
+    assert all(build.launch_counts().values()), build.launch_counts()
+    assert_decisions_match(scores, ref["scores"])
+    assert (n(scores).argmax(1) == ref["labels"]).all()

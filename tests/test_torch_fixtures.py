@@ -1,0 +1,36 @@
+"""The port's committed fixtures (point_cloud_donkey_tpu_torch/data/) are
+what the JAX package produces today: regenerate both with
+tests/torch_fixtures.py and compare.  The machine with the GPU has no JAX,
+so a stale fixture would hold the port against a reference that no longer
+exists."""
+
+import json
+
+import numpy as np
+
+from torch_fixtures import (CODEBOOK, N_REF, REFERENCE, build_codebook,
+                            build_reference)
+
+
+def test_fixtures_match_the_jax_package(tmp_path):
+    cb = str(tmp_path / "bench_codebook.ism")
+    build_codebook(cb)
+    with open(cb) as f, open(CODEBOOK) as g:
+        assert json.load(f) == json.load(g)
+    with np.load(cb + "d.npz") as fresh, np.load(CODEBOOK + "d.npz") as old:
+        assert sorted(fresh.files) == sorted(old.files)
+        for k in fresh.files:
+            np.testing.assert_allclose(fresh[k], old[k], rtol=1e-6,
+                                       atol=1e-7, err_msg=k)
+        assert old["cb_codewords"].shape == (458, 352)
+
+    ref = str(tmp_path / "bench_reference.npz")
+    build_reference(cb, ref)
+    with np.load(ref) as fresh, np.load(REFERENCE) as old:
+        np.testing.assert_array_equal(fresh["points"], old["points"])
+        np.testing.assert_array_equal(fresh["labels"], old["labels"])
+        # float round-off between two CPU runs of the same programs
+        np.testing.assert_allclose(fresh["scores"], old["scores"],
+                                   rtol=1e-5, atol=1e-5)
+        assert old["points"].shape == (N_REF, 2048, 3)
+

@@ -1,0 +1,151 @@
+"""The port's slice end to end on the CPU: IsmClassifier against the JAX
+``classify_scores_batch`` on bench-geometry clouds with the fixture
+codebook, the serve entry point, and import hygiene."""
+
+import ast
+import os
+import re
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from torch_fixtures import CODEBOOK, REFERENCE, jax_scores
+from torch_parity import assert_decisions_match, n, t
+
+from point_cloud_donkey_tpu_torch import serve
+from point_cloud_donkey_tpu_torch.kernels import build
+from point_cloud_donkey_tpu_torch.models.codebook import (CodebookParams,
+                                                          load_codebook)
+from point_cloud_donkey_tpu_torch.models.pipeline import (STAGES,
+                                                          IsmClassifier,
+                                                          PipelineConfig)
+from point_cloud_donkey_tpu_torch.utils.config import IsmConfig
+from point_cloud_donkey_tpu_torch.utils.io import save_pcd
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def bench_model(device="cpu"):
+    config = IsmConfig.load(CODEBOOK)
+    cb = load_codebook(CODEBOOK).to(device)
+    cfg = PipelineConfig.from_ism(config, cb.num_classes,
+                                  keypoint_capacity=192)
+    return IsmClassifier(cb, cfg,
+                         CodebookParams.from_config(config.child("Codebook")))
+
+
+def test_bench_config_from_ism():
+    cfg = bench_model().cfg
+    assert (cfg.radius, cfg.ref_frame_radius, cfg.leaf_size,
+            cfg.normal_radius, cfg.metric, cfg.bandwidth, cfg.num_classes) \
+        == (0.6, 0.5, 0.35, 0.25, "chisq", 0.5, 5)
+
+
+def test_slice_matches_jax_classify_scores_batch():
+    """B=4 bench clouds at N=2048: port vs live JAX-CPU scores; every
+    stage reports once, in order; no kernel is launched for CPU tensors."""
+    ref = np.load(REFERENCE)
+    pts = ref["points"][:4]
+    mask = np.ones(pts.shape[:2], bool)
+    mask[3, 1800:] = False                  # a padded cloud too
+    pts = pts.copy()
+    pts[3, 1800:] = 1e9
+    jax_s = jax_scores(CODEBOOK, pts, mask)
+    seen = []
+    build.reset_launch_counts()
+    with torch.no_grad():
+        scores = bench_model()(t(pts), t(mask), on_stage=seen.append)
+    assert tuple(seen) == STAGES
+    assert scores.shape == (4, 5) and torch.isfinite(scores).all()
+    assert_decisions_match(scores, jax_s)
+    assert (n(scores).argmax(1) == ref["labels"][:4]).all()
+    assert set(build.launch_counts().values()) == {0}
+
+
+def test_unported_configurations_raise():
+    cb = load_codebook(CODEBOOK)
+    for bad in ({"descriptor": "CSHOT"}, {"normals_window": 1280},
+                {"normals_method": 1}):
+        with pytest.raises(NotImplementedError):
+            IsmClassifier(cb, PipelineConfig(**bad))
+
+
+def test_serve_main_reports_predictions(tmp_path, capsys):
+    """serve.main on 4 PCDs of the reference clouds: one
+    'predicted/ground truth' line per cloud and the Accuracy line, in
+    the format of the JAX cli/serve.py."""
+    ref = np.load(REFERENCE)
+    lines = ["# test"]
+    for i in range(4):
+        path = tmp_path / f"c{i}.pcd"
+        save_pcd(str(path), ref["points"][i])
+        lines.append(f"{path} {ref['labels'][i]}")
+    flist = tmp_path / "test.txt"
+    flist.write_text("\n".join(lines) + "\n")
+    rc = serve.main(["-d", CODEBOOK, "-f", str(flist), "--device", "cpu",
+                     "--batch", "2"])
+    assert rc == 0
+    out = capsys.readouterr().out
+    preds = re.findall(r"^(.+): predicted (\d+), ground truth (\d+) (OK|WRONG)$",
+                       out, re.M)
+    assert len(preds) == 4
+    expect = ref["scores"][:4].argmax(1)
+    assert [int(p[1]) for p in preds] == expect.tolist()
+    acc = 100.0 * (expect == ref["labels"][:4]).mean()
+    assert f" Accuracy: {acc:.0f} % " in out
+    assert "Throughput:" in out
+
+
+def test_port_imports_neither_jax_nor_triton():
+    """Every port module, and the numpy-only test helpers that
+    chip_smoke.py reads, import nothing of jax, triton or the JAX
+    package."""
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "sys.path.insert(0, 'tests')\n"
+        "import bench_data, shapes\n"
+        "import point_cloud_donkey_tpu_torch as pkg\n"
+        "mods = [m.name for m in pkgutil.walk_packages(pkg.__path__, "
+        "pkg.__name__ + '.')]\n"
+        "for m in mods: importlib.import_module(m)\n"
+        "assert len(mods) >= 18, mods\n"
+        "bad = [m for m in ('jax', 'jaxlib', 'triton', "
+        "'point_cloud_donkey_tpu') if m in sys.modules]\n"
+        "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
+def test_chip_smoke_imports_nothing_of_jax():
+    """chip_smoke.py runs where there is no JAX: none of its imports names
+    jax or the JAX package."""
+    with open(os.path.join(REPO, "chip_smoke.py")) as f:
+        tree = ast.parse(f.read())
+    names = [a.name for node in ast.walk(tree) if isinstance(node, ast.Import)
+             for a in node.names]
+    names += [node.module for node in ast.walk(tree)
+              if isinstance(node, ast.ImportFrom) and node.module]
+    assert any(m.startswith("point_cloud_donkey_tpu_torch") for m in names)
+    bad = [m for m in names if m.split(".")[0] in
+           ("jax", "jaxlib", "point_cloud_donkey_tpu")]
+    assert not bad, bad
+
+
+def test_chip_smoke_fails_without_a_gpu():
+    """Where torch sees no GPU, chip_smoke.py exits nonzero and prints no
+    result line."""
+    res = subprocess.run(
+        [sys.executable, "-c",
+         "import sys, torch, runpy\n"
+         "torch.cuda.is_available = lambda: False\n"
+         "sys.argv = ['chip_smoke.py']\n"
+         "runpy.run_path('chip_smoke.py', run_name='__main__')\n"],
+        cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert res.returncode != 0
+    assert '"ok"' not in res.stdout
+    assert "is_available() is False" in res.stderr
