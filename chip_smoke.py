@@ -7,16 +7,28 @@ with the JAX reference on the card.
 
 Phases (each prints its results; any failure raises and exits nonzero):
   1. environment and the nvcc build of csrc/*.cu;
-  2. each kernel against its plain PyTorch twin on the card, at the shapes
-     the classification step gives it on the 128-cloud bench batch, timed;
+  2. each kernel against its plain PyTorch twin on the card, timed, at the
+     shapes its main path gives it: K1-K4 at the dense classify step's on
+     the 128-cloud bench batch, K5/K6 at the windowed step's (the sorted
+     batch, window calibrated on it), K7 at the mean-shift step's (32
+     clouds x 192 keypoints);
   3. LRF frames and SHOT descriptors against tests/golden/descriptors.npz;
-  4. the slice: IsmClassifier on the 128 x 2048 bench batch with the
-     committed codebook -- per-stage ms, clouds/s, every kernel launched,
-     decisions against the committed JAX-CPU reference;
-  5. the serve entry point on 8 PCD files with --device cuda.
-Before the last line it prints one JSON line with every kernel's launches,
-error against its twin and times, then the card's name and power limit.
-The last line is {"ok": true, "device": {...}}.
+  4. the dense classify step: IsmClassifier on the 128 x 2048 bench batch
+     with the committed codebook -- per-stage ms, clouds/s, K1-K4 launched,
+     decisions against the committed JAX-CPU reference, two runs equal;
+  4b. the windowed classify step: the same with the calibrated normals
+     window -- K5/K6 launched, no dense recompute, decisions against the
+     committed JAX-CPU windowed reference; then a forced flag trip
+     (window 128) recomputes densely and matches the dense step;
+  5. the serve entry point on 8 PCD files with --device cuda;
+  6. the mean-shift detection step: IsmDetector on the first 32 bench
+     clouds -- per-stage ms, clouds/s, K7 launched, densities and maxima
+     against the committed JAX-CPU detect_maxima_jit reference; then
+     serve --maxima --device cuda on 8 PCD files.
+Before the last line it prints one JSON line with every kernel's launches
+(summed over one step of each of the three paths, counted from 0 just
+before each), error against its twin, times and bound, then the card's
+name and power limit.  The last line is {"ok": true, "device": {...}}.
 """
 
 import contextlib
@@ -32,6 +44,8 @@ import time
 
 BATCH = 128
 ROUNDS = 8
+MS_BATCH = 32     # bench.py's mean-shift batch and rounds
+MS_ROUNDS = 16
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 # kernel -> (CUDA source, TPU kernel it replaces)
@@ -44,7 +58,37 @@ KERNELS = {
                    "point_cloud_donkey_tpu/ops/pallas/shot_fused.py:395"),
     "chisq_topk": ("point_cloud_donkey_tpu_torch/csrc/chisq.cu",
                    "point_cloud_donkey_tpu/ops/pallas/chisq.py:48"),
+    "lrf_moments_windowed": (
+        "point_cloud_donkey_tpu_torch/csrc/lrf_moments.cu",
+        "point_cloud_donkey_tpu/ops/pallas/lrf_moments.py:434"),
+    "sign_votes_windowed": (
+        "point_cloud_donkey_tpu_torch/csrc/lrf_moments.cu",
+        "point_cloud_donkey_tpu/ops/pallas/lrf_moments.py:492"),
+    "shot_dense": ("point_cloud_donkey_tpu_torch/csrc/shot_fused.cu",
+                   "point_cloud_donkey_tpu/ops/pallas/shot_fused.py:267"),
 }
+# the path whose step must launch each kernel
+PATH_KERNELS = {
+    "dense": ("lrf_moments", "sign_votes", "shot_fused", "chisq_topk"),
+    "windowed": ("lrf_moments_windowed", "sign_votes_windowed",
+                 "lrf_moments", "sign_votes", "shot_fused", "chisq_topk"),
+    "detect": ("lrf_moments", "sign_votes", "shot_dense", "chisq_topk"),
+}
+
+# Least time of a kernel call: the larger of its bytes (inputs read once,
+# outputs written once) over the H100's memory rate and its fp32
+# operations over the fp32 peak outside the tensor cores (data sheet, SXM,
+# 700 W).  Operations per (query, point) pair, counted from csrc/*.cu:
+# every pair pays the radius gate (3 sub, 3 mul, 2 add, 2 compares); the
+# pairs inside the radius (counted from this run's data) pay the body.
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+GATE_OPS = 10
+MOMENT_BODY_OPS = 21   # sqrt, r - d, w p (3), s0 + s1 (4), s2 (6 mul, 6 add)
+VOTE_BODY_OPS = 6      # one (p - q) . axis (3 mul, 2 add) and its compare
+SHOT_BODY_OPS = 100    # frame coords, cosine, binning, 5 slot adds;
+#                        sqrtf, acosf and atan2f count one each
+CHISQ_TERM_OPS = 6     # a + b, a - b, square, divide, compare, accumulate
 
 
 def phase(name):
@@ -65,6 +109,18 @@ def cuda_ms(fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def bound(nbytes, ops):
+    """(least ms, what bounds it) of a call moving nbytes with ops fp32
+    operations."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def gpu_name_and_power():
@@ -88,7 +144,8 @@ def main():
     from point_cloud_donkey_tpu_torch.models.codebook import (
         CodebookParams, load_codebook)
     from point_cloud_donkey_tpu_torch.models.pipeline import (
-        STAGES, IsmClassifier, PipelineConfig)
+        DETECT_STAGES, STAGES, IsmClassifier, IsmDetector, PipelineConfig)
+    from point_cloud_donkey_tpu_torch.ops import binned
     from point_cloud_donkey_tpu_torch.ops.eigh3 import eigh3x3
     from point_cloud_donkey_tpu_torch.ops.kernels import chisq as kchisq
     from point_cloud_donkey_tpu_torch.ops.kernels import lrf_moments as klrf
@@ -98,7 +155,6 @@ def main():
     from point_cloud_donkey_tpu_torch.ops.shot import normalize_descriptors
     from point_cloud_donkey_tpu_torch.ops.voxel_grid import voxel_grid
     from point_cloud_donkey_tpu_torch.utils.config import IsmConfig
-    from point_cloud_donkey_tpu_torch.utils.io import save_pcd
 
     dev = torch.device("cuda:0")
     card = gpu_name_and_power()
@@ -130,23 +186,54 @@ def main():
     codebook = load_codebook(model_path).to(dev)
     cfg = PipelineConfig.from_ism(config, codebook.num_classes,
                                   keypoint_capacity=KEYPOINT_CAPACITY)
-    report = {name: {"err": 0.0, "ms": 0.0, "plain_ms": 0.0}
-              for name in KERNELS}
+    report = {name: {"err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                     "bound_by": None} for name in KERNELS}
 
-    def record(name, err, ms, plain_ms, what):
+    def record(name, err, ms, plain_ms, what, nbytes_, ops):
+        """One main-path call of a kernel: error vs its twin, times, and
+        its bound from this call's bytes and operations."""
         r = report[name]
         r["err"] = max(r["err"], float(err))
         r["ms"] += ms
         r["plain_ms"] += plain_ms
-        print(f"{name:12s} {what:34s} max|kernel-plain| {float(err):.3e}  "
-              f"kernel {ms:8.3f} ms  plain {plain_ms:9.3f} ms")
+        b_ms, by = bound(nbytes_, ops)
+        r["bound_ms"] += b_ms
+        r["bound_by"] = by
+        print(f"{name:20s} {what:36s} max|kernel-plain| {float(err):.3e}  "
+              f"kernel {ms:8.3f} ms  plain {plain_ms:9.3f} ms  bound "
+              f"{b_ms:7.4f} ms ({by}, {ops:.3e} ops)", flush=True)
 
-    def lrf_pair(queries, q_mask, radius, z_only, what):
-        """K1 and K2 at one main-path call: moments rtol 2e-4 and counts
-        +-1, sign votes +-1."""
-        q, p = klrf.prep_shift(queries, pts, mask)
-        mom, cnt = klrf.moments(q, p, mask, radius)
-        pmom, pcnt = klrf.moments_plain(q, p, mask, radius)
+    def lrf_pair(queries, q_mask, radius, z_only, what, starts=None,
+                 window=0):
+        """K1 and K2 (K5 and K6 with a window plan) at one main-path call:
+        moments rtol 2e-4 and counts +-1, sign votes +-1."""
+        q, p = klrf.prep_shift(queries, pts_l, mask_l)
+        if starts is None:
+            k_mom, k_vote = "lrf_moments", "sign_votes"
+            swept = p.shape[1]
+
+            def mom_fn(plain=False):
+                f = klrf.moments_plain if plain else klrf.moments
+                return f(q, p, mask_l, radius)
+
+            def vote_fn(axes, plain=False):
+                f = klrf.sign_votes_plain if plain else klrf.sign_votes
+                return f(q, p, mask_l, axes, radius, z_only)
+        else:
+            k_mom, k_vote = "lrf_moments_windowed", "sign_votes_windowed"
+            swept = window
+
+            def mom_fn(plain=False):
+                f = (klrf.moments_windowed_plain if plain
+                     else klrf.moments_windowed)
+                return f(q, p, mask_l, starts, window, radius)
+
+            def vote_fn(axes, plain=False):
+                f = (klrf.sign_votes_windowed_plain if plain
+                     else klrf.sign_votes_windowed)
+                return f(q, p, mask_l, axes, starts, window, radius, z_only)
+        mom, cnt = mom_fn()
+        pmom, pcnt = mom_fn(plain=True)
         s0, ps0 = mom[..., 0], pmom[..., 0]
         rel = ((s0 - ps0).abs() / ps0.abs().clamp(min=1e-6)).max()
         assert rel <= 2e-4, f"K1 weight sums off by rtol {rel:.2e} ({what})"
@@ -155,23 +242,29 @@ def main():
         pcov, _ = klrf.cov_from_moments(pmom, q, q_mask)
         cerr = (cov - pcov).abs().max()
         assert cerr <= 5e-4, f"K1 covariance off by {cerr:.2e} ({what})"
-        record("lrf_moments", (mom - pmom).abs().max(),
-               cuda_ms(lambda: klrf.moments(q, p, mask, radius), 5),
-               cuda_ms(lambda: klrf.moments_plain(q, p, mask, radius), 2),
-               what)
+        pairs = q.shape[0] * q.shape[1] * swept
+        inside = int(cnt.sum())
+        print(f"{'':20s} {what}: {pairs:.3e} pairs swept, in-radius share "
+              f"{inside / pairs:.4f}")
+        extra = (starts,) if starts is not None else ()
+        record(k_mom, (mom - pmom).abs().max(), cuda_ms(mom_fn, 5),
+               cuda_ms(lambda: mom_fn(plain=True), 2), what,
+               nbytes(q, p, mask_l, mom, cnt, *extra),
+               pairs * GATE_OPS + inside * MOMENT_BODY_OPS)
         _, vecs = eigh3x3(cov)
         axes = torch.cat([vecs[..., :, 2], vecs[..., :, 0]], -1).contiguous()
-        v = klrf.sign_votes(q, p, mask, axes, radius, z_only)
-        pv = klrf.sign_votes_plain(q, p, mask, axes, radius, z_only)
+        v = vote_fn(axes)
+        pv = vote_fn(axes, plain=True)
         err = (v - pv).abs().max()
-        assert err <= 1, f"K2 votes off by {err} ({what})"
-        record("sign_votes", err,
-               cuda_ms(lambda: klrf.sign_votes(q, p, mask, axes, radius,
-                                               z_only), 5),
-               cuda_ms(lambda: klrf.sign_votes_plain(q, p, mask, axes,
-                                                     radius, z_only), 2),
-               what)
+        assert err <= 1, f"K2/K6 votes off by {err} ({what})"
+        record(k_vote, err, cuda_ms(lambda: vote_fn(axes), 5),
+               cuda_ms(lambda: vote_fn(axes, plain=True), 2), what,
+               nbytes(q, p, mask_l, axes, v, *extra),
+               pairs * GATE_OPS
+               + inside * VOTE_BODY_OPS * (1 if z_only else 2))
+        return cnt
 
+    pts_l, mask_l = pts, mask
     with torch.no_grad():
         lrf_pair(pts, mask, cfg.normal_radius, True,
                  f"normals B={BATCH} Q=N={pts.shape[1]}")
@@ -202,10 +295,15 @@ def main():
         off = ((got.descriptors[both] - want.descriptors[both]).abs()
                > 1e-3).float().mean()
         assert cos.min() > 0.999 and off < 1e-4, (cos.min(), off)
+        rows = kp_rows.shape[0]
+        gate = rows * int(mask.sum()) // BATCH
         record("shot_fused", (hist - phist).abs().max(),
                cuda_ms(lambda: kshot.shot_tiles(*shot_args), 5),
                cuda_ms(lambda: kshot.shot_tiles_plain(*shot_args), 2),
-               f"SHOT {tile_cloud.shape[0]} tiles x N={pts.shape[1]}")
+               f"SHOT {tile_cloud.shape[0]} tiles x N={pts.shape[1]}",
+               nbytes(kp_rows, fr_rows, tile_cloud, pts, normals, mask, hist,
+                      cnt),
+               gate * GATE_OPS + int(cnt.sum()) * SHOT_BODY_OPS)
 
         desc = got.descriptors[got.valid].contiguous()
         cw, cw_mask = codebook.codewords, codebook.cw_mask
@@ -222,11 +320,75 @@ def main():
                                                           k), 2)
             what = f"chisq Q={desc.shape[0]} C={cw.shape[0]} D=352 k={k}"
             if k == 1:    # the main path's k
-                record("chisq_topk", (d - pd).abs().max(), ms, pms, what)
+                record("chisq_topk", (d - pd).abs().max(), ms, pms, what,
+                       nbytes(desc, cw, cw_mask, d, i),
+                       desc.shape[0] * cw.shape[0]
+                       * (352 * CHISQ_TERM_OPS + 1))
             else:
-                print(f"{'chisq_topk':12s} {what:34s} max|kernel-plain| "
+                print(f"{'chisq_topk':20s} {what:36s} max|kernel-plain| "
                       f"{float((d - pd).abs().max()):.3e}  kernel "
                       f"{ms:8.3f} ms  plain {pms:9.3f} ms")
+
+        # K5 / K6 at the windowed step's shapes: the sorted batch, the
+        # window calibrated on it
+        window = binned.required_window(pts, mask, cfg.normal_radius)
+        srt = binned.sort_clouds_ex(pts, mask)
+        plan = binned.window_starts(srt.keys, srt.mask, srt.keys,
+                                    cfg.normal_radius, window)
+        print(f"normals window calibrated on the batch: {window} of "
+              f"N={pts.shape[1]}, exact {bool(plan.exact)}")
+        assert window < pts.shape[1] and bool(plan.exact), \
+            "the calibrated window does not prune or is not exact"
+        pts_l, mask_l = srt.points, srt.mask
+        lrf_pair(srt.points, srt.mask, cfg.normal_radius, True,
+                 f"windowed normals B={BATCH} W={window}", plan.starts,
+                 window)
+
+        # K7 at the mean-shift step's shapes: the dense [32, 192] grid
+        mp, mm = pts[:MS_BATCH].contiguous(), mask[:MS_BATCH].contiguous()
+        mn = compute_normals_fast(mp, mm, cfg.normal_radius)
+        mk = voxel_grid(mp, mm, cfg.leaf_size, capacity=cfg.keypoint_capacity)
+        mkp = torch.where(mk.mask[..., None], mk.centroids,
+                          torch.full_like(mk.centroids, 1e9)).contiguous()
+        mlrf = shot_lrf(mkp, mk.mask, mp, mm, cfg.ref_frame_radius)
+        dense_args = (mkp, mlrf.frames.contiguous(), mlrf.valid.contiguous(),
+                      mp, mn, mm, cfg.radius)
+        dh, dc = kshot.shot_dense(*dense_args)
+        pdh, pdc = kshot.shot_dense_plain(*dense_args)
+        assert torch.equal(dc, pdc), "K7 in-radius counts differ"
+        got = normalize_descriptors(dh, dc, mlrf.valid)
+        want = normalize_descriptors(pdh, pdc, mlrf.valid)
+        assert torch.equal(got.valid, want.valid), "K7 validity differs"
+        both = got.valid & want.valid
+        cos = (got.descriptors[both] * want.descriptors[both]).sum(-1)
+        off = ((got.descriptors[both] - want.descriptors[both]).abs()
+               > 1e-3).float().mean()
+        assert cos.min() > 0.999 and off < 1e-4, (cos.min(), off)
+        live = int(mlrf.valid.sum())
+        tiles = mkp.shape[0] * mkp.shape[1] // kshot.TK
+        chunks = kshot.dense_chunks(
+            tiles, mp.shape[1],
+            torch.cuda.get_device_properties(0).multi_processor_count)
+        # the point-chunk count of K7's grid, swept (the wrapper's rule
+        # picks `chunks`)
+        rule = kshot.dense_chunks
+        sweep = {}
+        try:
+            for c in (1, 2, 3, 4, 6, 8):
+                kshot.dense_chunks = lambda *a, c=c: c
+                sweep[c] = cuda_ms(lambda: kshot.shot_dense(*dense_args), 5)
+        finally:
+            kshot.dense_chunks = rule
+        print(f"{'shot_dense':20s} chunks -> kernel ms: " + ", ".join(
+            f"{c}: {ms:.3f}" for c, ms in sweep.items())
+            + f" (the rule picks {chunks})")
+        record("shot_dense", (dh - pdh).abs().max(),
+               cuda_ms(lambda: kshot.shot_dense(*dense_args), 5),
+               cuda_ms(lambda: kshot.shot_dense_plain(*dense_args), 2),
+               f"SHOT {tiles} tiles x {chunks} chunks, {live} live",
+               nbytes(*dense_args[:6], dh, dc),
+               live * int(mm.sum()) // MS_BATCH * GATE_OPS
+               + int(dc.sum()) * SHOT_BODY_OPS)
 
     # -- 3. goldens ---------------------------------------------------------
     phase("3. goldens (tests/golden/descriptors.npz, atol 2e-3)")
@@ -257,12 +419,116 @@ def main():
         assert serr <= 2e-3, f"golden SHOT off by {serr}"
     print(f"frames max err {ferr:.2e}, SHOT (K3) max err {serr:.2e}")
 
-    # -- 4. the slice ---------------------------------------------------------
-    phase(f"4. slice: IsmClassifier, B={BATCH} x N={pts.shape[1]} ({card})")
-    model = IsmClassifier(codebook, cfg,
-                          CodebookParams.from_config(config.child("Codebook")))
+    # -- 4. the dense classify step ------------------------------------------
+    phase(f"4. dense classify step: IsmClassifier, B={BATCH} x "
+          f"N={pts.shape[1]} ({card})")
+    params = CodebookParams.from_config(config.child("Codebook"))
+    model = IsmClassifier(codebook, cfg, params)
     assert np.array_equal(clouds[:len(ref["points"])], ref["points"]), \
         "bench batch differs from the committed reference clouds"
+    launches = {}
+    scores, launches["dense"] = drive("dense", model, STAGES, pts, mask,
+                                      ROUNDS, card)
+    with torch.no_grad():
+        again = model(pts, mask)
+    assert torch.equal(scores, again), "two runs of the step differ"
+    print("two runs of the step: scores identical")
+    dense_scores = scores
+    s = scores.cpu().numpy()
+    assert s.shape == (BATCH, cfg.num_classes) and np.isfinite(s).all()
+    check_decisions(s, ref["scores"], labels)
+
+    # -- 4b. the windowed classify step -------------------------------------
+    phase(f"4b. windowed classify step: IsmClassifier, normals window "
+          f"{window}, B={BATCH} x N={pts.shape[1]} ({card})")
+    wmodel = IsmClassifier(codebook, cfg._replace(normals_window=window),
+                           params)
+    scores, launches["windowed"] = drive("windowed", wmodel, STAGES, pts,
+                                         mask, ROUNDS, card)
+    print(f"dense recomputes: {wmodel.dense_recomputes} (committed reference "
+          f"window {int(ref['normals_window'])})")
+    assert wmodel.dense_recomputes == 0, "the calibrated window tripped"
+    with torch.no_grad():
+        assert torch.equal(scores, wmodel(pts, mask)), \
+            "two runs of the windowed step differ"
+    check_decisions(scores.cpu().numpy(), ref["scores_windowed"], labels)
+    tripped = IsmClassifier(codebook, cfg._replace(normals_window=128),
+                            params)
+    with torch.no_grad():
+        tscores = tripped(pts, mask)
+        # the tripped step runs dense on the sorted clouds: the dense step
+        # on the same sorted clouds gives the same scores, bit for bit
+        sorted_dense = model(srt.points, srt.mask)
+    delta = float((tscores - dense_scores).abs().max())
+    print(f"forced trip (window 128): dense recomputes "
+          f"{tripped.dense_recomputes}; scores equal to the dense step on "
+          f"the sorted clouds: {bool(torch.equal(tscores, sorted_dense))}; "
+          f"max |scores - dense step on the unsorted clouds| {delta:.3e}")
+    assert tripped.dense_recomputes == 1
+    assert torch.equal(tscores, sorted_dense), \
+        "the dense recompute differs from the dense step"
+    check_decisions(tscores.cpu().numpy(), ref["scores"], labels)
+
+    # -- 5. serve -------------------------------------------------------------
+    phase("5. serve --device cuda on 8 PCD files")
+    text = serve_files(serve, model_path, ref["points"][:8],
+                       ref["labels"][:8], [])
+    ref_acc = 100.0 * (ref["scores"][:8].argmax(1)
+                       == ref["labels"][:8]).mean()
+    assert f" Accuracy: {ref_acc:.0f} % " in text, \
+        f"serve accuracy differs from the reference {ref_acc:.0f} %"
+
+    # -- 6. the mean-shift detection step -----------------------------------
+    phase(f"6. detection step: IsmDetector, B={MS_BATCH} x N={pts.shape[1]} "
+          f"({card})")
+    detector = IsmDetector(codebook, cfg, params)
+    mp, mm = pts[:MS_BATCH].contiguous(), mask[:MS_BATCH].contiguous()
+    (dens, pos), launches["detect"] = drive("detect", detector,
+                                            DETECT_STAGES, mp, mm, MS_ROUNDS,
+                                            card)
+    d, p = dens.cpu().numpy(), pos.cpu().numpy()
+    assert np.isfinite(d).all() and np.isfinite(p).all()
+    rd, rp = ref["detect_densities"], ref["detect_positions"]
+    check_decisions(d, rd, labels[:MS_BATCH], rms_gate=False)
+    best = rd.argmax(1)
+    perr = float(np.abs(p[np.arange(MS_BATCH), best]
+                        - rp[np.arange(MS_BATCH), best]).max())
+    drel = float((np.abs(d - rd) / np.maximum(np.abs(rd), 1.0)).max())
+    print(f"best-class maximum vs JAX-CPU: max |position delta| {perr:.3e}; "
+          f"densities max relative delta {drel:.3e}")
+    assert perr <= 0.1, "maxima differ from the JAX reference"
+    text = serve_files(serve, model_path, ref["points"][:8],
+                       ref["labels"][:8], ["--maxima"])
+    rows = re.findall(r"predicted \d+, ground truth \d+ (?:OK|WRONG) "
+                      r"maximum \(\S+ \S+ \S+\)$", text, re.M)
+    assert len(rows) == 8 and " Accuracy: 100 % " in text, \
+        "serve --maxima did not report 8 correct predictions with maxima"
+
+    # -- results ----------------------------------------------------------------
+    total = {k: sum(run[k] for run in launches.values()) for k in KERNELS}
+    assert all(total.values()), f"kernels never launched: {total}"
+    kernels = [{"name": name, "route": "cuda", "source": src,
+                "replaces": tpu, "launches": total[name],
+                "max_abs_err": report[name]["err"],
+                "ms": report[name]["ms"], "plain_ms": report[name]["plain_ms"],
+                "bound_ms": report[name]["bound_ms"],
+                "bound_by": report[name]["bound_by"], "library_ms": None}
+               for name, (src, tpu) in KERNELS.items()]
+    print()
+    print(json.dumps({"kernels": kernels}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+def drive(path, model, stages, pts, mask, rounds, card):
+    """One step of a main path with the launch counts set to 0 just before
+    and read just after (per-stage ms from CUDA events), then `rounds`
+    steps timed on the host clock.  Returns (output, launches)."""
+    import torch
+
+    from point_cloud_donkey_tpu_torch.kernels import build
     with torch.no_grad():
         model(pts, mask)                                  # warm-up
         torch.cuda.synchronize()
@@ -274,81 +540,78 @@ def main():
 
         build.reset_launch_counts()
         events["start"].record()
-        scores = model(pts, mask, on_stage=mark)
+        out = model(pts, mask, on_stage=mark)
         torch.cuda.synchronize()
         launches = build.launch_counts()
         prev, stage_ms = "start", {}
-        for name in STAGES:
+        for name in stages:
             stage_ms[name] = events[prev].elapsed_time(events[name])
             prev = name
         t0 = time.perf_counter()
-        for _ in range(ROUNDS):
-            scores = model(pts, mask)
+        for _ in range(rounds):
+            model(pts, mask)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
     print("stage ms: " + ", ".join(f"{k} {v:.3f}" for k, v in stage_ms.items())
           + f" (sum {sum(stage_ms.values()):.3f})")
-    print(f"throughput: {BATCH * ROUNDS / dt:.1f} clouds/s over {ROUNDS} "
-          f"rounds of {BATCH} clouds ({card})")
+    print(f"throughput: {pts.shape[0] * rounds / dt:.1f} clouds/s over "
+          f"{rounds} rounds of {pts.shape[0]} clouds ({card})")
     print(f"launches in one step: {launches}")
-    missing = [k for k in KERNELS if launches[k] == 0]
-    assert not missing, f"kernels not launched by the main path: {missing}"
-    s = scores.cpu().numpy()
-    assert s.shape == (BATCH, cfg.num_classes) and np.isfinite(s).all()
-    acc = float((s.argmax(1) == labels).mean())
-    rs = ref["scores"]
+    missing = [k for k in PATH_KERNELS[path] if launches[k] == 0]
+    assert not missing, f"kernels not launched by the {path} path: {missing}"
+    return out, launches
+
+
+def check_decisions(s, rs, labels, rms_gate=True):
+    """Accuracy 1.0 against the labels, argmax equal to the JAX-CPU
+    reference rs on every firm cloud (margin > 3) and, for scores, an rms
+    delta <= 5% of the scale."""
+    import numpy as np
+    acc = float((s.argmax(1) == labels[:len(s)]).mean())
     srt = np.sort(rs, axis=1)
     firm = srt[:, -1] - srt[:, -2] > 3.0
     sub = s[:len(rs)]
     agree = sub.argmax(1)[firm] == rs.argmax(1)[firm]
     rms = float(np.sqrt(((sub - rs) ** 2).mean()))
     scale = float(np.abs(rs).max())
-    print(f"accuracy vs labels {acc:.4f} on {BATCH} clouds; vs JAX-CPU "
+    print(f"accuracy vs labels {acc:.4f} on {len(s)} clouds; vs JAX-CPU "
           f"reference: argmax agrees on {int(agree.sum())}/{int(firm.sum())} "
-          f"firm clouds, score rms delta {rms:.3e} (scale {scale:.2f}, "
+          f"firm clouds, rms delta {rms:.3e} (scale {scale:.2f}, "
           f"{100 * rms / scale:.4f}%)")
-    assert agree.all() and rms <= 0.05 * scale, "decisions differ from JAX"
+    assert acc == 1.0 and firm.any() and agree.all(), \
+        "decisions differ from JAX"
+    assert not rms_gate or rms <= 0.05 * scale, "scores differ from JAX"
 
-    # -- 5. serve -------------------------------------------------------------
-    phase("5. serve --device cuda on 8 PCD files")
+
+def serve_files(serve, model_path, clouds, labels, extra):
+    """serve.main --device cuda over PCD files of `clouds`; returns its
+    output after checking one prediction line per cloud."""
+    from point_cloud_donkey_tpu_torch.utils.io import save_pcd
     tmp = tempfile.mkdtemp(prefix="pcd_smoke_")
     try:
         shutil.copy(model_path, os.path.join(tmp, "model.ism"))
         shutil.copy(model_path + "d.npz", os.path.join(tmp, "model.ismd.npz"))
         lines = ["# test"]
-        for i in range(8):
+        for i, (cloud, label) in enumerate(zip(clouds, labels)):
             path = os.path.join(tmp, f"c{i}.pcd")
-            save_pcd(path, ref["points"][i])
-            lines.append(f"{path} {ref['labels'][i]}")
+            save_pcd(path, cloud)
+            lines.append(f"{path} {label}")
         flist = os.path.join(tmp, "test.txt")
         with open(flist, "w") as f:
             f.write("\n".join(lines) + "\n")
         out = io.StringIO()
         with contextlib.redirect_stdout(out):
             rc = serve.main(["-d", os.path.join(tmp, "model.ism"), "-f", flist,
-                             "--device", "cuda", "--batch", "8"])
+                             "--device", "cuda", "--batch", str(len(clouds)),
+                             *extra])
     finally:
         shutil.rmtree(tmp)
     text = out.getvalue()
     print(text.rstrip())
     preds = re.findall(r": predicted (\d+), ground truth (\d+) ", text)
-    ref_acc = 100.0 * (rs[:8].argmax(1) == ref["labels"][:8]).mean()
-    assert rc == 0 and len(preds) == 8, "serve did not report 8 predictions"
-    assert f" Accuracy: {ref_acc:.0f} % " in text, \
-        f"serve accuracy differs from the reference {ref_acc:.0f} %"
-
-    # -- results ----------------------------------------------------------------
-    kernels = [{"name": name, "route": "cuda", "source": src,
-                "replaces": tpu, "launches": launches[name],
-                "max_abs_err": report[name]["err"],
-                "ms": report[name]["ms"], "plain_ms": report[name]["plain_ms"]}
-               for name, (src, tpu) in KERNELS.items()]
-    print()
-    print(json.dumps({"kernels": kernels}))
-    print(card)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
+    assert rc == 0 and len(preds) == len(clouds), \
+        f"serve did not report {len(clouds)} predictions"
+    return text
 
 
 if __name__ == "__main__":

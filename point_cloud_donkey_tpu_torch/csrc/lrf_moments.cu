@@ -1,7 +1,10 @@
-// K1 radius moments and K2 sign votes of the SHOT local reference frame.
+// K1 radius moments and K2 sign votes of the SHOT local reference frame,
+// and their windowed forms K5 and K6.
 //
 // Replaces point_cloud_donkey_tpu/ops/pallas/lrf_moments.py `_moments_call`
-// (K1) and `_sign_votes_call` (K2), reached through `shot_lrf_pallas`.
+// (K1) and `_sign_votes_call` (K2), reached through `shot_lrf_pallas`, and
+// `_moments_call_gathered` (K5) and `_sign_votes_call_gathered` (K6),
+// reached through `shot_lrf_pallas_windowed`.
 //
 // K1: for every query q and every point p of its cloud with |p - q|^2 <= r^2
 // (exact coordinate differences), accumulate w = r - |p - q| into
@@ -11,23 +14,51 @@
 // identity cov = s2 - c s1^T - s1 c^T + s0 c c^T well conditioned.
 // K2: for every query, count the in-radius points with (p - q) . axis >= 0
 // for the x and z axis candidates of its frame (z only when z_only).
+// K5 / K6: the same sums, but the points of each cloud are sorted along its
+// principal axis and every tile of TQW = 256 consecutive queries sweeps
+// only its own window [start, start + W) of them (ops/binned.py plans the
+// starts; exactness is the caller's contract).
 //
 // What bounds it on the H100: arithmetic.  Each (query, point) pair costs
 // ~30 fp32 operations and one sqrt (K1) or ~20 operations (K2); a 128-cloud
-// batch at N = 2048 has 5.4e8 pairs per pass and reads only ~3 MB.
+// batch at N = 2048 has 5.4e8 pairs per pass and reads only ~3 MB.  The
+// window cuts the pairs of the normals pass to W / N (1280 / 2048 = 62.5%
+// at the bench calibration); the bytes stay a few MB.
 // Design: one CTA per (cloud, tile of 128 queries), batched over clouds in
 // one launch (grid.y = cloud); one thread per query keeps its 11 sums (or 2
-// counts) in registers; the cloud's points stream through shared memory in
+// counts) in registers; the swept points stream through shared memory in
 // 1024-point chunks as float4 (x, y, z, mask), so every point is read from
 // device memory once per CTA and broadcast to all threads from shared
 // memory.  No atomics and no cross-CTA reduction: each thread owns its
-// query's sums.  The 3x3 EVD between K1 and K2 stays in PyTorch.
+// query's sums.  The windowed kernels are the same code with the sweep
+// range read from the plan: both 128-query CTAs of a 256-query plan tile
+// read the same start, so no window is ever pre-gathered (the TPU's
+// [8, T * W] slab was a lane-layout workaround).  The 3x3 EVD between the
+// two passes stays in PyTorch.
 #include "common.cuh"
 
 namespace {
 
 constexpr int TQ = 128;   // queries per CTA (one thread each)
 constexpr int TN = 1024;  // points staged in shared memory per chunk
+constexpr int TQW = 256;  // queries per window-plan tile (2 CTAs)
+static_assert(TQW % TQ == 0, "a CTA must lie inside one plan tile");
+
+// Sweep range [lo, hi) of this CTA's queries: the whole cloud, or the
+// window its plan tile was given (starts [B, T], clamped to N).
+template <bool WIN>
+__device__ __forceinline__ void sweep_range(const int* __restrict__ starts,
+                                            int T, int W, int N, int& lo,
+                                            int& hi) {
+  if (WIN) {
+    lo = starts[(size_t)blockIdx.y * T + (blockIdx.x * TQ) / TQW];
+    lo = max(0, min(lo, N));
+    hi = min(lo + W, N);
+  } else {
+    lo = 0;
+    hi = N;
+  }
+}
 
 __device__ __forceinline__ void stage_points(float4* sp, const float* pb,
                                              const unsigned char* mb,
@@ -38,11 +69,13 @@ __device__ __forceinline__ void stage_points(float4* sp, const float* pb,
   }
 }
 
+template <bool WIN>
 __global__ void __launch_bounds__(TQ)
 lrf_moments_kernel(const float* __restrict__ q, const float* __restrict__ p,
                    const unsigned char* __restrict__ mask,
+                   const int* __restrict__ starts,
                    float* __restrict__ mom, int* __restrict__ count,
-                   int Q, int N, float r) {
+                   int Q, int N, int T, int W, float r) {
   __shared__ float4 sp[TN];
   const int b = blockIdx.y;
   const int qi = blockIdx.x * TQ + threadIdx.x;
@@ -58,8 +91,10 @@ lrf_moments_kernel(const float* __restrict__ q, const float* __restrict__ p,
   int cnt = 0;
   const float* pb = p + (size_t)b * N * 3;
   const unsigned char* mb = mask + (size_t)b * N;
-  for (int base = 0; base < N; base += TN) {
-    const int n = min(TN, N - base);
+  int lo, hi;
+  sweep_range<WIN>(starts, T, W, N, lo, hi);
+  for (int base = lo; base < hi; base += TN) {
+    const int n = min(TN, hi - base);
     __syncthreads();
     stage_points(sp, pb, mb, base, n);
     __syncthreads();
@@ -86,11 +121,13 @@ lrf_moments_kernel(const float* __restrict__ q, const float* __restrict__ p,
   }
 }
 
+template <bool WIN>
 __global__ void __launch_bounds__(TQ)
 sign_votes_kernel(const float* __restrict__ q, const float* __restrict__ p,
                   const unsigned char* __restrict__ mask,
+                  const int* __restrict__ starts,
                   const float* __restrict__ axes, int* __restrict__ votes,
-                  int Q, int N, float r, int z_only) {
+                  int Q, int N, int T, int W, float r, int z_only) {
   __shared__ float4 sp[TN];
   const int b = blockIdx.y;
   const int qi = blockIdx.x * TQ + threadIdx.x;
@@ -109,8 +146,10 @@ sign_votes_kernel(const float* __restrict__ q, const float* __restrict__ p,
   int plus_x = 0, plus_z = 0;
   const float* pb = p + (size_t)b * N * 3;
   const unsigned char* mb = mask + (size_t)b * N;
-  for (int base = 0; base < N; base += TN) {
-    const int n = min(TN, N - base);
+  int lo, hi;
+  sweep_range<WIN>(starts, T, W, N, lo, hi);
+  for (int base = lo; base < hi; base += TN) {
+    const int n = min(TN, hi - base);
     __syncthreads();
     stage_points(sp, pb, mb, base, n);
     __syncthreads();
@@ -140,9 +179,24 @@ PCD_EXPORT int pcd_lrf_moments(const void* q, const void* p, const void* mask,
                                void* mom, void* count, int B, int Q, int N,
                                float r, void* stream) {
   dim3 grid((Q + TQ - 1) / TQ, B);
-  lrf_moments_kernel<<<grid, TQ, 0, (cudaStream_t)stream>>>(
+  lrf_moments_kernel<false><<<grid, TQ, 0, (cudaStream_t)stream>>>(
+      (const float*)q, (const float*)p, (const unsigned char*)mask, nullptr,
+      (float*)mom, (int*)count, Q, N, 0, N, r);
+  return pcd_last_error();
+}
+
+// as pcd_lrf_moments over sorted points, each 256-query tile t of cloud b
+// sweeping points [starts[b, t], starts[b, t] + W); starts [B, T] i32 with
+// T = ceil(Q / 256)
+PCD_EXPORT int pcd_lrf_moments_windowed(const void* q, const void* p,
+                                        const void* mask, const void* starts,
+                                        void* mom, void* count, int B, int Q,
+                                        int N, int T, int W, float r,
+                                        void* stream) {
+  dim3 grid((Q + TQ - 1) / TQ, B);
+  lrf_moments_kernel<true><<<grid, TQ, 0, (cudaStream_t)stream>>>(
       (const float*)q, (const float*)p, (const unsigned char*)mask,
-      (float*)mom, (int*)count, Q, N, r);
+      (const int*)starts, (float*)mom, (int*)count, Q, N, T, W, r);
   return pcd_last_error();
 }
 
@@ -152,9 +206,23 @@ PCD_EXPORT int pcd_sign_votes(const void* q, const void* p, const void* mask,
                               const void* axes, void* votes, int B, int Q,
                               int N, float r, int z_only, void* stream) {
   dim3 grid((Q + TQ - 1) / TQ, B);
-  sign_votes_kernel<<<grid, TQ, 0, (cudaStream_t)stream>>>(
+  sign_votes_kernel<false><<<grid, TQ, 0, (cudaStream_t)stream>>>(
+      (const float*)q, (const float*)p, (const unsigned char*)mask, nullptr,
+      (const float*)axes, (int*)votes, Q, N, 0, N, r, z_only);
+  return pcd_last_error();
+}
+
+// as pcd_sign_votes over the windows of pcd_lrf_moments_windowed
+PCD_EXPORT int pcd_sign_votes_windowed(const void* q, const void* p,
+                                       const void* mask, const void* starts,
+                                       const void* axes, void* votes, int B,
+                                       int Q, int N, int T, int W, float r,
+                                       int z_only, void* stream) {
+  dim3 grid((Q + TQ - 1) / TQ, B);
+  sign_votes_kernel<true><<<grid, TQ, 0, (cudaStream_t)stream>>>(
       (const float*)q, (const float*)p, (const unsigned char*)mask,
-      (const float*)axes, (int*)votes, Q, N, r, z_only);
+      (const int*)starts, (const float*)axes, (int*)votes, Q, N, T, W, r,
+      z_only);
   return pcd_last_error();
 }
 

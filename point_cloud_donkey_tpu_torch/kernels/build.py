@@ -1,7 +1,8 @@
 """Build the CUDA kernels of ``csrc/`` with nvcc and load them with ctypes.
 
-The kernels have a plain C interface (no PyTorch headers), so one nvcc call
-builds them all in seconds.  The shared library goes to
+The kernels have a plain C interface (no PyTorch headers): one nvcc per
+source compiles it to an object, all started together, and one more call
+links the objects, so the build takes as long as the slowest source.  The shared library goes to
 ``build/torch_kernels/<hash>/`` beside the package, where the hash covers
 every source, the flags and the nvcc version: a library built from other
 sources or flags is never loaded.  The build happens at the first kernel
@@ -39,7 +40,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 NVCC_FALLBACK = "/usr/local/cuda/bin/nvcc"
 
-KERNELS = ("lrf_moments", "sign_votes", "shot_fused", "chisq_topk")
+KERNELS = ("lrf_moments", "sign_votes", "shot_fused", "chisq_topk",
+           "lrf_moments_windowed", "sign_votes_windowed", "shot_dense")
 
 _LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 _LIB: Optional[ctypes.CDLL] = None
@@ -53,6 +55,12 @@ _SIGNATURES = {
     "pcd_sign_votes": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
     "pcd_shot_fused": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _P],
     "pcd_chisq_topk": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "pcd_lrf_moments_windowed": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                 _F, _P],
+    "pcd_sign_votes_windowed": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                _F, _I, _P],
+    "pcd_shot_dense": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
+                       _P],
 }
 
 
@@ -107,25 +115,32 @@ def build(verbose: bool = False) -> str:
     if os.path.exists(out):
         return out
     os.makedirs(os.path.dirname(out), exist_ok=True)
-    # build to a temporary name, then rename: concurrent builders never
-    # load a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=os.path.dirname(out))
-    os.close(fd)
+    # build in a private directory, then rename the library: a process
+    # building at the same time never loads a half-written one
+    tmpdir = tempfile.mkdtemp(dir=os.path.dirname(out))
     cu = [p for p in _sources() if p.endswith(".cu")]
-    cmd = [nvcc, *NVCC_FLAGS, "-I", CSRC_DIR, "-o", tmp, *cu]
-    if verbose:
-        cmd.insert(1, "-Xptxas=-v")
+    objs = [os.path.join(tmpdir, os.path.basename(p) + ".o") for p in cu]
+    ptxas = ["-Xptxas=-v"] if verbose else []
     try:
+        procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True))
+                 for cmd in ([nvcc, *NVCC_FLAGS, *ptxas, "-I", CSRC_DIR, "-c",
+                              "-o", o, src] for src, o in zip(cu, objs))]
+        logs = [proc.communicate()[0] for _, proc in procs]  # wait for all
+        for (cmd, proc), log in zip(procs, logs):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({' '.join(cmd)}):\n{log}")
+        lib_tmp = os.path.join(tmpdir, "libpcd_kernels.so")
+        cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", lib_tmp, *objs]
         res = subprocess.run(cmd, capture_output=True, text=True)
         if res.returncode != 0:
             raise RuntimeError(f"nvcc failed ({' '.join(cmd)}):\n"
                                f"{res.stdout}\n{res.stderr}")
         if verbose:
-            print(res.stdout + res.stderr, flush=True)
-        os.replace(tmp, out)
+            print("".join(logs) + res.stdout + res.stderr, flush=True)
+        os.replace(lib_tmp, out)
     finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+        shutil.rmtree(tmpdir, ignore_errors=True)
     return out
 
 

@@ -1,13 +1,19 @@
-"""The batched classification step (port of the tile-compacted branch of
-``classify_scores_batch`` in point_cloud_donkey_tpu/models/pipeline_jit.py).
+"""The batched classification step (port of the compacted branches of
+``classify_scores_batch``) and the batched mean-shift detection step (port
+of ``jax.vmap(detect_maxima_jit)``), from
+point_cloud_donkey_tpu/models/pipeline_jit.py.
 
-Stages, for B clouds of N points:
-  1. normals: the sign-voted z axis of every point's own SHOT LRF (K1, K2);
+Classification stages (STAGES), for B clouds of N points:
+  0. sort: with a normals window (0 < normals_window < N), each cloud is
+     sorted along its principal axis (ops/binned.py); the other stages then
+     run on the sorted clouds (scores are point-order invariant);
+  1. normals: the sign-voted z axis of every point's own SHOT LRF -- over
+     each 256-point tile's window (K5, K6) or over the whole cloud (K1, K2);
   2. keypoints: voxel-grid centroids, valid rows first;
   3. LRF: SHOT LRFs at the keypoints (K1, K2);
   4. SHOT: SHOT-352 over the tile-compacted keypoints of the whole batch
      (K3); the tile count comes from one host read of the [B] keypoint
-     counts;
+     counts, which also reads the window plan's exactness flag;
   5. kNN + votes: chi-square nearest codewords (K4) and vote casting;
   6. scores: per-class Gaussian vote density at each cloud's centroid
      (single-object mode, bandwidth = the voting bandwidth).
@@ -22,7 +28,10 @@ from typing import Callable, NamedTuple, Optional
 import torch
 from torch import nn
 
-from ..ops.kernels.shot_fused import shot_descriptor_fused_compact
+from ..ops import mean_shift as ms
+from ..ops.binned import compute_normals_fast_windowed, sort_clouds_ex
+from ..ops.kernels.shot_fused import (shot_descriptor_fused,
+                                      shot_descriptor_fused_compact)
 from ..ops.lrf import shot_lrf
 from ..ops.neighbors import full_fp32
 from ..ops.normals import compute_normals_fast
@@ -30,7 +39,10 @@ from ..ops.voxel_grid import voxel_grid
 from ..utils.config import IsmConfig
 from .codebook import Codebook, CodebookParams, cast_votes
 
-STAGES = ("normals", "keypoints", "lrf", "shot", "knn_votes", "scores")
+STAGES = ("sort", "normals", "keypoints", "lrf", "shot", "knn_votes",
+          "scores")
+DETECT_STAGES = ("normals", "keypoints", "lrf", "shot", "knn_votes",
+                 "mean_shift")
 
 
 class PipelineConfig(NamedTuple):
@@ -46,8 +58,10 @@ class PipelineConfig(NamedTuple):
     keypoint_capacity: int = 512
     bandwidth: float = 0.5
     num_classes: int = 5
-    # sorted-axis windowed sweeps (ops/binned.py) are not ported yet
+    # sorted-axis window of the normals (ops/binned.py); 0 = dense.
+    # Calibrate with ops.binned.required_window; a window >= N runs dense
     normals_window: int = 0
+    # the windowed descriptor (shot_descriptor_fused_windowed) is not ported
     descriptor_window: int = 0
 
     @classmethod
@@ -78,14 +92,33 @@ def _check_supported(cfg: PipelineConfig) -> None:
     if cfg.normals_method != 2:
         raise NotImplementedError(
             "ConsistentNormalsMethod != 2 (PCA normals) is not ported")
-    if cfg.normals_window or cfg.descriptor_window:
+    if cfg.descriptor_window:
         raise NotImplementedError(
-            "windowed normals / descriptors (ops/binned.py) are not ported")
+            "the windowed descriptor (descriptor_window) is not ported")
+
+
+def _keypoints(points, mask, cfg):
+    """Voxel-grid keypoints, invalid rows parked at 1e9: (kp [B, K, 3],
+    kp_mask [B, K])."""
+    kres = voxel_grid(points, mask, cfg.leaf_size,
+                      capacity=cfg.keypoint_capacity)
+    kp = torch.where(kres.mask[..., None], kres.centroids,
+                     torch.full_like(kres.centroids, 1e9))
+    return kp, kres.mask
 
 
 class IsmClassifier(nn.Module):
     """Per-class scores [B, num_classes] of a batch of clouds against a
-    trained codebook (the JAX ``classify_scores_batch``)."""
+    trained codebook (the JAX ``classify_scores_batch``).
+
+    With 0 < cfg.normals_window < N the normals run over the sorted-axis
+    windows.  Results are never approximate: the window plan's exactness
+    flag is read in the same host read as the keypoint counts of the SHOT
+    stage, and when it is False the normals are recomputed densely (K1, K2)
+    inside the same call; ``dense_recomputes`` counts those calls.  The
+    JAX bench's second fallback, on the tile capacity of the compacted
+    SHOT, has no counterpart: the compacted layout is sized from the batch
+    itself."""
 
     def __init__(self, codebook: Codebook, cfg: PipelineConfig,
                  params: Optional[CodebookParams] = None):
@@ -94,6 +127,7 @@ class IsmClassifier(nn.Module):
         self.codebook = codebook
         self.cfg = cfg
         self.params = params or CodebookParams()
+        self.dense_recomputes = 0
 
     def forward(self, points: torch.Tensor,   # [B, N, 3] f32
                 mask: torch.Tensor,           # [B, N] bool
@@ -103,26 +137,46 @@ class IsmClassifier(nn.Module):
         timing with CUDA events)."""
         mark = on_stage or (lambda name: None)
         cfg = self.cfg
+        b, n = points.shape[0], points.shape[1]
         points = points.contiguous()
         mask = mask.contiguous()
+        windowed = 0 < cfg.normals_window < n
         with full_fp32():
-            normals = compute_normals_fast(points, mask, cfg.normal_radius)
+            if windowed:
+                srt = sort_clouds_ex(points, mask)
+                points, mask = srt.points, srt.mask
+            mark("sort")
+
+            exact = None
+            if windowed:
+                normals, exact = compute_normals_fast_windowed(
+                    points, mask, srt.keys, cfg.normal_radius,
+                    cfg.normals_window)
+            else:
+                normals = compute_normals_fast(points, mask,
+                                               cfg.normal_radius)
             mark("normals")
 
-            kres = voxel_grid(points, mask, cfg.leaf_size,
-                              capacity=cfg.keypoint_capacity)
-            kp_mask = kres.mask
-            kp = torch.where(kp_mask[..., None], kres.centroids,
-                             torch.full_like(kres.centroids, 1e9))
+            kp, kp_mask = _keypoints(points, mask, cfg)
             mark("keypoints")
 
             lrf = shot_lrf(kp, kp_mask, points, mask, cfg.ref_frame_radius)
             mark("lrf")
 
+            # the step's one host read: the [B] keypoint counts that size
+            # the compacted layout, and the window plan's exactness flag
+            host = kp_mask.sum(1)
+            if exact is not None:
+                host = torch.cat([host, exact.to(host.dtype)[None]])
+            host = host.cpu().numpy()
+            if exact is not None and not host[b]:
+                normals = compute_normals_fast(points, mask,
+                                               cfg.normal_radius)
+                self.dense_recomputes += 1
             desc, valid, kp_f, fr_f, cloud_id = \
                 shot_descriptor_fused_compact(
                     kp, lrf.frames, lrf.valid, kp_mask, points, normals,
-                    mask, cfg.radius)
+                    mask, cfg.radius, counts=host[:b])
             mark("shot")
 
             votes = cast_votes(self.codebook, desc, kp_f, fr_f, valid,
@@ -135,7 +189,9 @@ class IsmClassifier(nn.Module):
 
     def _scores(self, points, mask, votes, cloud_id):
         """Gaussian vote density at each cloud's centroid, per class (the
-        JAX ``_scores_from_features_flat``)."""
+        JAX ``_scores_from_features_flat``).  The compacted rows are grouped
+        by cloud, so each cloud's votes are one contiguous run, summed in a
+        fixed order (no atomics: the same scores on every run)."""
         cfg = self.cfg
         b = points.shape[0]
         m = mask.to(points.dtype)
@@ -148,9 +204,100 @@ class IsmClassifier(nn.Module):
         in_r = (d2 <= b2) & votes.valid
         w = torch.where(in_r, torch.exp(-0.5 * d2 / b2) * votes.weight,
                         torch.zeros_like(d2))
-        seg = vcloud * cfg.num_classes + votes.class_id
-        scores = torch.zeros(b * cfg.num_classes, dtype=points.dtype,
-                             device=points.device)
-        scores.index_add_(0, seg, w)
-        return scores.reshape(b, cfg.num_classes)
+        classes = torch.arange(cfg.num_classes, device=w.device)
+        per_class = torch.where(votes.class_id[:, None] == classes,
+                                w[:, None], torch.zeros_like(w)[:, None])
+        lengths = torch.bincount(vcloud, minlength=b)
+        return torch.segment_reduce(per_class, "sum", lengths=lengths,
+                                    axis=0)
 
+
+class IsmDetector(nn.Module):
+    """Per-class best mean-shift maximum of a batch of clouds: (densities
+    [B, C], positions [B, C, 3]), the JAX ``jax.vmap(detect_maxima_jit)``.
+    A class with no surviving maximum reports density 0 at position 0.
+
+    Stages (DETECT_STAGES): dense normals (K1, K2), voxel keypoints,
+    keypoint LRFs (K1, K2), SHOT-352 on the dense [B, K] keypoint grid
+    (K7), kNN + votes (K4), then per (cloud, class) group: grid seeds ->
+    mean-shift -> density -> the densest surviving seed.  The JAX per-cloud
+    path computes the descriptor with the XLA ``shot_descriptor_dense``;
+    the port computes the same function with K7, the port of
+    ``_shot_fused_call``, whose parity target is that function."""
+
+    def __init__(self, codebook: Codebook, cfg: PipelineConfig,
+                 params: Optional[CodebookParams] = None,
+                 seed_capacity: int = 256, max_iter: int = 100):
+        super().__init__()
+        _check_supported(cfg)
+        self.codebook = codebook
+        self.cfg = cfg
+        self.params = params or CodebookParams()
+        self.seed_capacity = seed_capacity
+        self.max_iter = max_iter
+
+    def forward(self, points: torch.Tensor,   # [B, N, 3] f32
+                mask: torch.Tensor,           # [B, N] bool
+                on_stage: Optional[Callable[[str], None]] = None):
+        """on_stage(name) is called after each stage of DETECT_STAGES."""
+        mark = on_stage or (lambda name: None)
+        cfg = self.cfg
+        b = points.shape[0]
+        points = points.contiguous()
+        mask = mask.contiguous()
+        with full_fp32():
+            normals = compute_normals_fast(points, mask, cfg.normal_radius)
+            mark("normals")
+
+            kp, kp_mask = _keypoints(points, mask, cfg)
+            k = kp.shape[1]
+            mark("keypoints")
+
+            lrf = shot_lrf(kp, kp_mask, points, mask, cfg.ref_frame_radius)
+            mark("lrf")
+
+            desc, valid = shot_descriptor_fused(kp, lrf.frames, lrf.valid,
+                                                points, normals, mask,
+                                                cfg.radius)
+            mark("shot")
+
+            votes = cast_votes(self.codebook, desc.reshape(b * k, -1),
+                               kp.reshape(b * k, 3),
+                               lrf.frames.reshape(b * k, 3, 3),
+                               valid.reshape(b * k), self.params, cfg.metric)
+            mark("knn_votes")
+
+            dens, pos = self._best_maxima(votes, b)
+            mark("mean_shift")
+        return dens, pos
+
+    def _best_maxima(self, votes, b):
+        """Mean-shift over every (cloud, class) group of the votes, which
+        are grouped by cloud (each cloud casts V votes)."""
+        c = self.cfg.num_classes
+        v = votes.position.shape[0] // b
+        classes = torch.arange(c, device=votes.position.device)
+        sel = (votes.valid.reshape(b, 1, v)
+               & (votes.class_id.reshape(b, 1, v) == classes[:, None]))
+        sel = sel.reshape(b * c, v)
+        w = votes.weight.reshape(b, 1, v).expand(b, c, v).reshape(b * c, v)
+        w = torch.where(sel, w, torch.zeros_like(w))
+        pos = votes.position.reshape(b, 1, v, 3).expand(b, c, v, 3) \
+            .reshape(b * c, v, 3)
+        pos = torch.where(sel[..., None], pos, torch.full_like(pos, 1e9))
+        bw = self.cfg.bandwidth
+        seeds, _, seed_mask = ms.create_seeds(pos, w, sel,
+                                              ms.seeds_range(bw),
+                                              self.seed_capacity)
+        centers, alive = ms.mean_shift(seeds, seed_mask, pos, w, sel, bw,
+                                       max_iter=self.max_iter)
+        dens = ms.estimate_density(centers, pos, w, sel, bw)
+        dens = torch.where(alive, dens, torch.zeros_like(dens))
+        best = dens.argmax(-1)                       # first of equal maxima
+        best_dens = dens.gather(1, best[:, None])[:, 0]
+        best_pos = centers.gather(
+            1, best[:, None, None].expand(-1, 1, 3))[:, 0]
+        has = alive.any(-1) & (best_dens > 0)
+        best_pos = torch.where(has[:, None], best_pos,
+                               torch.zeros_like(best_pos))
+        return best_dens.reshape(b, c), best_pos.reshape(b, c, 3)

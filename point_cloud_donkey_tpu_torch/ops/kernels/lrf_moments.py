@@ -1,11 +1,14 @@
-"""K1 radius moments and K2 sign votes of the SHOT LRF, and the fused LRF
-built on them.
+"""K1 radius moments and K2 sign votes of the SHOT LRF, their windowed
+forms K5 and K6, and the fused LRFs built on them.
 
 Port of point_cloud_donkey_tpu/ops/pallas/lrf_moments.py: `_moments_call`
 -> :func:`moments`, `_sign_votes_call` -> :func:`sign_votes`,
+`_moments_call_gathered` -> :func:`moments_windowed`,
+`_sign_votes_call_gathered` -> :func:`sign_votes_windowed`,
 `_prep_lanes` -> :func:`prep_shift`, `shot_lrf_pallas` ->
-:func:`shot_lrf_fused`.  The kernels are in csrc/lrf_moments.cu; the plain
-twins below compute the same sums with the same float operations, on
+:func:`shot_lrf_fused`, `shot_lrf_pallas_windowed` ->
+:func:`shot_lrf_windowed`.  The kernels are in csrc/lrf_moments.cu; the
+plain twins below compute the same sums with the same float operations, on
 exact coordinate differences (not the matmul identity).
 
 All tensors are batched over clouds: queries [B, Q, 3], points [B, N, 3],
@@ -24,6 +27,7 @@ from ..eigh3 import eigh3x3
 from . import check, f32, stream_of, uses_kernel
 
 MOMENT_ROWS = 10      # s0, s1 (x, y, z), s2 (xx, yy, zz, xy, xz, yz)
+TQW = 256             # queries per window-plan tile (ops/binned.py)
 _PAIR_BUDGET = 1 << 25  # elements per [B, chunk, N] temporary of the twins
 
 
@@ -138,6 +142,104 @@ def sign_votes(q: torch.Tensor, p: torch.Tensor, mask: torch.Tensor,
     return votes
 
 
+def _check_windowed(q, p, mask, starts, window):
+    _check_common(q, p, mask)
+    b, nq, n = q.shape[0], q.shape[1], p.shape[1]
+    check("starts", starts, torch.int32, (b, -(-nq // TQW)))
+    if not 1 <= window <= n:
+        raise ValueError(f"window must be in [1, N={n}], got {window}")
+
+
+def _windows(p, mask, starts, window):
+    """Each plan tile's window of the sorted points: (pw [B, T, W, 3],
+    mw [B, T, W]); entries past N are masked, as the kernel's sweep stops
+    at N."""
+    n = p.shape[1]
+    idx = starts.long()[..., None] + torch.arange(window, device=p.device)
+    inside = idx < n
+    idx = idx.clamp(max=n - 1)
+    b, t, w = idx.shape
+    flat = idx.reshape(b, t * w)
+    pw = torch.gather(p, 1, flat[..., None].expand(b, t * w, 3))
+    mw = torch.gather(mask, 1, flat) & inside.reshape(b, t * w)
+    return pw.reshape(b, t, w, 3), mw.reshape(b, t, w)
+
+
+def moments_windowed_plain(q, p, mask, starts, window, radius):
+    """Plain twin of K5: K1's twin per plan tile over its window."""
+    b, nq, _ = q.shape
+    pw, mw = _windows(p, mask, starts, window)
+    mom = torch.zeros((b, nq, MOMENT_ROWS), dtype=q.dtype, device=q.device)
+    cnt = torch.zeros((b, nq), dtype=torch.int32, device=q.device)
+    for t in range(starts.shape[1]):
+        sl = slice(t * TQW, (t + 1) * TQW)
+        mom[:, sl], cnt[:, sl] = moments_plain(q[:, sl], pw[:, t], mw[:, t],
+                                               radius)
+    return mom, cnt
+
+
+def moments_windowed(q: torch.Tensor, p: torch.Tensor, mask: torch.Tensor,
+                     starts: torch.Tensor, window: int, radius: float
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K5: K1 over principal-axis-sorted points, each tile of 256 queries
+    sweeping only points [starts[b, t], starts[b, t] + window) of its
+    cloud.  starts [B, ceil(Q / 256)] int32 (ops/binned.window_starts)."""
+    _check_windowed(q, p, mask, starts, window)
+    if not uses_kernel(q, p, mask, starts):
+        return moments_windowed_plain(q, p, mask, starts, window, radius)
+    b, nq, _ = q.shape
+    mom = torch.empty((b, nq, MOMENT_ROWS), dtype=torch.float32,
+                      device=q.device)
+    cnt = torch.empty((b, nq), dtype=torch.int32, device=q.device)
+    if b and nq:
+        with torch.cuda.device(q.device):
+            err = build.lib().pcd_lrf_moments_windowed(
+                q.data_ptr(), p.data_ptr(), mask.data_ptr(),
+                starts.data_ptr(), mom.data_ptr(), cnt.data_ptr(), b, nq,
+                p.shape[1], starts.shape[1], window, f32(radius),
+                stream_of(q))
+        build.check(err, "lrf_moments_windowed")
+        build.count_launch("lrf_moments_windowed")
+    return mom, cnt
+
+
+def sign_votes_windowed_plain(q, p, mask, axes, starts, window, radius,
+                              z_only=False):
+    """Plain twin of K6: K2's twin per plan tile over its window."""
+    b, nq, _ = q.shape
+    pw, mw = _windows(p, mask, starts, window)
+    votes = torch.zeros((b, nq, 2), dtype=torch.int32, device=q.device)
+    for t in range(starts.shape[1]):
+        sl = slice(t * TQW, (t + 1) * TQW)
+        votes[:, sl] = sign_votes_plain(q[:, sl], pw[:, t], mw[:, t],
+                                        axes[:, sl], radius, z_only)
+    return votes
+
+
+def sign_votes_windowed(q: torch.Tensor, p: torch.Tensor, mask: torch.Tensor,
+                        axes: torch.Tensor, starts: torch.Tensor,
+                        window: int, radius: float,
+                        z_only: bool = False) -> torch.Tensor:
+    """K6: K2 over the windows of :func:`moments_windowed`."""
+    _check_windowed(q, p, mask, starts, window)
+    check("axes", axes, torch.float32, (q.shape[0], q.shape[1], 6))
+    if not uses_kernel(q, p, mask, axes, starts):
+        return sign_votes_windowed_plain(q, p, mask, axes, starts, window,
+                                         radius, z_only)
+    b, nq, _ = q.shape
+    votes = torch.empty((b, nq, 2), dtype=torch.int32, device=q.device)
+    if b and nq:
+        with torch.cuda.device(q.device):
+            err = build.lib().pcd_sign_votes_windowed(
+                q.data_ptr(), p.data_ptr(), mask.data_ptr(),
+                starts.data_ptr(), axes.data_ptr(), votes.data_ptr(), b, nq,
+                p.shape[1], starts.shape[1], window, f32(radius),
+                int(z_only), stream_of(q))
+        build.check(err, "sign_votes_windowed")
+        build.count_launch("sign_votes_windowed")
+    return votes
+
+
 def prep_shift(queries: torch.Tensor, points: torch.Tensor,
                mask: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Shift queries and points by each cloud's masked centroid (the
@@ -167,6 +269,34 @@ def cov_from_moments(mom: torch.Tensor, q_s: torch.Tensor,
     return cov / torch.clamp(s0, min=1e-30)[..., None, None], s0
 
 
+def _evd_axes(mom, q_s, q_mask, z_only):
+    """Covariance from the moments -> closed-form EVD -> (v1 largest, v3
+    smallest eigenvector, the [B, Q, 6] sign-vote axes, s0)."""
+    cov, s0 = cov_from_moments(mom, q_s, q_mask)
+    _, vecs = eigh3x3(cov)
+    v1 = vecs[..., :, 2]   # largest eigenvalue -> x axis candidate
+    v3 = vecs[..., :, 0]   # smallest -> z axis candidate
+    x_cand = torch.zeros_like(v1) if z_only else v1
+    return v1, v3, torch.cat([x_cand, v3], -1).contiguous(), s0
+
+
+def _frames(v1, v3, votes, count, s0, q_mask, min_neighbors, z_only):
+    """Sign rule and validity of every fused LRF: flip an axis when fewer
+    in-radius offsets point along it than against it (a tie keeps the
+    EVD's sign); y = z x x."""
+    plus_z = votes[..., 1]
+    z_axis = torch.where((plus_z < count - plus_z)[..., None], -v3, v3)
+    if z_only:
+        x_axis = v1
+    else:
+        plus_x = votes[..., 0]
+        x_axis = torch.where((plus_x < count - plus_x)[..., None], -v1, v1)
+    y_axis = torch.linalg.cross(z_axis, x_axis)
+    frames = torch.stack([x_axis, y_axis, z_axis], dim=-2)
+    valid = q_mask & (count >= min_neighbors) & (s0 > 0)
+    return frames, valid
+
+
 def shot_lrf_fused(queries: torch.Tensor, q_mask: torch.Tensor,
                    points: torch.Tensor, mask: torch.Tensor, radius: float,
                    min_neighbors: int = 5, z_only: bool = False
@@ -178,22 +308,24 @@ def shot_lrf_fused(queries: torch.Tensor, q_mask: torch.Tensor,
     rows then keep the EVD's sign; only for callers that read z)."""
     q_s, p_s = prep_shift(queries, points, mask)
     mom, count = moments(q_s, p_s, mask, radius)
-    cov, s0 = cov_from_moments(mom, q_s, q_mask)
-    _, vecs = eigh3x3(cov)
-    v1 = vecs[..., :, 2]   # largest eigenvalue -> x axis candidate
-    v3 = vecs[..., :, 0]   # smallest -> z axis candidate
-    x_cand = torch.zeros_like(v1) if z_only else v1
-    axes = torch.cat([x_cand, v3], -1).contiguous()
+    v1, v3, axes, s0 = _evd_axes(mom, q_s, q_mask, z_only)
     votes = sign_votes(q_s, p_s, mask, axes, radius, z_only)
-    n_in = count
-    plus_z = votes[..., 1]
-    z_axis = torch.where((plus_z < n_in - plus_z)[..., None], -v3, v3)
-    if z_only:
-        x_axis = v1
-    else:
-        plus_x = votes[..., 0]
-        x_axis = torch.where((plus_x < n_in - plus_x)[..., None], -v1, v1)
-    y_axis = torch.linalg.cross(z_axis, x_axis)
-    frames = torch.stack([x_axis, y_axis, z_axis], dim=-2)
-    valid = q_mask & (count >= min_neighbors) & (s0 > 0)
-    return frames, valid
+    return _frames(v1, v3, votes, count, s0, q_mask, min_neighbors, z_only)
+
+
+def shot_lrf_windowed(points: torch.Tensor,   # [B, N, 3] sorted by key
+                      mask: torch.Tensor,     # [B, N]
+                      starts: torch.Tensor,   # [B, ceil(N / 256)] int32
+                      window: int, radius: float,
+                      min_neighbors: int = 5, z_only: bool = False
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Self-LRF of every point of a principal-axis-sorted batch via K5 ->
+    closed-form EVD -> K6, each 256-point tile sweeping its planned window
+    (`shot_lrf_pallas_windowed`).  Same shift, sign rule and validity as
+    :func:`shot_lrf_fused`, to which it is equal when the plan is exact."""
+    q_s, p_s = prep_shift(points, points, mask)
+    mom, count = moments_windowed(q_s, p_s, mask, starts, window, radius)
+    v1, v3, axes, s0 = _evd_axes(mom, q_s, mask, z_only)
+    votes = sign_votes_windowed(q_s, p_s, mask, axes, starts, window, radius,
+                                z_only)
+    return _frames(v1, v3, votes, count, s0, mask, min_neighbors, z_only)

@@ -1,21 +1,26 @@
-"""K3: SHOT-352 over tile-compacted keypoints.
+"""K3: SHOT-352 over tile-compacted keypoints; K7: SHOT-352 over the dense
+[B, K] keypoint grid.
 
 Port of point_cloud_donkey_tpu/ops/pallas/shot_fused.py:
 `_shot_fused_call_windowed` over `_shot_tile_body` -> :func:`shot_tiles`
 (kernel in csrc/shot_fused.cu, plain twin :func:`shot_tiles_plain` on
 ops/shot.py), `shot_descriptor_fused_compact` ->
-:func:`shot_descriptor_fused_compact`.
+:func:`shot_descriptor_fused_compact`, `_shot_fused_call` ->
+:func:`shot_dense` (K7, plain twin :func:`shot_dense_plain`),
+`shot_descriptor_fused` -> :func:`shot_descriptor_fused`.
 
 Compaction: the valid keypoints of every cloud are packed into tiles of
 TK = 8 rows (tiles never span clouds).  The tile count is sized from the
 batch's own keypoint counts -- one host read of a [B] vector -- so there is
 no capacity knob (`required_tile_capacity`), no exactness flag and no
-dense fallback (`_shot_fused_call`).
+dense fallback.  K7 serves the callers that keep the per-cloud [B, K]
+layout (mean-shift groups votes by cloud and class).
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+import functools
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -25,6 +30,13 @@ from ..shot import DESC_LEN, normalize_descriptors, shot_histogram_rows
 from . import check, f32, stream_of, uses_kernel
 
 TK = 8  # keypoints per tile
+# K7 splits each tile's point sweep over CTAs until the grid holds about
+# two waves of the SMs.  A wave is one CTA per SM: at 150 registers a
+# thread (ptxas, sm_90a) one 256-thread CTA fits an SM.  At the mean-shift
+# shapes (768 tiles) that is one chunk; 1-4 chunks time the same there,
+# 6-8 slower (PERF.md).  Small batches split further.
+_WAVES = 2
+_MIN_CHUNK = 256  # points per CTA at least
 
 
 def _check(kp, frames, tile_cloud, points, normals, mask):
@@ -74,12 +86,16 @@ def shot_tiles(kp: torch.Tensor,          # [T*8, 3]
     return hist, count
 
 
-def compact_layout(kp_mask: torch.Tensor):
+def compact_layout(kp_mask: torch.Tensor,
+                   counts: Optional[np.ndarray] = None):
     """Host plan of the tile-compacted layout from the [B] keypoint counts
-    (the one host read): (gather index [T*8] into the [B*K] rows, row
-    alive [T*8], tile cloud [T]) as tensors on kp_mask's device."""
+    (the one host read, unless the caller read `counts` already): (gather
+    index [T*8] into the [B*K] rows, row alive [T*8], tile cloud [T]) as
+    tensors on kp_mask's device."""
     b, k = kp_mask.shape
-    counts = kp_mask.sum(1).cpu().numpy().astype(np.int64)
+    if counts is None:
+        counts = kp_mask.sum(1).cpu().numpy()
+    counts = np.asarray(counts, dtype=np.int64)
     tiles = -(-counts // TK)
     tile_cloud = np.repeat(np.arange(b, dtype=np.int32), tiles)
     toff = np.concatenate([[0], np.cumsum(tiles)[:-1]]).astype(np.int64)
@@ -102,13 +118,15 @@ def shot_descriptor_fused_compact(
         normals: torch.Tensor,      # [B, N, 3]
         mask: torch.Tensor,         # [B, N]
         radius: float,
-        min_neighbors: int = 5):
+        min_neighbors: int = 5,
+        counts: Optional[np.ndarray] = None):
     """SHOT over tile-compacted keypoints.  Returns (descriptors [T*8, 352],
     valid [T*8], kp_flat [T*8, 3], frames_flat [T*8, 3, 3], cloud_id
     [T*8]) in the flat compacted layout; rows past a cloud's keypoint count
-    are invalid, with keypoint 0 and frame eye like every invalid row."""
+    are invalid, with keypoint 0 and frame eye like every invalid row.
+    `counts`: the [B] keypoint counts, when the caller has read them."""
     b, k, _ = keypoints.shape
-    gidx, alive, tile_cloud = compact_layout(kp_mask)
+    gidx, alive, tile_cloud = compact_layout(kp_mask, counts)
     kp_rows = keypoints.reshape(b * k, 3)[gidx]
     fr_rows = frames.reshape(b * k, 3, 3)[gidx]
     fv_rows = frame_valid.reshape(b * k)[gidx] & alive
@@ -124,3 +142,99 @@ def shot_descriptor_fused_compact(
     eye = torch.eye(3, dtype=fr_rows.dtype, device=fr_rows.device)
     fr_out = torch.where(valid[:, None, None], fr_rows, eye)
     return res.descriptors, valid, kp_out, fr_out, cloud_id
+
+
+def _check_dense(kp, frames, live, points, normals, mask):
+    b, k = live.shape
+    n = points.shape[1]
+    if k % TK:
+        raise ValueError(f"K={k} must be a multiple of {TK}")
+    check("kp", kp, torch.float32, (b, k, 3))
+    check("frames", frames, torch.float32, (b, k, 3, 3))
+    check("live", live, torch.bool, (b, k))
+    check("points", points, torch.float32, (b, n, 3))
+    check("normals", normals, torch.float32, (b, n, 3))
+    check("mask", mask, torch.bool, (b, n))
+
+
+def shot_dense_plain(kp, frames, live, points, normals, mask, radius):
+    """Plain twin of K7: (hist [B, K, 352] raw, count [B, K] i32); rows that
+    are not live keep a zero histogram and count."""
+    b, k = live.shape
+    hist = torch.zeros((b, k, DESC_LEN), dtype=torch.float32,
+                       device=kp.device)
+    count = torch.zeros((b, k), dtype=torch.int32, device=kp.device)
+    cloud, row = live.nonzero(as_tuple=True)
+    h, c = shot_histogram_rows(kp[cloud, row], frames[cloud, row], cloud,
+                               points, normals, mask, radius)
+    hist[cloud, row] = h
+    count[cloud, row] = c
+    return hist, count
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def dense_chunks(tiles: int, n: int, sms: int) -> int:
+    """Point chunks per K7 tile: enough CTAs for _WAVES waves of the card,
+    each chunk at least _MIN_CHUNK points."""
+    want = -(-_WAVES * sms // max(tiles, 1))
+    return max(1, min(want, n // _MIN_CHUNK))
+
+
+def shot_dense(kp: torch.Tensor,       # [B, K, 3], K % 8 == 0
+               frames: torch.Tensor,   # [B, K, 3, 3] rows = axes
+               live: torch.Tensor,     # [B, K] bool rows to describe
+               points: torch.Tensor,   # [B, N, 3]
+               normals: torch.Tensor,  # [B, N, 3]
+               mask: torch.Tensor,     # [B, N] bool
+               radius: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K7: raw SHOT histograms and in-radius counts of every live row of the
+    dense keypoint grid, each against the points of its cloud."""
+    _check_dense(kp, frames, live, points, normals, mask)
+    if not uses_kernel(kp, frames, live, points, normals, mask):
+        return shot_dense_plain(kp, frames, live, points, normals, mask,
+                                radius)
+    b, k = live.shape
+    n = points.shape[1]
+    hist = torch.zeros((b, k, DESC_LEN), dtype=torch.float32,
+                       device=kp.device)
+    count = torch.zeros((b, k), dtype=torch.int32, device=kp.device)
+    if b and k and n:
+        chunks = dense_chunks(b * k // TK, n, _sm_count(kp.device.index or 0))
+        with torch.cuda.device(kp.device):
+            err = build.lib().pcd_shot_dense(
+                kp.data_ptr(), frames.data_ptr(), live.data_ptr(),
+                points.data_ptr(), normals.data_ptr(), mask.data_ptr(),
+                hist.data_ptr(), count.data_ptr(), b, k, n, chunks,
+                f32(radius), stream_of(kp))
+        build.check(err, "shot_dense")
+        build.count_launch("shot_dense")
+    return hist, count
+
+
+def shot_descriptor_fused(keypoints: torch.Tensor,    # [B, K, 3]
+                          frames: torch.Tensor,       # [B, K, 3, 3]
+                          frame_valid: torch.Tensor,  # [B, K]
+                          points: torch.Tensor,       # [B, N, 3]
+                          normals: torch.Tensor,      # [B, N, 3]
+                          mask: torch.Tensor,         # [B, N]
+                          radius: float,
+                          min_neighbors: int = 5):
+    """SHOT-352 of every row of the dense keypoint grid through K7 (K padded
+    to a multiple of 8).  Returns (descriptors [B, K, 352], valid [B, K]);
+    rows with an invalid frame are not described and come out invalid."""
+    b, k, _ = keypoints.shape
+    pad = (-k) % TK
+    if pad:
+        keypoints = torch.nn.functional.pad(keypoints, (0, 0, 0, pad),
+                                            value=1e9)
+        frames = torch.nn.functional.pad(frames, (0, 0, 0, 0, 0, pad))
+        frame_valid = torch.nn.functional.pad(frame_valid, (0, pad))
+    hist, count = shot_dense(keypoints.contiguous(), frames.contiguous(),
+                             frame_valid.contiguous(), points.contiguous(),
+                             normals.contiguous(), mask.contiguous(), radius)
+    res = normalize_descriptors(hist, count, frame_valid, min_neighbors)
+    return res.descriptors[:, :k], res.valid[:, :k]

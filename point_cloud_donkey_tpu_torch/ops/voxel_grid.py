@@ -6,7 +6,8 @@ output = mean of the points of each occupied voxel, ordered
 lexicographically by (i, j, k).  The order comes from three stable sorts
 (k, then j, then i), so equal keys keep the input order and no composite
 key can overflow.  Voxel ids at or past `capacity` are dropped, not
-clipped.  Valid rows come first in the output; the tile-compacted SHOT
+clipped.  Each voxel's sum runs over its points in sorted order, the same
+on every run and device.  Valid rows come first in the output; the tile-compacted SHOT
 stage relies on it.
 """
 
@@ -36,10 +37,11 @@ def voxel_grid(points: torch.Tensor,   # [N, 3] or [B, N, 3]
     mn = torch.floor(torch.amin(torch.where(mask[..., None], points, big),
                                 dim=1) / leaf_size)                  # [B, 3]
     ijk = (torch.floor(points / leaf_size) - mn[:, None, :])
-    # invalid points (and empty clouds) sort to the end
+    # invalid points (and empty clouds) sort to the end; a non-finite point
+    # is invalid, so the valid points form one sorted prefix
     max_c = torch.iinfo(torch.int32).max
-    ijk = torch.where(mask[..., None] & torch.isfinite(ijk),
-                      ijk, float(max_c)).to(torch.int64)
+    valid = mask & torch.isfinite(ijk).all(-1)
+    ijk = torch.where(valid[..., None], ijk, float(max_c)).to(torch.int64)
 
     # stable lexicographic order on (i, j, k): least significant key first
     order = torch.arange(n, device=points.device).expand(b, n)
@@ -49,7 +51,7 @@ def voxel_grid(points: torch.Tensor,   # [N, 3] or [B, N, 3]
         order = torch.gather(order, 1, perm)
     sorted_ijk = torch.gather(ijk, 1, order[..., None].expand(b, n, 3))
     sorted_pts = torch.gather(points, 1, order[..., None].expand(b, n, 3))
-    sorted_valid = torch.gather(mask, 1, order)
+    sorted_valid = torch.gather(valid, 1, order)
 
     is_new = torch.ones((b, n), dtype=torch.bool, device=points.device)
     is_new[:, 1:] = torch.any(sorted_ijk[:, 1:] != sorted_ijk[:, :-1], dim=2)
@@ -59,15 +61,17 @@ def voxel_grid(points: torch.Tensor,   # [N, 3] or [B, N, 3]
     seg = torch.where(sorted_valid & (seg < cap), seg,
                       torch.full_like(seg, cap))
 
-    sums = torch.zeros((b, cap + 1, 3), dtype=points.dtype,
-                       device=points.device)
-    sums.scatter_add_(1, seg[..., None].expand(b, n, 3),
-                      torch.where(sorted_valid[..., None], sorted_pts,
-                                  torch.zeros_like(sorted_pts)))
-    counts = torch.zeros((b, cap + 1), dtype=points.dtype,
-                         device=points.device)
-    counts.scatter_add_(1, seg, sorted_valid.to(points.dtype))
-    sums, counts = sums[:, :cap], counts[:, :cap]
+    # the segments are contiguous runs of the sorted points: count them
+    # (integer adds, exact in any order) and sum each run in a fixed order,
+    # so the centroids do not depend on the order of atomic adds
+    lengths = torch.zeros((b, cap + 1), dtype=torch.int64,
+                          device=points.device)
+    lengths.scatter_add_(1, seg, torch.ones_like(seg))
+    sums = torch.segment_reduce(
+        torch.where(sorted_valid[..., None], sorted_pts,
+                    torch.zeros_like(sorted_pts)), "sum", lengths=lengths,
+        axis=1)[:, :cap]
+    counts = lengths[:, :cap].to(points.dtype)
 
     out_mask = counts > 0
     centroids = sums / torch.clamp(counts, min=1.0)[..., None]

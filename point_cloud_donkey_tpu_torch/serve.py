@@ -1,9 +1,11 @@
 """Batched classification CLI of the port: classify a '# test' file list
-with a trained model through IsmClassifier (the PyTorch counterpart of
-point_cloud_donkey_tpu/cli/serve.py without mesh, AOT, --maxima or CSHOT).
+with a trained model through IsmClassifier, or with --maxima through the
+mean-shift detection step IsmDetector, printing each cloud's best maximum
+of its predicted class (the PyTorch counterpart of
+point_cloud_donkey_tpu/cli/serve.py without mesh, AOT or CSHOT).
 
     python -m point_cloud_donkey_tpu_torch.serve -d model.ism -f list.txt \\
-        --device cuda
+        --device cuda [--maxima]
 
 The model is the JAX package's save format: ``model.ism`` (JSON config)
 beside ``model.ismd.npz`` (trained arrays).
@@ -19,7 +21,7 @@ import numpy as np
 import torch
 
 from .models.codebook import CodebookParams, load_codebook
-from .models.pipeline import IsmClassifier, PipelineConfig
+from .models.pipeline import IsmClassifier, IsmDetector, PipelineConfig
 from .utils.config import IsmConfig
 from .utils.io import load_cloud, parse_file_list
 
@@ -34,6 +36,10 @@ def main(argv=None) -> int:
                    help="pad/subsample clouds to this many points")
     p.add_argument("--device", default="cuda",
                    help="torch device to run on (cuda, cuda:1, cpu)")
+    p.add_argument("--maxima", action="store_true",
+                   help="run the mean-shift detection step and print each "
+                        "cloud's best maximum position of its predicted "
+                        "class")
     args = p.parse_args(argv)
     t_start = time.perf_counter()
     device = torch.device(args.device)
@@ -42,7 +48,8 @@ def main(argv=None) -> int:
     codebook = load_codebook(args.detect).to(device)
     cfg = PipelineConfig.from_ism(config, codebook.num_classes)
     params = CodebookParams.from_config(config.child("Codebook"))
-    model = IsmClassifier(codebook, cfg, params)
+    model = (IsmDetector if args.maxima else IsmClassifier)(codebook, cfg,
+                                                            params)
 
     fl = parse_file_list(args.file)
     labels = fl.instance_labels if fl.using_instances else fl.class_labels
@@ -69,24 +76,35 @@ def main(argv=None) -> int:
     B = args.batch
 
     def call(i):
+        """Per-class scores [b, C] (the densities with --maxima) and, with
+        --maxima, the positions [b, C, 3]."""
         with torch.no_grad():
-            return model(clouds_t[i:i + B], masks_t[i:i + B])
+            out = model(clouds_t[i:i + B], masks_t[i:i + B])
+        return out if args.maxima else (out, None)
 
     # first result: kernel build (first run) + first batch, fetched
-    call(0).cpu()
+    call(0)[0].cpu()
     ttfr = time.perf_counter() - t_start
     print(f" Time to first result: {ttfr:.1f} s (eager)")
 
-    preds = []
+    preds, maxima = [], []
     t0 = time.perf_counter()
     for i in range(0, n, B):
-        preds.extend(call(i).argmax(dim=1).tolist())
+        scores, pos = call(i)
+        best = scores.argmax(dim=1)
+        preds.extend(best.tolist())
+        if args.maxima:
+            maxima.extend(pos[torch.arange(len(best)), best].tolist())
     dt = time.perf_counter() - t0
 
     correct = sum(int(pr == gt) for pr, gt in zip(preds, labels))
-    for fn, pr, gt in zip(fl.filenames, preds, labels):
+    for k, (fn, pr, gt) in enumerate(zip(fl.filenames, preds, labels)):
+        extra = ""
+        if args.maxima:
+            x, y, z = maxima[k]
+            extra = f" maximum ({x:.3f} {y:.3f} {z:.3f})"
         print(f"{fn}: predicted {pr}, ground truth {gt} "
-              f"{'OK' if pr == gt else 'WRONG'}")
+              f"{'OK' if pr == gt else 'WRONG'}{extra}")
     print(f"\n Accuracy: {100.0 * correct / max(n, 1):.0f} % ({correct}/{n})")
     print(f" Throughput: {n / dt:.1f} clouds/sec on {device}")
     return 0

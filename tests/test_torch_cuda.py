@@ -14,7 +14,7 @@ import pytest
 import torch
 
 import shapes
-from bench_data import KEYPOINT_CAPACITY
+from bench_data import KEYPOINT_CAPACITY, bench_clouds
 from torch_parity import (assert_decisions_match, assert_topk_close,
                           cuda_device, n, t)  # noqa: F401
 
@@ -22,7 +22,9 @@ from point_cloud_donkey_tpu_torch.kernels import build
 from point_cloud_donkey_tpu_torch.models.codebook import (CodebookParams,
                                                           load_codebook)
 from point_cloud_donkey_tpu_torch.models.pipeline import (IsmClassifier,
+                                                          IsmDetector,
                                                           PipelineConfig)
+from point_cloud_donkey_tpu_torch.ops import binned
 from point_cloud_donkey_tpu_torch.ops.kernels import chisq as tchisq
 from point_cloud_donkey_tpu_torch.ops.kernels import lrf_moments as tlrfm
 from point_cloud_donkey_tpu_torch.ops.kernels import shot_fused as tshot
@@ -79,6 +81,69 @@ def test_shot_tiles_match_plain(cuda_device, clouds):
     torch.testing.assert_close(h, ph, rtol=1e-4, atol=1e-4)
 
 
+def test_windowed_moments_and_sign_votes_match_plain(cuda_device, clouds):
+    """K5 / K6 on sorted clouds at their calibrated window: the K1 / K2
+    contracts against their twins (which run the same windows)."""
+    pts, mask = (x.to(cuda_device) for x in clouds)
+    s = binned.sort_clouds_ex(pts, mask)
+    win = binned.required_window(pts, mask, 0.25)
+    assert win < pts.shape[1]
+    plan = binned.window_starts(s.keys, s.mask, s.keys, 0.25, win)
+    assert bool(plan.exact)
+    q, p = tlrfm.prep_shift(s.points, s.points, s.mask)
+    mom, cnt = tlrfm.moments_windowed(q, p, s.mask, plan.starts, win, 0.25)
+    pmom, pcnt = tlrfm.moments_windowed_plain(q, p, s.mask, plan.starts, win,
+                                              0.25)
+    torch.testing.assert_close(mom, pmom, rtol=2e-4, atol=1e-5)
+    assert (cnt - pcnt).abs().max() <= 1
+    axes = torch.nn.functional.normalize(
+        torch.randn(*q.shape[:2], 6, device=cuda_device), dim=-1)
+    for z_only in (False, True):
+        v = tlrfm.sign_votes_windowed(q, p, s.mask, axes, plan.starts, win,
+                                      0.25, z_only)
+        pv = tlrfm.sign_votes_windowed_plain(q, p, s.mask, axes, plan.starts,
+                                             win, 0.25, z_only)
+        assert (v - pv).abs().max() <= 1
+
+
+def test_shot_dense_matches_plain(cuda_device, clouds):
+    """K7 vs its twin on the dense keypoint grid, some rows not live:
+    counts equal, raw histograms within f32 summation order (atomics)."""
+    pts, mask = (x.to(cuda_device) for x in clouds)
+    nrm = compute_normals_fast(pts, mask, 0.25)
+    kres = voxel_grid(pts, mask, 0.35, capacity=KEYPOINT_CAPACITY)
+    lrf = shot_lrf(kres.centroids, kres.mask, pts, mask, 0.5)
+    live = lrf.valid.clone()
+    live[:, ::7] = False
+    args = (kres.centroids.contiguous(), lrf.frames.contiguous(), live, pts,
+            nrm, mask, 0.6)
+    h, c = tshot.shot_dense(*args)
+    ph, pc = tshot.shot_dense_plain(*args)
+    assert torch.equal(c, pc)
+    torch.testing.assert_close(h, ph, rtol=1e-4, atol=1e-4)
+
+
+def test_detector_matches_jax_reference(cuda_device):
+    """IsmDetector on the card vs the committed JAX-CPU detect_maxima_jit
+    densities of the first 32 bench clouds; K7 was launched."""
+    ref = np.load(DATA + "bench_reference.npz")
+    config = IsmConfig.load(DATA + "bench_codebook.ism")
+    cb = load_codebook(DATA + "bench_codebook.ism").to(cuda_device)
+    cfg = PipelineConfig.from_ism(config, cb.num_classes,
+                                  keypoint_capacity=KEYPOINT_CAPACITY)
+    model = IsmDetector(cb, cfg,
+                        CodebookParams.from_config(config.child("Codebook")))
+    _, _, pts, labels = bench_clouds(len(ref["detect_densities"]))
+    pts = t(pts).to(cuda_device)
+    mask = torch.ones(pts.shape[:2], dtype=torch.bool, device=cuda_device)
+    build.reset_launch_counts()
+    with torch.no_grad():
+        dens, pos = model(pts, mask)
+    assert build.launch_counts()["shot_dense"] == 1
+    assert_decisions_match(dens, ref["detect_densities"])
+    assert (n(dens).argmax(1) == labels).all()
+
+
 @pytest.mark.parametrize("k", [1, 3])
 def test_chisq_topk_matches_plain(cuda_device, k):
     g = torch.Generator().manual_seed(9)
@@ -109,6 +174,35 @@ def test_slice_matches_jax_reference(cuda_device):
     build.reset_launch_counts()
     with torch.no_grad():
         scores = model(pts, mask)
-    assert all(build.launch_counts().values()), build.launch_counts()
+        again = model(pts, mask)
+    counts = build.launch_counts()
+    assert all(counts[k] for k in ("lrf_moments", "sign_votes",
+                                   "shot_fused", "chisq_topk")), counts
     assert_decisions_match(scores, ref["scores"])
+    assert (n(scores).argmax(1) == ref["labels"]).all()
+    # deterministic sums (voxel grid, scores): two runs agree bit for bit
+    assert torch.equal(scores, again)
+
+
+def test_windowed_slice_matches_jax_reference(cuda_device):
+    """IsmClassifier with the committed calibrated window vs the committed
+    JAX-CPU windowed scores; K5 and K6 were launched, nothing recomputed."""
+    ref = np.load(DATA + "bench_reference.npz")
+    config = IsmConfig.load(DATA + "bench_codebook.ism")
+    cb = load_codebook(DATA + "bench_codebook.ism").to(cuda_device)
+    cfg = PipelineConfig.from_ism(config, cb.num_classes,
+                                  keypoint_capacity=KEYPOINT_CAPACITY,
+                                  normals_window=int(ref["normals_window"]))
+    model = IsmClassifier(cb, cfg,
+                          CodebookParams.from_config(config.child("Codebook")))
+    pts = t(ref["points"]).to(cuda_device)
+    mask = torch.ones(pts.shape[:2], dtype=torch.bool, device=cuda_device)
+    build.reset_launch_counts()
+    with torch.no_grad():
+        scores = model(pts, mask)
+    counts = build.launch_counts()
+    assert counts["lrf_moments_windowed"] == counts["sign_votes_windowed"] \
+        == 1, counts
+    assert model.dense_recomputes == 0
+    assert_decisions_match(scores, ref["scores_windowed"])
     assert (n(scores).argmax(1) == ref["labels"]).all()

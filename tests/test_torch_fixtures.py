@@ -8,8 +8,8 @@ import json
 
 import numpy as np
 
-from torch_fixtures import (CODEBOOK, N_REF, REFERENCE, build_codebook,
-                            build_reference)
+from torch_fixtures import (CODEBOOK, N_DETECT, N_REF, REFERENCE,
+                            build_codebook, build_reference)
 
 
 def test_fixtures_match_the_jax_package(tmp_path):
@@ -30,7 +30,12 @@ def test_fixtures_match_the_jax_package(tmp_path):
         np.testing.assert_array_equal(fresh["points"], old["points"])
         np.testing.assert_array_equal(fresh["labels"], old["labels"])
         # float round-off between two CPU runs of the same programs
-        np.testing.assert_allclose(fresh["scores"], old["scores"],
-                                   rtol=1e-5, atol=1e-5)
+        for k in ("scores", "scores_windowed", "detect_densities",
+                  "detect_positions"):
+            np.testing.assert_allclose(fresh[k], old[k], rtol=1e-5,
+                                       atol=1e-5, err_msg=k)
+        assert int(fresh["normals_window"]) == int(old["normals_window"])
+        assert 0 < int(old["normals_window"]) < 2048
         assert old["points"].shape == (N_REF, 2048, 3)
+        assert old["detect_positions"].shape == (N_DETECT, 5, 3)
 

@@ -1,6 +1,7 @@
 """The port's slice end to end on the CPU: IsmClassifier against the JAX
 ``classify_scores_batch`` on bench-geometry clouds with the fixture
-codebook, the serve entry point, and import hygiene."""
+codebook, with dense and with sorted-axis windowed normals, the serve
+entry point, and import hygiene."""
 
 import ast
 import os
@@ -12,7 +13,7 @@ import numpy as np
 import pytest
 import torch
 
-from torch_fixtures import CODEBOOK, REFERENCE, jax_scores
+from torch_fixtures import CODEBOOK, REFERENCE, jax_scores, jax_window
 from torch_parity import assert_decisions_match, n, t
 
 from point_cloud_donkey_tpu_torch import serve
@@ -22,17 +23,19 @@ from point_cloud_donkey_tpu_torch.models.codebook import (CodebookParams,
 from point_cloud_donkey_tpu_torch.models.pipeline import (STAGES,
                                                           IsmClassifier,
                                                           PipelineConfig)
+from point_cloud_donkey_tpu_torch.ops.binned import sort_clouds_ex
 from point_cloud_donkey_tpu_torch.utils.config import IsmConfig
 from point_cloud_donkey_tpu_torch.utils.io import save_pcd
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def bench_model(device="cpu"):
+def bench_model(device="cpu", normals_window=0):
     config = IsmConfig.load(CODEBOOK)
     cb = load_codebook(CODEBOOK).to(device)
     cfg = PipelineConfig.from_ism(config, cb.num_classes,
-                                  keypoint_capacity=192)
+                                  keypoint_capacity=192,
+                                  normals_window=normals_window)
     return IsmClassifier(cb, cfg,
                          CodebookParams.from_config(config.child("Codebook")))
 
@@ -65,9 +68,51 @@ def test_slice_matches_jax_classify_scores_batch():
     assert set(build.launch_counts().values()) == {0}
 
 
+def _padded_batch():
+    """4 reference clouds, the last with its tail padded (masked, 1e9)."""
+    ref = np.load(REFERENCE)
+    pts = ref["points"][:4].copy()
+    mask = np.ones(pts.shape[:2], bool)
+    mask[3, 1800:] = False
+    pts[3, 1800:] = 1e9
+    return pts, mask, ref["labels"][:4]
+
+
+def test_windowed_slice_matches_jax_classify_scores_batch():
+    """normals_window calibrated by the JAX ``required_window`` on the
+    batch: port vs live JAX-CPU scores with the same window, decisions as
+    in the dense slice; the plan is exact, so nothing is recomputed."""
+    pts, mask, labels = _padded_batch()
+    window = jax_window(pts, mask)
+    assert 0 < window < pts.shape[1]
+    jax_s = jax_scores(CODEBOOK, pts, mask, window)
+    model = bench_model(normals_window=window)
+    seen = []
+    with torch.no_grad():
+        scores = model(t(pts), t(mask), on_stage=seen.append)
+    assert tuple(seen) == STAGES
+    assert model.dense_recomputes == 0
+    assert_decisions_match(scores, jax_s)
+    assert (n(scores).argmax(1) == labels).all()
+
+
+def test_window_flag_trip_recomputes_dense_normals():
+    """A window too narrow for the batch (128 points) trips the exactness
+    flag: the step recomputes the normals densely and gives exactly the
+    dense step's scores on the same (sorted) clouds."""
+    pts, mask, _ = _padded_batch()
+    tripped = bench_model(normals_window=128)
+    srt = sort_clouds_ex(t(pts), t(mask))
+    with torch.no_grad():
+        scores = tripped(t(pts), t(mask))
+        dense = bench_model()(srt.points, srt.mask)
+    assert tripped.dense_recomputes == 1
+    assert torch.equal(scores, dense)
+
+
 def test_unported_configurations_raise():
     cb = load_codebook(CODEBOOK)
-    for bad in ({"descriptor": "CSHOT"}, {"normals_window": 1280},
+    for bad in ({"descriptor": "CSHOT"}, {"descriptor_window": 1280},
                 {"normals_method": 1}):
         with pytest.raises(NotImplementedError):
             IsmClassifier(cb, PipelineConfig(**bad))

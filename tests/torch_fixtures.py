@@ -5,7 +5,12 @@
       trained by the JAX package on CPU;
   point_cloud_donkey_tpu_torch/data/bench_reference.npz:
       the first N_REF clouds of the bench batch, their labels, and the
-      JAX-CPU ``classify_scores_batch`` scores with that codebook.
+      JAX-CPU ``classify_scores_batch`` scores with that codebook: dense
+      normals (``scores``) and the sorted-axis normals window that
+      ``ops/binned.required_window`` calibrates on these clouds
+      (``normals_window``, ``scores_windowed``); and the JAX-CPU
+      ``jax.vmap(detect_maxima_jit)`` densities and positions of the first
+      N_DETECT clouds (``detect_densities``, ``detect_positions``).
 
 The machine with the GPU has no JAX, so these files carry the reference
 across.  tests/test_torch_fixtures.py regenerates both and checks they
@@ -31,6 +36,7 @@ DATA_DIR = os.path.join(os.path.dirname(os.path.dirname(
 CODEBOOK = os.path.join(DATA_DIR, "bench_codebook.ism")
 REFERENCE = os.path.join(DATA_DIR, "bench_reference.npz")
 N_REF = 16
+N_DETECT = 32   # bench.py's MS_BATCH
 
 
 def jax_pipeline_config():
@@ -61,32 +67,76 @@ def build_codebook(path: str) -> None:
     ism.save(path)
 
 
+def _jax_codebook(codebook_path: str):
+    import jax.numpy as jnp
+    from point_cloud_donkey_tpu.models.codebook import TrainedCodebook
+    with np.load(codebook_path + "d.npz") as z:
+        return TrainedCodebook(**{k[3:]: jnp.asarray(z[k]) for k in z.files
+                                  if k.startswith("cb_")})
+
+
 def jax_scores(codebook_path: str, points: np.ndarray,
-               mask: np.ndarray) -> np.ndarray:
-    """JAX-CPU classify_scores_batch scores [B, C] with the bench config."""
+               mask: np.ndarray, normals_window: int = 0) -> np.ndarray:
+    """JAX-CPU classify_scores_batch scores [B, C] with the bench config
+    (and a sorted-axis normals window when given; its exactness flag must
+    hold)."""
     import jax
     import jax.numpy as jnp
-    from point_cloud_donkey_tpu.models.codebook import (CodebookParams,
-                                                        TrainedCodebook)
+    from point_cloud_donkey_tpu.models.codebook import CodebookParams
     from point_cloud_donkey_tpu.models.pipeline_jit import \
         classify_scores_batch
 
-    with np.load(codebook_path + "d.npz") as z:
-        cb = TrainedCodebook(**{k[3:]: jnp.asarray(z[k]) for k in z.files
-                                if k.startswith("cb_")})
+    cb = _jax_codebook(codebook_path)
+    cfg = jax_pipeline_config()._replace(normals_window=normals_window)
+    params = CodebookParams(knn_k=1)
+    step = jax.jit(lambda p, m: classify_scores_batch(p, m, cb, cfg, params))
+    scores, exact = step(jnp.asarray(points), jnp.asarray(mask))
+    assert bool(exact), "the normals window does not cover these clouds"
+    return np.asarray(scores)
+
+
+def jax_window(points: np.ndarray, mask: np.ndarray) -> int:
+    """bench.py's normals-window calibration (tile 256, align 128)."""
+    import jax.numpy as jnp
+    from point_cloud_donkey_tpu.ops import binned
+    return int(binned.required_window(jnp.asarray(points), jnp.asarray(mask),
+                                      jax_pipeline_config().normal_radius,
+                                      tile_q=256, align=128))
+
+
+def jax_detect(codebook_path: str, points: np.ndarray, mask: np.ndarray):
+    """JAX-CPU jax.vmap(detect_maxima_jit) with the bench config:
+    (densities [B, C], positions [B, C, 3])."""
+    import jax
+    import jax.numpy as jnp
+    from point_cloud_donkey_tpu.models.codebook import CodebookParams
+    from point_cloud_donkey_tpu.models.pipeline_jit import detect_maxima_jit
+
+    cb = _jax_codebook(codebook_path)
     cfg = jax_pipeline_config()
     params = CodebookParams(knn_k=1)
-    step = jax.jit(lambda p, m: classify_scores_batch(p, m, cb, cfg,
-                                                      params)[0])
-    return np.asarray(step(jnp.asarray(points), jnp.asarray(mask)))
+    step = jax.jit(jax.vmap(lambda p, m: detect_maxima_jit(p, m, cb, cfg,
+                                                           params)))
+    dens, pos = step(jnp.asarray(points), jnp.asarray(mask))
+    return np.asarray(dens), np.asarray(pos)
 
 
 def build_reference(codebook_path: str, path: str) -> None:
-    _, _, clouds, labels = bench_clouds(N_REF)
+    _, _, clouds, labels = bench_clouds(max(N_REF, N_DETECT))
     mask = np.ones(clouds.shape[:2], bool)
-    scores = jax_scores(codebook_path, clouds, mask)
-    np.savez_compressed(path, points=clouds, labels=labels.astype(np.int32),
-                        scores=scores.astype(np.float32))
+    ref, ref_mask = clouds[:N_REF], mask[:N_REF]
+    scores = jax_scores(codebook_path, ref, ref_mask)
+    window = jax_window(ref, ref_mask)
+    scores_w = jax_scores(codebook_path, ref, ref_mask, window)
+    dens, pos = jax_detect(codebook_path, clouds[:N_DETECT],
+                           mask[:N_DETECT])
+    np.savez_compressed(path, points=ref,
+                        labels=labels[:N_REF].astype(np.int32),
+                        scores=scores.astype(np.float32),
+                        normals_window=np.int32(window),
+                        scores_windowed=scores_w.astype(np.float32),
+                        detect_densities=dens.astype(np.float32),
+                        detect_positions=pos.astype(np.float32))
 
 
 def main() -> None:
