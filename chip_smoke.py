@@ -11,7 +11,8 @@ Phases (each prints its results; any failure raises and exits nonzero):
      shapes its main path gives it: K1-K4 at the dense classify step's on
      the 128-cloud bench batch, K5/K6 at the windowed step's (the sorted
      batch, window calibrated on it), K7 at the mean-shift step's (32
-     clouds x 192 keypoints);
+     clouds x 192 keypoints), and K7 with and without its point-chunk
+     split at 1, 8 and 32 clouds;
   3. LRF frames and SHOT descriptors against tests/golden/descriptors.npz;
   4. the dense classify step: IsmClassifier on the 128 x 2048 bench batch
      with the committed codebook -- per-stage ms, clouds/s, K1-K4 launched,
@@ -19,11 +20,13 @@ Phases (each prints its results; any failure raises and exits nonzero):
   4b. the windowed classify step: the same with the calibrated normals
      window -- K5/K6 launched, no dense recompute, decisions against the
      committed JAX-CPU windowed reference; then a forced flag trip
-     (window 128) recomputes densely and matches the dense step;
+     (window 128) recomputes densely: bit-equal to the dense step on the
+     same sorted clouds, and the same decisions as on the unsorted ones;
   5. the serve entry point on 8 PCD files with --device cuda;
   6. the mean-shift detection step: IsmDetector on the first 32 bench
-     clouds -- per-stage ms, clouds/s, K7 launched, densities and maxima
-     against the committed JAX-CPU detect_maxima_jit reference; then
+     clouds -- per-stage ms, clouds/s, K7 launched, densities (decisions,
+     rms and max relative delta) and the best class's maximum against the
+     committed JAX-CPU detect_maxima_jit reference; then
      serve --maxima --device cuda on 8 PCD files.
 Before the last line it prints one JSON line with every kernel's launches
 (summed over one step of each of the three paths, counted from 0 just
@@ -89,6 +92,12 @@ VOTE_BODY_OPS = 6      # one (p - q) . axis (3 mul, 2 add) and its compare
 SHOT_BODY_OPS = 100    # frame coords, cosine, binning, 5 slot adds;
 #                        sqrtf, acosf and atan2f count one each
 CHISQ_TERM_OPS = 6     # a + b, a - b, square, divide, compare, accumulate
+
+# detection against the JAX-CPU detect_maxima_jit reference: the best
+# class's maximum within a few times mean-shift's 1e-3 stopping shift, its
+# densities within a relative 2e-3 (PERF.md gives the readings behind both)
+POS_TOL = 1e-2
+DENS_RTOL = 2e-3
 
 
 def phase(name):
@@ -366,22 +375,27 @@ def main():
         assert cos.min() > 0.999 and off < 1e-4, (cos.min(), off)
         live = int(mlrf.valid.sum())
         tiles = mkp.shape[0] * mkp.shape[1] // kshot.TK
-        chunks = kshot.dense_chunks(
-            tiles, mp.shape[1],
-            torch.cuda.get_device_properties(0).multi_processor_count)
-        # the point-chunk count of K7's grid, swept (the wrapper's rule
-        # picks `chunks`)
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        chunks = kshot.dense_chunks(tiles, mp.shape[1], sms)
+        # K7 with one point chunk per tile against the wrapper's rule, at a
+        # single cloud, a small serving batch and the mean-shift batch
         rule = kshot.dense_chunks
-        sweep = {}
-        try:
-            for c in (1, 2, 3, 4, 6, 8):
-                kshot.dense_chunks = lambda *a, c=c: c
-                sweep[c] = cuda_ms(lambda: kshot.shot_dense(*dense_args), 5)
-        finally:
-            kshot.dense_chunks = rule
-        print(f"{'shot_dense':20s} chunks -> kernel ms: " + ", ".join(
-            f"{c}: {ms:.3f}" for c, ms in sweep.items())
-            + f" (the rule picks {chunks})")
+        for nb in (1, 8, MS_BATCH):
+            args_b = tuple(a[:nb].contiguous() for a in dense_args[:6]) \
+                + (cfg.radius,)
+            tiles_b = nb * mkp.shape[1] // kshot.TK
+            pick = rule(tiles_b, mp.shape[1], sms)
+            try:
+                kshot.dense_chunks = lambda *a: 1
+                one = cuda_ms(lambda: kshot.shot_dense(*args_b), 5)
+                _, c1 = kshot.shot_dense(*args_b)
+            finally:
+                kshot.dense_chunks = rule
+            split = cuda_ms(lambda: kshot.shot_dense(*args_b), 5)
+            _, cr = kshot.shot_dense(*args_b)
+            assert torch.equal(c1, cr), "K7 counts depend on the chunks"
+            print(f"{'shot_dense':20s} B={nb} ({tiles_b} tiles): 1 chunk "
+                  f"{one:.4f} ms, the rule's {pick} chunks {split:.4f} ms")
         record("shot_dense", (dh - pdh).abs().max(),
                cuda_ms(lambda: kshot.shot_dense(*dense_args), 5),
                cuda_ms(lambda: kshot.shot_dense_plain(*dense_args), 2),
@@ -459,14 +473,22 @@ def main():
         # the tripped step runs dense on the sorted clouds: the dense step
         # on the same sorted clouds gives the same scores, bit for bit
         sorted_dense = model(srt.points, srt.mask)
-    delta = float((tscores - dense_scores).abs().max())
-    print(f"forced trip (window 128): dense recomputes "
-          f"{tripped.dense_recomputes}; scores equal to the dense step on "
-          f"the sorted clouds: {bool(torch.equal(tscores, sorted_dense))}; "
-          f"max |scores - dense step on the unsorted clouds| {delta:.3e}")
-    assert tripped.dense_recomputes == 1
+        again = tripped(pts, mask)
+    assert tripped.dense_recomputes == 2
+    assert torch.equal(tscores, again), "two tripped steps differ"
     assert torch.equal(tscores, sorted_dense), \
         "the dense recompute differs from the dense step"
+    # against the dense step on the unsorted clouds the scores differ by
+    # the summation order of the sorted points only
+    diff = (tscores - dense_scores).abs()
+    flips = (tscores.argmax(1) != dense_scores.argmax(1)).nonzero()[:, 0]
+    print(f"forced trip (window 128): dense recomputes 1 a step; scores "
+          f"equal to the dense step on the sorted clouds; sorted vs unsorted "
+          f"dense step: max |delta| {float(diff.max()):.3e} on cloud "
+          f"{int(diff.max(1).values.argmax())}, {int((diff.max(1).values > 0).sum())}"
+          f"/{BATCH} clouds moved, argmax differs on clouds {flips.tolist()}")
+    check_decisions(tscores.cpu().numpy(), dense_scores.cpu().numpy(),
+                    labels, "the unsorted dense step")
     check_decisions(tscores.cpu().numpy(), ref["scores"], labels)
 
     # -- 5. serve -------------------------------------------------------------
@@ -489,14 +511,16 @@ def main():
     d, p = dens.cpu().numpy(), pos.cpu().numpy()
     assert np.isfinite(d).all() and np.isfinite(p).all()
     rd, rp = ref["detect_densities"], ref["detect_positions"]
-    check_decisions(d, rd, labels[:MS_BATCH], rms_gate=False)
+    check_decisions(d, rd, labels[:MS_BATCH])
     best = rd.argmax(1)
     perr = float(np.abs(p[np.arange(MS_BATCH), best]
                         - rp[np.arange(MS_BATCH), best]).max())
     drel = float((np.abs(d - rd) / np.maximum(np.abs(rd), 1.0)).max())
-    print(f"best-class maximum vs JAX-CPU: max |position delta| {perr:.3e}; "
-          f"densities max relative delta {drel:.3e}")
-    assert perr <= 0.1, "maxima differ from the JAX reference"
+    print(f"best-class maximum vs JAX-CPU: max |position delta| {perr:.3e} "
+          f"(limit {POS_TOL}); densities max relative delta {drel:.3e} "
+          f"(limit {DENS_RTOL})")
+    assert perr <= POS_TOL, "maxima differ from the JAX reference"
+    assert drel <= DENS_RTOL, "densities differ from the JAX reference"
     text = serve_files(serve, model_path, ref["points"][:8],
                        ref["labels"][:8], ["--maxima"])
     rows = re.findall(r"predicted \d+, ground truth \d+ (?:OK|WRONG) "
@@ -562,10 +586,10 @@ def drive(path, model, stages, pts, mask, rounds, card):
     return out, launches
 
 
-def check_decisions(s, rs, labels, rms_gate=True):
-    """Accuracy 1.0 against the labels, argmax equal to the JAX-CPU
-    reference rs on every firm cloud (margin > 3) and, for scores, an rms
-    delta <= 5% of the scale."""
+def check_decisions(s, rs, labels, what="JAX-CPU reference"):
+    """Accuracy 1.0 against the labels, argmax equal to the reference rs
+    (by default the committed JAX-CPU one) on every firm cloud (margin > 3)
+    and an rms delta <= 5% of the scale."""
     import numpy as np
     acc = float((s.argmax(1) == labels[:len(s)]).mean())
     srt = np.sort(rs, axis=1)
@@ -574,13 +598,13 @@ def check_decisions(s, rs, labels, rms_gate=True):
     agree = sub.argmax(1)[firm] == rs.argmax(1)[firm]
     rms = float(np.sqrt(((sub - rs) ** 2).mean()))
     scale = float(np.abs(rs).max())
-    print(f"accuracy vs labels {acc:.4f} on {len(s)} clouds; vs JAX-CPU "
-          f"reference: argmax agrees on {int(agree.sum())}/{int(firm.sum())} "
+    print(f"accuracy vs labels {acc:.4f} on {len(s)} clouds; vs {what}: "
+          f"argmax agrees on {int(agree.sum())}/{int(firm.sum())} "
           f"firm clouds, rms delta {rms:.3e} (scale {scale:.2f}, "
           f"{100 * rms / scale:.4f}%)")
     assert acc == 1.0 and firm.any() and agree.all(), \
-        "decisions differ from JAX"
-    assert not rms_gate or rms <= 0.05 * scale, "scores differ from JAX"
+        f"decisions differ from the {what}"
+    assert rms <= 0.05 * scale, f"scores differ from the {what}"
 
 
 def serve_files(serve, model_path, clouds, labels, extra):

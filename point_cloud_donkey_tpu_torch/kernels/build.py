@@ -1,8 +1,7 @@
 """Build the CUDA kernels of ``csrc/`` with nvcc and load them with ctypes.
 
-The kernels have a plain C interface (no PyTorch headers): one nvcc per
-source compiles it to an object, all started together, and one more call
-links the objects, so the build takes as long as the slowest source.  The shared library goes to
+The kernels have a plain C interface (no PyTorch headers), so one nvcc call
+builds them all in seconds.  The shared library goes to
 ``build/torch_kernels/<hash>/`` beside the package, where the hash covers
 every source, the flags and the nvcc version: a library built from other
 sources or flags is never loaded.  The build happens at the first kernel
@@ -115,32 +114,25 @@ def build(verbose: bool = False) -> str:
     if os.path.exists(out):
         return out
     os.makedirs(os.path.dirname(out), exist_ok=True)
-    # build in a private directory, then rename the library: a process
-    # building at the same time never loads a half-written one
-    tmpdir = tempfile.mkdtemp(dir=os.path.dirname(out))
+    # build to a temporary name, then rename: concurrent builders never
+    # load a half-written library
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=os.path.dirname(out))
+    os.close(fd)
     cu = [p for p in _sources() if p.endswith(".cu")]
-    objs = [os.path.join(tmpdir, os.path.basename(p) + ".o") for p in cu]
-    ptxas = ["-Xptxas=-v"] if verbose else []
+    cmd = [nvcc, *NVCC_FLAGS, "-I", CSRC_DIR, "-o", tmp, *cu]
+    if verbose:
+        cmd.insert(1, "-Xptxas=-v")
     try:
-        procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True))
-                 for cmd in ([nvcc, *NVCC_FLAGS, *ptxas, "-I", CSRC_DIR, "-c",
-                              "-o", o, src] for src, o in zip(cu, objs))]
-        logs = [proc.communicate()[0] for _, proc in procs]  # wait for all
-        for (cmd, proc), log in zip(procs, logs):
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({' '.join(cmd)}):\n{log}")
-        lib_tmp = os.path.join(tmpdir, "libpcd_kernels.so")
-        cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", lib_tmp, *objs]
         res = subprocess.run(cmd, capture_output=True, text=True)
         if res.returncode != 0:
             raise RuntimeError(f"nvcc failed ({' '.join(cmd)}):\n"
                                f"{res.stdout}\n{res.stderr}")
         if verbose:
-            print("".join(logs) + res.stdout + res.stderr, flush=True)
-        os.replace(lib_tmp, out)
+            print(res.stdout + res.stderr, flush=True)
+        os.replace(tmp, out)
     finally:
-        shutil.rmtree(tmpdir, ignore_errors=True)
+        if os.path.exists(tmp):
+            os.remove(tmp)
     return out
 
 

@@ -6,7 +6,7 @@ point_cloud_donkey_tpu/models/pipeline_jit.py.
 Classification stages (STAGES), for B clouds of N points:
   0. sort: with a normals window (0 < normals_window < N), each cloud is
      sorted along its principal axis (ops/binned.py); the other stages then
-     run on the sorted clouds (scores are point-order invariant);
+     run on the sorted clouds;
   1. normals: the sign-voted z axis of every point's own SHOT LRF -- over
      each 256-point tile's window (K5, K6) or over the whole cloud (K1, K2);
   2. keypoints: voxel-grid centroids, valid rows first;
@@ -17,8 +17,12 @@ Classification stages (STAGES), for B clouds of N points:
   5. kNN + votes: chi-square nearest codewords (K4) and vote casting;
   6. scores: per-class Gaussian vote density at each cloud's centroid
      (single-object mode, bandwidth = the voting bandwidth).
-Scores are point-order invariant and each cloud's are independent of the
-rest of the batch.
+Each cloud's scores are independent of the rest of the batch.  They are
+not bit-invariant to the order of its points, which sets the
+floating-point summation order of every sum over points.
+On the 128-cloud bench batch on an H100, sorting the clouds moved the
+dense step's scores by up to 0.28 (rms 0.011, scores up to 111) and
+changed no cloud's argmax (PERF.md).
 """
 
 from __future__ import annotations
@@ -43,6 +47,10 @@ STAGES = ("sort", "normals", "keypoints", "lrf", "shot", "knn_votes",
           "scores")
 DETECT_STAGES = ("normals", "keypoints", "lrf", "shot", "knn_votes",
                  "mean_shift")
+# mean-shift seeds per (cloud, class) group and iterations at most: the
+# defaults of the JAX detect_maxima_jit, which bench.py and the serve CLI use
+SEED_CAPACITY = 256
+MAX_ITER = 100
 
 
 class PipelineConfig(NamedTuple):
@@ -226,15 +234,12 @@ class IsmDetector(nn.Module):
     ``_shot_fused_call``, whose parity target is that function."""
 
     def __init__(self, codebook: Codebook, cfg: PipelineConfig,
-                 params: Optional[CodebookParams] = None,
-                 seed_capacity: int = 256, max_iter: int = 100):
+                 params: Optional[CodebookParams] = None):
         super().__init__()
         _check_supported(cfg)
         self.codebook = codebook
         self.cfg = cfg
         self.params = params or CodebookParams()
-        self.seed_capacity = seed_capacity
-        self.max_iter = max_iter
 
     def forward(self, points: torch.Tensor,   # [B, N, 3] f32
                 mask: torch.Tensor,           # [B, N] bool
@@ -288,9 +293,9 @@ class IsmDetector(nn.Module):
         bw = self.cfg.bandwidth
         seeds, _, seed_mask = ms.create_seeds(pos, w, sel,
                                               ms.seeds_range(bw),
-                                              self.seed_capacity)
+                                              SEED_CAPACITY)
         centers, alive = ms.mean_shift(seeds, seed_mask, pos, w, sel, bw,
-                                       max_iter=self.max_iter)
+                                       max_iter=MAX_ITER)
         dens = ms.estimate_density(centers, pos, w, sel, bw)
         dens = torch.where(alive, dens, torch.zeros_like(dens))
         best = dens.argmax(-1)                       # first of equal maxima
