@@ -40,7 +40,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 NVCC_FALLBACK = "/usr/local/cuda/bin/nvcc"
 
 KERNELS = ("lrf_moments", "sign_votes", "shot_fused", "chisq_topk",
-           "lrf_moments_windowed", "sign_votes_windowed", "shot_dense")
+           "lrf_moments_windowed", "sign_votes_windowed", "shot_dense",
+           "shot_hist", "histogram")
 
 _LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 _LIB: Optional[ctypes.CDLL] = None
@@ -60,6 +61,8 @@ _SIGNATURES = {
                                 _F, _I, _P],
     "pcd_shot_dense": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
                        _P],
+    "pcd_shot_hist": [_P] * 12 + [_I, _I, _I, _P],
+    "pcd_histogram": [_P, _P, _P, _I, _I, _I, _P],
 }
 
 

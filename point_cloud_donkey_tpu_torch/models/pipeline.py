@@ -1,9 +1,10 @@
-"""The batched classification step (port of the compacted branches of
-``classify_scores_batch``) and the batched mean-shift detection step (port
-of ``jax.vmap(detect_maxima_jit)``), from
+"""The batched classification step (port of ``classify_scores_batch``) and
+the batched mean-shift detection step (port of
+``jax.vmap(detect_maxima_jit)``), from
 point_cloud_donkey_tpu/models/pipeline_jit.py.
 
-Classification stages (STAGES), for B clouds of N points:
+Classification stages (STAGES) of the SHOT step, for B clouds of N points
+(the compacted branch of ``classify_scores_batch``):
   0. sort: with a normals window (0 < normals_window < N), each cloud is
      sorted along its principal axis (ops/binned.py); the other stages then
      run on the sorted clouds;
@@ -17,6 +18,14 @@ Classification stages (STAGES), for B clouds of N points:
   5. kNN + votes: chi-square nearest codewords (K4) and vote casting;
   6. scores: per-class Gaussian vote density at each cloud's centroid
      (single-object mode, bandwidth = the voting bandwidth).
+The CSHOT and SHORT_SHOT steps are the ``jax.vmap(classify_scores)``
+branch, on the dense [B, K] keypoint grid: no sort; normals (K1, K2) for
+CSHOT only -- SHORT_SHOT reads none, the stage is empty; keypoints carry
+the mean colour of their voxel for CSHOT; LRF (K1, K2); the descriptor
+over every (keypoint, point) pair -- CSHOT-1344 accumulated by K8 twice
+(shape and colour channel), SHORT_SHOT-32 by K9; then kNN + votes (K4)
+over the valid rows of the grid and the same scores, each cloud's rows
+one run.
 Each cloud's scores are independent of the rest of the batch.  They are
 not bit-invariant to the order of its points, which sets the
 floating-point summation order of every sum over points.
@@ -39,6 +48,8 @@ from ..ops.kernels.shot_fused import (shot_descriptor_fused,
 from ..ops.lrf import shot_lrf
 from ..ops.neighbors import full_fp32
 from ..ops.normals import compute_normals_fast
+from ..ops.shot import cshot_descriptor_dense
+from ..ops.short_shot import short_shot_descriptor_dense
 from ..ops.voxel_grid import voxel_grid
 from ..utils.config import IsmConfig
 from .codebook import Codebook, CodebookParams, cast_votes
@@ -47,6 +58,7 @@ STAGES = ("sort", "normals", "keypoints", "lrf", "shot", "knn_votes",
           "scores")
 DETECT_STAGES = ("normals", "keypoints", "lrf", "shot", "knn_votes",
                  "mean_shift")
+DESCRIPTORS = ("SHOT", "CSHOT", "SHORT_SHOT")
 # mean-shift seeds per (cloud, class) group and iterations at most: the
 # defaults of the JAX detect_maxima_jit, which bench.py and the serve CLI use
 SEED_CAPACITY = 256
@@ -67,7 +79,8 @@ class PipelineConfig(NamedTuple):
     bandwidth: float = 0.5
     num_classes: int = 5
     # sorted-axis window of the normals (ops/binned.py); 0 = dense.
-    # Calibrate with ops.binned.required_window; a window >= N runs dense
+    # Calibrate with ops.binned.required_window; a window >= N runs dense.
+    # SHOT only; SHORT_SHOT has no normals and ignores it, as the JAX step
     normals_window: int = 0
     # the windowed descriptor (shot_descriptor_fused_windowed) is not ported
     descriptor_window: int = 0
@@ -94,9 +107,13 @@ class PipelineConfig(NamedTuple):
 
 
 def _check_supported(cfg: PipelineConfig) -> None:
-    if cfg.descriptor != "SHOT":
+    if cfg.descriptor not in DESCRIPTORS:
         raise NotImplementedError(
-            f"descriptor {cfg.descriptor!r}: the port serves SHOT only")
+            f"descriptor {cfg.descriptor!r}: the port serves "
+            f"{', '.join(DESCRIPTORS)}")
+    if cfg.descriptor == "CSHOT" and cfg.normals_window:
+        raise NotImplementedError(
+            "CSHOT with a normals window (normals_window) is not ported")
     if cfg.normals_method != 2:
         raise NotImplementedError(
             "ConsistentNormalsMethod != 2 (PCA normals) is not ported")
@@ -105,14 +122,15 @@ def _check_supported(cfg: PipelineConfig) -> None:
             "the windowed descriptor (descriptor_window) is not ported")
 
 
-def _keypoints(points, mask, cfg):
+def _keypoints(points, mask, cfg, rgb=None):
     """Voxel-grid keypoints, invalid rows parked at 1e9: (kp [B, K, 3],
-    kp_mask [B, K])."""
+    kp_mask [B, K], the mean colour of each voxel [B, K, 3] or None
+    without `rgb`)."""
     kres = voxel_grid(points, mask, cfg.leaf_size,
-                      capacity=cfg.keypoint_capacity)
-    kp = torch.where(kres.mask[..., None], kres.centroids,
-                     torch.full_like(kres.centroids, 1e9))
-    return kp, kres.mask
+                      capacity=cfg.keypoint_capacity, features=rgb)
+    xyz = kres.centroids[..., :3]
+    kp = torch.where(kres.mask[..., None], xyz, torch.full_like(xyz, 1e9))
+    return kp, kres.mask, None if rgb is None else kres.centroids[..., 3:6]
 
 
 class IsmClassifier(nn.Module):
@@ -139,15 +157,25 @@ class IsmClassifier(nn.Module):
 
     def forward(self, points: torch.Tensor,   # [B, N, 3] f32
                 mask: torch.Tensor,           # [B, N] bool
+                rgb: Optional[torch.Tensor] = None,  # [B, N, 3] in [0, 1]
                 on_stage: Optional[Callable[[str], None]] = None
                 ) -> torch.Tensor:
         """on_stage(name) is called after each stage of STAGES (for
-        timing with CUDA events)."""
+        timing with CUDA events).  `rgb` is read by CSHOT only, which
+        needs it."""
         mark = on_stage or (lambda name: None)
         cfg = self.cfg
-        b, n = points.shape[0], points.shape[1]
         points = points.contiguous()
         mask = mask.contiguous()
+        if cfg.descriptor != "SHOT":
+            if cfg.descriptor == "CSHOT" and rgb is None:
+                raise ValueError("CSHOT needs RGB data (rgb [B, N, 3])")
+            with full_fp32():
+                return self._forward_dense_grid(
+                    points, mask,
+                    rgb.contiguous() if cfg.descriptor == "CSHOT" else None,
+                    mark)
+        b, n = points.shape[0], points.shape[1]
         windowed = 0 < cfg.normals_window < n
         with full_fp32():
             if windowed:
@@ -165,7 +193,7 @@ class IsmClassifier(nn.Module):
                                                cfg.normal_radius)
             mark("normals")
 
-            kp, kp_mask = _keypoints(points, mask, cfg)
+            kp, kp_mask, _ = _keypoints(points, mask, cfg)
             mark("keypoints")
 
             lrf = shot_lrf(kp, kp_mask, points, mask, cfg.ref_frame_radius)
@@ -193,6 +221,49 @@ class IsmClassifier(nn.Module):
 
             scores = self._scores(points, mask, votes, cloud_id)
             mark("scores")
+        return scores
+
+    def _forward_dense_grid(self, points, mask, rgb, mark):
+        """The CSHOT / SHORT_SHOT step (``jax.vmap(classify_scores)``) on
+        the dense [B, K] keypoint grid."""
+        cfg = self.cfg
+        b = points.shape[0]
+        mark("sort")
+        normals = None
+        if cfg.descriptor == "CSHOT":
+            normals = compute_normals_fast(points, mask, cfg.normal_radius)
+        mark("normals")
+
+        kp, kp_mask, kp_rgb = _keypoints(points, mask, cfg, rgb)
+        k = kp.shape[1]
+        mark("keypoints")
+
+        lrf = shot_lrf(kp, kp_mask, points, mask, cfg.ref_frame_radius)
+        mark("lrf")
+
+        if rgb is None:
+            res = short_shot_descriptor_dense(kp, lrf.frames, lrf.valid,
+                                              points, mask, cfg.radius)
+        else:
+            res = cshot_descriptor_dense(kp, kp_rgb, lrf.frames, lrf.valid,
+                                         points, normals, rgb, mask,
+                                         cfg.radius)
+        mark("shot")
+
+        # only valid descriptors cast votes: the kNN runs on those rows alone
+        # (the step's one host read; ~45% of the grid is padding at the
+        # bench geometry), kept in cloud order for the scores' runs
+        rows = res.valid.reshape(b * k).nonzero()[:, 0]
+        votes = cast_votes(self.codebook,
+                           res.descriptors.reshape(b * k, -1)[rows],
+                           kp.reshape(b * k, 3)[rows],
+                           lrf.frames.reshape(b * k, 3, 3)[rows],
+                           res.valid.reshape(b * k)[rows], self.params,
+                           cfg.metric)
+        mark("knn_votes")
+
+        scores = self._scores(points, mask, votes, rows // k)
+        mark("scores")
         return scores
 
     def _scores(self, points, mask, votes, cloud_id):
@@ -237,6 +308,10 @@ class IsmDetector(nn.Module):
                  params: Optional[CodebookParams] = None):
         super().__init__()
         _check_supported(cfg)
+        if cfg.descriptor != "SHOT":
+            raise NotImplementedError(
+                f"detection with descriptor {cfg.descriptor!r}: the port's "
+                "mean-shift detection serves SHOT only")
         self.codebook = codebook
         self.cfg = cfg
         self.params = params or CodebookParams()
@@ -254,7 +329,7 @@ class IsmDetector(nn.Module):
             normals = compute_normals_fast(points, mask, cfg.normal_radius)
             mark("normals")
 
-            kp, kp_mask = _keypoints(points, mask, cfg)
+            kp, kp_mask, _ = _keypoints(points, mask, cfg)
             k = kp.shape[1]
             mark("keypoints")
 

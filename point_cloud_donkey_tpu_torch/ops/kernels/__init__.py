@@ -1,5 +1,5 @@
 """Wrappers of the port's CUDA kernels, one module per Pallas module of the
-JAX package (lrf_moments, shot_fused, chisq).
+JAX package (lrf_moments, shot_fused, chisq, shot_hist, histogram).
 
 Every wrapper checks device, dtype, shape and contiguity, then dispatches
 on the device of its input: CPU tensors run the plain PyTorch twin that

@@ -2,8 +2,9 @@
 point_cloud_donkey_tpu/ops/voxel_grid.py, batched over clouds).
 
 PCL semantics: voxel index = floor(p / leaf) - floor(min / leaf) per axis;
-output = mean of the points of each occupied voxel, ordered
-lexicographically by (i, j, k).  The order comes from three stable sorts
+output = mean of the points (and of any per-point features, such as the
+colours CSHOT reads) of each occupied voxel, ordered lexicographically by
+(i, j, k).  The order comes from three stable sorts
 (k, then j, then i), so equal keys keep the input order and no composite
 key can overflow.  Voxel ids at or past `capacity` are dropped, not
 clipped.  Each voxel's sum runs over its points in sorted order, the same
@@ -19,17 +20,22 @@ import torch
 
 
 class VoxelGridResult(NamedTuple):
-    centroids: torch.Tensor  # [..., K, 3] per-voxel means
+    centroids: torch.Tensor  # [..., K, 3 + F] per-voxel means of [xyz, features]
     mask: torch.Tensor       # [..., K] validity
 
 
 def voxel_grid(points: torch.Tensor,   # [N, 3] or [B, N, 3]
                mask: torch.Tensor,     # [N] or [B, N]
                leaf_size: float,
-               capacity: Optional[int] = None) -> VoxelGridResult:
+               capacity: Optional[int] = None,
+               features: Optional[torch.Tensor] = None  # [(B,) N, F]
+               ) -> VoxelGridResult:
+    """Per-voxel means of [points, features] (features ride through the
+    same sorts and the same fixed-order sums as the coordinates)."""
     single = points.dim() == 2
     if single:
         points, mask = points[None], mask[None]
+        features = None if features is None else features[None]
     b, n, _ = points.shape
     cap = capacity or n
 
@@ -50,7 +56,10 @@ def voxel_grid(points: torch.Tensor,   # [N, 3] or [B, N, 3]
         _, perm = torch.sort(key, dim=1, stable=True)
         order = torch.gather(order, 1, perm)
     sorted_ijk = torch.gather(ijk, 1, order[..., None].expand(b, n, 3))
-    sorted_pts = torch.gather(points, 1, order[..., None].expand(b, n, 3))
+    payload = points if features is None else torch.cat(
+        [points, features.to(points.dtype)], dim=-1)
+    f = payload.shape[-1]
+    sorted_pay = torch.gather(payload, 1, order[..., None].expand(b, n, f))
     sorted_valid = torch.gather(valid, 1, order)
 
     is_new = torch.ones((b, n), dtype=torch.bool, device=points.device)
@@ -68,8 +77,8 @@ def voxel_grid(points: torch.Tensor,   # [N, 3] or [B, N, 3]
                           device=points.device)
     lengths.scatter_add_(1, seg, torch.ones_like(seg))
     sums = torch.segment_reduce(
-        torch.where(sorted_valid[..., None], sorted_pts,
-                    torch.zeros_like(sorted_pts)), "sum", lengths=lengths,
+        torch.where(sorted_valid[..., None], sorted_pay,
+                    torch.zeros_like(sorted_pay)), "sum", lengths=lengths,
         axis=1)[:, :cap]
     counts = lengths[:, :cap].to(points.dtype)
 

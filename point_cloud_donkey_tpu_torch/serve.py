@@ -2,13 +2,15 @@
 with a trained model through IsmClassifier, or with --maxima through the
 mean-shift detection step IsmDetector, printing each cloud's best maximum
 of its predicted class (the PyTorch counterpart of
-point_cloud_donkey_tpu/cli/serve.py without mesh, AOT or CSHOT).
+point_cloud_donkey_tpu/cli/serve.py without mesh or AOT).
 
     python -m point_cloud_donkey_tpu_torch.serve -d model.ism -f list.txt \\
         --device cuda [--maxima]
 
 The model is the JAX package's save format: ``model.ism`` (JSON config)
-beside ``model.ismd.npz`` (trained arrays).
+beside ``model.ismd.npz`` (trained arrays).  A SHOT, CSHOT or SHORT_SHOT
+model classifies; a CSHOT model reads each file's colours and refuses a
+file without them.  --maxima serves SHOT models only.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ import torch
 from .models.codebook import CodebookParams, load_codebook
 from .models.pipeline import IsmClassifier, IsmDetector, PipelineConfig
 from .utils.config import IsmConfig
-from .utils.io import load_cloud, parse_file_list
+from .utils.io import parse_file_list, read_cloud
 
 
 def main(argv=None) -> int:
@@ -48,30 +50,48 @@ def main(argv=None) -> int:
     codebook = load_codebook(args.detect).to(device)
     cfg = PipelineConfig.from_ism(config, codebook.num_classes)
     params = CodebookParams.from_config(config.child("Codebook"))
+    if args.maxima and cfg.descriptor != "SHOT":
+        # the JAX CLI refuses CSHOT here; its SHORT_SHOT detection is not
+        # ported yet
+        print(f"--maxima does not support {cfg.descriptor} yet",
+              file=sys.stderr)
+        return 1
     model = (IsmDetector if args.maxima else IsmClassifier)(codebook, cfg,
                                                             params)
 
     fl = parse_file_list(args.file)
     labels = fl.instance_labels if fl.using_instances else fl.class_labels
 
-    # load + pad/subsample all clouds to a fixed shape
+    # load + pad/subsample all clouds to a fixed shape; pad rows carry
+    # zero colours
+    with_rgb = cfg.descriptor == "CSHOT"
     P = args.points
-    clouds, masks = [], []
+    clouds, masks, rgbs = [], [], []
     for fn in fl.filenames:
-        xyz = load_cloud(fn)
-        xyz = xyz[np.isfinite(xyz).all(axis=1)]
+        pc = read_cloud(fn)
+        keep = np.isfinite(pc.xyz).all(axis=1)
+        xyz, rgb = pc.xyz[keep], None if pc.rgb is None else pc.rgb[keep]
+        if with_rgb and rgb is None:
+            print(f"{fn}: CSHOT needs RGB data", file=sys.stderr)
+            return 1
         if len(xyz) > P:
             sel = np.random.default_rng(0).choice(len(xyz), P, replace=False)
             xyz = xyz[sel]
+            rgb = None if rgb is None else rgb[sel]
         pad = np.full((P, 3), 1e9, np.float32)
         pad[:len(xyz)] = xyz
         clouds.append(pad)
         m = np.zeros(P, bool)
         m[:len(xyz)] = True
         masks.append(m)
+        if with_rgb:
+            rp = np.zeros((P, 3), np.float32)
+            rp[:len(xyz)] = rgb
+            rgbs.append(rp)
     n = len(clouds)
     clouds_t = torch.from_numpy(np.stack(clouds)).to(device)
     masks_t = torch.from_numpy(np.stack(masks)).to(device)
+    rgbs_t = torch.from_numpy(np.stack(rgbs)).to(device) if with_rgb else None
 
     B = args.batch
 
@@ -79,8 +99,10 @@ def main(argv=None) -> int:
         """Per-class scores [b, C] (the densities with --maxima) and, with
         --maxima, the positions [b, C, 3]."""
         with torch.no_grad():
-            out = model(clouds_t[i:i + B], masks_t[i:i + B])
-        return out if args.maxima else (out, None)
+            if args.maxima:
+                return model(clouds_t[i:i + B], masks_t[i:i + B])
+            rgb_b = None if rgbs_t is None else rgbs_t[i:i + B]
+            return model(clouds_t[i:i + B], masks_t[i:i + B], rgb_b), None
 
     # first result: kernel build (first run) + first batch, fetched
     call(0)[0].cpu()

@@ -2,8 +2,12 @@
 point_cloud_donkey_tpu/utils/io.py that serving reads).
 
   * `.pcd` (DATA ascii, binary and binary_compressed) and `.ply` (ascii and
-    binary) files; serving needs only the coordinates, so the readers
-    return xyz [N, 3] float32 and ignore every other field.
+    binary) files; serving reads the coordinates and, for CSHOT, the
+    colours: :func:`read_cloud` returns a :class:`PointCloud` (xyz [N, 3]
+    float32, rgb [N, 3] float32 in [0, 1] or None), :func:`load_cloud` its
+    xyz.  Every other field is ignored.  Colours: PCL's packed ``rgb`` /
+    ``rgba`` float (0x00RRGGBB in its bits) or ``r``, ``g``, ``b`` fields in
+    a PCD, ``red``, ``green``, ``blue`` in a PLY, each divided by 255.
   * file lists with a `# train|test [inst]` header followed by
     `path label [instance]` lines; `#`-prefixed lines are comments
     (reference: eval_tool/eval_helpers.h:100-177).
@@ -51,8 +55,41 @@ def _lzf_decompress(data: bytes, expected_size: int) -> bytes:
     return bytes(out)
 
 
-def load_pcd(path: str) -> np.ndarray:
-    """xyz [N, 3] float32 of a PCD file."""
+@dataclass
+class PointCloud:
+    """The fields of a cloud file that serving reads."""
+    xyz: np.ndarray                   # [N, 3] float32
+    rgb: Optional[np.ndarray] = None  # [N, 3] float32 in [0, 1]
+
+
+def _unpack_rgb(packed: np.ndarray) -> np.ndarray:
+    """PCL packs rgb as a float whose bits hold 0x00RRGGBB (an unsigned
+    rgba field holds them as its value).  The JAX reader casts an integer
+    field to float before reading the bits, which loses them (ROADMAP C);
+    the port reads the bits as stored."""
+    packed = np.asarray(packed)
+    if packed.dtype.kind in "iu":
+        as_int = packed.astype(np.uint32)
+    else:
+        as_int = packed.astype(np.float32).view(np.uint32)
+    rgb8 = np.stack([(as_int >> 16) & 0xFF, (as_int >> 8) & 0xFF,
+                     as_int & 0xFF], axis=1)
+    return rgb8.astype(np.float32) / 255.0
+
+
+def _rgb_of(field: Dict[str, np.ndarray]) -> Optional[np.ndarray]:
+    """Colours of a PCD's fields (name -> [N] column), or None."""
+    for packed in ("rgb", "rgba"):
+        if packed in field:
+            return _unpack_rgb(field[packed])
+    if all(c in field for c in "rgb"):
+        return np.stack([field[c] for c in "rgb"],
+                        axis=1).astype(np.float32) / 255.0
+    return None
+
+
+def load_pcd(path: str) -> PointCloud:
+    """xyz (and colours, when the file has them) of a PCD file."""
     with open(path, "rb") as f:
         data = f.read()
     header: Dict[str, List[str]] = {}
@@ -72,33 +109,41 @@ def load_pcd(path: str) -> np.ndarray:
     mode = header["DATA"][0]
     if not {"x", "y", "z"} <= set(fields):
         raise ValueError(f"{path}: PCD without x, y, z fields")
+    wanted = [f for f in fields if f in ("x", "y", "z", "rgb", "rgba", "r",
+                                         "g", "b")]
 
+    field: Dict[str, np.ndarray] = {}
     if mode == "ascii":
         width = sum(counts)
         raw = np.array(data[offset:].split(), dtype=np.float64)
         raw = raw[:n * width].reshape(n, width)
         col = dict(zip(fields, np.cumsum([0] + counts[:-1])))
-        cols = [raw[:, col[a]] for a in "xyz"]
+        for f in wanted:
+            i = fields.index(f)
+            # ascii holds each value as text: cast to the field's own type
+            # (a packed rgb float then keeps its bits)
+            field[f] = raw[:, col[f]].astype(_PCD_DTYPES[(types[i],
+                                                          sizes[i])])
     elif mode == "binary":
         dtype = np.dtype([(f, _PCD_DTYPES[(t, s)], (c,))
                           for f, s, t, c in zip(fields, sizes, types, counts)])
         rec = np.frombuffer(data, dtype=dtype, count=n, offset=offset)
-        cols = [rec[a][:, 0] for a in "xyz"]
+        field = {f: rec[f][:, 0] for f in wanted}
     elif mode == "binary_compressed":
         comp_size, raw_size = struct.unpack_from("<II", data, offset)
         body = _lzf_decompress(data[offset + 8:offset + 8 + comp_size],
                                raw_size)
         # fields stored one after another (structure of arrays)
         starts = np.cumsum([0] + [s * c * n for s, c in zip(sizes, counts)])
-        cols = []
-        for a in "xyz":
-            i = fields.index(a)
+        for f in wanted:
+            i = fields.index(f)
             arr = np.frombuffer(body, dtype=_PCD_DTYPES[(types[i], sizes[i])],
                                 count=counts[i] * n, offset=int(starts[i]))
-            cols.append(arr.reshape(n, counts[i])[:, 0])
+            field[f] = arr.reshape(n, counts[i])[:, 0]
     else:
         raise ValueError(f"{path}: unsupported PCD DATA mode {mode!r}")
-    return np.stack([c.astype(np.float32) for c in cols], axis=1)
+    xyz = np.stack([field[a].astype(np.float32) for a in "xyz"], axis=1)
+    return PointCloud(xyz=xyz, rgb=_rgb_of(field))
 
 
 _PLY_DTYPES = {
@@ -109,8 +154,9 @@ _PLY_DTYPES = {
 }
 
 
-def load_ply(path: str) -> np.ndarray:
-    """xyz [N, 3] float32 of the vertex element of a PLY file."""
+def load_ply(path: str) -> PointCloud:
+    """xyz (and colours, when it has them) of the vertex element of a PLY
+    file."""
     with open(path, "rb") as f:
         data = f.read()
     end = data.index(b"end_header\n") + len(b"end_header\n")
@@ -135,18 +181,29 @@ def load_ply(path: str) -> np.ndarray:
     if fmt == "ascii":
         rows = data[end:].decode("ascii", errors="replace").splitlines()[:n]
         raw = np.array([r.split() for r in rows], dtype=np.float64)
-        cols = [raw[:, names.index(a)] for a in "xyz"]
+        field = {name: raw[:, i] for i, name in enumerate(names)}
     else:
         order = "<" if "little" in fmt else ">"
         dtype = np.dtype([(name, order + _PLY_DTYPES[typ])
                           for name, typ in props])
         rec = np.frombuffer(data, dtype=dtype, count=n, offset=end)
-        cols = [rec[a] for a in "xyz"]
-    return np.stack([c.astype(np.float32) for c in cols], axis=1)
+        field = {name: rec[name] for name in names}
+    xyz = np.stack([field[a].astype(np.float32) for a in "xyz"], axis=1)
+    rgb = None
+    if all(c in field for c in ("red", "green", "blue")):
+        rgb = np.stack([field[c] for c in ("red", "green", "blue")],
+                       axis=1).astype(np.float32) / 255.0
+    return PointCloud(xyz=xyz, rgb=rgb)
 
 
 def load_cloud(path: str) -> np.ndarray:
     """xyz [N, 3] float32 of a `.pcd` or `.ply` file (rows may be NaN)."""
+    return read_cloud(path).xyz
+
+
+def read_cloud(path: str) -> PointCloud:
+    """xyz and, when the file has them, colours of a `.pcd` or `.ply`
+    file (rows may be NaN)."""
     if path.endswith(".pcd"):
         return load_pcd(path)
     if path.endswith(".ply"):
@@ -158,21 +215,33 @@ def load_cloud(path: str) -> np.ndarray:
     raise ValueError(f"unknown extension for {path}")
 
 
-def save_pcd(path: str, xyz: np.ndarray, binary: bool = False) -> None:
-    """Write xyz [N, 3] as a PCD file (DATA ascii, or binary)."""
-    xyz = np.ascontiguousarray(xyz, dtype="<f4").reshape(-1, 3)
+def save_pcd(path: str, xyz: np.ndarray, binary: bool = False,
+             rgb: Optional[np.ndarray] = None) -> None:
+    """Write xyz [N, 3] (and rgb [N, 3] in [0, 1], packed as PCL's rgb
+    float, each channel truncated to 8 bits as the JAX package writes it)
+    as a PCD file (DATA ascii, or binary)."""
+    xyz = np.asarray(xyz, dtype=np.float32).reshape(-1, 3)
     n = len(xyz)
+    fields, cols = "x y z", [xyz]
+    if rgb is not None:
+        rgb8 = (np.clip(np.asarray(rgb, np.float32).reshape(n, 3), 0, 1)
+                * 255).astype(np.uint32)
+        packed = (rgb8[:, 0] << 16) | (rgb8[:, 1] << 8) | rgb8[:, 2]
+        fields, cols = fields + " rgb", cols + [packed.view(np.float32)[:, None]]
+    mat = np.ascontiguousarray(np.concatenate(cols, axis=1), dtype="<f4")
+    k = mat.shape[1]
     header = ("# .PCD v0.7 - Point Cloud Data file format\nVERSION 0.7\n"
-              "FIELDS x y z\nSIZE 4 4 4\nTYPE F F F\nCOUNT 1 1 1\n"
+              f"FIELDS {fields}\nSIZE {' '.join(['4'] * k)}\n"
+              f"TYPE {' '.join(['F'] * k)}\nCOUNT {' '.join(['1'] * k)}\n"
               f"WIDTH {n}\nHEIGHT 1\nVIEWPOINT 0 0 0 1 0 0 0\nPOINTS {n}\n")
     if binary:
         with open(path, "wb") as f:
             f.write((header + "DATA binary\n").encode("ascii"))
-            f.write(xyz.tobytes())
+            f.write(mat.tobytes())
         return
     with open(path, "w") as f:
         f.write(header + "DATA ascii\n")
-        for row in xyz:
+        for row in mat:
             f.write(" ".join(repr(float(v)) for v in row) + "\n")
 
 

@@ -1,7 +1,8 @@
 """The bench workload's data, numpy only: the .ism config that bench.py
 trains (bench.py:176-198) and its clouds drawn in bench.py's order from
 seed 42 -- five training clouds, one per class, then the rotated test
-batch.  Shared by the port's fixture generator (tests/torch_fixtures.py),
+batch -- and the colours that the CSHOT configuration paints on them.
+Shared by the port's fixture generator (tests/torch_fixtures.py),
 its tests and chip_smoke.py, which must not import jax."""
 
 import numpy as np
@@ -51,3 +52,19 @@ def bench_clouds(batch: int, n: int = N_POINTS, seed: int = SEED):
                         np.float32).reshape(batch, n, 3)
     return (train, np.arange(NUM_CLASSES), clouds,
             np.arange(batch) % NUM_CLASSES)
+
+
+def bench_colors(clouds: np.ndarray) -> np.ndarray:
+    """Deterministic RGB in [0, 1] for clouds [..., N, 3]: a fixed colour
+    map of each point's distance from its cloud's centroid, so a rotated
+    test cloud is painted like the unrotated training cloud of its class.
+    Quantised to what a PCD file holds (8 bits a channel, k / 255 in f32),
+    so a save_pcd / load_cloud round trip returns the same values."""
+    clouds = np.asarray(clouds, np.float64)
+    d = np.linalg.norm(clouds - clouds.mean(axis=-2, keepdims=True), axis=-1)
+    phase = 2.0 * np.pi * d / 1.2
+    rgb = np.stack([0.5 + 0.5 * np.cos(phase),
+                    0.5 + 0.5 * np.cos(phase + 2.0),
+                    np.clip(d / 1.5, 0.0, 1.0)], axis=-1)
+    rgb8 = (np.clip(rgb, 0.0, 1.0) * 255).astype(np.uint32)
+    return rgb8.astype(np.float32) / np.float32(255.0)

@@ -14,7 +14,7 @@ import pytest
 import torch
 
 import shapes
-from bench_data import KEYPOINT_CAPACITY, bench_clouds
+from bench_data import KEYPOINT_CAPACITY, bench_clouds, bench_colors
 from torch_parity import (assert_decisions_match, assert_topk_close,
                           cuda_device, n, t)  # noqa: F401
 
@@ -26,8 +26,10 @@ from point_cloud_donkey_tpu_torch.models.pipeline import (IsmClassifier,
                                                           PipelineConfig)
 from point_cloud_donkey_tpu_torch.ops import binned
 from point_cloud_donkey_tpu_torch.ops.kernels import chisq as tchisq
+from point_cloud_donkey_tpu_torch.ops.kernels import histogram as thist
 from point_cloud_donkey_tpu_torch.ops.kernels import lrf_moments as tlrfm
 from point_cloud_donkey_tpu_torch.ops.kernels import shot_fused as tshot
+from point_cloud_donkey_tpu_torch.ops.kernels import shot_hist as tsh
 from point_cloud_donkey_tpu_torch.ops.lrf import shot_lrf
 from point_cloud_donkey_tpu_torch.ops.normals import compute_normals_fast
 from point_cloud_donkey_tpu_torch.ops.voxel_grid import voxel_grid
@@ -206,3 +208,61 @@ def test_windowed_slice_matches_jax_reference(cuda_device):
     assert model.dense_recomputes == 0
     assert_decisions_match(scores, ref["scores_windowed"])
     assert (n(scores).argmax(1) == ref["labels"]).all()
+
+
+@pytest.mark.parametrize("n_bin", [11, 31])
+def test_shot_hist_matches_plain(cuda_device, n_bin):
+    """K8 vs its twin on random slot arrays with ~20% live columns and
+    some out-of-range indices: both add each row's slots in (column,
+    slot) order, so the kernel equals the CPU twin bit for bit."""
+    g = torch.Generator().manual_seed(n_bin)
+    r, m = 300, 2048
+    ints = [torch.randint(-1, hi + 1, (r, m), generator=g, dtype=torch.int32)
+            for hi in (32, n_bin, n_bin, 32, 32, 32)]
+    ws = [torch.rand(r, m, generator=g)
+          * (torch.rand(r, m, generator=g) < 0.2) for _ in range(5)]
+    d, st, cb, rv, iv, av = ints
+    cw, cosw, rw, iw, aw = ws
+    args = [d, st, cw, cb, cosw, rv, rw, iv, iw, av, aw]
+    h = tsh.shot_hist(*(a.to(cuda_device) for a in args), n_bin)
+    assert torch.equal(h.cpu(), tsh.shot_hist_plain(*args, n_bin))
+
+
+def test_histogram_matches_plain(cuda_device):
+    """K9 vs its twin: bit-equal to the CPU twin (column order)."""
+    g = torch.Generator().manual_seed(5)
+    idx = torch.randint(-2, 34, (300, 8192), generator=g, dtype=torch.int32)
+    w = torch.rand(300, 8192, generator=g) \
+        * (torch.rand(300, 8192, generator=g) < 0.1)
+    h = thist.histogram(idx.to(cuda_device), w.to(cuda_device), 32)
+    assert torch.equal(h.cpu(), thist.histogram_plain(idx, w, 32))
+
+
+@pytest.mark.parametrize("descriptor,kernel", [("CSHOT", "shot_hist"),
+                                               ("SHORT_SHOT", "histogram")])
+def test_descriptor_slices_match_jax_reference(cuda_device, descriptor,
+                                               kernel):
+    """The CSHOT / SHORT_SHOT classify step on the card vs the committed
+    JAX-CPU scores of the 16 reference clouds; K8 (twice) / K9 (once)
+    launched; two runs equal."""
+    ref = np.load(DATA + "bench_reference.npz")
+    dref = np.load(DATA + "descriptor_reference.npz")
+    path = DATA + descriptor.lower() + "_codebook.ism"
+    config = IsmConfig.load(path)
+    cb = load_codebook(path).to(cuda_device)
+    cfg = PipelineConfig.from_ism(config, cb.num_classes,
+                                  keypoint_capacity=KEYPOINT_CAPACITY)
+    model = IsmClassifier(cb, cfg,
+                          CodebookParams.from_config(config.child("Codebook")))
+    pts = t(ref["points"]).to(cuda_device)
+    mask = torch.ones(pts.shape[:2], dtype=torch.bool, device=cuda_device)
+    rgb = t(bench_colors(ref["points"])).to(cuda_device) \
+        if descriptor == "CSHOT" else None
+    build.reset_launch_counts()
+    with torch.no_grad():
+        scores = model(pts, mask, rgb)
+        counts = build.launch_counts()
+        again = model(pts, mask, rgb)
+    assert counts[kernel] == (2 if descriptor == "CSHOT" else 1), counts
+    assert_decisions_match(scores, dref["scores_" + descriptor.lower()])
+    assert torch.equal(scores, again)

@@ -1,5 +1,5 @@
 """The port's committed fixtures (point_cloud_donkey_tpu_torch/data/) are
-what the JAX package produces today: regenerate both with
+what the JAX package produces today: regenerate them with
 tests/torch_fixtures.py and compare.  The machine with the GPU has no JAX,
 so a stale fixture would hold the port against a reference that no longer
 exists."""
@@ -8,8 +8,12 @@ import json
 
 import numpy as np
 
-from torch_fixtures import (CODEBOOK, N_DETECT, N_REF, REFERENCE,
-                            build_codebook, build_reference)
+import pytest
+
+from bench_data import bench_clouds, bench_colors
+from torch_fixtures import (CODEBOOK, CODEBOOKS, DESCRIPTOR_REFERENCE,
+                            N_DETECT, N_REF, REFERENCE, build_codebook,
+                            build_descriptor_reference, build_reference)
 
 
 def test_fixtures_match_the_jax_package(tmp_path):
@@ -39,3 +43,44 @@ def test_fixtures_match_the_jax_package(tmp_path):
         assert old["points"].shape == (N_REF, 2048, 3)
         assert old["detect_positions"].shape == (N_DETECT, 5, 3)
 
+
+def _same_codebook(fresh_path, old_path, width):
+    with open(fresh_path) as f, open(old_path) as g:
+        assert json.load(f) == json.load(g)
+    with np.load(fresh_path + "d.npz") as fresh, \
+            np.load(old_path + "d.npz") as old:
+        assert sorted(fresh.files) == sorted(old.files)
+        for k in fresh.files:
+            np.testing.assert_allclose(fresh[k], old[k], rtol=1e-6,
+                                       atol=1e-7, err_msg=k)
+        assert old["cb_codewords"].shape[1] == width
+
+
+@pytest.mark.parametrize("descriptor,width", [("CSHOT", 1344),
+                                              ("SHORT_SHOT", 32)])
+def test_descriptor_codebooks_match_the_jax_package(tmp_path, descriptor,
+                                                    width):
+    cb = str(tmp_path / "codebook.ism")
+    build_codebook(cb, descriptor)
+    _same_codebook(cb, CODEBOOKS[descriptor], width)
+
+
+def test_descriptor_reference_matches_the_jax_package(tmp_path):
+    """The committed CSHOT / SHORT_SHOT scores come from today's JAX
+    package with the committed codebooks; the committed colours are
+    bench_colors of bench_reference.npz's clouds."""
+    ref = str(tmp_path / "descriptor_reference.npz")
+    build_descriptor_reference(CODEBOOKS, ref)
+    with np.load(ref) as fresh, np.load(DESCRIPTOR_REFERENCE) as old, \
+            np.load(REFERENCE) as base:
+        np.testing.assert_array_equal(fresh["rgb8"], old["rgb8"])
+        assert old["rgb8"].shape == (N_REF, 2048, 3)
+        np.testing.assert_array_equal(
+            old["rgb8"].astype(np.float32) / np.float32(255),
+            bench_colors(base["points"]))
+        np.testing.assert_array_equal(base["points"],
+                                      bench_clouds(N_REF)[2])
+        for k in ("scores_cshot", "scores_short_shot"):
+            np.testing.assert_allclose(fresh[k], old[k], rtol=1e-5,
+                                       atol=1e-5, err_msg=k)
+            assert old[k].shape == (N_REF, 5)

@@ -112,7 +112,8 @@ def test_window_flag_trip_recomputes_dense_normals():
 
 def test_unported_configurations_raise():
     cb = load_codebook(CODEBOOK)
-    for bad in ({"descriptor": "CSHOT"}, {"descriptor_window": 1280},
+    for bad in ({"descriptor": "CSHOT", "normals_window": 1280},
+                {"descriptor": "FPFH"}, {"descriptor_window": 1280},
                 {"normals_method": 1}):
         with pytest.raises(NotImplementedError):
             IsmClassifier(cb, PipelineConfig(**bad))
@@ -156,7 +157,10 @@ def test_port_imports_neither_jax_nor_triton():
         "mods = [m.name for m in pkgutil.walk_packages(pkg.__path__, "
         "pkg.__name__ + '.')]\n"
         "for m in mods: importlib.import_module(m)\n"
-        "assert len(mods) >= 18, mods\n"
+        "assert len(mods) >= 22, mods\n"
+        "new = ['ops.color', 'ops.short_shot', 'ops.kernels.shot_hist', "
+        "'ops.kernels.histogram']\n"
+        "assert all(pkg.__name__ + '.' + m in mods for m in new), mods\n"
         "bad = [m for m in ('jax', 'jaxlib', 'triton', "
         "'point_cloud_donkey_tpu') if m in sys.modules]\n"
         "assert not bad, bad\n")

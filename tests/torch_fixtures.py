@@ -10,15 +10,26 @@
       ``ops/binned.required_window`` calibrates on these clouds
       (``normals_window``, ``scores_windowed``); and the JAX-CPU
       ``jax.vmap(detect_maxima_jit)`` densities and positions of the first
-      N_DETECT clouds (``detect_densities``, ``detect_positions``).
+      N_DETECT clouds (``detect_densities``, ``detect_positions``);
+  point_cloud_donkey_tpu_torch/data/cshot_codebook.ism (+ .ismd.npz) and
+  point_cloud_donkey_tpu_torch/data/short_shot_codebook.ism (+ .ismd.npz):
+      the same training with ``Features.Type`` CSHOT (the training clouds
+      painted by ``bench_data.bench_colors``, read back from PCD files)
+      and SHORT_SHOT;
+  point_cloud_donkey_tpu_torch/data/descriptor_reference.npz:
+      the colours of the first N_REF bench clouds (``rgb8``, 8-bit) and the
+      JAX-CPU ``classify_scores_batch`` scores of those clouds with each of
+      the two codebooks (``scores_cshot`` with those colours,
+      ``scores_short_shot``).  The clouds are bench_reference.npz's.
 
 The machine with the GPU has no JAX, so these files carry the reference
-across.  tests/test_torch_fixtures.py regenerates both and checks they
+across.  tests/test_torch_fixtures.py regenerates them and checks they
 match the committed ones.  Rewrite them with:
 
     JAX_PLATFORMS=cpu python tests/torch_fixtures.py
 """
 
+import copy
 import os
 import sys
 import tempfile
@@ -29,39 +40,55 @@ _TESTS = os.path.dirname(os.path.abspath(__file__))
 sys.path[:0] = [_TESTS, os.path.dirname(_TESTS)]
 
 from bench_data import (BENCH_CONFIG, KEYPOINT_CAPACITY,  # noqa: E402
-                        NUM_CLASSES, bench_clouds)
+                        NUM_CLASSES, bench_clouds, bench_colors)
 
 DATA_DIR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "point_cloud_donkey_tpu_torch", "data")
 CODEBOOK = os.path.join(DATA_DIR, "bench_codebook.ism")
 REFERENCE = os.path.join(DATA_DIR, "bench_reference.npz")
+# the codebook of each descriptor the port serves
+CODEBOOKS = {
+    "SHOT": CODEBOOK,
+    "CSHOT": os.path.join(DATA_DIR, "cshot_codebook.ism"),
+    "SHORT_SHOT": os.path.join(DATA_DIR, "short_shot_codebook.ism"),
+}
+DESCRIPTOR_REFERENCE = os.path.join(DATA_DIR, "descriptor_reference.npz")
 N_REF = 16
 N_DETECT = 32   # bench.py's MS_BATCH
 
 
-def jax_pipeline_config():
-    """bench.py's JitPipelineConfig (bench.py:219-228)."""
+def descriptor_config(descriptor: str) -> dict:
+    """bench.py's .ism config with Features.Type set to `descriptor`."""
+    config = copy.deepcopy(BENCH_CONFIG)
+    config["ObjectConfig"]["Children"]["Features"]["Type"] = descriptor
+    return config
+
+
+def jax_pipeline_config(descriptor: str = "SHOT"):
+    """bench.py's JitPipelineConfig (bench.py:219-228), with `descriptor`."""
     from point_cloud_donkey_tpu.models.pipeline_jit import JitPipelineConfig
     return JitPipelineConfig(
-        descriptor="SHOT", radius=0.6, ref_frame_radius=0.5, leaf_size=0.35,
+        descriptor=descriptor, radius=0.6, ref_frame_radius=0.5, leaf_size=0.35,
         normal_radius=0.25, normals_method=2, metric="chisq", knn_k=1,
         keypoint_capacity=KEYPOINT_CAPACITY, neighbor_capacity=896,
         bandwidth=0.5, num_classes=NUM_CLASSES, fused_descriptor=True)
 
 
-def build_codebook(path: str) -> None:
+def build_codebook(path: str, descriptor: str = "SHOT") -> None:
     """Train the bench model with the JAX package and save it at `path`
-    (+ `path`d.npz)."""
+    (+ `path`d.npz); a CSHOT model trains on the bench colours."""
     from point_cloud_donkey_tpu.models.ism import ImplicitShapeModel
     from point_cloud_donkey_tpu.utils.config import IsmConfig
     from point_cloud_donkey_tpu.utils.io import PointCloud, save_pcd
 
-    ism = ImplicitShapeModel(IsmConfig.from_json(BENCH_CONFIG))
+    ism = ImplicitShapeModel(IsmConfig.from_json(
+        descriptor_config(descriptor)))
     train, labels, _, _ = bench_clouds(0)
     with tempfile.TemporaryDirectory() as tmp:
         for cid, pts in zip(labels, train):
             p = os.path.join(tmp, f"t{cid}.pcd")
-            save_pcd(p, PointCloud(xyz=pts))
+            rgb = bench_colors(pts) if descriptor == "CSHOT" else None
+            save_pcd(p, PointCloud(xyz=pts, rgb=rgb))
             ism.add_training_model(p, int(cid), int(cid))
         ism.train()
     ism.save(path)
@@ -76,10 +103,12 @@ def _jax_codebook(codebook_path: str):
 
 
 def jax_scores(codebook_path: str, points: np.ndarray,
-               mask: np.ndarray, normals_window: int = 0) -> np.ndarray:
+               mask: np.ndarray, normals_window: int = 0,
+               descriptor: str = "SHOT", rgb: np.ndarray = None
+               ) -> np.ndarray:
     """JAX-CPU classify_scores_batch scores [B, C] with the bench config
     (and a sorted-axis normals window when given; its exactness flag must
-    hold)."""
+    hold), for `descriptor` (CSHOT reads `rgb` [B, N, 3])."""
     import jax
     import jax.numpy as jnp
     from point_cloud_donkey_tpu.models.codebook import CodebookParams
@@ -87,10 +116,13 @@ def jax_scores(codebook_path: str, points: np.ndarray,
         classify_scores_batch
 
     cb = _jax_codebook(codebook_path)
-    cfg = jax_pipeline_config()._replace(normals_window=normals_window)
+    cfg = jax_pipeline_config(descriptor)._replace(
+        normals_window=normals_window)
     params = CodebookParams(knn_k=1)
-    step = jax.jit(lambda p, m: classify_scores_batch(p, m, cb, cfg, params))
-    scores, exact = step(jnp.asarray(points), jnp.asarray(mask))
+    step = jax.jit(lambda p, m, r: classify_scores_batch(p, m, cb, cfg,
+                                                         params, r))
+    scores, exact = step(jnp.asarray(points), jnp.asarray(mask),
+                         None if rgb is None else jnp.asarray(rgb))
     assert bool(exact), "the normals window does not cover these clouds"
     return np.asarray(scores)
 
@@ -139,13 +171,31 @@ def build_reference(codebook_path: str, path: str) -> None:
                         detect_positions=pos.astype(np.float32))
 
 
+def build_descriptor_reference(codebooks: dict, path: str) -> None:
+    """The first N_REF bench clouds' colours and their JAX-CPU scores with
+    the CSHOT and SHORT_SHOT codebooks (`codebooks`: descriptor -> path)."""
+    _, _, clouds, _ = bench_clouds(N_REF)
+    mask = np.ones(clouds.shape[:2], bool)
+    rgb = bench_colors(clouds)
+    cshot = jax_scores(codebooks["CSHOT"], clouds, mask, descriptor="CSHOT",
+                       rgb=rgb)
+    short = jax_scores(codebooks["SHORT_SHOT"], clouds, mask,
+                       descriptor="SHORT_SHOT")
+    np.savez_compressed(path, rgb8=np.round(rgb * 255).astype(np.uint8),
+                        scores_cshot=cshot.astype(np.float32),
+                        scores_short_shot=short.astype(np.float32))
+
+
 def main() -> None:
     import jax
     jax.config.update("jax_platforms", "cpu")
     os.makedirs(DATA_DIR, exist_ok=True)
-    build_codebook(CODEBOOK)
+    for descriptor, path in CODEBOOKS.items():
+        build_codebook(path, descriptor)
     build_reference(CODEBOOK, REFERENCE)
-    print(f"wrote {CODEBOOK}(d.npz) and {REFERENCE}")
+    build_descriptor_reference(CODEBOOKS, DESCRIPTOR_REFERENCE)
+    print(f"wrote {', '.join(CODEBOOKS.values())} (+ d.npz), {REFERENCE} "
+          f"and {DESCRIPTOR_REFERENCE}")
 
 
 if __name__ == "__main__":

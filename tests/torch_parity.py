@@ -11,11 +11,16 @@ radius-boundary point on different sides, and a near-tied LRF sign vote
 can settle either way.
 """
 
+import os
+import subprocess
+import sys
+
 import numpy as np
 import pytest
 import torch
 
 torch.set_num_threads(2)
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def t(x, dtype=None) -> torch.Tensor:
@@ -77,6 +82,43 @@ def assert_decisions_match(scores, ref):
                                   ref.argmax(1)[firm])
     rms = np.sqrt(((scores - ref) ** 2).mean())
     assert rms <= 0.05 * np.abs(ref).max(), rms
+
+
+_INTERPRET = """
+import sys
+import numpy as np
+import jax
+jax.config.update("jax_platforms", "cpu")
+from jax.experimental.pallas import tpu as pltpu
+a = dict(np.load(sys.argv[1]))
+with pltpu.force_tpu_interpret_mode():
+    scope = {"a": a}
+    exec(sys.argv[3], scope)
+np.savez(sys.argv[2], **{k: np.asarray(v) for k, v in scope["out"].items()})
+"""
+
+
+def pallas_interpret(code: str, workdir, **arrays) -> dict:
+    """Run `code` -- Python that sets `out`, a dict of arrays, from the
+    numpy arrays in the dict `a` (= `arrays`) -- in a process of its own,
+    with the JAX package's Pallas TPU kernels in interpret mode, and return
+    `out` as numpy arrays.  The interpret mode keeps process-wide state and
+    runs kernel bodies through host callbacks that dispatch JAX work of
+    their own; full parallel test runs in which more test processes used
+    it stalled now and then, so these comparisons keep it out of the test
+    process."""
+    inp, outp = os.path.join(workdir, "in.npz"), os.path.join(workdir,
+                                                             "out.npz")
+    np.savez(inp, **arrays)
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               PYTHONPATH=os.pathsep.join(filter(None, [
+                   REPO, os.environ.get("PYTHONPATH")])))
+    res = subprocess.run([sys.executable, "-c", _INTERPRET, inp, outp, code],
+                         env=env, capture_output=True, text=True,
+                         timeout=600)
+    assert res.returncode == 0, res.stderr[-3000:]
+    with np.load(outp) as z:
+        return {k: z[k] for k in z.files}
 
 
 @pytest.fixture
