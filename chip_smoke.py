@@ -18,6 +18,9 @@ Phases (each prints its results; any failure raises and exits nonzero):
      tests/bench_data.bench_colors: 24576 rows x 2048 points, x 4 slots
      for K9) against their twins, timed with the twin and the one PyTorch
      call that computes the same function (scatter_add_);
+  2d. K10 (and K11) at the v2 LRF passes' shapes -- the normals (Q=N=2048,
+     K10 with K2 z-only) and the keypoint LRFs (Q=192) -- against their
+     twins and against K1 / K2, timed beside their twins and K1 / K2;
   3. LRF frames and SHOT descriptors against tests/golden/descriptors.npz;
   4. the dense classify step: IsmClassifier on the 128 x 2048 bench batch
      with the committed codebook -- per-stage ms, clouds/s, K1-K4 launched,
@@ -27,6 +30,8 @@ Phases (each prints its results; any failure raises and exits nonzero):
      committed JAX-CPU windowed reference; then a forced flag trip
      (window 128) recomputes densely: bit-equal to the dense step on the
      same sorted clouds, and the same decisions as on the unsorted ones;
+  4c. the dense classify step with lrf_version 2: K10 / K11 launched, K1
+     not, the same decisions;
   5. the serve entry point on 8 PCD files with --device cuda;
   6. the mean-shift detection step: IsmDetector on the first 32 bench
      clouds -- per-stage ms, clouds/s, K7 launched, densities (decisions,
@@ -40,11 +45,17 @@ Phases (each prints its results; any failure raises and exits nonzero):
      launched twice, decisions against the committed JAX-CPU reference,
      accuracy, two runs equal;
   8. the SHORT_SHOT classify step, the same with its codebook: K9 launched,
-     K1/K2 once each (keypoint LRFs only: no normal stage).
+     K1/K2 once each (keypoint LRFs only: no normal stage);
+  9. training on the card: the five bench training clouds through
+     ImplicitShapeModel.train (SHOT with K1/K2 and with
+     PCD_PALLAS_LRF_V=2, CSHOT, SHORT_SHOT) against the committed
+     JAX-trained codebooks, each served on the bench batch against the
+     committed references; training clouds/s on 24 clouds; the train entry
+     point on 8 PCD files, then serve on its model.
 Before the last line it prints one JSON line with every kernel's launches
-(summed over one step of each of the five paths, counted from 0 just
-before each), error against its twin, times and bound, then the card's
-name and power limit.  The last line is {"ok": true, "device": {...}}.
+(summed over one run of each path, counted from 0 just before each),
+error against its twin, times and bound, then the card's name and power
+limit.  The last line is {"ok": true, "device": {...}}.
 """
 
 import contextlib
@@ -86,6 +97,10 @@ KERNELS = {
                   "point_cloud_donkey_tpu/ops/pallas/shot_hist.py:62"),
     "histogram": ("point_cloud_donkey_tpu_torch/csrc/histogram.cu",
                   "point_cloud_donkey_tpu/ops/pallas/histogram.py:51"),
+    "lrf_moments_v2": ("point_cloud_donkey_tpu_torch/csrc/lrf_moments_v2.cu",
+                       "point_cloud_donkey_tpu/ops/pallas/lrf_moments.py:161"),
+    "sign_votes_v2": ("point_cloud_donkey_tpu_torch/csrc/lrf_moments_v2.cu",
+                      "point_cloud_donkey_tpu/ops/pallas/lrf_moments.py:237"),
 }
 # the path whose step must launch each kernel
 PATH_KERNELS = {
@@ -95,6 +110,18 @@ PATH_KERNELS = {
     "detect": ("lrf_moments", "sign_votes", "shot_dense", "chisq_topk"),
     "cshot": ("lrf_moments", "sign_votes", "shot_hist", "chisq_topk"),
     "short_shot": ("lrf_moments", "sign_votes", "histogram", "chisq_topk"),
+    # lrf_version 2: K10 everywhere, K11 at the keypoints, K2 for the
+    # z-only normals
+    "dense_v2": ("lrf_moments_v2", "sign_votes_v2", "sign_votes",
+                 "shot_fused", "chisq_topk"),
+    # training: the full normals LRF and the keypoint LRFs, K7 (SHOT), K8
+    # (CSHOT) or K9 (SHORT_SHOT), the self-kNN activation (K4)
+    "train": ("lrf_moments", "sign_votes", "shot_dense", "chisq_topk"),
+    "train_v2": ("lrf_moments_v2", "sign_votes_v2", "shot_dense",
+                 "chisq_topk"),
+    "train_cshot": ("lrf_moments", "sign_votes", "shot_hist", "chisq_topk"),
+    "train_short_shot": ("lrf_moments", "sign_votes", "histogram",
+                         "chisq_topk"),
 }
 
 # Least time of a kernel call: the larger of its bytes (inputs read once,
@@ -105,12 +132,23 @@ PATH_KERNELS = {
 # pairs inside the radius (counted from this run's data) pay the body.
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+BF16_TC_FLOPS_PER_S = 989e12
 GATE_OPS = 10
 MOMENT_BODY_OPS = 21   # sqrt, r - d, w p (3), s0 + s1 (4), s2 (6 mul, 6 add)
 VOTE_BODY_OPS = 6      # one (p - q) . axis (3 mul, 2 add) and its compare
 SHOT_BODY_OPS = 100    # frame coords, cosine, binning, 5 slot adds;
 #                        sqrtf, acosf and atan2f count one each
 CHISQ_TERM_OPS = 6     # a + b, a - b, square, divide, compare, accumulate
+# K10 / K11 (csrc/lrf_moments_v2.cu) gate every pair by the matmul identity:
+# q.p (3 mul, 2 add), d2 (add, mul, sub), the compare.  K10 then weighs
+# every pair (max, sqrt, sub, select), counts it (1 add) and splits its
+# weight (2 conversions, sub, conversion), and its tensor cores do
+# 3 products x 2 x 16 columns of bf16 flops a pair; K11's in-radius pairs
+# pay two dots (5 each), two subtracts, two compares and two adds.
+MOMENT_V2_PAIR_OPS = 18
+MOMENT_V2_TC_FLOPS = 3 * 2 * 16
+VOTE_V2_GATE_OPS = 9
+VOTE_V2_BODY_OPS = 16
 # K8 / K9 (csrc/shot_hist.cu, csrc/histogram.cu): every column pays its
 # weights' zero tests (5 for K8, 1 for K9); a live column reads its indices
 # and adds its slots (5 adds for K8, 1 for K9).  Bytes: the weights of every
@@ -143,11 +181,11 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def bound(nbytes, ops):
+def bound(nbytes, ops, tc_flops=0):
     """(least ms, what bounds it) of a call moving nbytes with ops fp32
-    operations."""
+    operations and tc_flops bf16 tensor-core flops."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_OPS_PER_S * 1e3
+    t_ops = max(ops / FP32_OPS_PER_S, tc_flops / BF16_TC_FLOPS_PER_S) * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -229,7 +267,8 @@ def main():
     report = {name: {"err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
                      "bound_by": None, "library_ms": None} for name in KERNELS}
 
-    def record(name, err, ms, plain_ms, what, nbytes_, ops, library_ms=None):
+    def record(name, err, ms, plain_ms, what, nbytes_, ops, library_ms=None,
+               tc_flops=0):
         """One main-path call of a kernel: error vs its twin, times (and
         the one PyTorch call's time, where there is one), and its bound from
         this call's bytes and operations."""
@@ -237,7 +276,7 @@ def main():
         r["err"] = max(r["err"], float(err))
         r["ms"] += ms
         r["plain_ms"] += plain_ms
-        b_ms, by = bound(nbytes_, ops)
+        b_ms, by = bound(nbytes_, ops, tc_flops)
         r["bound_ms"] += b_ms
         r["bound_by"] = by
         lib = ""
@@ -463,6 +502,81 @@ def main():
         hist_k9(idx, w, khist, record)
         del idx, w
 
+    # -- 2d. K10 / K11 at the main paths' shapes ----------------------------
+    phase(f"2d. K10 / K11 vs plain twins and vs K1 / K2 on the card ({card})")
+
+    def lrf_v2(queries, q_mask, radius, z_only, what):
+        """K10 (and K11 unless z_only: the z-only normals vote with K2)
+        at one main-path call against its twin -- moments: weight sums
+        rtol 2e-4, counts +-1, covariance atol 5e-4; votes +-1 -- and
+        against K1 / K2 to the JAX package's v1-vs-v2 contract
+        (tests/test_pallas_kernels.py:101-125): the same, valid flags
+        equal, >= 97% of frames with every axis at |cos| > 0.999."""
+        q, p = klrf.prep_shift(queries, pts, mask)
+        mom, cnt = klrf.moments_v2(q, p, mask, radius)
+        pmom, pcnt = klrf.moments_v2_plain(q, p, mask, radius)
+        m1, c1 = klrf.moments(q, p, mask, radius)
+        cov, _ = klrf.cov_from_moments(mom, q, q_mask)
+        for other, ocnt, vs in ((pmom, pcnt, "its twin"), (m1, c1, "K1")):
+            rel = ((mom[..., 0] - other[..., 0]).abs()
+                   / other[..., 0].abs().clamp(min=1e-6)).max()
+            ocov, _ = klrf.cov_from_moments(other, q, q_mask)
+            cerr = (cov - ocov).abs().max()
+            dc = int((cnt - ocnt).abs().max())
+            print(f"{'lrf_moments_v2':20s} {what} vs {vs}: weight sums "
+                  f"rtol {float(rel):.2e}, counts +-{dc}, covariance "
+                  f"{float(cerr):.2e}")
+            assert rel <= 2e-4 and dc <= 1 and cerr <= 5e-4, \
+                f"K10 differs from {vs} ({what})"
+        pairs = q.shape[0] * q.shape[1] * p.shape[1]
+        inside = int(cnt.sum())
+        k1_ms = cuda_ms(lambda: klrf.moments(q, p, mask, radius), 5)
+        ms = cuda_ms(lambda: klrf.moments_v2(q, p, mask, radius), 5)
+        print(f"{'':20s} {what}: K10 {ms:.4f} ms, K1 {k1_ms:.4f} ms at the "
+              f"same inputs ({card})")
+        record("lrf_moments_v2", (mom - pmom).abs().max(), ms,
+               cuda_ms(lambda: klrf.moments_v2_plain(q, p, mask, radius), 2),
+               what, nbytes(q, p, mask, mom, cnt),
+               pairs * MOMENT_V2_PAIR_OPS, tc_flops=pairs * MOMENT_V2_TC_FLOPS)
+        _, vecs = eigh3x3(cov)
+        axes = torch.cat([vecs[..., :, 2], vecs[..., :, 0]], -1).contiguous()
+        if not z_only:
+            v = klrf.sign_votes_v2(q, p, mask, axes, radius)
+            pv = klrf.sign_votes_v2_plain(q, p, mask, axes, radius)
+            err = int((v - pv).abs().max())
+            err1 = int((v - klrf.sign_votes(q, p, mask, axes, radius))
+                       .abs().max())
+            print(f"{'sign_votes_v2':20s} {what}: votes vs its twin +-{err}, "
+                  f"vs K2 +-{err1}")
+            assert err <= 1 and err1 <= 1, f"K11 votes differ ({what})"
+            k2_ms = cuda_ms(lambda: klrf.sign_votes(q, p, mask, axes,
+                                                    radius), 5)
+            ms = cuda_ms(lambda: klrf.sign_votes_v2(q, p, mask, axes,
+                                                    radius), 5)
+            print(f"{'':20s} {what}: K11 {ms:.4f} ms, K2 {k2_ms:.4f} ms at "
+                  f"the same inputs ({card})")
+            record("sign_votes_v2", err, ms,
+                   cuda_ms(lambda: klrf.sign_votes_v2_plain(
+                       q, p, mask, axes, radius), 2), what,
+                   nbytes(q, p, mask, axes, v),
+                   pairs * VOTE_V2_GATE_OPS + inside * VOTE_V2_BODY_OPS)
+        one = shot_lrf(queries, q_mask, pts, mask, radius, z_only=z_only)
+        two = shot_lrf(queries, q_mask, pts, mask, radius, z_only=z_only,
+                       lrf_version=2)
+        assert torch.equal(one.valid, two.valid), f"valid flags ({what})"
+        cosf = torch.einsum("...ij,...ij->...i", one.frames, two.frames) \
+            .abs().amin(-1)[one.valid]
+        share = float((cosf > 0.999).float().mean())
+        print(f"{'':20s} {what}: frames v2 vs v1 |cos| > 0.999 on "
+              f"{100 * share:.2f}% of {int(one.valid.sum())} valid frames")
+        assert share >= 0.97, f"v2 frames differ from v1 ({what})"
+
+    with torch.no_grad():
+        lrf_v2(pts, mask, cfg.normal_radius, True,
+               f"normals B={BATCH} Q=N={pts.shape[1]}")
+        lrf_v2(kp, kres.mask, cfg.ref_frame_radius, False,
+               f"keypoint LRF B={BATCH} Q={kp.shape[1]}")
+
     # -- 3. goldens ---------------------------------------------------------
     phase("3. goldens (tests/golden/descriptors.npz, atol 2e-3)")
     g = np.load(os.path.join(HERE, "tests", "golden", "descriptors.npz"))
@@ -549,6 +663,20 @@ def main():
     check_decisions(tscores.cpu().numpy(), dense_scores.cpu().numpy(),
                     labels, "the unsorted dense step")
     check_decisions(tscores.cpu().numpy(), ref["scores"], labels)
+
+    # -- 4c. the dense classify step with the v2 LRF kernels ----------------
+    phase(f"4c. dense classify step, lrf_version 2 (K10 / K11): "
+          f"IsmClassifier, B={BATCH} x N={pts.shape[1]} ({card})")
+    v2model = IsmClassifier(codebook, cfg._replace(lrf_version=2), params)
+    scores, launches["dense_v2"] = drive("dense_v2", v2model, STAGES, pts,
+                                         mask, ROUNDS, card)
+    assert launches["dense_v2"]["lrf_moments"] == 0, \
+        f"K1 launched by the v2 step: {launches['dense_v2']}"
+    with torch.no_grad():
+        assert torch.equal(scores, v2model(pts, mask)), \
+            "two runs of the v2 step differ"
+    print("two runs of the step: scores identical")
+    check_decisions(scores.cpu().numpy(), ref["scores"], labels)
 
     # -- 5. serve -------------------------------------------------------------
     phase("5. serve --device cuda on 8 PCD files")
@@ -642,6 +770,10 @@ def main():
         check_decisions(s_np, dref["scores_" + key], labels,
                         require_accuracy=desc == "CSHOT")
 
+    # -- 9. training on the card -------------------------------------------------
+    phase(f"9. training: ImplicitShapeModel.train on the fused route ({card})")
+    training(launches, card, data, pts, mask, rgb, labels, ref, dref)
+
     # -- results ----------------------------------------------------------------
     total = {k: sum(run[k] for run in launches.values()) for k in KERNELS}
     assert all(total.values()), f"kernels never launched: {total}"
@@ -700,6 +832,180 @@ def drive(path, model, stages, pts, mask, rounds, card, extra=()):
     missing = [k for k in PATH_KERNELS[path] if launches[k] == 0]
     assert not missing, f"kernels not launched by the {path} path: {missing}"
     return out, launches
+
+
+def training(launches, card, data, pts, mask, rgb, labels, ref, dref):
+    """Phase 9: train on the bench's five training clouds (SHOT with K1/K2
+    and with K10/K11, CSHOT on their colours, SHORT_SHOT) through the
+    port's ImplicitShapeModel on the card, each with the launch counts set
+    to 0 just before and read just after; hold each codebook against the
+    committed JAX-trained one and serve it on the bench batch against the
+    committed JAX-CPU references; time the training of 24 rotated clouds;
+    run the train entry point on 8 PCD files and serve its model."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from bench_data import (BENCH_CONFIG, KEYPOINT_CAPACITY, NUM_CLASSES,
+                            bench_clouds, bench_colors)
+    from point_cloud_donkey_tpu_torch import serve, train
+    from point_cloud_donkey_tpu_torch.kernels import build
+    from point_cloud_donkey_tpu_torch.models.codebook import (
+        Codebook, CodebookParams)
+    from point_cloud_donkey_tpu_torch.models.ism import ImplicitShapeModel
+    from point_cloud_donkey_tpu_torch.models.pipeline import (IsmClassifier,
+                                                              PipelineConfig)
+    from point_cloud_donkey_tpu_torch.ops.lrf import lrf_version_from_env
+    from point_cloud_donkey_tpu_torch.utils.config import IsmConfig
+    from point_cloud_donkey_tpu_torch.utils.io import save_pcd
+
+    import shapes
+
+    def config(descriptor):
+        cfg = copy.deepcopy(BENCH_CONFIG)
+        cfg["ObjectConfig"]["Children"]["Features"]["Type"] = descriptor
+        return IsmConfig.from_json(cfg)
+
+    tmp = tempfile.mkdtemp(prefix="pcd_smoke_train_")
+    try:
+        def files(clouds, cls, prefix, colours=None):
+            out = []
+            for i, (cloud, c) in enumerate(zip(clouds, cls)):
+                path = os.path.join(tmp, f"{prefix}{i}.pcd")
+                save_pcd(path, cloud,
+                         rgb=None if colours is None else colours(cloud))
+                out.append((path, int(c)))
+            return out
+
+        def run(descriptor, items, path, lrf_version=1):
+            """Train; with a path, the launch counts of the call are
+            checked against PATH_KERNELS[path] and kept."""
+            ism = ImplicitShapeModel(config(descriptor), "cuda", lrf_version)
+            for p, c in items:
+                ism.add_training_model(p, c, c)
+            torch.cuda.synchronize()
+            build.reset_launch_counts()
+            t0 = time.perf_counter()
+            ism.train()
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            got = build.launch_counts()
+            if path is not None:
+                print(f"{path}: {len(items)} clouds in {dt:.3f} s, "
+                      f"{ism.state.codebook.num_codewords} codewords; "
+                      f"launches {got}")
+                missing = [k for k in PATH_KERNELS[path] if got[k] == 0]
+                assert not missing, \
+                    f"kernels not launched by the {path} path: {missing}"
+                launches[path] = got
+            return ism, dt
+
+        def served(ism, extra=()):
+            cb = Codebook.from_numpy(ism.state.codebook._asdict()).to(
+                pts.device)
+            model = IsmClassifier(
+                cb, PipelineConfig.from_ism(
+                    ism.config, cb.num_classes,
+                    keypoint_capacity=KEYPOINT_CAPACITY),
+                CodebookParams.from_config(ism.config.child("Codebook")))
+            with torch.no_grad():
+                return model(pts, mask, *extra).cpu().numpy()
+
+        def compare(cb, want, what):
+            """The training contract against a committed JAX-trained
+            codebook: codeword count and mask equal, the same vote classes,
+            >= 97% of the codewords at cosine > 0.999 in the same order,
+            class sigmas within rtol 5e-2."""
+            assert cb.codewords.shape == want["cb_codewords"].shape and \
+                np.array_equal(cb.cw_mask, want["cb_cw_mask"]), \
+                f"{what}: codewords {cb.codewords.shape} vs " \
+                f"{want['cb_codewords'].shape}"
+            assert np.array_equal(cb.vote_class, want["cb_vote_class"]), \
+                f"{what}: vote classes differ"
+            a, b = cb.codewords, want["cb_codewords"]
+            cos = (a * b).sum(1) / np.maximum(
+                np.linalg.norm(a, axis=1) * np.linalg.norm(b, axis=1), 1e-30)
+            share = float((cos > 0.999).mean())
+            srel = float(np.abs(cb.class_sigma / want["cb_class_sigma"]
+                                - 1).max())
+            print(f"{what} vs the committed JAX-trained codebook: "
+                  f"{cb.num_codewords} codewords, cosine > 0.999 on "
+                  f"{100 * share:.2f}% (min {cos.min():.6f}), class sigma "
+                  f"max relative delta {srel:.3e}")
+            assert share >= 0.97 and srel <= 5e-2, f"{what} differs"
+
+        train_pts, train_cls, _, _ = bench_clouds(0)
+        shot_items = files(train_pts, train_cls, "s")
+        want = np.load(os.path.join(data, "bench_codebook.ismd.npz"))
+        ism, _ = run("SHOT", shot_items, "train")
+        compare(ism.state.codebook, want, "SHOT")
+        check_decisions(served(ism), ref["scores"], labels)
+
+        old = os.environ.get("PCD_PALLAS_LRF_V")
+        os.environ["PCD_PALLAS_LRF_V"] = "2"
+        try:
+            version = lrf_version_from_env()
+        finally:
+            if old is None:
+                del os.environ["PCD_PALLAS_LRF_V"]
+            else:
+                os.environ["PCD_PALLAS_LRF_V"] = old
+        ism, _ = run("SHOT", shot_items, "train_v2", version)
+        assert launches["train_v2"]["lrf_moments"] == 0, "K1 launched"
+        compare(ism.state.codebook, want, "SHOT, PCD_PALLAS_LRF_V=2")
+        check_decisions(served(ism), ref["scores"], labels)
+
+        for desc, items, extra in (
+                ("CSHOT", files(train_pts, train_cls, "c", bench_colors),
+                 (rgb,)),
+                ("SHORT_SHOT", shot_items, ())):
+            key = desc.lower()
+            ism, _ = run(desc, items, "train_" + key)
+            with np.load(os.path.join(data, f"{key}_codebook.ismd.npz")) as z:
+                count = int(z["cb_cw_mask"].sum())
+            print(f"{desc}: {ism.state.codebook.num_codewords} codewords "
+                  f"(committed JAX-trained: {count})")
+            assert ism.state.codebook.num_codewords == count
+            check_decisions(served(ism, extra), dref["scores_" + key],
+                            labels, require_accuracy=False)
+
+        # throughput: 24 rotated clouds drawn as bench.py:380-416 draws
+        # them, after one untimed run on another 24
+        rng = np.random.default_rng(42)
+        sets = []
+        for prefix in ("w", "t"):
+            cls = [i % NUM_CLASSES for i in range(24)]
+            sets.append(files([shapes.make_instance(rng, c, n=pts.shape[1],
+                                                    rotate=True, noise=0.005)
+                               for c in cls], cls, prefix))
+        run("SHOT", sets[0], None)
+        ism, dt = run("SHOT", sets[1], None)
+        per = {k: round(v * 1e3 / 24, 3)
+               for k, v in ism.processing_times.items()}
+        print(f"training throughput: {24 / dt:.2f} clouds/s over 24 clouds "
+              f"({card}); train_* ms per cloud: {per}")
+
+        # the train entry point on 8 PCD files, then serve its model
+        items = files(ref["points"][:8], ref["labels"][:8], "f")
+        cfg_path = os.path.join(tmp, "config.ism")
+        config("SHOT").save(cfg_path)
+        flist = os.path.join(tmp, "train.txt")
+        with open(flist, "w") as f:
+            f.write("\n".join(["# train"] + [f"{p} {c}" for p, c in items])
+                    + "\n")
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = train.main(["-t", cfg_path, "-f", flist, "-o",
+                             os.path.join(tmp, "model")])
+        print(out.getvalue().rstrip())
+        assert rc == 0, "train failed"
+        text = serve_files(serve, os.path.join(tmp, "model.ism"),
+                           ref["points"][:8], ref["labels"][:8], [])
+        assert " Accuracy: 100 % " in text, \
+            "serve of the trained model missed its own training clouds"
+    finally:
+        shutil.rmtree(tmp)
 
 
 def check_decisions(s, rs, labels, what="JAX-CPU reference",

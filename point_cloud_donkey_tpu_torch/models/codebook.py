@@ -1,10 +1,18 @@
-"""Serving codebook and vote casting (port of the detection half of
-point_cloud_donkey_tpu/models/codebook.py, KNN activation).
+"""Codebook training and serving (port of point_cloud_donkey_tpu/models/
+codebook.py, KNN / KNNRule activation).
 
-Weights carried across: a codebook trained by the JAX package is saved as
-the ``cb_*`` arrays of ``<model>.ismd.npz`` (models/ism.py save); the
-:class:`Codebook` module holds them as registered buffers, so ``.to(device)``
-moves them.  Training stays in the JAX package for now.
+Training (codebook.cpp:64-365): every training feature activates its k
+nearest codewords (the self-kNN through K4 when the codewords are the
+features), each activation records a vote (the object centre seen from the
+feature's LRF), KNN k=1 keeps the codewords with exactly one vote, and the
+votes get their centre weights and statistical class weights.  The host
+half is the JAX package's numpy code, so the same activations give the
+same arrays; the kNN and the class-sigma distance sums run in torch on the
+device of the descriptors.
+
+Serving: a trained codebook is saved as the ``cb_*`` arrays of
+``<model>.ismd.npz`` (models/ism.py save); the :class:`Codebook` module
+holds them as registered buffers, so ``.to(device)`` moves them.
 """
 
 from __future__ import annotations
@@ -12,15 +20,20 @@ from __future__ import annotations
 import math
 import os
 from dataclasses import dataclass
-from typing import Mapping, NamedTuple
+from typing import Callable, Dict, List, Mapping, NamedTuple, Optional, \
+    Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
-from ..ops.geometry import matrix_to_quat, quat_multiply
-from ..ops.neighbors import knn
+from ..ops.geometry import (BoundingBox, matrix_to_quat,
+                            matrix_to_quat_batch_np, quat_multiply,
+                            quat_multiply_np)
+from ..ops.neighbors import (chi_square_distance_matrix, full_fp32, knn,
+                             pairwise_sqdist)
 from ..utils.config import ComponentConfig
+from .types import FeatureSet
 
 CODEBOOK_FIELDS = ("codewords", "cw_mask", "cw_weight", "cw_position",
                    "votes", "vote_mask", "vote_class", "vote_instance",
@@ -197,3 +210,346 @@ def cast_votes(cb: Codebook,
         bbox_quat=flat(out_quat),
         valid=flat(valid),
     )
+
+
+# ---------------------------------------------------------------------------
+# training
+# ---------------------------------------------------------------------------
+
+class TrainedCodebook(NamedTuple):
+    """The trained codebook arrays (numpy; saved as ``cb_*``)."""
+    codewords: np.ndarray        # [C, D]
+    cw_mask: np.ndarray          # [C]
+    cw_weight: np.ndarray        # [C] (1.0, as in the reference)
+    cw_position: np.ndarray      # [C, 3] feature position of each codeword
+    votes: np.ndarray            # [C, MV, 3] vote vectors in LRF coordinates
+    vote_mask: np.ndarray        # [C, MV]
+    vote_class: np.ndarray       # [C, MV] int32
+    vote_instance: np.ndarray    # [C, MV] int32
+    vote_weight: np.ndarray      # [C, MV] centre weight (median gaussian)
+    class_weight: np.ndarray     # [C, MV] statistical class weight
+    bbox_size: np.ndarray        # [C, MV, 3]
+    bbox_quat: np.ndarray        # [C, MV, 4] composed with conj(frame)
+    class_sigma: np.ndarray      # [classes] variance of the activation dists
+
+    @property
+    def num_codewords(self) -> int:
+        return int(self.cw_mask.sum())
+
+
+def training_k(params: CodebookParams) -> int:
+    """Neighbours per feature of the training activation: K for KNN, 1 for
+    KNNRule (activation_strategy_knn_rule.h trains like KNN k=1)."""
+    if params.activation_type == "KNN":
+        return params.knn_k
+    if params.activation_type == "KNNRule":
+        return 1
+    raise NotImplementedError(
+        f"activation {params.activation_type!r}: the port trains KNN and "
+        "KNNRule only")
+
+
+def activate_knn(queries: torch.Tensor,    # [F, D]
+                 codewords: torch.Tensor,  # [C, D]
+                 k: int, metric: str) -> Tuple[np.ndarray, np.ndarray]:
+    """Exact k-NN activation of the training features (the JAX
+    ``activate_knn_batch``): (dists [F, k], idx [F, k]) as numpy, ties to
+    the lower index; with C <= k every feature activates every codeword at
+    distance 0."""
+    c = codewords.shape[0]
+    f = queries.shape[0]
+    if c <= k:
+        return (np.zeros((f, c), np.float32),
+                np.tile(np.arange(c), (f, 1)))
+    mask = torch.ones(c, dtype=torch.bool, device=codewords.device)
+    with full_fp32():
+        d, i = knn(queries.contiguous(), codewords.contiguous(), mask, k,
+                   metric)
+    return d.cpu().numpy(), i.cpu().numpy()
+
+
+def _pair_distance_sums(a: torch.Tensor, b: torch.Tensor, metric: str
+                        ) -> torch.Tensor:
+    """[sum, sum of squares] of the [A, B] distance matrix (exact
+    chi-square or squared l2), f32, on a's device."""
+    with full_fp32():
+        dm = (chi_square_distance_matrix(a, b) if metric == "chisq"
+              else pairwise_sqdist(a, b))
+    return torch.stack([dm.sum(), (dm * dm).sum()])
+
+
+def train_codebook(
+        features_per_model: List[FeatureSet],   # compacted per model
+        class_per_model: List[int],
+        instance_per_model: List[int],
+        boxes_per_model: List[BoundingBox],
+        codeword_data: np.ndarray,              # [C, D] cluster centres
+        codeword_positions: np.ndarray,         # [C, 3]
+        params: CodebookParams,
+        metric: str,
+        device: torch.device = torch.device("cpu"),
+        activation_fn: Optional[Callable[[np.ndarray],
+                                         Tuple[np.ndarray, np.ndarray]]] = None
+        ) -> TrainedCodebook:
+    """Codebook training (the JAX ``train_codebook``, codebook.cpp:64-365):
+    one activation of every model's features, vote recording per class,
+    the class sigma from sampled feature x codeword distances, the KNN k=1
+    clean-up, centre weights and statistical class weights.
+    `activation_fn(all_descriptors) -> (dists, idx)` replaces the default
+    activation (the descriptors uploaded to `device`, against the
+    codewords there)."""
+    k = training_k(params)
+    if params.use_partial_shot:
+        raise NotImplementedError("partial SHOT matching is not ported")
+    num_models = len(features_per_model)
+    assert num_models == len(class_per_model) == len(boxes_per_model)
+    classes = sorted(set(class_per_model))
+    class_sigmas: Dict[int, float] = {}
+    sigma_pending: Dict[int, Tuple[torch.Tensor, int]] = {}
+
+    # step 0: one activation over every model's features
+    sizes = [fs.descriptors.shape[0] for fs in features_per_model]
+    act_nonzero = [i for i, s in enumerate(sizes) if s]
+    act_per_model: Dict[int, Tuple[np.ndarray, np.ndarray]] = {}
+    if act_nonzero:
+        all_desc = np.concatenate(
+            [features_per_model[i].descriptors for i in act_nonzero], axis=0)
+        if activation_fn is None:
+            def activation_fn(desc):
+                return activate_knn(
+                    torch.from_numpy(np.ascontiguousarray(
+                        desc, np.float32)).to(device),
+                    torch.from_numpy(np.ascontiguousarray(
+                        codeword_data, np.float32)).to(device), k, metric)
+        all_d, all_i = activation_fn(all_desc)
+        off = 0
+        for i in act_nonzero:
+            act_per_model[i] = (all_d[off:off + sizes[i]],
+                                all_i[off:off + sizes[i]])
+            off += sizes[i]
+
+    # step 1: vote recording, per class
+    rec = {name: [] for name in ("cw", "vote", "class", "inst", "pos",
+                                 "frame", "center", "bsize", "bquat")}
+    for class_id in classes:
+        model_idx = [i for i, c in enumerate(class_per_model)
+                     if c == class_id]
+        num_features = sum(int(features_per_model[i].mask.sum())
+                           for i in model_idx)
+        max_elements = int(math.isqrt(max(num_features, 0)))
+        sample_feature_descs: List[np.ndarray] = []
+        sample_cw_descs: List[np.ndarray] = []
+        n_feat_acc = 0
+        n_cw_acc = 0
+        for mi in model_idx:
+            fs = features_per_model[mi]
+            box = boxes_per_model[mi]
+            n = fs.descriptors.shape[0]
+            if n == 0:
+                continue
+            _, idx = act_per_model[mi]
+            center = np.asarray(box.position, np.float32)
+            box_quat = np.asarray(box.quat, np.float32)
+            # vote = (centre - keypoint) rotated into the LRF; bbox quat
+            # composed with conj(frame) (codeword_distribution.cpp:37-71)
+            frames = np.asarray(fs.frames, np.float32)
+            frame_quats = matrix_to_quat_batch_np(frames)
+            vote_world = center[None, :] - np.asarray(fs.positions,
+                                                      np.float32)
+            vote_local = np.einsum("jab,jb->ja", frames, vote_world)
+            conj = frame_quats * np.array([1, -1, -1, -1], np.float32)
+            new_quat = quat_multiply_np(box_quat[None, :], conj)
+
+            jj, kk = np.nonzero(idx >= 0)
+            rec["cw"].append(idx[jj, kk].astype(np.int64))
+            rec["vote"].append(vote_local[jj].astype(np.float32))
+            rec["class"].append(np.full(len(jj), class_id, np.int32))
+            rec["inst"].append(np.full(len(jj), instance_per_model[mi],
+                                       np.int32))
+            rec["pos"].append(np.asarray(fs.positions, np.float32)[jj])
+            rec["frame"].append(frames[jj])
+            rec["center"].append(np.tile(center, (len(jj), 1)))
+            rec["bsize"].append(np.tile(np.asarray(box.size, np.float32),
+                                        (len(jj), 1)))
+            rec["bquat"].append(new_quat[jj].astype(np.float32))
+
+            # capped samples for the class sigma
+            if n_feat_acc < max_elements:
+                sample_feature_descs.append(np.asarray(fs.descriptors))
+                n_feat_acc += n
+            if n_cw_acc < max_elements:
+                flat_idx = idx.reshape(-1)
+                sample_cw_descs.append(codeword_data[flat_idx[flat_idx >= 0]])
+                n_cw_acc += idx.size
+
+        if sample_feature_descs and sample_cw_descs:
+            fd = np.concatenate(sample_feature_descs, axis=0)
+            cd = np.concatenate(sample_cw_descs, axis=0)
+            sigma_pending[class_id] = (_pair_distance_sums(
+                torch.from_numpy(np.ascontiguousarray(fd, np.float32)).to(
+                    device),
+                torch.from_numpy(np.ascontiguousarray(cd, np.float32)).to(
+                    device), metric), len(fd) * len(cd))
+        else:
+            class_sigmas[class_id] = 1.0
+
+    if sigma_pending:
+        # one host read for every class's (sum, sum of squares)
+        cids = list(sigma_pending)
+        sums = torch.stack([sigma_pending[c][0] for c in cids]).cpu().numpy()
+        for c, (s, ss) in zip(cids, sums):
+            n = sigma_pending[c][1]
+            mean = float(s) / n
+            var = (float(ss) - n * mean * mean) / max(n - 1, 1)
+            class_sigmas[c] = max(var, 0.0)
+
+    empty = {"cw": np.zeros(0, np.int64), "vote": np.zeros((0, 3), np.float32),
+             "class": np.zeros(0, np.int32), "inst": np.zeros(0, np.int32),
+             "pos": np.zeros((0, 3), np.float32),
+             "frame": np.zeros((0, 3, 3), np.float32),
+             "center": np.zeros((0, 3), np.float32),
+             "bsize": np.zeros((0, 3), np.float32),
+             "bquat": np.zeros((0, 4), np.float32)}
+    arr = {name: np.concatenate(parts) if parts else empty[name]
+           for name, parts in rec.items()}
+    cw_arr = arr["cw"]
+
+    # group votes by codeword, insertion order within a group
+    order = np.argsort(cw_arr, kind="stable")
+    uniq_cw, group_start, group_size = np.unique(
+        cw_arr[order], return_index=True, return_counts=True)
+
+    # KNN k=1 clean-up: keep single-vote codewords only
+    if params.activation_type == "KNN" and params.knn_k == 1:
+        keep_g = group_size == 1
+        uniq_cw = uniq_cw[keep_g]
+        group_start = group_start[keep_g]
+        group_size = group_size[keep_g]
+
+    if len(uniq_cw):
+        sel = np.concatenate([order[s:s + z]
+                              for s, z in zip(group_start, group_size)])
+    else:
+        sel = np.zeros(0, np.int64)
+    g_of_vote = np.repeat(np.arange(len(uniq_cw)), group_size)
+    slot_of_vote = (np.arange(len(sel))
+                    - np.repeat(np.cumsum(group_size) - group_size,
+                                group_size)) \
+        if len(sel) else np.zeros(0, np.int64)
+    arr = {name: a[sel] for name, a in arr.items() if name != "cw"}
+
+    weight_arr = _center_weights_batched(arr["vote"], arr["pos"],
+                                         arr["frame"], arr["center"],
+                                         g_of_vote, group_size)
+    clsw_arr = _statistical_class_weights_arrays(
+        np.repeat(uniq_cw, group_size), arr["class"])
+
+    # pack to serving arrays
+    c_used = len(uniq_cw)
+    mv = int(group_size.max()) if c_used else 1
+    dim = codeword_data.shape[1]
+    num_classes = (max(classes) + 1) if classes else 1
+    rows = max(c_used, 1)
+    out = TrainedCodebook(
+        codewords=np.zeros((rows, dim), np.float32),
+        cw_mask=np.zeros(rows, bool),
+        cw_weight=np.ones(rows, np.float32),
+        cw_position=np.zeros((rows, 3), np.float32),
+        votes=np.zeros((rows, mv, 3), np.float32),
+        vote_mask=np.zeros((rows, mv), bool),
+        vote_class=np.zeros((rows, mv), np.int32),
+        vote_instance=np.zeros((rows, mv), np.int32),
+        vote_weight=np.zeros((rows, mv), np.float32),
+        class_weight=np.ones((rows, mv), np.float32),
+        bbox_size=np.zeros((rows, mv, 3), np.float32),
+        bbox_quat=np.zeros((rows, mv, 4), np.float32),
+        class_sigma=np.ones(num_classes, np.float32),
+    )
+    for cid, var in class_sigmas.items():
+        out.class_sigma[cid] = var
+    if c_used:
+        out.codewords[:c_used] = codeword_data[uniq_cw]
+        out.cw_mask[:c_used] = True
+        out.cw_position[:c_used] = codeword_positions[uniq_cw]
+        r, s = g_of_vote, slot_of_vote
+        out.votes[r, s] = arr["vote"]
+        out.vote_mask[r, s] = True
+        out.vote_class[r, s] = arr["class"]
+        out.vote_instance[r, s] = arr["inst"]
+        out.vote_weight[r, s] = weight_arr
+        out.class_weight[r, s] = clsw_arr
+        out.bbox_size[r, s] = arr["bsize"]
+        out.bbox_quat[r, s] = arr["bquat"]
+    return out
+
+
+def _center_weights_batched(vote, pos, frame, center, g_of_vote, group_size
+                            ) -> np.ndarray:
+    """CodewordDistribution::computeWeights (codeword_distribution.cpp:
+    171-243): weight of vote i = median over the votes j of its codeword of
+    exp(-|pos_j + R_j^T v_i - center_i|^2 / 0.5^2); groups padded to the
+    largest and batched, NaN padding + nanmedian for numpy's midpoint
+    rule."""
+    sigma = 0.5
+    nv = len(vote)
+    if nv == 0:
+        return np.zeros(0, np.float32)
+    m = int(group_size.max())
+    if m == 1:
+        # each vote is its own median (the KNN k=1 case)
+        back = np.einsum("jab,ja->jb", frame, vote)     # F^T v (rotateBack)
+        dist = np.linalg.norm(pos + back - center, axis=1)
+        return np.exp(-(dist ** 2) / (sigma ** 2)).astype(np.float32)
+    ng = len(group_size)
+    gi = np.full((ng, m), -1, np.int64)
+    slot = np.arange(nv) - np.repeat(np.cumsum(group_size) - group_size,
+                                     group_size)
+    gi[g_of_vote, slot] = np.arange(nv)
+    valid = gi >= 0
+    gi0 = np.where(valid, gi, 0)
+    out = np.zeros(nv, np.float32)
+    # chunk over groups so the [chunk, m, m, 3] intermediate stays bounded
+    gchunk = max(1, (1 << 22) // max(m * m, 1))
+    for g0 in range(0, ng, gchunk):
+        gs = slice(g0, min(g0 + gchunk, ng))
+        idx = gi0[gs]
+        val = valid[gs]
+        back = np.einsum("gjab,gia->gijb", frame[idx], vote[idx])
+        world = pos[idx][:, None, :, :] + back
+        dist = np.linalg.norm(world - center[idx][:, :, None, :], axis=3)
+        w = np.exp(-(dist ** 2) / (sigma ** 2))
+        w = np.where(val[:, None, :], w, np.nan)
+        med = np.nanmedian(w, axis=2)
+        out[idx[val]] = med[val].astype(np.float32)
+    return out
+
+
+def _statistical_class_weights_arrays(cw_of_vote: np.ndarray,
+                                      class_of_vote: np.ndarray
+                                      ) -> np.ndarray:
+    """The 9-step statistical weights (codebook.cpp:226-365) per vote:
+    term1[class] * term2[cw] * term3[cw, class], with term1 = 1 /
+    #codewords voting for the class, term2 = 1 / #votes of the codeword and
+    term3 the codeword's share of the class's votes normalised over
+    classes (per (codeword, class), the JAX package's reading)."""
+    nv = len(cw_of_vote)
+    if nv == 0:
+        return np.ones(0, np.float32)
+    u_cw, cw_id = np.unique(cw_of_vote, return_inverse=True)
+    u_cls, cls_id = np.unique(class_of_vote, return_inverse=True)
+    n_cw, n_cls = len(u_cw), len(u_cls)
+    nfeat_cls = np.bincount(cls_id, minlength=n_cls).astype(np.float64)
+    pair_key = cw_id.astype(np.int64) * n_cls + cls_id
+    u_pair, pair_inv, nv_pair = np.unique(pair_key, return_inverse=True,
+                                          return_counts=True)
+    pair_cw = (u_pair // n_cls).astype(np.int64)
+    pair_cls = (u_pair % n_cls).astype(np.int64)
+    sum_cw = np.zeros(n_cw, np.float64)
+    np.add.at(sum_cw, pair_cw, nv_pair / nfeat_cls[pair_cls])
+    ncw_cls = np.zeros(n_cls, np.int64)
+    np.add.at(ncw_cls, pair_cls, 1)
+    term1 = 1.0 / ncw_cls
+    term2 = 1.0 / np.bincount(cw_id, minlength=n_cw).astype(np.float64)
+    t3_pair = (nv_pair / nfeat_cls[pair_cls]) / sum_cw[pair_cw]
+    w_pair = term1[pair_cls] * term2[pair_cw] * t3_pair
+    return w_pair[pair_inv].astype(np.float32)

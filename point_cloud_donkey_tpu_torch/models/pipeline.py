@@ -26,6 +26,9 @@ over every (keypoint, point) pair -- CSHOT-1344 accumulated by K8 twice
 (shape and colour channel), SHORT_SHOT-32 by K9; then kNN + votes (K4)
 over the valid rows of the grid and the same scores, each cloud's rows
 one run.
+With ``lrf_version`` 2 (PCD_PALLAS_LRF_V=2) every dense LRF pass runs the
+v2 kernels instead: K10 for the moments, K11 for the keypoint LRFs' votes,
+K2 for the z-only normals' votes.
 Each cloud's scores are independent of the rest of the batch.  They are
 not bit-invariant to the order of its points, which sets the
 floating-point summation order of every sum over points.
@@ -84,6 +87,10 @@ class PipelineConfig(NamedTuple):
     normals_window: int = 0
     # the windowed descriptor (shot_descriptor_fused_windowed) is not ported
     descriptor_window: int = 0
+    # SHOT LRF kernels (ops/lrf.py): 1 = K1/K2, 2 = K10/K11 (K2 for the
+    # z-only normals), the JAX package's PCD_PALLAS_LRF_V; the windowed
+    # normals have no v2 and keep K5/K6
+    lrf_version: int = 1
 
     @classmethod
     def from_ism(cls, config: IsmConfig, num_classes: int,
@@ -190,13 +197,15 @@ class IsmClassifier(nn.Module):
                     cfg.normals_window)
             else:
                 normals = compute_normals_fast(points, mask,
-                                               cfg.normal_radius)
+                                               cfg.normal_radius,
+                                               cfg.lrf_version)
             mark("normals")
 
             kp, kp_mask, _ = _keypoints(points, mask, cfg)
             mark("keypoints")
 
-            lrf = shot_lrf(kp, kp_mask, points, mask, cfg.ref_frame_radius)
+            lrf = shot_lrf(kp, kp_mask, points, mask, cfg.ref_frame_radius,
+                           lrf_version=cfg.lrf_version)
             mark("lrf")
 
             # the step's one host read: the [B] keypoint counts that size
@@ -207,7 +216,8 @@ class IsmClassifier(nn.Module):
             host = host.cpu().numpy()
             if exact is not None and not host[b]:
                 normals = compute_normals_fast(points, mask,
-                                               cfg.normal_radius)
+                                               cfg.normal_radius,
+                                               cfg.lrf_version)
                 self.dense_recomputes += 1
             desc, valid, kp_f, fr_f, cloud_id = \
                 shot_descriptor_fused_compact(
@@ -231,14 +241,16 @@ class IsmClassifier(nn.Module):
         mark("sort")
         normals = None
         if cfg.descriptor == "CSHOT":
-            normals = compute_normals_fast(points, mask, cfg.normal_radius)
+            normals = compute_normals_fast(points, mask, cfg.normal_radius,
+                                           cfg.lrf_version)
         mark("normals")
 
         kp, kp_mask, kp_rgb = _keypoints(points, mask, cfg, rgb)
         k = kp.shape[1]
         mark("keypoints")
 
-        lrf = shot_lrf(kp, kp_mask, points, mask, cfg.ref_frame_radius)
+        lrf = shot_lrf(kp, kp_mask, points, mask, cfg.ref_frame_radius,
+                       lrf_version=cfg.lrf_version)
         mark("lrf")
 
         if rgb is None:
@@ -326,14 +338,16 @@ class IsmDetector(nn.Module):
         points = points.contiguous()
         mask = mask.contiguous()
         with full_fp32():
-            normals = compute_normals_fast(points, mask, cfg.normal_radius)
+            normals = compute_normals_fast(points, mask, cfg.normal_radius,
+                                           cfg.lrf_version)
             mark("normals")
 
             kp, kp_mask, _ = _keypoints(points, mask, cfg)
             k = kp.shape[1]
             mark("keypoints")
 
-            lrf = shot_lrf(kp, kp_mask, points, mask, cfg.ref_frame_radius)
+            lrf = shot_lrf(kp, kp_mask, points, mask, cfg.ref_frame_radius,
+                           lrf_version=cfg.lrf_version)
             mark("lrf")
 
             desc, valid = shot_descriptor_fused(kp, lrf.frames, lrf.valid,

@@ -1,15 +1,20 @@
 """K1 radius moments and K2 sign votes of the SHOT LRF, their windowed
-forms K5 and K6, and the fused LRFs built on them.
+forms K5 and K6, their v2 forms K10 and K11, and the fused LRFs built on
+them.
 
 Port of point_cloud_donkey_tpu/ops/pallas/lrf_moments.py: `_moments_call`
 -> :func:`moments`, `_sign_votes_call` -> :func:`sign_votes`,
 `_moments_call_gathered` -> :func:`moments_windowed`,
 `_sign_votes_call_gathered` -> :func:`sign_votes_windowed`,
-`_prep_lanes` -> :func:`prep_shift`, `shot_lrf_pallas` ->
-:func:`shot_lrf_fused`, `shot_lrf_pallas_windowed` ->
-:func:`shot_lrf_windowed`.  The kernels are in csrc/lrf_moments.cu; the
-plain twins below compute the same sums with the same float operations, on
-exact coordinate differences (not the matmul identity).
+`_moments_call_v2` -> :func:`moments_v2`, `_sign_votes_call_v2` ->
+:func:`sign_votes_v2`, `_prep_lanes` -> :func:`prep_shift`,
+`shot_lrf_pallas` -> :func:`shot_lrf_fused`, `shot_lrf_pallas_windowed` ->
+:func:`shot_lrf_windowed`.  The kernels are in csrc/lrf_moments.cu and
+csrc/lrf_moments_v2.cu.  The plain twins below compute the same sums with
+the same float operations: K1/K2/K5/K6 on exact coordinate differences,
+K10/K11 on the matmul identity d2 = |q|^2 + |p|^2 - 2 q.p, K10's moments as
+bf16x3 products (their accumulation order is the tensor cores' own, so
+K10 is held to the moment contract, not to equal bits).
 
 All tensors are batched over clouds: queries [B, Q, 3], points [B, N, 3],
 mask [B, N] bool.  Unlike the TPU layout, nothing is parked at 1e9: the
@@ -24,6 +29,7 @@ import torch
 
 from ...kernels import build
 from ..eigh3 import eigh3x3
+from ..neighbors import full_fp32
 from . import check, f32, stream_of, uses_kernel
 
 MOMENT_ROWS = 10      # s0, s1 (x, y, z), s2 (xx, yy, zz, xy, xz, yz)
@@ -139,6 +145,138 @@ def sign_votes(q: torch.Tensor, p: torch.Tensor, mask: torch.Tensor,
                 int(z_only), stream_of(q))
         build.check(err, "sign_votes")
         build.count_launch("sign_votes")
+    return votes
+
+
+WEIGHTINGS = ("shot", "uniform")
+
+
+def _staged(p, mask):
+    """The points as K10 / K11 stage them: (px, py, pz [B, 1, N], |p|^2
+    [B, 1, N] with NaN for masked points, so their gates fail)."""
+    px, py, pz = (p[..., i][:, None, :] for i in range(3))
+    pp = px * px + py * py + pz * pz
+    pp = torch.where(mask[:, None, :], pp, torch.full_like(pp, float("nan")))
+    return px, py, pz, pp
+
+
+def _identity_gate(qc, px, py, pz, pp, r2):
+    """d2 = (|q|^2 + |p|^2) - 2 q.p and its radius gate [B, c, N], with
+    K10 / K11's float operations."""
+    qx, qy, qz = qc[..., 0:1], qc[..., 1:2], qc[..., 2:3]
+    qq = qx * qx + qy * qy + qz * qz
+    d2 = (qq + pp) - 2.0 * (qx * px + qy * py + qz * pz)
+    return d2, d2 <= r2
+
+
+def _bf16_split(x: torch.Tensor):
+    """(hi, lo) = (bf16(x), bf16(x - hi)), as float32."""
+    hi = x.to(torch.bfloat16).to(torch.float32)
+    return hi, (x - hi).to(torch.bfloat16).to(torch.float32)
+
+
+def moments_v2_plain(q: torch.Tensor, p: torch.Tensor, mask: torch.Tensor,
+                     radius: float, weighting: str = "shot"
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain twin of K10: (mom [B, Q, 10] f32, count [B, Q] i32) -- the
+    identity gate, the weights, and the moments as W_hi F_hi + W_hi F_lo +
+    W_lo F_hi over bf16 splits, products in fp32."""
+    b, nq, _ = q.shape
+    r = f32(radius)
+    r2 = f32(r * r)
+    mom = torch.zeros((b, nq, MOMENT_ROWS), dtype=q.dtype, device=q.device)
+    cnt = torch.zeros((b, nq), dtype=torch.int32, device=q.device)
+    px, py, pz, pp = _staged(p, mask)
+    x, y, z = p[..., 0], p[..., 1], p[..., 2]
+    feats = torch.stack([torch.ones_like(x), x, y, z, x * x, y * y, z * z,
+                         x * y, x * z, y * z], -1)             # [B, N, 10]
+    feats = torch.where(mask[..., None], feats, torch.zeros_like(feats))
+    f_hi, f_lo = _bf16_split(feats)
+    step = _chunk(b, p.shape[1])
+    with full_fp32():
+        for q0 in range(0, nq, step):
+            d2, in_r = _identity_gate(q[:, q0:q0 + step], px, py, pz, pp, r2)
+            if weighting == "shot":
+                w = torch.where(in_r, r - torch.sqrt(torch.clamp(d2, min=0.0)),
+                                torch.zeros_like(d2))
+            else:
+                w = in_r.to(q.dtype)
+            w_hi, w_lo = _bf16_split(w)
+            mom[:, q0:q0 + step] = (w_hi @ f_hi + w_hi @ f_lo) + w_lo @ f_hi
+            cnt[:, q0:q0 + step] = in_r.sum(-1, dtype=torch.int32)
+    return mom, cnt
+
+
+def moments_v2(q: torch.Tensor, p: torch.Tensor, mask: torch.Tensor,
+               radius: float, weighting: str = "shot"
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K10: K1's moments and counts with the identity gate, the moments on
+    the tensor cores (bf16x3).  weighting "shot" (w = r - d) or "uniform"
+    (w = 1).  q [B, Q, 3], p [B, N, 3] (centroid-shifted), mask [B, N] ->
+    (mom [B, Q, 10], count [B, Q])."""
+    _check_common(q, p, mask)
+    if weighting not in WEIGHTINGS:
+        raise ValueError(f"weighting must be one of {WEIGHTINGS}, "
+                         f"got {weighting!r}")
+    if not uses_kernel(q, p, mask):
+        return moments_v2_plain(q, p, mask, radius, weighting)
+    b, nq, _ = q.shape
+    mom = torch.empty((b, nq, MOMENT_ROWS), dtype=torch.float32,
+                      device=q.device)
+    cnt = torch.empty((b, nq), dtype=torch.int32, device=q.device)
+    if b and nq:
+        with torch.cuda.device(q.device):
+            err = build.lib().pcd_lrf_moments_v2(
+                q.data_ptr(), p.data_ptr(), mask.data_ptr(), mom.data_ptr(),
+                cnt.data_ptr(), b, nq, p.shape[1], f32(radius),
+                int(weighting == "shot"), stream_of(q))
+        build.check(err, "lrf_moments_v2")
+        build.count_launch("lrf_moments_v2")
+    return mom, cnt
+
+
+def sign_votes_v2_plain(q: torch.Tensor, p: torch.Tensor, mask: torch.Tensor,
+                        axes: torch.Tensor, radius: float) -> torch.Tensor:
+    """Plain twin of K11: votes [B, Q, 2] i32."""
+    b, nq, _ = q.shape
+    r = f32(radius)
+    r2 = f32(r * r)
+    votes = torch.zeros((b, nq, 2), dtype=torch.int32, device=q.device)
+    px, py, pz, pp = _staged(p, mask)
+    step = _chunk(b, p.shape[1])
+    for q0 in range(0, nq, step):
+        qc = q[:, q0:q0 + step]
+        ac = axes[:, q0:q0 + step]
+        _, in_r = _identity_gate(qc, px, py, pz, pp, r2)
+        for col, a0 in ((0, 0), (1, 3)):
+            ax, ay, az = ac[..., a0:a0 + 1], ac[..., a0 + 1:a0 + 2], \
+                ac[..., a0 + 2:a0 + 3]
+            aq = qc[..., 0:1] * ax + qc[..., 1:2] * ay + qc[..., 2:3] * az
+            ap = px * ax + py * ay + pz * az
+            votes[:, q0:q0 + step, col] = (in_r & (ap - aq >= 0)).sum(
+                -1, dtype=torch.int32)
+    return votes
+
+
+def sign_votes_v2(q: torch.Tensor, p: torch.Tensor, mask: torch.Tensor,
+                  axes: torch.Tensor, radius: float) -> torch.Tensor:
+    """K11: K2's votes (no z_only) with the identity gate: per query, the
+    in-radius counts with a.p - a.q >= 0 for the x (axes[..., 0:3]) and z
+    (axes[..., 3:6]) candidates -> [B, Q, 2]."""
+    _check_common(q, p, mask)
+    check("axes", axes, torch.float32, (q.shape[0], q.shape[1], 6))
+    if not uses_kernel(q, p, mask, axes):
+        return sign_votes_v2_plain(q, p, mask, axes, radius)
+    b, nq, _ = q.shape
+    votes = torch.empty((b, nq, 2), dtype=torch.int32, device=q.device)
+    if b and nq:
+        with torch.cuda.device(q.device):
+            err = build.lib().pcd_sign_votes_v2(
+                q.data_ptr(), p.data_ptr(), mask.data_ptr(), axes.data_ptr(),
+                votes.data_ptr(), b, nq, p.shape[1], f32(radius),
+                stream_of(q))
+        build.check(err, "sign_votes_v2")
+        build.count_launch("sign_votes_v2")
     return votes
 
 
@@ -299,17 +437,25 @@ def _frames(v1, v3, votes, count, s0, q_mask, min_neighbors, z_only):
 
 def shot_lrf_fused(queries: torch.Tensor, q_mask: torch.Tensor,
                    points: torch.Tensor, mask: torch.Tensor, radius: float,
-                   min_neighbors: int = 5, z_only: bool = False
+                   min_neighbors: int = 5, z_only: bool = False,
+                   lrf_version: int = 1
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """SHOT LRF via K1 -> closed-form EVD -> K2.  Returns (frames
     [B, Q, 3, 3] rows = x, y, z axes, valid [B, Q]).  Sign rule: flip an
     axis when fewer in-radius offsets point along it than against it; a
     tie keeps the closed-form EVD's sign.  z_only skips the x vote (x/y
-    rows then keep the EVD's sign; only for callers that read z)."""
+    rows then keep the EVD's sign; only for callers that read z).
+    lrf_version >= 2 selects the v2 kernels as `_moments_dispatch` /
+    `_sign_votes_dispatch` do: K10 for the moments, K11 for the votes
+    unless z_only (then K2)."""
+    v2 = lrf_version >= 2
     q_s, p_s = prep_shift(queries, points, mask)
-    mom, count = moments(q_s, p_s, mask, radius)
+    mom, count = (moments_v2 if v2 else moments)(q_s, p_s, mask, radius)
     v1, v3, axes, s0 = _evd_axes(mom, q_s, q_mask, z_only)
-    votes = sign_votes(q_s, p_s, mask, axes, radius, z_only)
+    if v2 and not z_only:
+        votes = sign_votes_v2(q_s, p_s, mask, axes, radius)
+    else:
+        votes = sign_votes(q_s, p_s, mask, axes, radius, z_only)
     return _frames(v1, v3, votes, count, s0, q_mask, min_neighbors, z_only)
 
 

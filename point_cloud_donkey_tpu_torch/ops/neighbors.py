@@ -1,6 +1,6 @@
-"""Descriptor-space neighbour search (port of the ``pairwise_sqdist``,
-``chi_square_distance_matrix``, ``descriptor_distance`` and ``knn`` of
-point_cloud_donkey_tpu/ops/neighbors.py).
+"""Neighbourhood primitives (port of the ``pairwise_sqdist``,
+``radius_covariance``, ``chi_square_distance_matrix``,
+``descriptor_distance`` and ``knn`` of point_cloud_donkey_tpu/ops/neighbors.py).
 
 ``knn`` is exact for both metrics, as the JAX package is on CPU and GPU
 backends: "l2" is squared L2 through the matmul identity in full fp32,
@@ -11,11 +11,13 @@ Masked database entries are +inf; ties go to the lower index.
 from __future__ import annotations
 
 import contextlib
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
 from .kernels.chisq import chisq_matrix_plain, chisq_topk, smallest_k
+
+_PAIR_BUDGET = 1 << 25  # elements of a [B, chunk, N] temporary
 
 chi_square_distance_matrix = chisq_matrix_plain
 
@@ -45,6 +47,72 @@ def pairwise_sqdist(queries: torch.Tensor, points: torch.Tensor
     with full_fp32():
         cross = queries @ points.T
     return torch.clamp(q2 + p2 - 2.0 * cross, min=0.0)
+
+
+class RadiusMoments(NamedTuple):
+    """Weighted neighbourhood moments of a batch of queries."""
+    count: torch.Tensor   # [..., Q] in-radius unmasked neighbours
+    wsum: torch.Tensor    # [..., Q] sum of the weights
+    mean: torch.Tensor    # [..., Q, 3] weighted neighbour mean
+    cov: torch.Tensor     # [..., Q, 3, 3] weighted covariance about the centre
+
+
+def radius_covariance(queries: torch.Tensor,   # [B, Q, 3]
+                      points: torch.Tensor,    # [B, N, 3]
+                      mask: torch.Tensor,      # [B, N]
+                      radius: float,
+                      weighting: str = "uniform",
+                      center: str = "mean") -> RadiusMoments:
+    """Radius-limited weighted covariance of each query's neighbours, per
+    cloud, by the moment identity cov = S2 - c s1^T - s1 c^T + S0 c c^T
+    about c = the weighted neighbour mean ("mean", PCL normals) or the
+    query ("query", the SHOT LRF), with uniform or (r - d) ("shot")
+    weights.  Points and queries are shifted to the cloud's masked centroid
+    first; distances by the matmul identity and the moment products in full
+    fp32 (the XLA path of the JAX package, whose precision is HIGHEST)."""
+    if weighting not in ("uniform", "shot"):
+        raise ValueError(f"unknown weighting {weighting}")
+    if center not in ("mean", "query"):
+        raise ValueError(f"unknown center {center}")
+    m = mask.to(points.dtype)
+    shift = (points * m[..., None]).sum(-2) \
+        / torch.clamp(m.sum(-1), min=1.0)[..., None]                 # [B, 3]
+    points = points - shift[:, None, :]
+    queries = queries - shift[:, None, :]
+    b, nq, n = queries.shape[0], queries.shape[1], points.shape[1]
+    r2 = float(torch.tensor(radius * radius, dtype=torch.float32))
+    p2 = torch.sum(points * points, dim=-1)[:, None, :]
+    xx = (points[..., :, None] * points[..., None, :]).reshape(b, n, 9)
+    count = torch.empty((b, nq), dtype=torch.int64, device=points.device)
+    s0 = torch.empty((b, nq), dtype=points.dtype, device=points.device)
+    s1 = torch.empty((b, nq, 3), dtype=points.dtype, device=points.device)
+    s2 = torch.empty((b, nq, 9), dtype=points.dtype, device=points.device)
+    step = max(1, _PAIR_BUDGET // max(b * n, 1))
+    with full_fp32():
+        for q0 in range(0, nq, step):
+            qc = queries[:, q0:q0 + step]
+            q2 = torch.sum(qc * qc, dim=-1)[..., None]
+            d2 = torch.clamp(q2 + p2 - 2.0 * (qc @ points.transpose(1, 2)),
+                             min=0.0)
+            in_r = (d2 <= r2) & mask[:, None, :]
+            if weighting == "uniform":
+                w = in_r.to(points.dtype)
+            else:
+                w = torch.where(in_r, radius - torch.sqrt(d2),
+                                torch.zeros_like(d2))
+            count[:, q0:q0 + step] = in_r.sum(-1)
+            s0[:, q0:q0 + step] = w.sum(-1)
+            s1[:, q0:q0 + step] = w @ points
+            s2[:, q0:q0 + step] = w @ xx
+    s2 = s2.reshape(b, nq, 3, 3)
+    s0_safe = torch.clamp(s0, min=1e-30)
+    c = s1 / s0_safe[..., None] if center == "mean" else queries
+    cov = (s2 - c[..., :, None] * s1[..., None, :]
+           - s1[..., :, None] * c[..., None, :]
+           + s0[..., None, None] * c[..., :, None] * c[..., None, :])
+    cov = cov / s0_safe[..., None, None]
+    mean = s1 / s0_safe[..., None] + shift[:, None, :]
+    return RadiusMoments(count=count, wsum=s0, mean=mean, cov=cov)
 
 
 def descriptor_distance(a: torch.Tensor, b: torch.Tensor,

@@ -10,7 +10,8 @@ point_cloud_donkey_tpu/cli/serve.py without mesh or AOT).
 The model is the JAX package's save format: ``model.ism`` (JSON config)
 beside ``model.ismd.npz`` (trained arrays).  A SHOT, CSHOT or SHORT_SHOT
 model classifies; a CSHOT model reads each file's colours and refuses a
-file without them.  --maxima serves SHOT models only.
+file without them.  --maxima serves SHOT models only.  PCD_PALLAS_LRF_V=2
+selects the v2 LRF kernels (K10, K11), as it does for the JAX package.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ import torch
 
 from .models.codebook import CodebookParams, load_codebook
 from .models.pipeline import IsmClassifier, IsmDetector, PipelineConfig
+from .ops.lrf import lrf_version_from_env
 from .utils.config import IsmConfig
 from .utils.io import parse_file_list, read_cloud
 
@@ -48,7 +50,8 @@ def main(argv=None) -> int:
 
     config = IsmConfig.load(args.detect)
     codebook = load_codebook(args.detect).to(device)
-    cfg = PipelineConfig.from_ism(config, codebook.num_classes)
+    cfg = PipelineConfig.from_ism(config, codebook.num_classes,
+                                  lrf_version=lrf_version_from_env())
     params = CodebookParams.from_config(config.child("Codebook"))
     if args.maxima and cfg.descriptor != "SHOT":
         # the JAX CLI refuses CSHOT here; its SHORT_SHOT detection is not

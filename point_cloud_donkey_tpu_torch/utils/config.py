@@ -1,12 +1,13 @@
-"""Reader of the reference's `.ism` JSON configs (port of the reading half
-of point_cloud_donkey_tpu/utils/config.py).
+"""Reader and writer of the reference's `.ism` JSON configs (port of
+point_cloud_donkey_tpu/utils/config.py without the template).
 
 An `.ism` file is ``{"ObjectConfig": {"Type", "Parameters", "Children"}}``,
 children nested the same way.  A parameter resolves against the default its
 reader registers (``get(name, default)``): missing keys take the default,
 present ones are coerced to the default's type, unknown keys are ignored.
-Writing configs and the full template stay in the JAX package, which trains
-the models that the port serves.
+A config without GlobalFeatures gets the Dummy descriptor
+(implicit_shape_model.cpp:1106-1114), as in the JAX package, so both save
+the same file.
 """
 
 from __future__ import annotations
@@ -59,6 +60,17 @@ class ComponentConfig:
                    params=dict(obj.get("Parameters") or {}),
                    children=children)
 
+    def to_json(self) -> Dict[str, Any]:
+        out: Dict[str, Any] = {}
+        if self.children:
+            out["Children"] = {k: v.to_json()
+                               for k, v in self.children.items()}
+        if self.params:
+            out["Parameters"] = dict(self.params)
+        if self.type:
+            out["Type"] = self.type
+        return out
+
     def get(self, name: str, default: Any) -> Any:
         """The parameter `name`, or `default` when the file has none."""
         if name not in self.params:
@@ -83,12 +95,23 @@ class IsmConfig:
     def from_json(cls, obj: Dict[str, Any]) -> "IsmConfig":
         if "ObjectConfig" not in obj:
             raise ConfigError("missing ObjectConfig root key")
-        return cls(root=ComponentConfig.from_json(obj["ObjectConfig"]))
+        cfg = cls(root=ComponentConfig.from_json(obj["ObjectConfig"]))
+        if "GlobalFeatures" not in cfg.root.children:
+            cfg.root.children["GlobalFeatures"] = ComponentConfig(
+                type="Dummy")
+        return cfg
 
     @classmethod
     def load(cls, path: str) -> "IsmConfig":
         with open(path) as f:
             return cls.from_json(json.load(f))
+
+    def to_json(self) -> Dict[str, Any]:
+        return {"ObjectConfig": self.root.to_json()}
+
+    def save(self, path: str) -> None:
+        with open(path, "w") as f:
+            json.dump(self.to_json(), f, indent=3, sort_keys=True)
 
     def child(self, name: str) -> ComponentConfig:
         return self.root.child(name)

@@ -57,9 +57,26 @@ def _lzf_decompress(data: bytes, expected_size: int) -> bytes:
 
 @dataclass
 class PointCloud:
-    """The fields of a cloud file that serving reads."""
-    xyz: np.ndarray                   # [N, 3] float32
-    rgb: Optional[np.ndarray] = None  # [N, 3] float32 in [0, 1]
+    """The fields of a cloud file that serving and training read."""
+    xyz: np.ndarray                       # [N, 3] float32
+    rgb: Optional[np.ndarray] = None      # [N, 3] float32 in [0, 1]
+    normals: Optional[np.ndarray] = None  # [N, 3] float32, as stored
+
+    def has_normals(self) -> bool:
+        """The reference's test (implicit_shape_model.cpp:374-384): the
+        first point's normal is finite and not all zero."""
+        if self.normals is None or len(self.normals) == 0:
+            return False
+        n0 = self.normals[0]
+        return bool(np.all(np.isfinite(n0)) and np.any(n0 != 0))
+
+    def remove_nan(self) -> "PointCloud":
+        """The points whose coordinates are all finite."""
+        keep = np.all(np.isfinite(self.xyz), axis=1)
+        return PointCloud(
+            xyz=self.xyz[keep],
+            rgb=None if self.rgb is None else self.rgb[keep],
+            normals=None if self.normals is None else self.normals[keep])
 
 
 def _unpack_rgb(packed: np.ndarray) -> np.ndarray:
@@ -88,6 +105,16 @@ def _rgb_of(field: Dict[str, np.ndarray]) -> Optional[np.ndarray]:
     return None
 
 
+_PCD_NORMALS = ("normal_x", "normal_y", "normal_z")
+_PLY_NORMALS = ("nx", "ny", "nz")
+
+
+def _normals_of(field: Dict[str, np.ndarray], names) -> Optional[np.ndarray]:
+    if not all(c in field for c in names):
+        return None
+    return np.stack([field[c] for c in names], axis=1).astype(np.float32)
+
+
 def load_pcd(path: str) -> PointCloud:
     """xyz (and colours, when the file has them) of a PCD file."""
     with open(path, "rb") as f:
@@ -110,7 +137,7 @@ def load_pcd(path: str) -> PointCloud:
     if not {"x", "y", "z"} <= set(fields):
         raise ValueError(f"{path}: PCD without x, y, z fields")
     wanted = [f for f in fields if f in ("x", "y", "z", "rgb", "rgba", "r",
-                                         "g", "b")]
+                                         "g", "b") + _PCD_NORMALS]
 
     field: Dict[str, np.ndarray] = {}
     if mode == "ascii":
@@ -143,7 +170,8 @@ def load_pcd(path: str) -> PointCloud:
     else:
         raise ValueError(f"{path}: unsupported PCD DATA mode {mode!r}")
     xyz = np.stack([field[a].astype(np.float32) for a in "xyz"], axis=1)
-    return PointCloud(xyz=xyz, rgb=_rgb_of(field))
+    return PointCloud(xyz=xyz, rgb=_rgb_of(field),
+                      normals=_normals_of(field, _PCD_NORMALS))
 
 
 _PLY_DTYPES = {
@@ -193,7 +221,8 @@ def load_ply(path: str) -> PointCloud:
     if all(c in field for c in ("red", "green", "blue")):
         rgb = np.stack([field[c] for c in ("red", "green", "blue")],
                        axis=1).astype(np.float32) / 255.0
-    return PointCloud(xyz=xyz, rgb=rgb)
+    return PointCloud(xyz=xyz, rgb=rgb, normals=_normals_of(field,
+                                                            _PLY_NORMALS))
 
 
 def load_cloud(path: str) -> np.ndarray:
@@ -202,8 +231,8 @@ def load_cloud(path: str) -> np.ndarray:
 
 
 def read_cloud(path: str) -> PointCloud:
-    """xyz and, when the file has them, colours of a `.pcd` or `.ply`
-    file (rows may be NaN)."""
+    """xyz and, when the file has them, colours and normals of a `.pcd` or
+    `.ply` file (rows may be NaN)."""
     if path.endswith(".pcd"):
         return load_pcd(path)
     if path.endswith(".ply"):
@@ -255,6 +284,9 @@ class FileList:
     # label string -> id, in first-seen order
     class_map: Dict[str, int] = field(default_factory=dict)
     instance_map: Dict[str, int] = field(default_factory=dict)
+    # instance id -> the class id of its first line (class id -> itself
+    # without instances)
+    instance_to_class: Dict[int, int] = field(default_factory=dict)
 
 
 def parse_file_list(path: str, class_map: Optional[Dict[str, int]] = None,
@@ -287,6 +319,7 @@ def parse_file_list(path: str, class_map: Optional[Dict[str, int]] = None,
         fl.filenames.append(tok[0])
         cid = convert(tok[1], fl.class_map)
         fl.class_labels.append(cid)
-        fl.instance_labels.append(convert(tok[2], fl.instance_map)
-                                  if fl.using_instances else cid)
+        iid = convert(tok[2], fl.instance_map) if fl.using_instances else cid
+        fl.instance_labels.append(iid)
+        fl.instance_to_class.setdefault(iid, cid)
     return fl

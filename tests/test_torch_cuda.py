@@ -266,3 +266,64 @@ def test_descriptor_slices_match_jax_reference(cuda_device, descriptor,
     assert counts[kernel] == (2 if descriptor == "CSHOT" else 1), counts
     assert_decisions_match(scores, dref["scores_" + descriptor.lower()])
     assert torch.equal(scores, again)
+
+
+@pytest.mark.parametrize("weighting", ["shot", "uniform"])
+def test_moments_v2_and_sign_votes_v2_match_plain(cuda_device, clouds,
+                                                  weighting):
+    """K10 vs its twin: weight sums rtol 2e-4, counts +-1, covariance
+    atol 5e-4 (the tensor cores accumulate in their own order); K11 vs its
+    twin: counts +-1 (the same float operations: in practice equal), at a
+    small shape with a masked tail and a ragged last chunk (N = 1500)."""
+    pts, mask = (x[:2, :1500].contiguous().to(cuda_device) for x in clouds)
+    mask[1, 1400:] = False
+    q, p = tlrfm.prep_shift(pts[:, :300].contiguous(), pts, mask)
+    qm = torch.ones(q.shape[:2], dtype=torch.bool, device=cuda_device)
+    mom, cnt = tlrfm.moments_v2(q, p, mask, 0.4, weighting)
+    pmom, pcnt = tlrfm.moments_v2_plain(q, p, mask, 0.4, weighting)
+    torch.testing.assert_close(mom[..., 0], pmom[..., 0], rtol=2e-4,
+                               atol=1e-5)
+    assert (cnt - pcnt).abs().max() <= 1
+    cov, _ = tlrfm.cov_from_moments(mom, q, qm)
+    pcov, _ = tlrfm.cov_from_moments(pmom, q, qm)
+    assert (cov - pcov).abs().max() <= 5e-4
+    axes = torch.nn.functional.normalize(
+        torch.randn(*q.shape[:2], 6, device=cuda_device), dim=-1)
+    v = tlrfm.sign_votes_v2(q, p, mask, axes, 0.4)
+    assert (v - tlrfm.sign_votes_v2_plain(q, p, mask, axes, 0.4)).abs() \
+        .max() <= 1
+
+
+def test_training_on_the_card_matches_the_cpu_twins(cuda_device, tmp_path):
+    """ImplicitShapeModel.train on the card (K1/K2, K7, K4) against the same
+    training on the CPU (the plain twins): the same codeword count and vote
+    classes, >= 97% of the codewords at cosine > 0.999; K7 and K4
+    launched."""
+    from point_cloud_donkey_tpu_torch.models.ism import ImplicitShapeModel
+    from point_cloud_donkey_tpu_torch.utils.io import save_pcd
+    from bench_data import BENCH_CONFIG
+    rng = np.random.default_rng(11)
+    files = []
+    for i in range(6):
+        path = str(tmp_path / f"m{i}.pcd")
+        save_pcd(path, shapes.make_instance(rng, i % 3, n=1024, rotate=True,
+                                            noise=0.005))
+        files.append((path, i % 3))
+    books = []
+    for device in (cuda_device, "cpu"):
+        ism = ImplicitShapeModel(IsmConfig.from_json(BENCH_CONFIG), device)
+        for path, cid in files:
+            ism.add_training_model(path, cid, cid)
+        build.reset_launch_counts()
+        ism.train()
+        if device != "cpu":
+            got = build.launch_counts()
+            assert got["shot_dense"] and got["chisq_topk"], got
+        books.append(ism.state.codebook)
+    a, b = books
+    assert a.codewords.shape == b.codewords.shape
+    np.testing.assert_array_equal(a.vote_class, b.vote_class)
+    cos = (a.codewords * b.codewords).sum(1) / np.maximum(
+        np.linalg.norm(a.codewords, axis=1)
+        * np.linalg.norm(b.codewords, axis=1), 1e-30)
+    assert (cos > 0.999).mean() >= 0.97
