@@ -18,9 +18,10 @@ Phases (each prints its results; any failure raises and exits nonzero):
      tests/bench_data.bench_colors: 24576 rows x 2048 points, x 4 slots
      for K9) against their twins, timed with the twin and the one PyTorch
      call that computes the same function (scatter_add_);
-  2d. K10 (and K11) at the v2 LRF passes' shapes -- the normals (Q=N=2048,
-     K10 with K2 z-only) and the keypoint LRFs (Q=192) -- against their
-     twins and against K1 / K2, timed beside their twins and K1 / K2;
+  2d. K10 (and K11) at the v2 LRF passes' shapes -- the serving normals
+     (Q=N=2048, K10 with K2 z-only), the training normals' full LRF
+     (Q=N=2048, K11) and the keypoint LRFs (Q=192) -- against their twins
+     and against K1 / K2, timed beside their twins and K1 / K2;
   3. LRF frames and SHOT descriptors against tests/golden/descriptors.npz;
   4. the dense classify step: IsmClassifier on the 128 x 2048 bench batch
      with the committed codebook -- per-stage ms, clouds/s, K1-K4 launched,
@@ -140,12 +141,14 @@ SHOT_BODY_OPS = 100    # frame coords, cosine, binning, 5 slot adds;
 #                        sqrtf, acosf and atan2f count one each
 CHISQ_TERM_OPS = 6     # a + b, a - b, square, divide, compare, accumulate
 # K10 / K11 (csrc/lrf_moments_v2.cu) gate every pair by the matmul identity:
-# q.p (3 mul, 2 add), d2 (add, mul, sub), the compare.  K10 then weighs
-# every pair (max, sqrt, sub, select), counts it (1 add) and splits its
-# weight (2 conversions, sub, conversion), and its tensor cores do
-# 3 products x 2 x 16 columns of bf16 flops a pair; K11's in-radius pairs
-# pay two dots (5 each), two subtracts, two compares and two adds.
-MOMENT_V2_PAIR_OPS = 18
+# q.p (3 mul, 2 add), d2 (add, mul, sub), the compare.  K10 then selects
+# every pair's weight (w or 0) and splits it (2 conversions, sub,
+# conversion), and its tensor cores do 3 products x 2 x 16 columns of bf16
+# flops a pair; its in-radius pairs pay the weight (max, sqrt, r - d) and
+# the count (1 add).  K11's in-radius pairs pay two dots (5 each), two
+# subtracts, two compares and two adds.
+MOMENT_V2_PAIR_OPS = 14
+MOMENT_V2_BODY_OPS = 4
 MOMENT_V2_TC_FLOPS = 3 * 2 * 16
 VOTE_V2_GATE_OPS = 9
 VOTE_V2_BODY_OPS = 16
@@ -505,18 +508,12 @@ def main():
     # -- 2d. K10 / K11 at the main paths' shapes ----------------------------
     phase(f"2d. K10 / K11 vs plain twins and vs K1 / K2 on the card ({card})")
 
-    def lrf_v2(queries, q_mask, radius, z_only, what):
-        """K10 (and K11 unless z_only: the z-only normals vote with K2)
-        at one main-path call against its twin -- moments: weight sums
-        rtol 2e-4, counts +-1, covariance atol 5e-4; votes +-1 -- and
-        against K1 / K2 to the JAX package's v1-vs-v2 contract
-        (tests/test_pallas_kernels.py:101-125): the same, valid flags
-        equal, >= 97% of frames with every axis at |cos| > 0.999."""
-        q, p = klrf.prep_shift(queries, pts, mask)
-        mom, cnt = klrf.moments_v2(q, p, mask, radius)
+    def moments_v2_check(q, p, q_mask, radius, what, mom, cnt, cov, pairs,
+                         inside):
+        """K10's moments against its twin and against K1, timed beside
+        both and recorded."""
         pmom, pcnt = klrf.moments_v2_plain(q, p, mask, radius)
         m1, c1 = klrf.moments(q, p, mask, radius)
-        cov, _ = klrf.cov_from_moments(mom, q, q_mask)
         for other, ocnt, vs in ((pmom, pcnt, "its twin"), (m1, c1, "K1")):
             rel = ((mom[..., 0] - other[..., 0]).abs()
                    / other[..., 0].abs().clamp(min=1e-6)).max()
@@ -528,8 +525,6 @@ def main():
                   f"{float(cerr):.2e}")
             assert rel <= 2e-4 and dc <= 1 and cerr <= 5e-4, \
                 f"K10 differs from {vs} ({what})"
-        pairs = q.shape[0] * q.shape[1] * p.shape[1]
-        inside = int(cnt.sum())
         k1_ms = cuda_ms(lambda: klrf.moments(q, p, mask, radius), 5)
         ms = cuda_ms(lambda: klrf.moments_v2(q, p, mask, radius), 5)
         print(f"{'':20s} {what}: K10 {ms:.4f} ms, K1 {k1_ms:.4f} ms at the "
@@ -537,7 +532,27 @@ def main():
         record("lrf_moments_v2", (mom - pmom).abs().max(), ms,
                cuda_ms(lambda: klrf.moments_v2_plain(q, p, mask, radius), 2),
                what, nbytes(q, p, mask, mom, cnt),
-               pairs * MOMENT_V2_PAIR_OPS, tc_flops=pairs * MOMENT_V2_TC_FLOPS)
+               pairs * MOMENT_V2_PAIR_OPS + inside * MOMENT_V2_BODY_OPS,
+               tc_flops=pairs * MOMENT_V2_TC_FLOPS)
+
+    def lrf_v2(queries, q_mask, radius, z_only, what, moments=True):
+        """K10 (and K11 unless z_only: the z-only normals vote with K2)
+        at one main-path call against its twin -- moments: weight sums
+        rtol 2e-4, counts +-1, covariance atol 5e-4; votes +-1 -- and
+        against K1 / K2 to the JAX package's v1-vs-v2 contract
+        (tests/test_pallas_kernels.py:101-125): the same, valid flags
+        equal, >= 97% of frames with every axis at |cos| > 0.999.  With
+        moments False, K10 is held and recorded by another call at the same
+        shape (its moments do not depend on z_only), and only its
+        covariance feeds K11 here."""
+        q, p = klrf.prep_shift(queries, pts, mask)
+        mom, cnt = klrf.moments_v2(q, p, mask, radius)
+        cov, _ = klrf.cov_from_moments(mom, q, q_mask)
+        pairs = q.shape[0] * q.shape[1] * p.shape[1]
+        inside = int(cnt.sum())
+        if moments:
+            moments_v2_check(q, p, q_mask, radius, what, mom, cnt, cov, pairs,
+                             inside)
         _, vecs = eigh3x3(cov)
         axes = torch.cat([vecs[..., :, 2], vecs[..., :, 0]], -1).contiguous()
         if not z_only:
@@ -574,6 +589,10 @@ def main():
     with torch.no_grad():
         lrf_v2(pts, mask, cfg.normal_radius, True,
                f"normals B={BATCH} Q=N={pts.shape[1]}")
+        # the training normals: the full LRF, K11 at Q = N
+        lrf_v2(pts, mask, cfg.normal_radius, False,
+               f"full-LRF normals B={BATCH} Q=N={pts.shape[1]}",
+               moments=False)
         lrf_v2(kp, kres.mask, cfg.ref_frame_radius, False,
                f"keypoint LRF B={BATCH} Q={kp.shape[1]}")
 

@@ -22,10 +22,11 @@
 // The TPU kernel computes the same sums as K1/K2 (`_moments_call`,
 // `_sign_votes_call`) with the matrix unit carrying the per-pair products.
 //
-// What bounds them on the H100: fp32 work on the CUDA cores.  A pair costs
-// K10 ~18 fp32 operations (gate, sqrt, the bf16 splits) whatever its
-// distance, and 96 bf16 tensor-core flops (3 products x 2 x 16 columns),
-// which at 989 TFLOP/s take a fifth of the time of the fp32 work at 67
+// What bounds them on the H100: fp32 work on the CUDA cores.  Every pair
+// costs K10 ~14 fp32 operations (the gate, the select, the bf16 split of
+// its weight) and a pair inside the radius 4 more (the weight and the
+// count); every pair costs 96 bf16 tensor-core flops (3 products x 2 x 16
+// columns), which at 989 TFLOP/s take half the time of the fp32 work at 67
 // TFLOP/s.  Bytes are a few MB per call.  K11's three dots are k = 3
 // products: on a tensor core a k = 3 product would fill one sixteenth of an
 // mma's depth and still need the gate and the compares on the CUDA cores,

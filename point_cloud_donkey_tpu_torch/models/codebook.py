@@ -20,8 +20,7 @@ from __future__ import annotations
 import math
 import os
 from dataclasses import dataclass
-from typing import Callable, Dict, List, Mapping, NamedTuple, Optional, \
-    Tuple
+from typing import Dict, List, Mapping, NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -287,17 +286,16 @@ def train_codebook(
         codeword_positions: np.ndarray,         # [C, 3]
         params: CodebookParams,
         metric: str,
-        device: torch.device = torch.device("cpu"),
-        activation_fn: Optional[Callable[[np.ndarray],
-                                         Tuple[np.ndarray, np.ndarray]]] = None
+        descriptor_rows: torch.Tensor,          # [F, D] on the device
         ) -> TrainedCodebook:
     """Codebook training (the JAX ``train_codebook``, codebook.cpp:64-365):
     one activation of every model's features, vote recording per class,
     the class sigma from sampled feature x codeword distances, the KNN k=1
     clean-up, centre weights and statistical class weights.
-    `activation_fn(all_descriptors) -> (dists, idx)` replaces the default
-    activation (the descriptors uploaded to `device`, against the
-    codewords there)."""
+    `descriptor_rows` are every model's descriptors, concatenated in model
+    order, as the extraction left them on the device. Under Clustering
+    None they are also the codewords, so the activation is their
+    self-kNN."""
     k = training_k(params)
     if params.use_partial_shot:
         raise NotImplementedError("partial SHOT matching is not ported")
@@ -306,22 +304,18 @@ def train_codebook(
     classes = sorted(set(class_per_model))
     class_sigmas: Dict[int, float] = {}
     sigma_pending: Dict[int, Tuple[torch.Tensor, int]] = {}
+    device = descriptor_rows.device
 
     # step 0: one activation over every model's features
     sizes = [fs.descriptors.shape[0] for fs in features_per_model]
+    assert tuple(descriptor_rows.shape) == codeword_data.shape == \
+        (sum(sizes), codeword_data.shape[1]), \
+        (tuple(descriptor_rows.shape), codeword_data.shape, sum(sizes))
     act_nonzero = [i for i, s in enumerate(sizes) if s]
     act_per_model: Dict[int, Tuple[np.ndarray, np.ndarray]] = {}
     if act_nonzero:
-        all_desc = np.concatenate(
-            [features_per_model[i].descriptors for i in act_nonzero], axis=0)
-        if activation_fn is None:
-            def activation_fn(desc):
-                return activate_knn(
-                    torch.from_numpy(np.ascontiguousarray(
-                        desc, np.float32)).to(device),
-                    torch.from_numpy(np.ascontiguousarray(
-                        codeword_data, np.float32)).to(device), k, metric)
-        all_d, all_i = activation_fn(all_desc)
+        all_d, all_i = activate_knn(descriptor_rows, descriptor_rows, k,
+                                    metric)
         off = 0
         for i in act_nonzero:
             act_per_model[i] = (all_d[off:off + sizes[i]],

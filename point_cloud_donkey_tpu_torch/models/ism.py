@@ -34,7 +34,7 @@ from ..ops.geometry import BoundingBox, quat_to_matrix_np
 from ..utils.config import IsmConfig
 from ..utils.io import PointCloud, read_cloud
 from .clustering import run_clustering
-from .codebook import (CodebookParams, TrainedCodebook, activate_knn,
+from .codebook import (CodebookParams, TrainedCodebook,
                        train_codebook, training_k)
 from .detect_batch import (FusedChunk, extract_features_fused_train,
                            train_fused_ineligible)
@@ -247,10 +247,7 @@ class ImplicitShapeModel:
             ranked_models, [class_per_model[i] for i in order],
             [instance_per_model[i] for i in order],
             [boxes_per_model[i] for i in order], centers, cw_pos, cb_params,
-            self.metric, self.device,
-            activation_fn=_device_activation(dev_cache, order,
-                                             training_k(cb_params),
-                                             self.metric))
+            self.metric, _device_rows(dev_cache, order))
         tt["train_activation"] = time.perf_counter() - t0
 
         t0 = time.perf_counter()
@@ -308,12 +305,11 @@ def _crop_box(cloud: PointCloud, box: BoundingBox) -> PointCloud:
                       else cloud.normals[sel])
 
 
-def _device_activation(cache: List[FusedChunk], model_order: List[int],
-                       k: int, metric: str):
-    """The activation over the descriptors the extraction left on the
-    device (the JAX ``build_device_activation``): the kept rows gathered
-    in the class-major model order that train() concatenates them in, then
-    their self-kNN (the codewords are these rows)."""
+def _device_rows(cache: List[FusedChunk], model_order: List[int]
+                 ) -> torch.Tensor:
+    """The descriptors the extraction left on the device (the JAX
+    ``build_device_activation``): the kept rows gathered in the class-major
+    model order that train() concatenates them in."""
     by_cloud = {}
     for e_id, e in enumerate(cache):
         for r, ci in enumerate(e.chunk):
@@ -324,12 +320,4 @@ def _device_activation(cache: List[FusedChunk], model_order: List[int],
         e = cache[e_id]
         rows = torch.from_numpy(np.nonzero(e.keep[r])[0]).to(e.desc.device)
         parts.append(e.desc[r].index_select(0, rows))
-    rows_dev = torch.cat(parts) if parts else None
-
-    def activation_fn(all_desc: np.ndarray):
-        assert rows_dev is not None and tuple(rows_dev.shape) == \
-            all_desc.shape, (all_desc.shape, None if rows_dev is None
-                             else tuple(rows_dev.shape))
-        return activate_knn(rows_dev, rows_dev, k, metric)
-
-    return activation_fn
+    return torch.cat(parts)
