@@ -12,7 +12,12 @@ Phases (each prints its results; any failure raises and exits nonzero):
      the 128-cloud bench batch, K5/K6 at the windowed step's (the sorted
      batch, window calibrated on it), K7 at the mean-shift step's (32
      clouds x 192 keypoints), and K7 with and without its point-chunk
-     split at 1, 8 and 32 clouds;
+     split at 1, 8 and 32 clouds; K1 (the cell-binned sweep) also at the
+     detection batch (B=32), K4 (register-tiled) also at CSHOT's D=1344
+     and at the training self-kNN (Q=C=2000), each beside its previous
+     design's time,
+     its bound (K4 also its special-function floor) and with two launches
+     bit-equal;
   2c. K8 (n_bin 11 and 31) and K9 at the CSHOT and SHORT_SHOT steps'
      shapes (the slot arrays of the 128 bench clouds, coloured by
      tests/bench_data.bench_colors: 24576 rows x 2048 points, x 4 slots
@@ -128,30 +133,30 @@ PATH_KERNELS = {
 # Least time of a kernel call: the larger of its bytes (inputs read once,
 # outputs written once) over the H100's memory rate and its fp32
 # operations over the fp32 peak outside the tensor cores (data sheet, SXM,
-# 700 W).  Operations per (query, point) pair, counted from csrc/*.cu:
-# every pair pays the radius gate (3 sub, 3 mul, 2 add, 2 compares); the
-# pairs inside the radius (counted from this run's data) pay the body.
+# 700 W).  The operations are what this run's inputs need: a radius-gated
+# kernel (K1, K2, K3, K5, K6, K7, K10, K11) is charged its in-radius pairs
+# (counted from this run's data) times the gate (3 sub, 3 mul, 2 add, 2
+# compares) and the body, not the gate on every pair it sweeps, so a
+# function has one bound whatever implements it (K10 is charged as K1,
+# K11 as K2).
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
-BF16_TC_FLOPS_PER_S = 989e12
+# The special-function unit (reciprocal, sqrt) issues 16 results a clock
+# per SM against 128 fp32 lanes: 1/16 of the fp32 peak's 2 x 128 flops a
+# clock (132 SMs at the data sheet's 1.98 GHz).
+SFU_OPS_PER_S = FP32_OPS_PER_S / (2 * 128) * 16
 GATE_OPS = 10
 MOMENT_BODY_OPS = 21   # sqrt, r - d, w p (3), s0 + s1 (4), s2 (6 mul, 6 add)
 VOTE_BODY_OPS = 6      # one (p - q) . axis (3 mul, 2 add) and its compare
 SHOT_BODY_OPS = 100    # frame coords, cosine, binning, 5 slot adds;
 #                        sqrtf, acosf and atan2f count one each
 CHISQ_TERM_OPS = 6     # a + b, a - b, square, divide, compare, accumulate
-# K10 / K11 (csrc/lrf_moments_v2.cu) gate every pair by the matmul identity:
-# q.p (3 mul, 2 add), d2 (add, mul, sub), the compare.  K10 then selects
-# every pair's weight (w or 0) and splits it (2 conversions, sub,
-# conversion), and its tensor cores do 3 products x 2 x 16 columns of bf16
-# flops a pair; its in-radius pairs pay the weight (max, sqrt, r - d) and
-# the count (1 add).  K11's in-radius pairs pay two dots (5 each), two
-# subtracts, two compares and two adds.
-MOMENT_V2_PAIR_OPS = 14
-MOMENT_V2_BODY_OPS = 4
-MOMENT_V2_TC_FLOPS = 3 * 2 * 16
-VOTE_V2_GATE_OPS = 9
-VOTE_V2_BODY_OPS = 16
+# Times of the previous designs -- K1's all-pairs sweep, K4's one thread
+# per (descriptor, codeword) pair -- at the dense step's shapes, from
+# PERF.md's kernel table (H100 80GB HBM3 at 700 W), printed beside this
+# run's
+PREVIOUS_MS = {"K1 normals": 0.834, "K1 keypoints": 0.279,
+               "K4 serving": 2.079}
 # K8 / K9 (csrc/shot_hist.cu, csrc/histogram.cu): every column pays its
 # weights' zero tests (5 for K8, 1 for K9); a live column reads its indices
 # and adds its slots (5 adds for K8, 1 for K9).  Bytes: the weights of every
@@ -184,11 +189,33 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def bound(nbytes, ops, tc_flops=0):
+def device_ms(fn, kernel, reps):
+    """Mean device time of the CUDA kernels whose name holds `kernel` over
+    reps calls of fn, from torch.profiler (CUDA events around back-to-back
+    calls also count the host's time per call when a kernel is shorter
+    than it); None where the profiler reports no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.device_time_total for e in prof.key_averages()
+             if kernel in e.key)
+    return us / reps / 1e3 if us > 0 else None
+
+
+def fmt_ms(ms):
+    return "not measured" if ms is None else f"{ms:.4f} ms"
+
+
+def bound(nbytes, ops):
     """(least ms, what bounds it) of a call moving nbytes with ops fp32
-    operations and tc_flops bf16 tensor-core flops."""
+    operations."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = max(ops / FP32_OPS_PER_S, tc_flops / BF16_TC_FLOPS_PER_S) * 1e3
+    t_ops = ops / FP32_OPS_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -270,8 +297,7 @@ def main():
     report = {name: {"err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
                      "bound_by": None, "library_ms": None} for name in KERNELS}
 
-    def record(name, err, ms, plain_ms, what, nbytes_, ops, library_ms=None,
-               tc_flops=0):
+    def record(name, err, ms, plain_ms, what, nbytes_, ops, library_ms=None):
         """One main-path call of a kernel: error vs its twin, times (and
         the one PyTorch call's time, where there is one), and its bound from
         this call's bytes and operations."""
@@ -279,7 +305,7 @@ def main():
         r["err"] = max(r["err"], float(err))
         r["ms"] += ms
         r["plain_ms"] += plain_ms
-        b_ms, by = bound(nbytes_, ops, tc_flops)
+        b_ms, by = bound(nbytes_, ops)
         r["bound_ms"] += b_ms
         r["bound_by"] = by
         lib = ""
@@ -291,8 +317,42 @@ def main():
               f"{b_ms:7.4f} ms ({by}, {nbytes_:.3e} B, {ops:.3e} ops)",
               flush=True)
 
+    def k1_check(q, p, pmask, q_mask, radius, what, mom, cnt, pmom, pcnt,
+                 timed=False, previous=None):
+        """K1 (or K5) against its twin -- weight sums rtol 2e-4, counts +-1,
+        covariance atol 5e-4 -- and, if timed, K1 launched twice (bit-equal)
+        and timed beside its bound and its previous design's time
+        (PREVIOUS_MS[previous], where given).  Returns (covariance, K1's ms or None)."""
+        s0, ps0 = mom[..., 0], pmom[..., 0]
+        rel = ((s0 - ps0).abs() / ps0.abs().clamp(min=1e-6)).max()
+        assert rel <= 2e-4, f"K1 weight sums off by rtol {rel:.2e} ({what})"
+        assert (cnt - pcnt).abs().max() <= 1, f"K1 counts ({what})"
+        cov, _ = klrf.cov_from_moments(mom, q, q_mask)
+        pcov, _ = klrf.cov_from_moments(pmom, q, q_mask)
+        cerr = (cov - pcov).abs().max()
+        assert cerr <= 5e-4, f"K1 covariance off by {cerr:.2e} ({what})"
+        if not timed:
+            return cov, None
+        again = klrf.moments(q, p, pmask, radius)
+        assert torch.equal(mom, again[0]) and torch.equal(cnt, again[1]), \
+            f"two K1 launches differ ({what})"
+        ms = cuda_ms(lambda: klrf.moments(q, p, pmask, radius), 20)
+        dev_ms = device_ms(lambda: klrf.moments(q, p, pmask, radius),
+                           "lrf_moments_binned", 20)
+        b_ms, by = bound(nbytes(q, p, pmask, mom, cnt),
+                         int(cnt.sum()) * (GATE_OPS + MOMENT_BODY_OPS))
+        before = (f"previous design {PREVIOUS_MS[previous]:.3f} ms, "
+                  if previous else "")
+        print(f"{'lrf_moments':20s} {what}: binned sweep {ms:.4f} ms, device "
+              f"{fmt_ms(dev_ms)} ({before}"
+              f"bound {b_ms:.4f} ms by {by}); rtol {float(rel):.2e}, counts "
+              f"+-{int((cnt - pcnt).abs().max())}, covariance "
+              f"{float(cerr):.2e}; two launches bit-equal ({card})",
+              flush=True)
+        return cov, ms
+
     def lrf_pair(queries, q_mask, radius, z_only, what, starts=None,
-                 window=0):
+                 window=0, previous=None):
         """K1 and K2 (K5 and K6 with a window plan) at one main-path call:
         moments rtol 2e-4 and counts +-1, sign votes +-1."""
         q, p = klrf.prep_shift(queries, pts_l, mask_l)
@@ -322,23 +382,18 @@ def main():
                 return f(q, p, mask_l, axes, starts, window, radius, z_only)
         mom, cnt = mom_fn()
         pmom, pcnt = mom_fn(plain=True)
-        s0, ps0 = mom[..., 0], pmom[..., 0]
-        rel = ((s0 - ps0).abs() / ps0.abs().clamp(min=1e-6)).max()
-        assert rel <= 2e-4, f"K1 weight sums off by rtol {rel:.2e} ({what})"
-        assert (cnt - pcnt).abs().max() <= 1, f"K1 counts ({what})"
-        cov, _ = klrf.cov_from_moments(mom, q, q_mask)
-        pcov, _ = klrf.cov_from_moments(pmom, q, q_mask)
-        cerr = (cov - pcov).abs().max()
-        assert cerr <= 5e-4, f"K1 covariance off by {cerr:.2e} ({what})"
+        cov, ms = k1_check(q, p, mask_l, q_mask, radius, what, mom, cnt, pmom,
+                           pcnt, timed=starts is None, previous=previous)
         pairs = q.shape[0] * q.shape[1] * swept
         inside = int(cnt.sum())
         print(f"{'':20s} {what}: {pairs:.3e} pairs swept, in-radius share "
               f"{inside / pairs:.4f}")
         extra = (starts,) if starts is not None else ()
-        record(k_mom, (mom - pmom).abs().max(), cuda_ms(mom_fn, 5),
+        record(k_mom, (mom - pmom).abs().max(),
+               ms if ms is not None else cuda_ms(mom_fn, 5),
                cuda_ms(lambda: mom_fn(plain=True), 2), what,
                nbytes(q, p, mask_l, mom, cnt, *extra),
-               pairs * GATE_OPS + inside * MOMENT_BODY_OPS)
+               inside * (GATE_OPS + MOMENT_BODY_OPS))
         _, vecs = eigh3x3(cov)
         axes = torch.cat([vecs[..., :, 2], vecs[..., :, 0]], -1).contiguous()
         v = vote_fn(axes)
@@ -348,21 +403,34 @@ def main():
         record(k_vote, err, cuda_ms(lambda: vote_fn(axes), 5),
                cuda_ms(lambda: vote_fn(axes, plain=True), 2), what,
                nbytes(q, p, mask_l, axes, v, *extra),
-               pairs * GATE_OPS
-               + inside * VOTE_BODY_OPS * (1 if z_only else 2))
+               inside * (GATE_OPS + VOTE_BODY_OPS * (1 if z_only else 2)))
         return cnt
 
     pts_l, mask_l = pts, mask
     with torch.no_grad():
         lrf_pair(pts, mask, cfg.normal_radius, True,
-                 f"normals B={BATCH} Q=N={pts.shape[1]}")
+                 f"normals B={BATCH} Q=N={pts.shape[1]}",
+                 previous="K1 normals")
         normals = compute_normals_fast(pts, mask, cfg.normal_radius)
         kres = voxel_grid(pts, mask, cfg.leaf_size,
                           capacity=cfg.keypoint_capacity)
         kp = torch.where(kres.mask[..., None], kres.centroids,
                          torch.full_like(kres.centroids, 1e9))
         lrf_pair(kp, kres.mask, cfg.ref_frame_radius, False,
-                 f"keypoint LRF B={BATCH} Q={kp.shape[1]}")
+                 f"keypoint LRF B={BATCH} Q={kp.shape[1]}",
+                 previous="K1 keypoints")
+        # K1 at the detection batch's shapes (B=32): timed, not recorded
+        for queries, q_mask, radius, what in (
+                (pts, mask, cfg.normal_radius, "normals"),
+                (kp, kres.mask, cfg.ref_frame_radius, "keypoint LRF")):
+            qb, mb = queries[:MS_BATCH], q_mask[:MS_BATCH]
+            q32, p32 = klrf.prep_shift(qb, pts[:MS_BATCH], mask[:MS_BATCH])
+            m32 = mask[:MS_BATCH].contiguous()
+            mom, cnt = klrf.moments(q32, p32, m32, radius)
+            pmom, pcnt = klrf.moments_plain(q32, p32, m32, radius)
+            k1_check(q32, p32, m32, mb, radius,
+                     f"{what} B={MS_BATCH} Q={qb.shape[1]}", mom, cnt, pmom,
+                     pcnt, timed=True)
         lrf = shot_lrf(kp, kres.mask, pts, mask, cfg.ref_frame_radius)
 
         gidx, alive, tile_cloud = kshot.compact_layout(kres.mask)
@@ -383,39 +451,76 @@ def main():
         off = ((got.descriptors[both] - want.descriptors[both]).abs()
                > 1e-3).float().mean()
         assert cos.min() > 0.999 and off < 1e-4, (cos.min(), off)
-        rows = kp_rows.shape[0]
-        gate = rows * int(mask.sum()) // BATCH
         record("shot_fused", (hist - phist).abs().max(),
                cuda_ms(lambda: kshot.shot_tiles(*shot_args), 5),
                cuda_ms(lambda: kshot.shot_tiles_plain(*shot_args), 2),
                f"SHOT {tile_cloud.shape[0]} tiles x N={pts.shape[1]}",
                nbytes(kp_rows, fr_rows, tile_cloud, pts, normals, mask, hist,
                       cnt),
-               gate * GATE_OPS + int(cnt.sum()) * SHOT_BODY_OPS)
+               int(cnt.sum()) * (GATE_OPS + SHOT_BODY_OPS))
 
         desc = got.descriptors[got.valid].contiguous()
         cw, cw_mask = codebook.codewords, codebook.cw_mask
-        for k in (1, 3):
-            d, i = kchisq.chisq_topk(desc, cw, cw_mask, k)
-            pd, pi = kchisq.chisq_topk_plain(desc, cw, cw_mask, k)
+
+        def k4_check(a, b, b_mask, k, what, previous=None):
+            """K4 against its twin (distances rtol 1e-5, indices equal
+            except ties), two launches bit-equal, timed beside its fp32
+            bound and its special-function floor (one reciprocal a term);
+            returns (error, ms, plain ms, bytes, ops)."""
+            d, i = kchisq.chisq_topk(a, b, b_mask, k)
+            d2, i2 = kchisq.chisq_topk(a, b, b_mask, k)
+            assert torch.equal(d, d2) and torch.equal(i, i2), \
+                f"two K4 launches differ ({what})"
+            pd, pi = kchisq.chisq_topk_plain(a, b, b_mask, k)
             rel = ((d - pd).abs() / pd.abs().clamp(min=1e-6)).max()
-            assert rel <= 1e-5, f"K4 distances off by rtol {rel:.2e}"
+            assert rel <= 1e-5, f"K4 distances off by rtol {rel:.2e} ({what})"
             differ = i != pi
             assert torch.allclose(d[differ], pd[differ], rtol=1e-5), \
-                "K4 indices differ beyond ties"
-            ms = cuda_ms(lambda: kchisq.chisq_topk(desc, cw, cw_mask, k), 5)
-            pms = cuda_ms(lambda: kchisq.chisq_topk_plain(desc, cw, cw_mask,
-                                                          k), 2)
-            what = f"chisq Q={desc.shape[0]} C={cw.shape[0]} D=352 k={k}"
+                f"K4 indices differ beyond ties ({what})"
+            ms = cuda_ms(lambda: kchisq.chisq_topk(a, b, b_mask, k), 20)
+            dev_ms = device_ms(lambda: kchisq.chisq_topk(a, b, b_mask, k),
+                               "chisq_topk_kernel", 20)
+            pms = cuda_ms(lambda: kchisq.chisq_topk_plain(a, b, b_mask, k), 2)
+            terms = a.shape[0] * b.shape[0] * a.shape[1]
+            ops = terms * CHISQ_TERM_OPS + a.shape[0] * b.shape[0]
+            nb = nbytes(a, b, b_mask, d, i)
+            b_ms, by = bound(nb, ops)
+            before = (f"previous design {PREVIOUS_MS[previous]:.3f} ms, "
+                      if previous else "")
+            print(f"{'chisq_topk':20s} {what}: kernel {ms:.4f} ms, device "
+                  f"{fmt_ms(dev_ms)} ({before}"
+                  f"plain {pms:.3f} ms), bound {b_ms:.4f} ms by {by}, "
+                  f"special-function floor {terms / SFU_OPS_PER_S * 1e3:.4f} "
+                  f"ms; rtol {float(rel):.2e}, {int(differ.sum())} tied "
+                  f"indices differ; two launches bit-equal ({card})",
+                  flush=True)
+            return (d - pd).abs().max(), ms, pms, nb, ops
+
+        for k in (1, 3):
+            what = f"Q={desc.shape[0]} C={cw.shape[0]} D=352 k={k}"
+            res = k4_check(desc, cw, cw_mask, k, what,
+                           "K4 serving" if k == 1 else None)
             if k == 1:    # the main path's k
-                record("chisq_topk", (d - pd).abs().max(), ms, pms, what,
-                       nbytes(desc, cw, cw_mask, d, i),
-                       desc.shape[0] * cw.shape[0]
-                       * (352 * CHISQ_TERM_OPS + 1))
-            else:
-                print(f"{'chisq_topk':20s} {what:36s} max|kernel-plain| "
-                      f"{float((d - pd).abs().max()):.3e}  kernel "
-                      f"{ms:8.3f} ms  plain {pms:9.3f} ms")
+                record("chisq_topk", res[0], res[1], res[2], "chisq " + what,
+                       res[3], res[4])
+        # CSHOT's width (D=1344) against its codebook, at the serving
+        # descriptor count (the kernel's work does not depend on the values:
+        # sparse non-negative rows made from a seed), and the training
+        # self-kNN (Q=C=2000 SHOT descriptors against themselves)
+        ccb = load_codebook(os.path.join(data, "cshot_codebook.ism")).to(dev)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        cq = torch.rand(desc.shape[0], ccb.codewords.shape[1], device=dev,
+                        generator=gen)
+        cq = torch.where(cq < 0.6, torch.zeros_like(cq), cq)
+        cq = (cq / cq.sum(1, keepdim=True)).contiguous()
+        k4_check(cq, ccb.codewords, ccb.cw_mask, 1,
+                 f"CSHOT Q={cq.shape[0]} C={ccb.codewords.shape[0]} "
+                 f"D={cq.shape[1]} k=1")
+        self_q = desc[:2000].contiguous()
+        k4_check(self_q, self_q, torch.ones(len(self_q), dtype=torch.bool,
+                                            device=dev), 1,
+                 "training self-kNN Q=C=2000 D=352 k=1")
+        del cq, ccb
 
         # K5 / K6 at the windowed step's shapes: the sorted batch, the
         # window calibrated on it
@@ -480,8 +585,7 @@ def main():
                cuda_ms(lambda: kshot.shot_dense_plain(*dense_args), 2),
                f"SHOT {tiles} tiles x {chunks} chunks, {live} live",
                nbytes(*dense_args[:6], dh, dc),
-               live * int(mm.sum()) // MS_BATCH * GATE_OPS
-               + int(dc.sum()) * SHOT_BODY_OPS)
+               int(dc.sum()) * (GATE_OPS + SHOT_BODY_OPS))
 
     # -- 2c. K8 / K9 at the CSHOT and SHORT_SHOT steps' shapes -------------
     phase(f"2c. K8 / K9 vs plain twins and scatter_add_ on the card ({card})")
@@ -508,8 +612,7 @@ def main():
     # -- 2d. K10 / K11 at the main paths' shapes ----------------------------
     phase(f"2d. K10 / K11 vs plain twins and vs K1 / K2 on the card ({card})")
 
-    def moments_v2_check(q, p, q_mask, radius, what, mom, cnt, cov, pairs,
-                         inside):
+    def moments_v2_check(q, p, q_mask, radius, what, mom, cnt, cov, inside):
         """K10's moments against its twin and against K1, timed beside
         both and recorded."""
         pmom, pcnt = klrf.moments_v2_plain(q, p, mask, radius)
@@ -532,8 +635,7 @@ def main():
         record("lrf_moments_v2", (mom - pmom).abs().max(), ms,
                cuda_ms(lambda: klrf.moments_v2_plain(q, p, mask, radius), 2),
                what, nbytes(q, p, mask, mom, cnt),
-               pairs * MOMENT_V2_PAIR_OPS + inside * MOMENT_V2_BODY_OPS,
-               tc_flops=pairs * MOMENT_V2_TC_FLOPS)
+               inside * (GATE_OPS + MOMENT_BODY_OPS))
 
     def lrf_v2(queries, q_mask, radius, z_only, what, moments=True):
         """K10 (and K11 unless z_only: the z-only normals vote with K2)
@@ -548,10 +650,9 @@ def main():
         q, p = klrf.prep_shift(queries, pts, mask)
         mom, cnt = klrf.moments_v2(q, p, mask, radius)
         cov, _ = klrf.cov_from_moments(mom, q, q_mask)
-        pairs = q.shape[0] * q.shape[1] * p.shape[1]
         inside = int(cnt.sum())
         if moments:
-            moments_v2_check(q, p, q_mask, radius, what, mom, cnt, cov, pairs,
+            moments_v2_check(q, p, q_mask, radius, what, mom, cnt, cov,
                              inside)
         _, vecs = eigh3x3(cov)
         axes = torch.cat([vecs[..., :, 2], vecs[..., :, 0]], -1).contiguous()
@@ -574,7 +675,7 @@ def main():
                    cuda_ms(lambda: klrf.sign_votes_v2_plain(
                        q, p, mask, axes, radius), 2), what,
                    nbytes(q, p, mask, axes, v),
-                   pairs * VOTE_V2_GATE_OPS + inside * VOTE_V2_BODY_OPS)
+                   inside * (GATE_OPS + 2 * VOTE_BODY_OPS))
         one = shot_lrf(queries, q_mask, pts, mask, radius, z_only=z_only)
         two = shot_lrf(queries, q_mask, pts, mask, radius, z_only=z_only,
                        lrf_version=2)

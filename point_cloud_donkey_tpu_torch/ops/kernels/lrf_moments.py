@@ -58,6 +58,8 @@ def moments_plain(q: torch.Tensor, p: torch.Tensor, mask: torch.Tensor,
     cnt = torch.zeros((b, nq), dtype=torch.int32, device=q.device)
     px, py, pz = (p[..., i][:, None, :] for i in range(3))
     m = mask[:, None, :]
+    # the moments read masked points as 0, whatever they hold (NaN, inf)
+    fx, fy, fz = (torch.where(m, x, torch.zeros_like(x)) for x in (px, py, pz))
     step = _chunk(b, p.shape[1])
     for q0 in range(0, nq, step):
         qc = q[:, q0:q0 + step]
@@ -67,9 +69,9 @@ def moments_plain(q: torch.Tensor, p: torch.Tensor, mask: torch.Tensor,
         d2 = dx * dx + dy * dy + dz * dz
         in_r = (d2 <= r2) & m
         w = torch.where(in_r, r - torch.sqrt(d2), torch.zeros_like(d2))
-        wx, wy, wz = w * px, w * py, w * pz
-        rows = [w, wx, wy, wz, wx * px, wy * py, wz * pz,
-                wx * py, wx * pz, wy * pz]
+        wx, wy, wz = w * fx, w * fy, w * fz
+        rows = [w, wx, wy, wz, wx * fx, wy * fy, wz * fz,
+                wx * fy, wx * fz, wy * fz]
         mom[:, q0:q0 + step] = torch.stack([x.sum(-1) for x in rows], -1)
         cnt[:, q0:q0 + step] = in_r.sum(-1, dtype=torch.int32)
     return mom, cnt

@@ -15,6 +15,7 @@ import torch
 
 import shapes
 from bench_data import KEYPOINT_CAPACITY, bench_clouds, bench_colors
+from redesign_cases import K1_CASES, K1_RADIUS, K4_DIMS, k1_case, k4_case
 from torch_parity import (assert_decisions_match, assert_topk_close,
                           cuda_device, n, t)  # noqa: F401
 
@@ -158,6 +159,67 @@ def test_chisq_topk_matches_plain(cuda_device, k):
     a, b, bmask = a.to(cuda_device), b.to(cuda_device), bmask.to(cuda_device)
     d, i = tchisq.chisq_topk(a, b, bmask, k)
     pd, pi = tchisq.chisq_topk_plain(a, b, bmask, k)
+    assert_topk_close(d, i, pd, pi)
+
+
+@pytest.mark.parametrize("case", K1_CASES + ("beyond_smem",))
+def test_moments_edge_cases_match_plain(cuda_device, case):
+    """K1 (the cell-binned sweep) vs its twin at tests/redesign_cases.py's
+    edge cases, and at N = 20000 (points binned and swept in chunks):
+    weight sums rtol 2e-4, counts +-1, covariance atol 5e-4 on the valid
+    queries, exactly 0 on the invalid ones; two launches equal bit for
+    bit."""
+    arrays = (k1_case("ragged_n", n_points=20000) if case == "beyond_smem"
+              else k1_case(case))
+    q, q_mask, p, mask = (t(x).to(cuda_device) for x in arrays)
+    mom, cnt = tlrfm.moments(q, p, mask, K1_RADIUS)
+    again = tlrfm.moments(q, p, mask, K1_RADIUS)
+    assert torch.equal(mom, again[0]) and torch.equal(cnt, again[1])
+    pmom, pcnt = tlrfm.moments_plain(q, p, mask, K1_RADIUS)
+    assert torch.isfinite(mom).all()
+    assert not cnt[~q_mask].any() and not mom[~q_mask].any()
+    torch.testing.assert_close(mom[q_mask][:, 0], pmom[q_mask][:, 0],
+                               rtol=2e-4, atol=1e-6)
+    assert (cnt - pcnt).abs().max() <= 1
+    cov, _ = tlrfm.cov_from_moments(mom, q, q_mask)
+    pcov, _ = tlrfm.cov_from_moments(pmom, q, q_mask)
+    assert ((cov - pcov)[q_mask].abs() <= 5e-4).all()
+
+
+@pytest.mark.parametrize("signed", [False, True])
+@pytest.mark.parametrize("k", [1, 2, 3])
+@pytest.mark.parametrize("dim", K4_DIMS)
+def test_chisq_edge_cases_match_plain(cuda_device, dim, k, signed):
+    """K4 vs its twin at tests/redesign_cases.py's edge cases: distances
+    rtol 1e-5, indices equal except at ties, the duplicated codeword's tie
+    to the lower index, the all-zero pair at 0; two launches equal; with
+    signed, tiny and huge values too (terms with a + b <= 0 count 0)."""
+    a, b, b_mask = (t(x).to(cuda_device)
+                    for x in k4_case(dim, signed=signed))
+    d, i = tchisq.chisq_topk(a, b, b_mask, k)
+    d2, i2 = tchisq.chisq_topk(a, b, b_mask, k)
+    assert torch.equal(d, d2) and torch.equal(i, i2)
+    pd, pi = tchisq.chisq_topk_plain(a, b, b_mask, k)
+    assert_topk_close(d, i, pd, pi)
+    assert int(i[9, 0]) == 3 and float(d[9, 0]) == 0.0
+    if k >= 2:
+        assert int(i[9, 1]) == 7
+    assert int(i[5, 0]) == 11 and float(d[5, 0]) == 0.0
+
+
+@pytest.mark.parametrize("q,c,dim", [(12000, 458, 352), (6000, 200, 35),
+                                     (2000, 2000, 352), (300, 458, 1344),
+                                     (0, 458, 352)])
+def test_chisq_grid_shapes_match_plain(cuda_device, q, c, dim):
+    """K4 at the shapes that pick each codeword-group count (serving:
+    one group; mid-size: two; the training self-kNN and CSHOT's D = 1344
+    at few descriptors: four) and at Q = 0, against its twin."""
+    a, b, b_mask = (t(x).to(cuda_device)
+                    for x in k4_case(dim, q=max(q, 12), c=c, seed=3))
+    a = a[:q].contiguous()
+    d, i = tchisq.chisq_topk(a, b, b_mask, 3)
+    assert d.shape == (q, 3) and i.shape == (q, 3)
+    pd, pi = tchisq.chisq_topk_plain(a, b, b_mask, 3)
     assert_topk_close(d, i, pd, pi)
 
 
