@@ -12,12 +12,13 @@ Phases (each prints its results; any failure raises and exits nonzero):
      the 128-cloud bench batch, K5/K6 at the windowed step's (the sorted
      batch, window calibrated on it), K7 at the mean-shift step's (32
      clouds x 192 keypoints), and K7 with and without its point-chunk
-     split at 1, 8 and 32 clouds; K1 (the cell-binned sweep) also at the
-     detection batch (B=32), K4 (register-tiled) also at CSHOT's D=1344
-     and at the training self-kNN (Q=C=2000), each beside its previous
-     design's time,
-     its bound (K4 also its special-function floor) and with two launches
-     bit-equal;
+     split at 1, 8 and 32 clouds; K1 and K2 (the cell-binned sweep, K1
+     also at the detection batch, B=32), K3 (compacted in-radius pairs
+     into warp-owned histograms, with its swept pairs and in-radius
+     share) and K4 (register-tiled, also at CSHOT's D=1344 and at the
+     training self-kNN, Q=C=2000) each beside its previous design's time,
+     its bound (K4 also its special-function floor) and torch.profiler's
+     device time, with two launches bit-equal;
   2c. K8 (n_bin 11 and 31) and K9 at the CSHOT and SHORT_SHOT steps'
      shapes (the slot arrays of the 128 bench clouds, coloured by
      tests/bench_data.bench_colors: 24576 rows x 2048 points, x 4 slots
@@ -151,12 +152,13 @@ VOTE_BODY_OPS = 6      # one (p - q) . axis (3 mul, 2 add) and its compare
 SHOT_BODY_OPS = 100    # frame coords, cosine, binning, 5 slot adds;
 #                        sqrtf, acosf and atan2f count one each
 CHISQ_TERM_OPS = 6     # a + b, a - b, square, divide, compare, accumulate
-# Times of the previous designs -- K1's all-pairs sweep, K4's one thread
-# per (descriptor, codeword) pair -- at the dense step's shapes, from
-# PERF.md's kernel table (H100 80GB HBM3 at 700 W), printed beside this
-# run's
+# Times of the previous designs -- K1's and K2's all-pairs sweeps, K3's
+# threads over points with shared-memory atomics, K4's one thread per
+# (descriptor, codeword) pair -- at the dense step's shapes, from PERF.md's
+# kernel table (H100 80GB HBM3 at 700 W), printed beside this run's
 PREVIOUS_MS = {"K1 normals": 0.834, "K1 keypoints": 0.279,
-               "K4 serving": 2.079}
+               "K4 serving": 2.079, "K2 normals": 0.482,
+               "K2 keypoints": 0.170, "K3 serving": 0.874}
 # K8 / K9 (csrc/shot_hist.cu, csrc/histogram.cu): every column pays its
 # weights' zero tests (5 for K8, 1 for K9); a live column reads its indices
 # and adds its slots (5 adds for K8, 1 for K9).  Bytes: the weights of every
@@ -338,7 +340,7 @@ def main():
             f"two K1 launches differ ({what})"
         ms = cuda_ms(lambda: klrf.moments(q, p, pmask, radius), 20)
         dev_ms = device_ms(lambda: klrf.moments(q, p, pmask, radius),
-                           "lrf_moments_binned", 20)
+                           "MomentsBody", 20)
         b_ms, by = bound(nbytes(q, p, pmask, mom, cnt),
                          int(cnt.sum()) * (GATE_OPS + MOMENT_BODY_OPS))
         before = (f"previous design {PREVIOUS_MS[previous]:.3f} ms, "
@@ -400,10 +402,26 @@ def main():
         pv = vote_fn(axes, plain=True)
         err = (v - pv).abs().max()
         assert err <= 1, f"K2/K6 votes off by {err} ({what})"
-        record(k_vote, err, cuda_ms(lambda: vote_fn(axes), 5),
+        vote_bytes = nbytes(q, p, mask_l, axes, v, *extra)
+        vote_ops = inside * (GATE_OPS + VOTE_BODY_OPS * (1 if z_only else 2))
+        if starts is None:
+            assert torch.equal(v, vote_fn(axes)), \
+                f"two K2 launches differ ({what})"
+            vms = cuda_ms(lambda: vote_fn(axes), 20)
+            dev_ms = device_ms(lambda: vote_fn(axes), "VotesBody", 20)
+            b_ms, by = bound(vote_bytes, vote_ops)
+            before = (f"previous design "
+                      f"{PREVIOUS_MS[previous.replace('K1', 'K2')]:.3f} ms, "
+                      if previous else "")
+            print(f"{'sign_votes':20s} {what}: binned sweep {vms:.4f} ms, "
+                  f"device {fmt_ms(dev_ms)} ({before}bound {b_ms:.4f} ms by "
+                  f"{by}); votes +-{int(err)}; two launches bit-equal "
+                  f"({card})", flush=True)
+        else:
+            vms = cuda_ms(lambda: vote_fn(axes), 5)
+        record(k_vote, err, vms,
                cuda_ms(lambda: vote_fn(axes, plain=True), 2), what,
-               nbytes(q, p, mask_l, axes, v, *extra),
-               inside * (GATE_OPS + VOTE_BODY_OPS * (1 if z_only else 2)))
+               vote_bytes, vote_ops)
         return cnt
 
     pts_l, mask_l = pts, mask
@@ -451,13 +469,29 @@ def main():
         off = ((got.descriptors[both] - want.descriptors[both]).abs()
                > 1e-3).float().mean()
         assert cos.min() > 0.999 and off < 1e-4, (cos.min(), off)
-        record("shot_fused", (hist - phist).abs().max(),
-               cuda_ms(lambda: kshot.shot_tiles(*shot_args), 5),
+        again = kshot.shot_tiles(*shot_args)
+        assert torch.equal(hist, again[0]) and torch.equal(cnt, again[1]), \
+            "two K3 launches differ"
+        k3_ms = cuda_ms(lambda: kshot.shot_tiles(*shot_args), 20)
+        k3_dev = device_ms(lambda: kshot.shot_tiles(*shot_args),
+                           "shot_fused_kernel", 20)
+        k3_bytes = nbytes(kp_rows, fr_rows, tile_cloud, pts, normals, mask,
+                          hist, cnt)
+        k3_ops = int(cnt.sum()) * (GATE_OPS + SHOT_BODY_OPS)
+        b_ms, by = bound(k3_bytes, k3_ops)
+        pairs = tile_cloud.shape[0] * kshot.TK * pts.shape[1]
+        print(f"{'shot_fused':20s} SHOT {tile_cloud.shape[0]} tiles: "
+              f"{pairs:.3e} pairs swept, in-radius share "
+              f"{int(cnt.sum()) / pairs:.4f}; warp-owned histograms "
+              f"{k3_ms:.4f} ms, device {fmt_ms(k3_dev)} (previous design "
+              f"{PREVIOUS_MS['K3 serving']:.3f} ms, bound {b_ms:.4f} ms by "
+              f"{by}); counts equal, cosine min {float(cos.min()):.7f}, "
+              f"{float(off):.2e} of entries off by > 1e-3; two launches "
+              f"bit-equal ({card})", flush=True)
+        record("shot_fused", (hist - phist).abs().max(), k3_ms,
                cuda_ms(lambda: kshot.shot_tiles_plain(*shot_args), 2),
                f"SHOT {tile_cloud.shape[0]} tiles x N={pts.shape[1]}",
-               nbytes(kp_rows, fr_rows, tile_cloud, pts, normals, mask, hist,
-                      cnt),
-               int(cnt.sum()) * (GATE_OPS + SHOT_BODY_OPS))
+               k3_bytes, k3_ops)
 
         desc = got.descriptors[got.valid].contiguous()
         cw, cw_mask = codebook.codewords, codebook.cw_mask

@@ -25,10 +25,11 @@
 // only ~3% of the 5.4e8 (query, point) pairs are in radius, so the least
 // work is the in-radius pairs'; the bytes are a few MB.
 //
-// K1's design: a cell-binned sweep, its grid built inside each CTA.  A CTA
-// of 512 threads takes one cloud and a tile of its queries; the host uses
-// as few tiles per cloud as fill one wave of two CTAs per SM (B = 128: 2
-// tiles; B = 32: 8), since every CTA rebuilds its cloud's grid.  The CTA
+// K1 and K2 share one design, a cell-binned sweep templated on its body
+// (MomentsBody, VotesBody), its grid built inside each CTA.  A CTA of 512
+// threads takes one cloud and a tile of its queries; the host uses as few
+// tiles per cloud as fill one wave of two CTAs per SM (B = 128: 2 tiles;
+// B = 32: 8), since every CTA rebuilds its cloud's grid.  The CTA
 //   1. reads the cloud once from device memory, staging it in shared memory
 //      as float4 (2048 points: 32 KB), reduces the bounding box of its
 //      unmasked points and lays a uniform grid over it: cell edges
@@ -46,48 +47,44 @@
 //      rows of 3 cells with edges r, 5 x 5 rows of 5 with edges r / 2 (58%
 //      of the volume), each row a contiguous run of the sorted points;
 //      every point within r of the query lies there.  The gate is the
-//      twin's float operations; in the body the weight's sqrt is
-//      sqrt.approx (~1 ulp, far inside the moments contract).  S lanes
-//      share a query (S = 1 at the serving normals, up to 32 when a CTA
-//      has few queries), striding through each run; a fixed shuffle tree
-//      sums them.  The order of every sum depends only on the cloud and S
-//      (fixed by B and Q), so two launches give equal bits.
+//      twins' float operations.  S lanes share a query (S = 1 at the
+//      serving normals, up to 32 when a CTA has few queries), striding
+//      through each run; a fixed shuffle tree sums them.  The order of
+//      every sum depends only on the cloud and S (fixed by B and Q), so two
+//      launches give equal bits.
+// The bodies: K1 adds the moments of an in-radius point (the weight's sqrt
+// is sqrt.approx, ~1 ulp, far inside the moments contract); K2 reads the
+// query's two axis candidates by its original row and counts the signs of
+// (p - q) . axis, integer sums that are exact in any order.
 // Masked points never enter the grid (their coordinates may be garbage or
 // NaN).  Cell coordinates are clamped in float before conversion; a query
 // a neighbourhood or more outside the grid (a 1e9 pad, NaN) visits nothing
 // and gets 0.  Results go back to each query's own row.  Clouds over 2048
 // points are binned and swept chunk by chunk.  No PyTorch launch surrounds
-// the kernel.
-// K2, K5 and K6 keep the all-pairs sweep: one CTA per (cloud, tile of
-// 128 queries), one thread per query, the swept points streamed through
-// shared memory in 1024-point chunks as float4 (x, y, z, mask); the
-// windowed kernels read their sweep range from the plan.  The 3x3 EVD
-// between the two passes stays in PyTorch.
+// the kernels.
+// K5 and K6 sweep every pair of their windows: one CTA per
+// (cloud, tile of 128 queries), one thread per query, the window's points
+// streamed through shared memory in 1024-point chunks as float4 (x, y, z,
+// mask).  The 3x3 EVD between the two passes stays in PyTorch.
 #include <cfloat>
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int TQ = 128;   // queries per CTA (one thread each)
+constexpr int TQ = 128;   // queries per windowed CTA (one thread each)
 constexpr int TN = 1024;  // points staged in shared memory per chunk
 constexpr int TQW = 256;  // queries per window-plan tile (2 CTAs)
 static_assert(TQW % TQ == 0, "a CTA must lie inside one plan tile");
 
-// Sweep range [lo, hi) of this CTA's queries: the whole cloud, or the
-// window its plan tile was given (starts [B, T], clamped to N).
-template <bool WIN>
-__device__ __forceinline__ void sweep_range(const int* __restrict__ starts,
-                                            int T, int W, int N, int& lo,
-                                            int& hi) {
-  if (WIN) {
-    lo = starts[(size_t)blockIdx.y * T + (blockIdx.x * TQ) / TQW];
-    lo = max(0, min(lo, N));
-    hi = min(lo + W, N);
-  } else {
-    lo = 0;
-    hi = N;
-  }
+// Sweep range [lo, hi) of this CTA's queries: the window its plan tile was
+// given (starts [B, T], clamped to N).
+__device__ __forceinline__ void window_range(const int* __restrict__ starts,
+                                             int T, int W, int N, int& lo,
+                                             int& hi) {
+  lo = starts[(size_t)blockIdx.y * T + (blockIdx.x * TQ) / TQW];
+  lo = max(0, min(lo, N));
+  hi = min(lo + W, N);
 }
 
 __device__ __forceinline__ void stage_points(float4* sp, const float* pb,
@@ -99,13 +96,13 @@ __device__ __forceinline__ void stage_points(float4* sp, const float* pb,
   }
 }
 
-template <bool WIN>
 __global__ void __launch_bounds__(TQ)
-lrf_moments_kernel(const float* __restrict__ q, const float* __restrict__ p,
-                   const unsigned char* __restrict__ mask,
-                   const int* __restrict__ starts,
-                   float* __restrict__ mom, int* __restrict__ count,
-                   int Q, int N, int T, int W, float r) {
+lrf_moments_windowed_kernel(const float* __restrict__ q,
+                            const float* __restrict__ p,
+                            const unsigned char* __restrict__ mask,
+                            const int* __restrict__ starts,
+                            float* __restrict__ mom, int* __restrict__ count,
+                            int Q, int N, int T, int W, float r) {
   __shared__ float4 sp[TN];
   const int b = blockIdx.y;
   const int qi = blockIdx.x * TQ + threadIdx.x;
@@ -122,7 +119,7 @@ lrf_moments_kernel(const float* __restrict__ q, const float* __restrict__ p,
   const float* pb = p + (size_t)b * N * 3;
   const unsigned char* mb = mask + (size_t)b * N;
   int lo, hi;
-  sweep_range<WIN>(starts, T, W, N, lo, hi);
+  window_range(starts, T, W, N, lo, hi);
   for (int base = lo; base < hi; base += TN) {
     const int n = min(TN, hi - base);
     __syncthreads();
@@ -151,13 +148,14 @@ lrf_moments_kernel(const float* __restrict__ q, const float* __restrict__ p,
   }
 }
 
-template <bool WIN>
 __global__ void __launch_bounds__(TQ)
-sign_votes_kernel(const float* __restrict__ q, const float* __restrict__ p,
-                  const unsigned char* __restrict__ mask,
-                  const int* __restrict__ starts,
-                  const float* __restrict__ axes, int* __restrict__ votes,
-                  int Q, int N, int T, int W, float r, int z_only) {
+sign_votes_windowed_kernel(const float* __restrict__ q,
+                           const float* __restrict__ p,
+                           const unsigned char* __restrict__ mask,
+                           const int* __restrict__ starts,
+                           const float* __restrict__ axes,
+                           int* __restrict__ votes, int Q, int N, int T,
+                           int W, float r, int z_only) {
   __shared__ float4 sp[TN];
   const int b = blockIdx.y;
   const int qi = blockIdx.x * TQ + threadIdx.x;
@@ -177,7 +175,7 @@ sign_votes_kernel(const float* __restrict__ q, const float* __restrict__ p,
   const float* pb = p + (size_t)b * N * 3;
   const unsigned char* mb = mask + (size_t)b * N;
   int lo, hi;
-  sweep_range<WIN>(starts, T, W, N, lo, hi);
+  window_range(starts, T, W, N, lo, hi);
   for (int base = lo; base < hi; base += TN) {
     const int n = min(TN, hi - base);
     __syncthreads();
@@ -201,9 +199,9 @@ sign_votes_kernel(const float* __restrict__ q, const float* __restrict__ p,
   }
 }
 
-// ---- K1: the cell-binned radius sweep --------------------------------------
+// ---- K1 / K2: the cell-binned radius sweep ---------------------------------
 
-constexpr int KT = 512;            // threads of a K1 CTA
+constexpr int KT = 512;            // threads of a binned CTA
 constexpr int NCH = 2048;          // points binned per chunk
 constexpr int QCAP = 1024;         // most queries of a CTA
 constexpr int CELL_CAP = 2048;     // most cells of a cloud's grid
@@ -399,14 +397,106 @@ __device__ void bin_chunk(BinnedSmem& sm, const CellGrid& g,
   __syncthreads();
 }
 
+// K1's body: the (r - d)-weighted moments of the in-radius points and
+// their count, written to mom [B*Q, 10] and count [B*Q].
+struct MomentsBody {
+  float* mom;
+  int* count;
+  float r;
+
+  struct Acc {
+    float s0, sx, sy, sz, xx, yy, zz, xy, xz, yz;
+    int cnt;
+  };
+
+  __device__ __forceinline__ void begin(Acc& a, size_t, bool) const {
+    a.s0 = a.sx = a.sy = a.sz = 0.f;
+    a.xx = a.yy = a.zz = a.xy = a.xz = a.yz = 0.f;
+    a.cnt = 0;
+  }
+  __device__ __forceinline__ void add(Acc& a, const float4& pt, float, float,
+                                      float, float d2) const {
+    const float w = r - sqrt_approx(d2);
+    const float wx = w * pt.x, wy = w * pt.y, wz = w * pt.z;
+    a.s0 += w; a.sx += wx; a.sy += wy; a.sz += wz;
+    a.xx += wx * pt.x; a.yy += wy * pt.y; a.zz += wz * pt.z;
+    a.xy += wx * pt.y; a.xz += wx * pt.z; a.yz += wy * pt.z;
+    ++a.cnt;
+  }
+  __device__ __forceinline__ void reduce(Acc& a, int S) const {
+    for (int o = S / 2; o > 0; o >>= 1) {
+      a.s0 += __shfl_xor_sync(FULL, a.s0, o);
+      a.sx += __shfl_xor_sync(FULL, a.sx, o);
+      a.sy += __shfl_xor_sync(FULL, a.sy, o);
+      a.sz += __shfl_xor_sync(FULL, a.sz, o);
+      a.xx += __shfl_xor_sync(FULL, a.xx, o);
+      a.yy += __shfl_xor_sync(FULL, a.yy, o);
+      a.zz += __shfl_xor_sync(FULL, a.zz, o);
+      a.xy += __shfl_xor_sync(FULL, a.xy, o);
+      a.xz += __shfl_xor_sync(FULL, a.xz, o);
+      a.yz += __shfl_xor_sync(FULL, a.yz, o);
+      a.cnt += __shfl_xor_sync(FULL, a.cnt, o);
+    }
+  }
+  __device__ __forceinline__ void write(const Acc& a, size_t o) const {
+    float* m = mom + o * 10;
+    m[0] = a.s0; m[1] = a.sx; m[2] = a.sy; m[3] = a.sz;
+    m[4] = a.xx; m[5] = a.yy; m[6] = a.zz; m[7] = a.xy; m[8] = a.xz;
+    m[9] = a.yz;
+    count[o] = a.cnt;
+  }
+};
+
+// K2's body: per query, the in-radius counts with (p - q) . axis >= 0 for
+// its x (axes[row, 0:3]) and z (axes[row, 3:6]) candidates, written to
+// votes [B*Q, 2] (x is 0 when z_only).
+struct VotesBody {
+  const float* axes;
+  int* votes;
+  int z_only;
+
+  struct Acc {
+    float vx, vy, vz, ux, uy, uz;
+    int plus_x, plus_z;
+  };
+
+  __device__ __forceinline__ void begin(Acc& a, size_t row,
+                                        bool active) const {
+    a.vx = a.vy = a.vz = a.ux = a.uy = a.uz = 0.f;
+    if (active) {
+      const float* ax = axes + row * 6;
+      a.vx = ax[0]; a.vy = ax[1]; a.vz = ax[2];
+      a.ux = ax[3]; a.uy = ax[4]; a.uz = ax[5];
+    }
+    a.plus_x = a.plus_z = 0;
+  }
+  // the twins' float operations on the offset p - q (the sweep's q - p,
+  // negated exactly)
+  __device__ __forceinline__ void add(Acc& a, const float4&, float dx,
+                                      float dy, float dz, float) const {
+    const float ex = -dx, ey = -dy, ez = -dz;
+    a.plus_z += (ex * a.ux + ey * a.uy + ez * a.uz) >= 0.f;
+    if (!z_only) a.plus_x += (ex * a.vx + ey * a.vy + ez * a.vz) >= 0.f;
+  }
+  __device__ __forceinline__ void reduce(Acc& a, int S) const {
+    for (int o = S / 2; o > 0; o >>= 1) {
+      a.plus_x += __shfl_xor_sync(FULL, a.plus_x, o);
+      a.plus_z += __shfl_xor_sync(FULL, a.plus_z, o);
+    }
+  }
+  __device__ __forceinline__ void write(const Acc& a, size_t o) const {
+    votes[o * 2] = a.plus_x;
+    votes[o * 2 + 1] = a.plus_z;
+  }
+};
+
 // One CTA per (cloud, tile of tq queries); S lanes per query (a power of
 // two <= 32) share its sweep, striding through each run of points.
+template <class Body>
 __global__ void __launch_bounds__(KT, 2)
-lrf_moments_binned_kernel(const float* __restrict__ q,
-                          const float* __restrict__ p,
-                          const unsigned char* __restrict__ mask,
-                          float* __restrict__ mom, int* __restrict__ count,
-                          int Q, int N, int tq, int S, float r) {
+binned_sweep_kernel(const float* __restrict__ q, const float* __restrict__ p,
+                    const unsigned char* __restrict__ mask, Body body, int Q,
+                    int N, int tq, int S, float r) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   BinnedSmem& sm = *reinterpret_cast<BinnedSmem*>(smem_raw);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -501,9 +591,8 @@ lrf_moments_binned_kernel(const float* __restrict__ q,
         z0 = max(c[2] - g.f, 0); z1 = min(c[2] + g.f, g.n[2] - 1);
       }
     }
-    float s0 = 0.f, sx = 0.f, sy = 0.f, sz = 0.f;
-    float xx = 0.f, yy = 0.f, zz = 0.f, xy = 0.f, xz = 0.f, yz = 0.f;
-    int cnt = 0;
+    typename Body::Acc acc;
+    body.begin(acc, (size_t)b * Q + q0 + row, active);
     for (int base = 0; base < N; base += NCH) {
       if (!one_chunk) bin_chunk(sm, g, pb, mb, base, min(NCH, N - base), true);
       for (int cz = z0; cz <= z1; ++cz)
@@ -514,39 +603,45 @@ lrf_moments_binned_kernel(const float* __restrict__ q,
             const float4 pt = sm.pts[j];
             const float dx = qx - pt.x, dy = qy - pt.y, dz = qz - pt.z;
             const float d2 = dx * dx + dy * dy + dz * dz;
-            if (d2 <= r2) {
-              const float w = r - sqrt_approx(d2);
-              const float wx = w * pt.x, wy = w * pt.y, wz = w * pt.z;
-              s0 += w; sx += wx; sy += wy; sz += wz;
-              xx += wx * pt.x; yy += wy * pt.y; zz += wz * pt.z;
-              xy += wx * pt.y; xz += wx * pt.z; yz += wy * pt.z;
-              ++cnt;
-            }
+            if (d2 <= r2) body.add(acc, pt, dx, dy, dz, d2);
           }
         }
       if (!one_chunk) __syncthreads();   // the next chunk reuses sm.pts
     }
-    for (int o = S / 2; o > 0; o >>= 1) {
-      s0 += __shfl_xor_sync(FULL, s0, o);
-      sx += __shfl_xor_sync(FULL, sx, o);
-      sy += __shfl_xor_sync(FULL, sy, o);
-      sz += __shfl_xor_sync(FULL, sz, o);
-      xx += __shfl_xor_sync(FULL, xx, o);
-      yy += __shfl_xor_sync(FULL, yy, o);
-      zz += __shfl_xor_sync(FULL, zz, o);
-      xy += __shfl_xor_sync(FULL, xy, o);
-      xz += __shfl_xor_sync(FULL, xz, o);
-      yz += __shfl_xor_sync(FULL, yz, o);
-      cnt += __shfl_xor_sync(FULL, cnt, o);
-    }
-    if (active && sub == 0) {
-      const size_t o = (size_t)b * Q + q0 + row;
-      float* m = mom + o * 10;
-      m[0] = s0; m[1] = sx; m[2] = sy; m[3] = sz;
-      m[4] = xx; m[5] = yy; m[6] = zz; m[7] = xy; m[8] = xz; m[9] = yz;
-      count[o] = cnt;
-    }
+    body.reduce(acc, S);
+    if (active && sub == 0) body.write(acc, (size_t)b * Q + q0 + row);
   }
+}
+
+// Launch a binned sweep: as few CTAs per cloud as fill one wave of two
+// CTAs per SM (each CTA builds its cloud's grid), at least 16 and at most
+// QCAP queries a CTA; lanes per query: the most that still fit a CTA's
+// threads.
+template <class Body>
+int launch_binned(const void* q, const void* p, const void* mask, Body body,
+                  int B, int Q, int N, float r, void* stream) {
+  if (B == 0 || Q == 0) return pcd_last_error();
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  int tiles = max(1, 2 * sms / B);
+  tiles = min(tiles, (Q + 15) / 16);
+  tiles = max(tiles, (Q + QCAP - 1) / QCAP);
+  const int tq = (Q + tiles - 1) / tiles;
+  int lanes = 1;
+  while (lanes < 32 && 2 * lanes * tq <= KT) lanes *= 2;
+  const int smem = (int)sizeof(BinnedSmem);
+  static bool smem_set[64] = {};   // one table per body
+  if (dev >= 64 || !smem_set[dev]) {
+    cudaFuncSetAttribute(binned_sweep_kernel<Body>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (dev < 64) smem_set[dev] = true;
+  }
+  dim3 grid((Q + tq - 1) / tq, B);
+  binned_sweep_kernel<Body><<<grid, KT, smem, (cudaStream_t)stream>>>(
+      (const float*)q, (const float*)p, (const unsigned char*)mask, body, Q,
+      N, tq, lanes, r);
+  return pcd_last_error();
 }
 
 }  // namespace
@@ -556,31 +651,8 @@ lrf_moments_binned_kernel(const float* __restrict__ q,
 PCD_EXPORT int pcd_lrf_moments(const void* q, const void* p, const void* mask,
                                void* mom, void* count, int B, int Q, int N,
                                float r, void* stream) {
-  if (B == 0 || Q == 0) return pcd_last_error();
-  int dev = 0, sms = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  // as few CTAs per cloud as fill one wave of two CTAs per SM (each CTA
-  // builds its cloud's grid), at least 16 and at most QCAP queries a CTA;
-  // lanes per query: the most that still fit a CTA's threads
-  int tiles = max(1, 2 * sms / B);
-  tiles = min(tiles, (Q + 15) / 16);
-  tiles = max(tiles, (Q + QCAP - 1) / QCAP);
-  const int tq = (Q + tiles - 1) / tiles;
-  int lanes = 1;
-  while (lanes < 32 && 2 * lanes * tq <= KT) lanes *= 2;
-  const int smem = (int)sizeof(BinnedSmem);
-  static bool smem_set[64] = {};
-  if (dev >= 64 || !smem_set[dev]) {
-    cudaFuncSetAttribute(lrf_moments_binned_kernel,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (dev < 64) smem_set[dev] = true;
-  }
-  dim3 grid((Q + tq - 1) / tq, B);
-  lrf_moments_binned_kernel<<<grid, KT, smem, (cudaStream_t)stream>>>(
-      (const float*)q, (const float*)p, (const unsigned char*)mask,
-      (float*)mom, (int*)count, Q, N, tq, lanes, r);
-  return pcd_last_error();
+  return launch_binned(q, p, mask, MomentsBody{(float*)mom, (int*)count, r},
+                       B, Q, N, r, stream);
 }
 
 // as pcd_lrf_moments over sorted points, each 256-query tile t of cloud b
@@ -592,7 +664,7 @@ PCD_EXPORT int pcd_lrf_moments_windowed(const void* q, const void* p,
                                         int N, int T, int W, float r,
                                         void* stream) {
   dim3 grid((Q + TQ - 1) / TQ, B);
-  lrf_moments_kernel<true><<<grid, TQ, 0, (cudaStream_t)stream>>>(
+  lrf_moments_windowed_kernel<<<grid, TQ, 0, (cudaStream_t)stream>>>(
       (const float*)q, (const float*)p, (const unsigned char*)mask,
       (const int*)starts, (float*)mom, (int*)count, Q, N, T, W, r);
   return pcd_last_error();
@@ -603,11 +675,9 @@ PCD_EXPORT int pcd_lrf_moments_windowed(const void* q, const void* p,
 PCD_EXPORT int pcd_sign_votes(const void* q, const void* p, const void* mask,
                               const void* axes, void* votes, int B, int Q,
                               int N, float r, int z_only, void* stream) {
-  dim3 grid((Q + TQ - 1) / TQ, B);
-  sign_votes_kernel<false><<<grid, TQ, 0, (cudaStream_t)stream>>>(
-      (const float*)q, (const float*)p, (const unsigned char*)mask, nullptr,
-      (const float*)axes, (int*)votes, Q, N, 0, N, r, z_only);
-  return pcd_last_error();
+  return launch_binned(q, p, mask,
+                       VotesBody{(const float*)axes, (int*)votes, z_only}, B,
+                       Q, N, r, stream);
 }
 
 // as pcd_sign_votes over the windows of pcd_lrf_moments_windowed
@@ -617,7 +687,7 @@ PCD_EXPORT int pcd_sign_votes_windowed(const void* q, const void* p,
                                        int Q, int N, int T, int W, float r,
                                        int z_only, void* stream) {
   dim3 grid((Q + TQ - 1) / TQ, B);
-  sign_votes_kernel<true><<<grid, TQ, 0, (cudaStream_t)stream>>>(
+  sign_votes_windowed_kernel<<<grid, TQ, 0, (cudaStream_t)stream>>>(
       (const float*)q, (const float*)p, (const unsigned char*)mask,
       (const int*)starts, (const float*)axes, (int*)votes, Q, N, T, W, r,
       z_only);

@@ -11,33 +11,53 @@
 // cloud with 1e-15 < |p - q|^2 <= r^2, a finite normal and mask set: the
 // local-frame coordinates (p - q) . axis, the PCL volume bit pattern, and
 // the quadrilinear soft binning of ops/shot.py (cosine, radial, inclination,
-// azimuth) -- five weighted slots into the keypoint's 32 x 11 histogram.
-// The raw histogram and the in-radius count are written out; the wrapper
-// normalises and sets validity.
+// azimuth) -- five weighted slots into the keypoint's 32 x 11 histogram
+// (shot_slots, shared by both kernels).  The raw histogram and the
+// in-radius count are written out; the wrapper normalises and sets
+// validity.
 //
-// What bounds them on the H100: arithmetic and shared-memory atomics.  A
-// 128-cloud batch has ~1.2e4 compacted keypoints x 2048 points ~ 2.5e7 pairs;
-// each in-radius pair costs ~100 fp32 operations with acosf and atan2f and
-// five shared-memory atomicAdds.  Inputs are ~3 MB.
-// Design (K3): one CTA per 8-keypoint tile, 256 threads; the tile reads its
-// cloud's points by cloud id straight from global memory (L2-resident: the
-// whole batch is a few MB), each thread strides over points and loops over
-// the 8 keypoints, whose frames sit in shared memory.  Each keypoint has a
-// [352] f32 shared-memory histogram (11 KB per CTA) that the five slots
-// enter with atomicAdd; nothing [K, N]-sized or one-hot ever exists.  No
-// TPU layout tricks (lane packing, 1e9 parking, slab pre-gather,
-// block-diagonal one-hot dots) survive: masks are explicit, atan2f/acosf
-// replace the polynomial approximations.
+// What bounds them on the H100: arithmetic on the in-radius pairs.  A
+// 128-cloud batch has ~1.2e4 compacted keypoints x 2048 points ~ 2.5e7
+// pairs, of which ~18% lie within r = 0.6 at the bench geometry; an
+// in-radius pair costs ~100 fp32 operations with sqrtf, acosf and atan2f
+// and five histogram adds, a pair outside only the gate.  Inputs are ~3 MB.
+// A cell grid would not prune: at r = 0.6 the cells around a keypoint cover
+// most of a ~1.8-unit cloud.
+// Design (K3): one CTA per 8-keypoint tile, one warp per keypoint.
+//   1. The CTA stages its cloud in shared memory once, 1024 points at a
+//      time (x, y, z and the normal as six float arrays, 24 KB; ~40 KB
+//      with the histograms and queues, so four CTAs share an SM), dropping
+//      masked points and points with a non-finite normal as it stages; the
+//      points keep their index order (ballots and a scan of the warps'
+//      counts).
+//   2. Each warp gates the staged points for its keypoint, four a lane a
+//      round (independent loads and compares in flight), with the twin's
+//      float operations, and pushes the in-radius ones into its own queue
+//      in index order (__ballot_sync, __popc).  Whenever 32 are queued,
+//      all 32 lanes bin one each: the ~300-instruction body runs on full
+//      warps, and a pair outside the radius costs only the gate.
+//   3. The warp owns its keypoint's [352] histogram in shared memory, so no
+//      other warp adds to it.  The five slots of a batch enter it in slot
+//      order; within a slot the lanes that hit one bin (__match_any_sync)
+//      sum their weights in lane order by shuffles, and the lowest of them
+//      adds the sum with a plain load and store.  The batches are the
+//      in-radius points of each chunk in index order, 32 at a time, so
+//      every sum's order depends only on the inputs: two launches give
+//      equal bits.  The count is the sum of the warp's ballot popcounts.
+// Dead rows (keypoints at 1e9) meet no point and come out zero.  acosf and
+// atan2f stay full precision: the bin edges and weights are the twin's.
 // Design (K7): on the TPU the grid's point axis runs in order and the tile
 // accumulates in VMEM; Hopper runs blocks in no order, so the point sweep
 // is split into `chunks` ranges across CTAs (grid = tiles x chunks; the
 // wrapper picks chunks so that the grid fills about two waves of the SMs,
 // which a 32-cloud batch's 768 tiles do with one chunk; smaller batches
-// split further).  Each CTA bins its range into the same shared-memory
-// histograms as K3 and then adds them into the zeroed output with global
-// atomicAdd.  Rows whose frame is invalid are skipped (their descriptor is
-// invalid whatever its histogram), and a tile with no live row exits at
-// once: about 45% of the dense grid is padding at the bench geometry.
+// split further).  Each CTA's 256 threads stride over its range, loop over
+// the tile's 8 keypoints, and enter the five slots into shared-memory
+// histograms with atomicAdd, then add them into the zeroed output with
+// global atomicAdd.  Rows whose frame is invalid are skipped (their
+// descriptor is invalid whatever its histogram), and a tile with no live
+// row exits at once: about 45% of the dense grid is padding at the bench
+// geometry.
 #include "common.cuh"
 
 namespace {
@@ -47,16 +67,28 @@ constexpr int NR_BINS = 10;
 constexpr int NR_SECTORS = 32;
 constexpr int NB = NR_BINS + 1;
 constexpr int DESC = NR_SECTORS * NB;  // 352
-constexpr int THREADS = 256;
+constexpr int THREADS = 256;   // K3: one warp per keypoint of a tile
+constexpr int SLOTS = 5;
+constexpr unsigned FULL = 0xffffffffu;
 
 constexpr float RAD_45 = (float)(3.14159265358979323846 / 4.0);
 constexpr float RAD_90 = (float)(3.14159265358979323846 / 2.0);
 constexpr float RAD_135 = (float)(3.0 * 3.14159265358979323846 / 4.0);
 constexpr float RAD_PI_7_8 = (float)(3.14159265358979323846 * 7.0 / 8.0);
 
-__device__ __forceinline__ void shot_bin_pair(
-    float* __restrict__ h, float x_l, float y_l, float z_l, float cos_desc,
-    float d, float r_half, float r34, float r14) {
+// The five weighted slots of one in-radius pair, PCL's quadrilinear soft
+// binning: the central bin, the cosine neighbour, and the radial,
+// inclination and azimuth neighbours; idx is -1 where the pair has no such
+// slot.
+struct ShotSlots {
+  int idx[SLOTS];
+  float w[SLOTS];
+};
+
+__device__ __forceinline__ ShotSlots shot_slots(float x_l, float y_l,
+                                                float z_l, float cos_desc,
+                                                float d, float r_half,
+                                                float r34, float r14) {
   const float bin_dist = (1.0f + cos_desc) * (NR_BINS / 2.0f);
   const int step = (int)floorf(bin_dist + 0.5f);
   const float bd = bin_dist - (float)step;
@@ -110,12 +142,213 @@ __device__ __forceinline__ void shot_bin_pair(
                                    : (desc - 4 + NR_SECTORS) % NR_SECTORS;
   const float az_w = has_az ? fabsf(az_dist) : 0.f;
 
-  atomicAdd(h + desc * NB + step, central_w);
-  atomicAdd(h + desc * NB + cos_bin, cos_w);
-  if (has_rad) atomicAdd(h + rad_vol * NB + step, rad_w);
-  if (has_incl) atomicAdd(h + incl_vol * NB + step, incl_w);
-  if (has_az) atomicAdd(h + az_vol * NB + step, az_w);
+  ShotSlots s;
+  s.idx[0] = desc * NB + step;
+  s.w[0] = central_w;
+  s.idx[1] = desc * NB + cos_bin;
+  s.w[1] = cos_w;
+  s.idx[2] = has_rad ? rad_vol * NB + step : -1;
+  s.w[2] = rad_w;
+  s.idx[3] = has_incl ? incl_vol * NB + step : -1;
+  s.w[3] = incl_w;
+  s.idx[4] = has_az ? az_vol * NB + step : -1;
+  s.w[4] = az_w;
+  return s;
 }
+
+// ---- K3: compacted in-radius pairs into warp-owned histograms ----------------
+
+constexpr int CH = 1024;   // points staged per chunk
+constexpr int GATE = 4;    // points a lane gates per round
+constexpr int QLEN = 32 * (GATE + 1);   // a warp's queue: < 32 left over
+                                        // + a round's 32 * GATE
+
+struct TileSmem {
+  float px[CH], py[CH], pz[CH];   // the chunk's usable points, index order
+  float nx[CH], ny[CH], nz[CH];   // and their normals
+  float h[TK][DESC];              // warp k's histogram
+  int queue[TK][QLEN];            // warp k's in-radius points (staged ids)
+  int wcount[TK];
+};
+
+// Stage points [base, base + n) of the cloud: those unmasked with a finite
+// normal, in index order.  Every thread of the CTA calls; returns the
+// number staged.
+__device__ int stage_chunk(TileSmem& sm, const float* __restrict__ pb,
+                           const float* __restrict__ nb,
+                           const unsigned char* __restrict__ mb, int base,
+                           int n) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int total = 0;
+  for (int j0 = 0; j0 < n; j0 += THREADS) {
+    const int j = base + j0 + threadIdx.x;
+    float v[6] = {};
+    bool keep = false;
+    if (j0 + threadIdx.x < n && mb[j]) {
+#pragma unroll
+      for (int c = 0; c < 3; ++c) v[3 + c] = nb[(size_t)j * 3 + c];
+      keep = isfinite(v[3]) && isfinite(v[4]) && isfinite(v[5]);
+#pragma unroll
+      for (int c = 0; c < 3; ++c) v[c] = pb[(size_t)j * 3 + c];
+    }
+    const unsigned bal = __ballot_sync(FULL, keep);
+    if (lane == 0) sm.wcount[warp] = __popc(bal);
+    __syncthreads();
+    int off = total;
+#pragma unroll
+    for (int w = 0; w < TK; ++w) {
+      const int c = sm.wcount[w];
+      off += w < warp ? c : 0;
+      total += c;
+    }
+    if (keep) {
+      const int pos = off + __popc(bal & ((1u << lane) - 1u));
+      sm.px[pos] = v[0]; sm.py[pos] = v[1]; sm.pz[pos] = v[2];
+      sm.nx[pos] = v[3]; sm.ny[pos] = v[4]; sm.nz[pos] = v[5];
+    }
+    __syncthreads();
+  }
+  return total;
+}
+
+// Bin one batch of a warp: lane l holds staged point j (when act) of the
+// keypoint whose frame rows and position are f[0:9], f[9:12].  The five
+// slots enter h in slot order; the weights of the lanes of one slot that
+// hit one bin are summed in lane order, and the lowest of them adds the
+// sum to h.
+__device__ __forceinline__ void bin_batch(float* h, const TileSmem& sm, int j,
+                                          bool act, const float (&f)[12],
+                                          float r_half, float r34,
+                                          float r14) {
+  const int lane = threadIdx.x & 31;
+  ShotSlots s;
+  if (act) {
+    const float dx = sm.px[j] - f[9], dy = sm.py[j] - f[10],
+                dz = sm.pz[j] - f[11];
+    const float d2 = dx * dx + dy * dy + dz * dz;
+    const float x_l = dx * f[0] + dy * f[1] + dz * f[2];
+    const float y_l = dx * f[3] + dy * f[4] + dz * f[5];
+    const float z_l = dx * f[6] + dy * f[7] + dz * f[8];
+    const float cos_desc = fminf(
+        fmaxf(sm.nx[j] * f[6] + sm.ny[j] * f[7] + sm.nz[j] * f[8], -1.0f),
+        1.0f);
+    s = shot_slots(x_l, y_l, z_l, cos_desc, sqrtf(d2), r_half, r34, r14);
+  } else {
+#pragma unroll
+    for (int i = 0; i < SLOTS; ++i) {
+      s.idx[i] = -1;
+      s.w[i] = 0.f;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < SLOTS; ++i) {
+    const int key = s.idx[i];
+    const float w = s.w[i];
+    const unsigned peers = __match_any_sync(FULL, key);
+    const int first = __ffs(peers) - 1;
+    // every lane of a group sums its weights in lane order by shuffles
+    float sum = __shfl_sync(FULL, w, first);
+    unsigned m = key >= 0 ? peers & (peers - 1u) : 0u;
+    while (__any_sync(FULL, m != 0u)) {
+      const float v = __shfl_sync(FULL, w, m ? __ffs(m) - 1 : lane);
+      if (m) {
+        sum += v;
+        m &= m - 1u;
+      }
+    }
+    if (key >= 0 && lane == first) h[key] += sum;
+    __syncwarp();
+  }
+}
+
+// One CTA per tile t (rows t*8 .. t*8+7, all of cloud tile_cloud[t]); warp
+// k describes row t*8 + k.
+__global__ void __launch_bounds__(THREADS, 4)
+shot_fused_kernel(const float* __restrict__ kp, const float* __restrict__ fr,
+                  const int* __restrict__ tile_cloud,
+                  const float* __restrict__ points,
+                  const float* __restrict__ normals,
+                  const unsigned char* __restrict__ mask,
+                  float* __restrict__ hist, int* __restrict__ count, int N,
+                  float rad) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  TileSmem& sm = *reinterpret_cast<TileSmem*>(smem_raw);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int t = blockIdx.x;
+  const size_t row = (size_t)t * TK + warp;
+  const float r2 = rad * rad;
+  const float r_half = rad / 2.0f;
+  const float r34 = 3.0f * rad / 4.0f;
+  const float r14 = rad / 4.0f;
+  float f[12];   // frame rows x, y, z (9) + keypoint (3)
+#pragma unroll
+  for (int c = 0; c < 9; ++c) f[c] = fr[row * 9 + c];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) f[9 + c] = kp[row * 3 + c];
+  float* h = sm.h[warp];
+  int* queue = sm.queue[warp];
+  for (int e = lane; e < DESC; e += 32) h[e] = 0.f;
+
+  const size_t b = tile_cloud[t];
+  const float* pb = points + b * N * 3;
+  const float* nb = normals + b * N * 3;
+  const unsigned char* mb = mask + b * N;
+  int cnt = 0;
+  for (int base = 0; base < N; base += CH) {
+    const int ns = stage_chunk(sm, pb, nb, mb, base, min(CH, N - base));
+    int qn = 0;   // queued, the same in every lane
+    for (int j0 = 0; j0 < ns; j0 += 32 * GATE) {
+      bool use[GATE];
+#pragma unroll
+      for (int u = 0; u < GATE; ++u) {
+        const int j = j0 + 32 * u + lane;
+        use[u] = false;
+        if (j < ns) {
+          const float dx = sm.px[j] - f[9], dy = sm.py[j] - f[10],
+                      dz = sm.pz[j] - f[11];
+          const float d2 = dx * dx + dy * dy + dz * dz;
+          use[u] = d2 <= r2 && d2 > 1e-15f;
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < GATE; ++u) {
+        const unsigned bal = __ballot_sync(FULL, use[u]);
+        if (use[u])
+          queue[qn + __popc(bal & ((1u << lane) - 1u))] = j0 + 32 * u + lane;
+        qn += __popc(bal);
+        cnt += __popc(bal);
+      }
+      while (qn >= 32) {   // bin the first 32 queued, move the rest down
+        __syncwarp();
+        const int jb = queue[lane];
+        const int rest = qn - 32;
+        int moved[GATE];
+#pragma unroll
+        for (int u = 0; u < GATE; ++u)
+          moved[u] = lane + 32 * u < rest ? queue[32 * (u + 1) + lane] : 0;
+        __syncwarp();
+#pragma unroll
+        for (int u = 0; u < GATE; ++u)
+          if (lane + 32 * u < rest) queue[32 * u + lane] = moved[u];
+        __syncwarp();
+        qn = rest;
+        bin_batch(h, sm, jb, true, f, r_half, r34, r14);
+      }
+    }
+    if (qn > 0) {   // the chunk's last, partial batch
+      __syncwarp();
+      const int jb = lane < qn ? queue[lane] : 0;
+      bin_batch(h, sm, jb, lane < qn, f, r_half, r34, r14);
+    }
+    __syncthreads();   // the next chunk restages the points
+  }
+  __syncwarp();
+  float* out = hist + row * DESC;
+  for (int e = lane; e < DESC; e += 32) out[e] = h[e];
+  if (lane == 0) count[row] = cnt;
+}
+
+// ---- K7: the dense keypoint grid --------------------------------------------
 
 // Load the tile's frames and keypoints (rows t*8 .. t*8+7) into sk, zero
 // the histograms and counts.
@@ -163,38 +396,18 @@ __device__ __forceinline__ void sweep_points(
       const float z_l = dx * f[6] + dy * f[7] + dz * f[8];
       const float cos_desc =
           fminf(fmaxf(nx * f[6] + ny * f[7] + nz * f[8], -1.0f), 1.0f);
-      shot_bin_pair(sh[k], x_l, y_l, z_l, cos_desc, sqrtf(d2), r_half, r34,
-                    r14);
+      const ShotSlots s = shot_slots(x_l, y_l, z_l, cos_desc, sqrtf(d2),
+                                     r_half, r34, r14);
+      atomicAdd(sh[k] + s.idx[0], s.w[0]);   // central and cosine: always
+      atomicAdd(sh[k] + s.idx[1], s.w[1]);
+#pragma unroll
+      for (int i = 2; i < SLOTS; ++i)
+        if (s.idx[i] >= 0) atomicAdd(sh[k] + s.idx[i], s.w[i]);
     }
   }
 #pragma unroll
   for (int k = 0; k < TK; ++k)
     if (cnt[k]) atomicAdd(&scount[k], cnt[k]);
-}
-
-__global__ void __launch_bounds__(THREADS)
-shot_fused_kernel(const float* __restrict__ kp, const float* __restrict__ fr,
-                  const int* __restrict__ tile_cloud,
-                  const float* __restrict__ points,
-                  const float* __restrict__ normals,
-                  const unsigned char* __restrict__ mask,
-                  float* __restrict__ hist, int* __restrict__ count, int N,
-                  float rad) {
-  __shared__ float sh[TK][DESC];
-  __shared__ float sk[TK][12];   // frame rows x, y, z (9) + keypoint (3)
-  __shared__ int scount[TK];
-  const int t = blockIdx.x;
-  load_tile(sh, sk, scount, kp, fr, (size_t)t * TK);
-  __syncthreads();
-
-  const int b = tile_cloud[t];
-  sweep_points(sh, sk, scount, 0xFFu, points + (size_t)b * N * 3,
-               normals + (size_t)b * N * 3, mask + (size_t)b * N, 0, N, rad);
-  __syncthreads();
-
-  float* out = hist + (size_t)t * TK * DESC;
-  for (int e = threadIdx.x; e < TK * DESC; e += THREADS) out[e] = sh[e / DESC][e % DESC];
-  if (threadIdx.x < TK) count[(size_t)t * TK + threadIdx.x] = scount[threadIdx.x];
 }
 
 // K7: grid (tiles of the dense grid, point chunks).  Tile t holds rows
@@ -250,7 +463,16 @@ PCD_EXPORT int pcd_shot_fused(const void* kp, const void* frames,
                               void* hist, void* count, int T, int N, float r,
                               void* stream) {
   if (T == 0) return pcd_last_error();
-  shot_fused_kernel<<<T, THREADS, 0, (cudaStream_t)stream>>>(
+  const int smem = (int)sizeof(TileSmem);
+  int dev = 0;
+  cudaGetDevice(&dev);
+  static bool smem_set[64] = {};
+  if (dev >= 64 || !smem_set[dev]) {
+    cudaFuncSetAttribute(shot_fused_kernel,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (dev < 64) smem_set[dev] = true;
+  }
+  shot_fused_kernel<<<T, THREADS, smem, (cudaStream_t)stream>>>(
       (const float*)kp, (const float*)frames, (const int*)tile_cloud,
       (const float*)points, (const float*)normals,
       (const unsigned char*)mask, (float*)hist, (int*)count, N, r);

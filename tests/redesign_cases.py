@@ -1,9 +1,11 @@
-"""Edge-case inputs for K1 (radius moments) and K4 (chi-square top-k), made
-with numpy from a seed: the cases a cell-binned radius sweep and a
-register-tiled chi-square kernel make risky.  tests/test_torch_redesign.py
-holds the plain twins against the JAX package on them (CPU);
-tests/test_torch_cuda.py holds the CUDA kernels against the twins on them
-(card).  numpy only: both files import this module."""
+"""Edge-case inputs for K1 (radius moments), K2 (LRF sign votes), K3
+(tile-compacted SHOT-352) and K4 (chi-square top-k), made with numpy from
+a seed: the cases a cell-binned radius sweep, compacted in-radius pairs
+binned into warp-owned histograms and a register-tiled chi-square kernel
+make risky.  tests/test_torch_redesign.py holds the plain twins against
+the JAX package on them (CPU); tests/test_torch_cuda.py holds the CUDA
+kernels against the twins on them (card).  numpy only: both files import
+this module."""
 
 import numpy as np
 
@@ -85,3 +87,171 @@ def k4_case(dim, q=70, c=150, seed=8, signed=False):
         b[100, :2] = 1e19
         b[120:130] *= np.where(rng.random((10, dim)) < 0.3, -1.0, 1.0)
     return a, b, b_mask.astype(bool)
+
+
+K2_CASES = K1_CASES + ("on_radius_and_orthogonal", "beyond_one_chunk")
+
+
+def _unit(rng, shape):
+    v = rng.normal(size=shape + (3,))
+    return (v / np.linalg.norm(v, axis=-1, keepdims=True)).astype(np.float32)
+
+
+def _on_radius_and_orthogonal(rng):
+    """Queries at coordinates on a 1/64 grid with points at exactly r from
+    them along each axis (d^2 = r^2 in float, which the gate counts) and
+    points whose offset is orthogonal to the query's axis candidate
+    ((p - q) . axis = 0 in float, which counts as +)."""
+    b, n, r = 2, 600, np.float32(K1_RADIUS)
+    pts = np.stack([_centre(shapes.make_instance(rng, i % 5, n=n,
+                                                 rotate=True),
+                            np.ones(n, bool)) for i in range(b)])
+    special = np.round(pts[:, ::50] * 64) / 64                  # [B, 12, 3]
+    eye = np.eye(3, dtype=np.float32)
+    on_r = np.concatenate([eye * r, -eye * r])                  # 6 offsets
+    # offsets orthogonal to z (x, y only) and to x (y, z only)
+    ortho = np.array([[0.125, -0.0625, 0], [-0.1875, 0.09375, 0],
+                      [0, 0.15625, -0.0625], [0, -0.03125, 0.125]],
+                     np.float32)
+    offs = np.concatenate([on_r, ortho])
+    extra = (special[:, :, None, :] + offs[None, None]).reshape(b, -1, 3)
+    pts = np.concatenate([pts, extra.astype(np.float32)], 1)
+    d = extra.reshape(b, -1, len(offs), 3) - special[:, :, None, :]
+    d2 = (d * d).sum(-1, dtype=np.float32)
+    assert (d2[..., :6] == r * r).all() and (d[..., 6:, :] == offs[6:]).all()
+    qry = np.concatenate([special, pts[:, 1::7]], 1).astype(np.float32)
+    axes = np.concatenate([_unit(rng, qry.shape[:2]),
+                           _unit(rng, qry.shape[:2])], -1)
+    # the special queries' candidates: x = (1, 0, 0), z = (0, 0, 1)
+    axes[:, :special.shape[1]] = [1, 0, 0, 0, 0, 1]
+    return qry, np.ones(qry.shape[:2], bool), pts, np.ones(pts.shape[:2],
+                                                           bool), axes
+
+
+def k2_case(name):
+    """(queries [B, Q, 3], q_mask [B, Q], points [B, N, 3], mask [B, N],
+    axes [B, Q, 6]) float32 / bool: K1's edge cases with axis candidates
+    made from a seed (x, z unit vectors), exact on-radius and orthogonal
+    offsets, and N = 2500 (the binned sweep's chunked binning)."""
+    rng = np.random.default_rng(K2_CASES.index(name) + 50)
+    if name == "on_radius_and_orthogonal":
+        return _on_radius_and_orthogonal(rng)
+    if name == "beyond_one_chunk":
+        q, q_mask, p, mask = k1_case("ragged_n", n_points=2500)
+    else:
+        q, q_mask, p, mask = k1_case(name)
+    axes = np.concatenate([_unit(rng, q.shape[:2]), _unit(rng, q.shape[:2])],
+                          -1)
+    return q, q_mask, p, mask, axes
+
+
+K3_RADIUS = 0.6
+K3_CASES = ("coincident", "nan_normals", "on_axis", "in_plane",
+            "shell_edges", "cos_pm1", "masked_garbage", "dead_uneven_empty")
+K3_KEYS = ("keypoints", "frames", "frame_valid", "kp_mask", "points",
+           "normals", "mask")
+# frames with entries 0 and +-1 (rows = axes): local coordinates are exact
+_EXACT_FRAMES = np.array([np.eye(3), [[0, 1, 0], [0, 0, 1], [1, 0, 0]],
+                          [[-1, 0, 0], [0, -1, 0], [0, 0, 1]]], np.float32)
+
+
+def _rotations(rng, n):
+    """n random rotations [n, 3, 3] float32 (rows = axes)."""
+    q, r = np.linalg.qr(rng.normal(size=(n, 3, 3)))
+    q = q * np.sign(np.diagonal(r, axis1=1, axis2=2))[:, None, :]
+    q[np.linalg.det(q) < 0, :, 0] *= -1
+    return np.swapaxes(q, 1, 2).astype(np.float32)
+
+
+def _shell_offsets():
+    """Local offsets at d = r/4, r/2 and 3r/4 exactly, as the kernels
+    compute the shell edges from r in float."""
+    r = np.float32(K3_RADIUS)
+    r14, r_half = r / np.float32(4), r / np.float32(2)
+    r34 = np.float32(3) * r / np.float32(4)
+    return np.array([[r14, 0, 0], [0, -r_half, 0], [0, 0, r34],
+                     [-r34, 0, 0], [0, r14, 0], [0, 0, -r_half]], np.float32)
+
+
+def _exact_geometry(name, rng, kp, frames, pts, nrm, per_cloud=6):
+    """Put the first keypoints of each cloud on a 1/64 grid with frames of
+    0 / +-1 entries, and points around them (in place of the cloud's last
+    points) whose local coordinates are exactly: (0, 0, z) for on_axis (no
+    azimuth), (x, y, 0) for in_plane (inclination 90 degrees), a distance
+    of r/4, r/2 or 3r/4 for shell_edges; for cos_pm1, normals +-z_axis
+    (cos_desc = +-1)."""
+    local = {
+        "on_axis": [[0, 0, 0.1875], [0, 0, -0.25], [0, 0, 0.375],
+                    [0, 0, -0.4375]],
+        "in_plane": [[0.25, 0.125, 0], [-0.1875, 0.3125, 0], [0.0625, -0.5, 0],
+                     [-0.375, -0.25, 0]],
+        "cos_pm1": [[0.125, -0.0625, 0.25], [-0.25, 0.1875, -0.125],
+                    [0.0625, 0.3125, 0.1875], [-0.125, -0.25, -0.0625]],
+    }
+    offs = _shell_offsets() if name == "shell_edges" else \
+        np.array(local[name], np.float32)
+    b = kp.shape[0]
+    m = len(offs)
+    for i in range(b):
+        for s in range(per_cloud):
+            fr = _EXACT_FRAMES[s % len(_EXACT_FRAMES)]
+            frames[i, s] = fr
+            if name == "shell_edges":   # near 0: q + offset stays exact
+                kp[i, s] = rng.integers(-2, 3, size=3) / np.float32(64)
+            else:
+                kp[i, s] = np.round(kp[i, s] * 64) / 64
+            rows = slice(pts.shape[1] - (s + 1) * m, pts.shape[1] - s * m)
+            pts[i, rows] = kp[i, s] + offs @ fr     # local offsets -> world
+            if name == "cos_pm1":
+                nrm[i, rows] = fr[2] * np.where(np.arange(m) % 2, -1, 1
+                                                )[:, None]
+            d = pts[i, rows] - kp[i, s]
+            loc = np.stack([(d * fr[a]).sum(-1, dtype=np.float32)
+                            for a in range(3)], -1)
+            assert (loc == offs).all(), name
+            if name == "shell_edges":
+                dist = np.sqrt((d * d).sum(-1, dtype=np.float32))
+                assert (dist == np.abs(offs).max(-1)).all()
+
+
+def k3_case(name, n=512, k=32):
+    """(keypoints [B, K, 3], frames [B, K, 3, 3] (rows = axes), frame_valid
+    [B, K], kp_mask [B, K] (valid rows first), points [B, N, 3], normals
+    [B, N, 3], mask [B, N]) float32 / bool, B = 2, for SHOT at K3_RADIUS:
+    keypoints coincident with points (d^2 = 0 is left out), NaN and +-inf
+    normals, the exact local geometries of _exact_geometry, masked points
+    holding NaN and +-1e30, and an uneven cloud beside an empty one (a
+    last tile with dead rows)."""
+    rng = np.random.default_rng(K3_CASES.index(name) + 60)
+    b = 2
+    pts = np.stack([shapes.make_instance(rng, i + 1, n=n, rotate=True)
+                    for i in range(b)]).astype(np.float32)
+    nrm = _unit(rng, (b, n))
+    mask = np.ones((b, n), bool)
+    counts = (17, 0) if name == "dead_uneven_empty" else (21, 27)
+    # rows past a cloud's keypoints hold the pipelines' 1e9 pad and an
+    # invalid frame, as the voxel grid and the LRF leave them
+    kp = np.full((b, k, 3), 1e9, np.float32)
+    kp_mask = np.zeros((b, k), bool)
+    frames = _rotations(rng, b * k).reshape(b, k, 3, 3)
+    for i, c in enumerate(counts):
+        idx = rng.choice(n, c, replace=False)
+        jitter = 0.0 if name == "coincident" else \
+            rng.normal(scale=0.02, size=(c, 3))
+        kp[i, :c] = pts[i, idx] + jitter
+        kp_mask[i, :c] = True
+    frame_valid = (rng.random((b, k)) > 0.1) & kp_mask
+    if name == "nan_normals":
+        bad = np.argwhere(rng.random((b, n)) < 0.1)
+        nrm[bad[:, 0], bad[:, 1], rng.integers(0, 3, len(bad))] = \
+            rng.choice(np.array([np.nan, np.inf, -np.inf], np.float32),
+                       len(bad))
+    if name == "masked_garbage":
+        mask = rng.random((b, n)) > 0.15
+        bad = np.array([np.nan, 1e30, -1e30], np.float32)
+        holes = ~mask
+        pts[holes] = bad[rng.integers(0, len(bad), size=(holes.sum(), 3))]
+        nrm[holes] = np.nan
+    if name in ("on_axis", "in_plane", "shell_edges", "cos_pm1"):
+        _exact_geometry(name, rng, kp, frames, pts, nrm)
+    return kp, frames, frame_valid, kp_mask, pts, nrm, mask

@@ -15,9 +15,11 @@ import torch
 
 import shapes
 from bench_data import KEYPOINT_CAPACITY, bench_clouds, bench_colors
-from redesign_cases import K1_CASES, K1_RADIUS, K4_DIMS, k1_case, k4_case
-from torch_parity import (assert_decisions_match, assert_topk_close,
-                          cuda_device, n, t)  # noqa: F401
+from redesign_cases import (K1_CASES, K1_RADIUS, K2_CASES, K3_CASES,
+                            K3_RADIUS, K4_DIMS, k1_case, k2_case, k3_case,
+                            k4_case)
+from torch_parity import (assert_decisions_match, assert_descriptors_close,
+                          assert_topk_close, cuda_device, n, t)  # noqa: F401
 
 from point_cloud_donkey_tpu_torch.kernels import build
 from point_cloud_donkey_tpu_torch.models.codebook import (CodebookParams,
@@ -33,6 +35,7 @@ from point_cloud_donkey_tpu_torch.ops.kernels import shot_fused as tshot
 from point_cloud_donkey_tpu_torch.ops.kernels import shot_hist as tsh
 from point_cloud_donkey_tpu_torch.ops.lrf import shot_lrf
 from point_cloud_donkey_tpu_torch.ops.normals import compute_normals_fast
+from point_cloud_donkey_tpu_torch.ops.shot import normalize_descriptors
 from point_cloud_donkey_tpu_torch.ops.voxel_grid import voxel_grid
 from point_cloud_donkey_tpu_torch.utils.config import IsmConfig
 
@@ -184,6 +187,101 @@ def test_moments_edge_cases_match_plain(cuda_device, case):
     cov, _ = tlrfm.cov_from_moments(mom, q, q_mask)
     pcov, _ = tlrfm.cov_from_moments(pmom, q, q_mask)
     assert ((cov - pcov)[q_mask].abs() <= 5e-4).all()
+
+
+@pytest.mark.parametrize("z_only", [False, True])
+@pytest.mark.parametrize("case", K2_CASES)
+def test_sign_votes_edge_cases_match_plain(cuda_device, case, z_only):
+    """K2 (the cell-binned sweep) vs its twin at tests/redesign_cases.py's
+    edge cases -- K1's, points at exactly r and offsets orthogonal to an
+    axis, N = 2500 (binned in chunks): votes +-1 on the valid queries,
+    exactly 0 on the invalid ones and in x when z_only; two launches equal
+    bit for bit."""
+    q, q_mask, p, mask, axes = (t(x).to(cuda_device) for x in k2_case(case))
+    v = tlrfm.sign_votes(q, p, mask, axes, K1_RADIUS, z_only)
+    assert torch.equal(v, tlrfm.sign_votes(q, p, mask, axes, K1_RADIUS,
+                                           z_only))
+    pv = tlrfm.sign_votes_plain(q, p, mask, axes, K1_RADIUS, z_only)
+    assert not v[~q_mask].any()
+    if z_only:
+        assert not v[..., 0].any()
+    assert (v - pv).abs().max() <= 1
+
+
+def _k3_inputs(arrays, device, dead_tile=False):
+    """The rows K3 gets from shot_descriptor_fused_compact for one case
+    (plus a tile of 1e9 keypoints when dead_tile): (shot_tiles arguments,
+    frame validity of the rows)."""
+    kp, frames, fv, kp_mask, pts, nrm, mask = (t(x).to(device)
+                                               for x in arrays)
+    gidx, alive, tile_cloud = tshot.compact_layout(kp_mask)
+    kp_rows = torch.where(alive[:, None], kp.reshape(-1, 3)[gidx],
+                          torch.full((1, 3), 1e9, device=device))
+    fr_rows = frames.reshape(-1, 3, 3)[gidx]
+    fv_rows = fv.reshape(-1)[gidx] & alive
+    if dead_tile:
+        kp_rows = torch.cat([kp_rows, torch.full((tshot.TK, 3), 1e9,
+                                                 device=device)])
+        fr_rows = torch.cat([fr_rows, fr_rows[:tshot.TK]])
+        fv_rows = torch.cat([fv_rows, fv_rows[:tshot.TK] & False])
+        tile_cloud = torch.cat([tile_cloud, tile_cloud[:1]])
+    return (kp_rows.contiguous(), fr_rows.contiguous(), tile_cloud, pts,
+            nrm, mask, K3_RADIUS), fv_rows
+
+
+@pytest.mark.parametrize("case", K3_CASES + ("beyond_one_chunk",
+                                             "dead_tile"))
+def test_shot_tiles_edge_cases_match_plain(cuda_device, case):
+    """K3 (compacted in-radius pairs, warp-owned histograms) vs its twin at
+    tests/redesign_cases.py's edge cases, at N = 2500 (three staged chunks)
+    and with a tile of dead rows: counts equal, validity equal, descriptor
+    cosine > 0.999 with fewer than 1e-4 of the entries off by more than
+    1e-3; dead rows zero; two launches equal bit for bit."""
+    arrays = (k3_case("nan_normals", n=2500) if case == "beyond_one_chunk"
+              else k3_case("masked_garbage" if case == "dead_tile" else case))
+    args, fv_rows = _k3_inputs(arrays, cuda_device, case == "dead_tile")
+    h, c = tshot.shot_tiles(*args)
+    h2, c2 = tshot.shot_tiles(*args)
+    assert torch.equal(h, h2) and torch.equal(c, c2)
+    ph, pc = tshot.shot_tiles_plain(*args)
+    assert torch.equal(c, pc)
+    dead = args[0][:, 0] == 1e9
+    assert not h[dead].any() and not c[dead].any()
+    got = normalize_descriptors(h, c, fv_rows)
+    want = normalize_descriptors(ph, pc, fv_rows)
+    assert_descriptors_close(got.descriptors, got.valid, want.descriptors,
+                             want.valid)
+
+
+def test_sign_votes_and_shot_tiles_repeat_bit_for_bit(cuda_device, clouds):
+    """K2 at the normals (Q = N = 2048, z only and full, as serving and
+    training call it) and at the keypoint LRFs, and K3 on compacted
+    keypoints: two launches equal bit for bit and agree with the twins."""
+    pts, mask = (x.to(cuda_device) for x in clouds)
+    kres = voxel_grid(pts, mask, 0.35, capacity=KEYPOINT_CAPACITY)
+    kp = torch.where(kres.mask[..., None], kres.centroids,
+                     torch.full_like(kres.centroids, 1e9))
+    for queries, radius in ((pts, 0.25), (kp, 0.5)):
+        q, p = tlrfm.prep_shift(queries, pts, mask)
+        axes = torch.nn.functional.normalize(
+            torch.randn(*q.shape[:2], 6, device=cuda_device), dim=-1)
+        for z_only in (False, True):
+            v = tlrfm.sign_votes(q, p, mask, axes, radius, z_only)
+            assert torch.equal(v, tlrfm.sign_votes(q, p, mask, axes, radius,
+                                                   z_only))
+            pv = tlrfm.sign_votes_plain(q, p, mask, axes, radius, z_only)
+            assert (v - pv).abs().max() <= 1
+    nrm = compute_normals_fast(pts, mask, 0.25)
+    lrf = shot_lrf(kp, kres.mask, pts, mask, 0.5)
+    gidx, alive, tile_cloud = tshot.compact_layout(kres.mask)
+    kp_rows = torch.where(alive[:, None], kp.reshape(-1, 3)[gidx],
+                          torch.full((1, 3), 1e9, device=cuda_device))
+    args = (kp_rows.contiguous(), lrf.frames.reshape(-1, 3, 3)[gidx]
+            .contiguous(), tile_cloud, pts, nrm, mask, 0.6)
+    h, c = tshot.shot_tiles(*args)
+    h2, c2 = tshot.shot_tiles(*args)
+    assert torch.equal(h, h2) and torch.equal(c, c2)
+    assert torch.equal(c, tshot.shot_tiles_plain(*args)[1])
 
 
 @pytest.mark.parametrize("signed", [False, True])

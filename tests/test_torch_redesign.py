@@ -1,24 +1,34 @@
-"""The plain twins of K1 (radius moments) and K4 (chi-square top-k) against
-the JAX package's Pallas kernels, run in interpret mode on the CPU, at the
-edge cases of tests/redesign_cases.py: padded and invalid queries, masked
+"""The plain twins of K1 (radius moments), K2 (LRF sign votes), K3
+(tile-compacted SHOT-352) and K4 (chi-square top-k) against the JAX
+package's Pallas kernels, run in interpret mode on the CPU, at the edge
+cases of tests/redesign_cases.py: padded and invalid queries, masked
 points holding NaN and huge coordinates, a cloud far wider than the
-radius, ragged N; ragged D, C off the tiles, k in {1, 2, 3}, masked,
-all-zero and duplicated codewords.  tests/test_torch_cuda.py holds the CUDA
-kernels against these twins on the same inputs."""
+radius, ragged N, points at exactly r and offsets orthogonal to an axis,
+N beyond one binning chunk; keypoints coincident with points, NaN normals,
+exact on-axis, in-plane and shell-edge local geometry, cos_desc = +-1,
+dead rows and an empty cloud; ragged D, C off the tiles, k in {1, 2, 3},
+masked, all-zero and duplicated codewords.  K2's and K3's Pallas
+references run in a process of their own (torch_parity.pallas_interpret).
+tests/test_torch_cuda.py holds the CUDA kernels against these twins on the
+same inputs."""
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 from jax.experimental.pallas import tpu as pltpu
 
-from redesign_cases import K1_CASES, K1_RADIUS, K4_DIMS, k1_case, k4_case
-from torch_parity import assert_topk_close, n, t
+from redesign_cases import (K1_CASES, K1_RADIUS, K2_CASES, K3_CASES,
+                            K3_KEYS, K3_RADIUS, K4_DIMS, k1_case, k2_case,
+                            k3_case, k4_case)
+from torch_parity import (assert_descriptors_close, assert_topk_close, n,
+                          pallas_interpret, t)
 
 from point_cloud_donkey_tpu.ops.pallas import lrf_moments as jlrf
 from point_cloud_donkey_tpu.ops.pallas.chisq import \
     chi_square_distance_matrix_pallas
 from point_cloud_donkey_tpu_torch.ops.kernels import chisq as tchisq
 from point_cloud_donkey_tpu_torch.ops.kernels import lrf_moments as tlrfm
+from point_cloud_donkey_tpu_torch.ops.kernels import shot_fused as tshot
 
 
 def _jax_moments(q, q_mask, p, mask, radius):
@@ -88,3 +98,145 @@ def test_chisq_twin_matches_pallas_at_edge_cases(dim, k, signed):
     if k >= 2:
         assert ti[9, 1] == 7
     assert n(td)[5].min() == 0.0 and ti[5, 0] == 11
+
+
+# --- K2: sign votes -----------------------------------------------------------
+
+_K2_CODE = """
+import jax.numpy as jnp
+import numpy as np
+from point_cloud_donkey_tpu.ops.pallas import lrf_moments as L
+out = {}
+for case in %r:
+    g = lambda key: a[case + "__" + key]
+    for z_only in (False, True):
+        votes = []
+        for qb, qm, pb, pm, ax in zip(g("q"), g("q_mask"), g("p"), g("mask"),
+                                      g("axes")):
+            qs = np.where(qm[:, None], qb, 1e9).astype(np.float32)
+            ps = np.where(pm[:, None], pb, 1e9).astype(np.float32)
+            qpad = L._pad_lanes(len(qs), L.TQ)
+            ql = L.to_lanes(jnp.asarray(qs), qpad)
+            pl_ = L.to_lanes(jnp.asarray(ps), L._pad_lanes(len(ps), L.TN))
+            axl = np.zeros((8, qpad), np.float32)
+            axl[:6, :len(qs)] = ax.T
+            v = L._sign_votes_call(ql, pl_, jnp.asarray(axl),
+                                   jnp.float32(%r), z_only=z_only)
+            votes.append(np.asarray(v)[:2, :len(qs)].T.astype(np.int32))
+        out[case + "__z%%d" %% z_only] = np.stack(votes)
+""" % (K2_CASES, K1_RADIUS)
+
+
+@pytest.fixture(scope="module")
+def pallas_k2(tmp_path_factory):
+    """`_sign_votes_call` per cloud at every K2 case, with and without
+    z_only, on the lanes the JAX package builds (masked points and invalid
+    queries parked at 1e9)."""
+    arrays = {}
+    for case in K2_CASES:
+        for key, x in zip(("q", "q_mask", "p", "mask", "axes"),
+                          k2_case(case)):
+            arrays[f"{case}__{key}"] = x
+    return pallas_interpret(_K2_CODE, str(tmp_path_factory.mktemp("k2")),
+                            **arrays)
+
+
+@pytest.mark.parametrize("z_only", [False, True])
+@pytest.mark.parametrize("case", K2_CASES)
+def test_sign_votes_twin_matches_pallas_at_edge_cases(pallas_k2, case,
+                                                      z_only):
+    """K2's twin vs `_sign_votes_call` on the valid queries: votes +-1 (a
+    point on the radius boundary can fall either side of the gate when the
+    float operations differ).  Invalid queries (at 1e9) get 0 from the
+    twin; the x vote is 0 when z_only.  Points at exactly r count, and an
+    offset orthogonal to an axis votes +: there the twin equals the JAX
+    kernel exactly."""
+    q, q_mask, p, mask, axes = k2_case(case)
+    want = pallas_k2[f"{case}__z{int(z_only)}"]
+    got = n(tlrfm.sign_votes(t(q), t(p), t(mask), t(axes), K1_RADIUS,
+                             z_only))
+    assert not got[~q_mask].any()
+    if z_only:
+        assert not got[..., 0].any()
+    if case == "no_valid_queries":
+        return
+    assert got[q_mask].max() > 1
+    assert (np.abs(got - want)[q_mask] <= 1).all()
+    if case == "on_radius_and_orthogonal":
+        special = 12      # the queries with exact offsets come first
+        np.testing.assert_array_equal(got[:, :special], want[:, :special])
+
+
+# --- K3: tile-compacted SHOT-352 ----------------------------------------------
+
+_K3_CODE = """
+import jax.numpy as jnp
+import numpy as np
+from point_cloud_donkey_tpu.ops.pallas import shot_fused as SF
+counts = []
+_call = SF._shot_fused_call_windowed
+
+
+def _spy(*args, **kw):          # keep the in-radius counts the call returns
+    hist, cnt = _call(*args, **kw)
+    counts.append(np.asarray(cnt)[:, 0])
+    return hist, cnt
+
+
+SF._shot_fused_call_windowed = _spy
+out = {}
+for case in %r:
+    g = lambda key: jnp.asarray(a[case + "__" + key])
+    tiles = int(np.ceil(a[case + "__kp_mask"].sum(1) / SF.TK).sum())
+    res = SF.shot_descriptor_fused_compact(
+        g("keypoints"), g("frames"), g("frame_valid"), g("kp_mask"),
+        g("points"), g("normals"), g("mask"), %r, tiles + 2, interpret=True)
+    for key, x in zip(("desc", "valid", "kp", "frames", "cloud", "exact"),
+                      res):
+        out[case + "__" + key] = np.asarray(x)
+    out[case + "__count"] = counts[-1]
+""" % (K3_CASES, K3_RADIUS)
+
+
+@pytest.fixture(scope="module")
+def pallas_k3(tmp_path_factory):
+    """`shot_descriptor_fused_compact(..., interpret=True)` at every K3
+    case with two dead tiles of headroom, and the in-radius counts of its
+    `_shot_fused_call_windowed`."""
+    arrays = {f"{case}__{key}": x for case in K3_CASES
+              for key, x in zip(K3_KEYS, k3_case(case))}
+    return pallas_interpret(_K3_CODE, str(tmp_path_factory.mktemp("k3")),
+                            **arrays)
+
+
+@pytest.mark.parametrize("case", K3_CASES)
+def test_shot_twin_matches_pallas_at_edge_cases(pallas_k3, case):
+    """K3's twin (through `shot_descriptor_fused_compact`) vs the Pallas
+    compact kernel: in-radius counts equal, the same flat layout row for
+    row, validity equal, descriptor cosine > 0.999 with fewer than 1e-4 of
+    the entries off by more than 1e-3; the JAX side's dead tiles are
+    invalid.  Counts leave out a keypoint's coincident point (d^2 = 0),
+    NaN and +-inf normals and masked points."""
+    arrays = k3_case(case)
+    kp, frames, fv, kp_mask, pts, nrm, mask = (t(x) for x in arrays)
+    j = lambda key: pallas_k3[f"{case}__{key}"]          # noqa: E731
+    assert j("exact")
+    td, tv, tk, tf, tc = tshot.shot_descriptor_fused_compact(
+        kp, frames, fv, kp_mask, pts, nrm, mask, K3_RADIUS)
+    rows = td.shape[0]
+    assert rows == -(-arrays[3].sum(1) // tshot.TK).sum() * tshot.TK
+    # the twin's counts, on the rows the wrapper hands to K3
+    gidx, alive, tile_cloud = tshot.compact_layout(kp_mask)
+    kp_rows = kp.reshape(-1, 3)[gidx]
+    kp_rows = np.where(n(alive)[:, None], n(kp_rows), np.float32(1e9))
+    _, count = tshot.shot_tiles(t(kp_rows), frames.reshape(-1, 3, 3)[gidx]
+                                .contiguous(), tile_cloud, pts, nrm, mask,
+                                K3_RADIUS)
+    np.testing.assert_array_equal(n(count), j("count")[:rows])
+    assert not j("count")[rows:].any() and not j("valid")[rows:].any()
+    np.testing.assert_array_equal(n(tc), j("cloud")[:rows])
+    assert_descriptors_close(td, tv, j("desc")[:rows], j("valid")[:rows])
+    np.testing.assert_allclose(n(tk), j("kp")[:rows], atol=1e-6)
+    np.testing.assert_allclose(n(tf), j("frames")[:rows], atol=1e-6)
+    assert n(count)[n(alive)].min() >= 0 and n(count).max() > 5
+    assert not n(count)[~n(alive)].any()
