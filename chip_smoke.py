@@ -19,11 +19,15 @@ Phases (each prints its results; any failure raises and exits nonzero):
      training self-kNN, Q=C=2000) each beside its previous design's time,
      its bound (K4 also its special-function floor) and torch.profiler's
      device time, with two launches bit-equal;
-  2c. K8 (n_bin 11 and 31) and K9 at the CSHOT and SHORT_SHOT steps'
-     shapes (the slot arrays of the 128 bench clouds, coloured by
-     tests/bench_data.bench_colors: 24576 rows x 2048 points, x 4 slots
-     for K9) against their twins, timed with the twin and the one PyTorch
-     call that computes the same function (scatter_add_);
+  2c. K8 and K9, which bin the CSHOT and SHORT_SHOT pairs on chip, at
+     those steps' shapes (the 128 bench clouds, coloured by
+     tests/bench_data.bench_colors, 128 x 192 keypoints x 2048 points)
+     against their twins (the slot arrays, then their histograms), with
+     their swept pairs and in-radius share, two launches bit-equal, each
+     timed beside its previous design's time (the slot-array kernel, plus
+     the slot build timed here), its bound, torch.profiler's device time,
+     the twin, one scatter_add_ over the slot arrays and the eager slot
+     build plus that scatter_add_;
   2d. K10 (and K11) at the v2 LRF passes' shapes -- the serving normals
      (Q=N=2048, K10 with K2 z-only), the training normals' full LRF
      (Q=N=2048, K11) and the keypoint LRFs (Q=192) -- against their twins
@@ -48,9 +52,9 @@ Phases (each prints its results; any failure raises and exits nonzero):
   5b. serve --device cuda with the CSHOT model on 8 coloured PCD files, and
      its --maxima refusal;
   7. the CSHOT classify step: IsmClassifier with the committed CSHOT
-     codebook on the coloured 128-cloud batch -- per-stage ms, clouds/s, K8
-     launched twice, decisions against the committed JAX-CPU reference,
-     accuracy, two runs equal;
+     codebook on the coloured 128-cloud batch -- per-stage ms, clouds/s,
+     peak device memory, K8 launched once, decisions against the committed
+     JAX-CPU reference, accuracy, two runs equal;
   8. the SHORT_SHOT classify step, the same with its codebook: K9 launched,
      K1/K2 once each (keypoint LRFs only: no normal stage);
   9. training on the card: the five bench training clouds through
@@ -59,6 +63,8 @@ Phases (each prints its results; any failure raises and exits nonzero):
      JAX-trained codebooks, each served on the bench batch against the
      committed references; training clouds/s on 24 clouds; the train entry
      point on 8 PCD files, then serve on its model.
+Every step of phases 4-8 also prints its peak device memory, and phase 2
+the bits (sha256) of K3's output and of K7's in-radius counts.
 Before the last line it prints one JSON line with every kernel's launches
 (summed over one run of each path, counted from 0 just before each),
 error against its twin, times and bound, then the card's name and power
@@ -66,6 +72,7 @@ limit.  The last line is {"ok": true, "device": {...}}.
 """
 
 import contextlib
+import hashlib
 import io
 import json
 import os
@@ -152,17 +159,22 @@ VOTE_BODY_OPS = 6      # one (p - q) . axis (3 mul, 2 add) and its compare
 SHOT_BODY_OPS = 100    # frame coords, cosine, binning, 5 slot adds;
 #                        sqrtf, acosf and atan2f count one each
 CHISQ_TERM_OPS = 6     # a + b, a - b, square, divide, compare, accumulate
+CSHOT_BODY_OPS = 130   # SHOT's body, the colour distance (~12) and the
+#                        colour channel's soft bin and weight (~8), five
+#                        more slot adds
+SHORT_SHOT_BODY_OPS = 75   # frame coords (15), r (6), theta and phi (7),
+#                            three raw bins (9), bins and interpolation
+#                            (~20), four weights (~12), four adds
 # Times of the previous designs -- K1's and K2's all-pairs sweeps, K3's
 # threads over points with shared-memory atomics, K4's one thread per
-# (descriptor, codeword) pair -- at the dense step's shapes, from PERF.md's
-# kernel table (H100 80GB HBM3 at 700 W), printed beside this run's
+# (descriptor, codeword) pair at the dense step's shapes; K8 (both
+# channels) and K9 over slot arrays at the CSHOT and SHORT_SHOT steps'
+# shapes, not counting the slot build -- from PERF.md's kernel table (H100
+# 80GB HBM3 at 700 W), printed beside this run's
 PREVIOUS_MS = {"K1 normals": 0.834, "K1 keypoints": 0.279,
                "K4 serving": 2.079, "K2 normals": 0.482,
-               "K2 keypoints": 0.170, "K3 serving": 0.874}
-# K8 / K9 (csrc/shot_hist.cu, csrc/histogram.cu): every column pays its
-# weights' zero tests (5 for K8, 1 for K9); a live column reads its indices
-# and adds its slots (5 adds for K8, 1 for K9).  Bytes: the weights of every
-# column, the indices of the live ones, the histograms written.
+               "K2 keypoints": 0.170, "K3 serving": 0.874,
+               "K8 CSHOT": 0.684 + 0.715, "K9 SHORT_SHOT": 0.829}
 
 # detection against the JAX-CPU detect_maxima_jit reference: the best
 # class's maximum within a few times mean-shift's 1e-3 stopping shift, its
@@ -209,6 +221,14 @@ def device_ms(fn, kernel, reps):
     return us / reps / 1e3 if us > 0 else None
 
 
+def digest(*tensors):
+    """sha256 (16 hex digits) of the tensors' bytes, in order."""
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
 def fmt_ms(ms):
     return "not measured" if ms is None else f"{ms:.4f} ms"
 
@@ -250,6 +270,7 @@ def main():
     from point_cloud_donkey_tpu_torch.ops import binned
     from point_cloud_donkey_tpu_torch.ops.eigh3 import eigh3x3
     from point_cloud_donkey_tpu_torch.ops import shot as kshot_ops
+    from point_cloud_donkey_tpu_torch.ops import short_shot as kss_ops
     from point_cloud_donkey_tpu_torch.ops.color import \
         rgb_to_cielab_normalized
     from point_cloud_donkey_tpu_torch.ops.kernels import chisq as kchisq
@@ -260,8 +281,6 @@ def main():
     from point_cloud_donkey_tpu_torch.ops.lrf import shot_lrf
     from point_cloud_donkey_tpu_torch.ops.normals import compute_normals_fast
     from point_cloud_donkey_tpu_torch.ops.shot import normalize_descriptors
-    from point_cloud_donkey_tpu_torch.ops.short_shot import \
-        short_shot_slot_arrays
     from point_cloud_donkey_tpu_torch.ops.voxel_grid import voxel_grid
     from point_cloud_donkey_tpu_torch.utils.config import IsmConfig
 
@@ -462,13 +481,8 @@ def main():
         phist, pcnt = kshot.shot_tiles_plain(*shot_args)
         assert torch.equal(cnt, pcnt), "K3 in-radius counts differ"
         got = normalize_descriptors(hist, cnt, fv_rows)
-        want = normalize_descriptors(phist, pcnt, fv_rows)
-        assert torch.equal(got.valid, want.valid), "K3 validity differs"
-        both = got.valid & want.valid
-        cos = (got.descriptors[both] * want.descriptors[both]).sum(-1)
-        off = ((got.descriptors[both] - want.descriptors[both]).abs()
-               > 1e-3).float().mean()
-        assert cos.min() > 0.999 and off < 1e-4, (cos.min(), off)
+        cos, off = contract(got, normalize_descriptors(phist, pcnt, fv_rows),
+                            "K3")
         again = kshot.shot_tiles(*shot_args)
         assert torch.equal(hist, again[0]) and torch.equal(cnt, again[1]), \
             "two K3 launches differ"
@@ -485,9 +499,10 @@ def main():
               f"{int(cnt.sum()) / pairs:.4f}; warp-owned histograms "
               f"{k3_ms:.4f} ms, device {fmt_ms(k3_dev)} (previous design "
               f"{PREVIOUS_MS['K3 serving']:.3f} ms, bound {b_ms:.4f} ms by "
-              f"{by}); counts equal, cosine min {float(cos.min()):.7f}, "
-              f"{float(off):.2e} of entries off by > 1e-3; two launches "
+              f"{by}); counts equal, cosine min {cos:.7f}, "
+              f"{off:.2e} of entries off by > 1e-3; two launches "
               f"bit-equal ({card})", flush=True)
+        print(f"{'shot_fused':20s} output bits: sha256 {digest(hist, cnt)}")
         record("shot_fused", (hist - phist).abs().max(), k3_ms,
                cuda_ms(lambda: kshot.shot_tiles_plain(*shot_args), 2),
                f"SHOT {tile_cloud.shape[0]} tiles x N={pts.shape[1]}",
@@ -583,14 +598,8 @@ def main():
         dh, dc = kshot.shot_dense(*dense_args)
         pdh, pdc = kshot.shot_dense_plain(*dense_args)
         assert torch.equal(dc, pdc), "K7 in-radius counts differ"
-        got = normalize_descriptors(dh, dc, mlrf.valid)
-        want = normalize_descriptors(pdh, pdc, mlrf.valid)
-        assert torch.equal(got.valid, want.valid), "K7 validity differs"
-        both = got.valid & want.valid
-        cos = (got.descriptors[both] * want.descriptors[both]).sum(-1)
-        off = ((got.descriptors[both] - want.descriptors[both]).abs()
-               > 1e-3).float().mean()
-        assert cos.min() > 0.999 and off < 1e-4, (cos.min(), off)
+        contract(normalize_descriptors(dh, dc, mlrf.valid),
+                 normalize_descriptors(pdh, pdc, mlrf.valid), "K7")
         live = int(mlrf.valid.sum())
         tiles = mkp.shape[0] * mkp.shape[1] // kshot.TK
         sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -614,6 +623,9 @@ def main():
             assert torch.equal(c1, cr), "K7 counts depend on the chunks"
             print(f"{'shot_dense':20s} B={nb} ({tiles_b} tiles): 1 chunk "
                   f"{one:.4f} ms, the rule's {pick} chunks {split:.4f} ms")
+        print(f"{'shot_dense':20s} in-radius counts (B={MS_BATCH}): sha256 "
+              f"{digest(dc)} (its float sums are atomic adds, whose order "
+              f"varies from run to run)")
         record("shot_dense", (dh - pdh).abs().max(),
                cuda_ms(lambda: kshot.shot_dense(*dense_args), 5),
                cuda_ms(lambda: kshot.shot_dense_plain(*dense_args), 2),
@@ -622,7 +634,8 @@ def main():
                int(dc.sum()) * (GATE_OPS + SHOT_BODY_OPS))
 
     # -- 2c. K8 / K9 at the CSHOT and SHORT_SHOT steps' shapes -------------
-    phase(f"2c. K8 / K9 vs plain twins and scatter_add_ on the card ({card})")
+    phase(f"2c. K8 / K9 (pairs binned on chip) vs plain twins, the slot "
+          f"arrays and scatter_add_ on the card ({card})")
     rgb = torch.from_numpy(bench_colors(clouds)).to(dev)
     with torch.no_grad():
         ck = voxel_grid(pts, mask, cfg.leaf_size,
@@ -630,18 +643,15 @@ def main():
         ckp = torch.where(ck.mask[..., None], ck.centroids[..., :3],
                           torch.full_like(ck.centroids[..., :3], 1e9))
         clrf = shot_lrf(ckp, ck.mask, pts, mask, cfg.ref_frame_radius)
-        channels, _ = kshot_ops.cshot_slot_arrays(
-            ckp, rgb_to_cielab_normalized(ck.centroids[..., 3:6]),
-            clrf.frames, pts, normals,
-            rgb_to_cielab_normalized(rgb),
-            mask & torch.isfinite(normals).all(-1), cfg.radius)
-        for args in channels:
-            hist_k8(args, ksh, record)
-        del channels
-        idx, w = short_shot_slot_arrays(ckp, clrf.frames, pts, mask,
-                                        cfg.radius)
-        hist_k9(idx, w, khist, record)
-        del idx, w
+        fused_k8((ckp.contiguous(),
+                  rgb_to_cielab_normalized(ck.centroids[..., 3:6]),
+                  clrf.frames.contiguous(), clrf.valid.contiguous(), pts,
+                  normals, rgb_to_cielab_normalized(rgb), mask, cfg.radius),
+                 ksh, kshot_ops, record, card)
+        fused_k9((ckp.contiguous(), clrf.frames.contiguous(),
+                  clrf.valid.contiguous(), pts, mask, cfg.radius), khist,
+                 kss_ops, record, card)
+        del ck, ckp, clrf
 
     # -- 2d. K10 / K11 at the main paths' shapes ----------------------------
     phase(f"2d. K10 / K11 vs plain twins and vs K1 / K2 on the card ({card})")
@@ -911,7 +921,7 @@ def main():
               f"{float((scores - again).abs().max()):.3e}")
         assert same, f"two runs of the {desc} step differ"
         if desc == "CSHOT":
-            assert launches[key]["shot_hist"] == 2, launches[key]
+            assert launches[key]["shot_hist"] == 1, launches[key]
         else:
             assert launches[key]["histogram"] == 1 and \
                 launches[key]["lrf_moments"] == 1 and \
@@ -964,11 +974,14 @@ def drive(path, model, stages, pts, mask, rounds, card, extra=()):
             events[name] = torch.cuda.Event(enable_timing=True)
             events[name].record()
 
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
         build.reset_launch_counts()
         events["start"].record()
         out = model(pts, mask, *extra, on_stage=mark)
         torch.cuda.synchronize()
         launches = build.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
         prev, stage_ms = "start", {}
         for name in stages:
             stage_ms[name] = events[prev].elapsed_time(events[name])
@@ -983,6 +996,9 @@ def drive(path, model, stages, pts, mask, rounds, card, extra=()):
     print(f"throughput: {pts.shape[0] * rounds / dt:.1f} clouds/s over "
           f"{rounds} rounds of {pts.shape[0]} clouds ({card})")
     print(f"launches in one step: {launches}")
+    print(f"peak device memory of the step: {peak / 2**20:.1f} MiB "
+          f"({(peak - held) / 2**20:.1f} MiB above the {held / 2**20:.1f} "
+          f"MiB held before it) ({card})")
     missing = [k for k in PATH_KERNELS[path] if launches[k] == 0]
     assert not missing, f"kernels not launched by the {path} path: {missing}"
     return out, launches
@@ -1185,65 +1201,148 @@ def check_decisions(s, rs, labels, what="JAX-CPU reference",
     assert rms <= 0.05 * scale, f"scores differ from the {what}"
 
 
-def hist_k8(args, ksh, record):
-    """K8 at one channel of the CSHOT step: against its twin on the card
-    (the same sums in another order: relative delta <= 1e-5) and, on the
-    first 1024 rows, against the CPU twin bit for bit (the same order);
-    timed with the twin and one scatter_add_ over the five slots."""
-    import torch
-    *arrays, n_bin = args
-    r, m = arrays[0].shape
-    h = ksh.shot_hist(*arrays, n_bin)
-    p = ksh.shot_hist_plain(*arrays, n_bin)
-    err = (h - p).abs().max()
-    rel = float(err / p.abs().max().clamp(min=1e-30))
-    sub = ksh.shot_hist_plain(*(a[:1024].cpu() for a in arrays), n_bin)
-    exact = bool(torch.equal(h[:1024].cpu(), sub))
-    d, s, cw, cb, cosw, rv, rw, iv, iw, av, aw = arrays
-    live = int(((cw != 0) | (cosw != 0) | (rw != 0) | (iw != 0)
-                | (aw != 0)).sum())
-    print(f"{'':20s} n_bin {n_bin}: {r} rows x {m} columns, live-column "
-          f"share {live / (r * m):.4f}; kernel vs twin relative delta "
-          f"{rel:.3e}; first 1024 rows equal to the CPU twin: {exact}")
-    assert rel <= 1e-5 and exact, f"K8 differs from its twin (n_bin {n_bin})"
-    # the library call: one scatter_add_ over the five slots side by side
-    length = 32 * n_bin
-    flat = torch.cat([d * n_bin + s, d * n_bin + cb, rv * n_bin + s,
-                      iv * n_bin + s, av * n_bin + s], 1).long()
-    wcat = torch.cat([cw, cosw, rw, iw, aw], 1)
-    lib = cuda_ms(lambda: torch.zeros(r, length, device=flat.device)
-                  .scatter_add_(1, flat, wcat), 5)
-    del flat, wcat
-    record("shot_hist", err, cuda_ms(lambda: ksh.shot_hist(*arrays, n_bin), 5),
-           cuda_ms(lambda: ksh.shot_hist_plain(*arrays, n_bin), 2),
-           f"CSHOT n_bin {n_bin} R={r} M={m}",
-           5 * r * m * 4 + 6 * live * 4 + r * length * 4,
-           5 * r * m + 5 * live, lib)
+def contract(got, want, what):
+    """The descriptor contract between two (descriptors, valid) pairs:
+    validity equal, cosine > 0.999 and fewer than 1e-4 of the entries off
+    by more than 1e-3 on the valid rows; returns (min cosine, share
+    off)."""
+    assert bool((got[1] == want[1]).all()), f"{what}: validity differs"
+    both = got[1] & want[1]
+    a, b = got[0][both], want[0][both]
+    cos = float((a * b).sum(-1).min())
+    off = float(((a - b).abs() > 1e-3).float().mean())
+    assert cos > 0.999 and off < 1e-4, f"{what}: cosine {cos}, {off} off"
+    return cos, off
 
 
-def hist_k9(idx, w, khist, record):
-    """K9 at the SHORT_SHOT step: as hist_k8, with one scatter_add_."""
+def slot_library(name, slots, length, rows, card):
+    """The library yardsticks of K8 / K9: one scatter_add_ over the slot
+    arrays that `slots()` builds (a list of (flat index [R, M], weight
+    [R, M]), one a slot), and the eager slot build plus that scatter_add_;
+    returns (scatter ms, build + scatter ms)."""
     import torch
-    r, c = idx.shape
-    h = khist.histogram(idx, w, 32)
-    p = khist.histogram_plain(idx, w, 32)
-    err = (h - p).abs().max()
-    rel = float(err / p.abs().max().clamp(min=1e-30))
-    exact = bool(torch.equal(h[:1024].cpu(), khist.histogram_plain(
-        idx[:1024].cpu(), w[:1024].cpu(), 32)))
-    live = int((w != 0).sum())
-    print(f"{'':20s} {r} rows x {c} entries, live share {live / (r * c):.4f}"
-          f"; kernel vs twin relative delta {rel:.3e}; first 1024 rows "
-          f"equal to the CPU twin: {exact}")
-    assert rel <= 1e-5 and exact, "K9 differs from its twin"
-    il = idx.long()
-    lib = cuda_ms(lambda: torch.zeros(r, 32, device=w.device)
-                  .scatter_add_(1, il, w), 5)
-    del il
-    record("histogram", err, cuda_ms(lambda: khist.histogram(idx, w, 32), 5),
-           cuda_ms(lambda: khist.histogram_plain(idx, w, 32), 2),
-           f"SHORT_SHOT R={r} C={c} L=32",
-           r * c * 4 + live * 4 + r * 32 * 4, r * c + live, lib)
+
+    def flat():
+        pairs = slots()
+        return (torch.cat([i for i, _ in pairs], 1).long(),
+                torch.cat([w for _, w in pairs], 1))
+
+    idx, w = flat()
+    dev = w.device
+    scatter = cuda_ms(lambda: torch.zeros(rows, length, device=dev)
+                      .scatter_add_(1, idx, w), 5)
+    del idx, w
+    total = cuda_ms(lambda: torch.zeros(rows, length, device=dev)
+                    .scatter_add_(1, *flat()), 3)
+    print(f"{name:20s} library: one scatter_add_ over the slot arrays "
+          f"{scatter:.4f} ms; the eager slot build plus that scatter_add_ "
+          f"{total:.4f} ms ({card})", flush=True)
+    return scatter, total
+
+
+def fused_k8(args, ksh, shot_ops, record, card):
+    """K8 at the CSHOT step: against its twin on the card (counts equal,
+    the descriptor contract), two launches bit-equal, timed with CUDA
+    events and torch.profiler beside its previous design (PREVIOUS_MS plus
+    this run's slot build), its bound by in-radius pairs, the twin and the
+    library yardsticks."""
+    import torch
+
+    from point_cloud_donkey_tpu_torch.ops.shot import normalize_descriptors
+    kp, kp_lab, frames, live, pts, nrm, lab, mask, radius = args
+    h, c = ksh.cshot_hist(*args)
+    h2, c2 = ksh.cshot_hist(*args)
+    assert torch.equal(h, h2) and torch.equal(c, c2), "two K8 launches differ"
+    ph, pc = ksh.cshot_hist_plain(*args)
+    assert torch.equal(c, pc), "K8 in-radius counts differ from its twin"
+    cos, off = contract(normalize_descriptors(h, c, live),
+                        normalize_descriptors(ph, pc, live), "K8")
+    ms = cuda_ms(lambda: ksh.cshot_hist(*args), 20)
+    dev_ms = device_ms(lambda: ksh.cshot_hist(*args), "cshot_hist_kernel",
+                       20)
+    plain_ms = cuda_ms(lambda: ksh.cshot_hist_plain(*args), 2)
+    nrm_ok = mask & torch.isfinite(nrm).all(-1)
+
+    def slots():
+        channels, _ = shot_ops.cshot_slot_arrays(kp, kp_lab, frames, pts,
+                                                 nrm, lab, nrm_ok, radius)
+        out = []
+        for base, (d, st, cw, cb, cosw, rv, rw, iv, iw, av, aw, nb) in zip(
+                (0, 32 * 11), channels):
+            out += [(base + d * nb + st, cw), (base + d * nb + cb, cosw),
+                    (base + rv * nb + st, rw), (base + iv * nb + st, iw),
+                    (base + av * nb + st, aw)]
+        return out
+
+    build_ms = cuda_ms(lambda: shot_ops.cshot_slot_arrays(
+        kp, kp_lab, frames, pts, nrm, lab, nrm_ok, radius), 3)
+    b, k = live.shape
+    lib_ms, _ = slot_library("shot_hist", slots, h.shape[-1], b * k, card)
+    inside = int(c.sum())
+    swept = int(live.sum()) * pts.shape[1]
+    nb_ = nbytes(*args[:8], h, c)
+    ops = inside * (GATE_OPS + CSHOT_BODY_OPS)
+    b_ms, by = bound(nb_, ops)
+    print(f"{'shot_hist':20s} CSHOT B={b} K={k} N={pts.shape[1]}: "
+          f"{swept:.3e} pairs swept ({int(live.sum())} live rows), in-radius "
+          f"share {inside / swept:.4f}; fused {ms:.4f} ms, device "
+          f"{fmt_ms(dev_ms)} (previous design "
+          f"{PREVIOUS_MS['K8 CSHOT']:.3f} ms + the slot build {build_ms:.3f} "
+          f"ms, bound {b_ms:.4f} ms by {by}); counts equal, cosine min "
+          f"{cos:.7f}, {off:.2e} of entries off by > 1e-3; two launches "
+          f"bit-equal ({card})", flush=True)
+    record("shot_hist", (h - ph).abs().max(), ms, plain_ms,
+           f"CSHOT B={b} K={k} N={pts.shape[1]}", nb_, ops, lib_ms)
+
+
+def fused_k9(args, khist, ss_ops, record, card):
+    """K9 at the SHORT_SHOT step: as fused_k8 (its in-radius pairs counted
+    here by distance, K9 returns no counts)."""
+    import torch
+    kp, frames, live, pts, mask, radius = args
+    h = khist.short_shot_hist(*args)
+    assert torch.equal(h, khist.short_shot_hist(*args)), \
+        "two K9 launches differ"
+    ph = khist.short_shot_hist_plain(*args, 2, 2, 8)
+
+    def unit(x):
+        norm = torch.linalg.norm(x, dim=-1, keepdim=True)
+        d = x / norm.clamp(min=1e-30)
+        return d, live & (norm[..., 0] > 0) & torch.isfinite(d).all(-1)
+
+    cos, off = contract(unit(h), unit(ph), "K9")
+    ms = cuda_ms(lambda: khist.short_shot_hist(*args), 20)
+    dev_ms = device_ms(lambda: khist.short_shot_hist(*args),
+                       "short_shot_hist_kernel", 20)
+    plain_ms = cuda_ms(lambda: khist.short_shot_hist_plain(*args, 2, 2, 8),
+                       2)
+
+    def slots():
+        idx, w = ss_ops.short_shot_slot_arrays(kp, frames, pts, mask, radius)
+        return [(idx, w)]
+
+    build_ms = cuda_ms(lambda: ss_ops.short_shot_slot_arrays(
+        kp, frames, pts, mask, radius), 3)
+    b, k = live.shape
+    lib_ms, _ = slot_library("histogram", slots, h.shape[-1], b * k, card)
+    d2 = ((pts[:, None] - kp[:, :, None]) ** 2).sum(-1)
+    inside = int(((d2 <= radius * radius) & (d2 > 1e-15) & mask[:, None]
+                  & live[..., None]).sum())
+    del d2
+    swept = int(live.sum()) * pts.shape[1]
+    nb_ = nbytes(*args[:5], h)
+    ops = inside * (GATE_OPS + SHORT_SHOT_BODY_OPS)
+    b_ms, by = bound(nb_, ops)
+    print(f"{'histogram':20s} SHORT_SHOT B={b} K={k} N={pts.shape[1]} "
+          f"D={h.shape[-1]}: {swept:.3e} pairs swept, in-radius share "
+          f"{inside / swept:.4f}; fused {ms:.4f} ms, device "
+          f"{fmt_ms(dev_ms)} (previous design "
+          f"{PREVIOUS_MS['K9 SHORT_SHOT']:.3f} ms + the slot build "
+          f"{build_ms:.3f} ms, bound {b_ms:.4f} ms by {by}); cosine min "
+          f"{cos:.7f}, {off:.2e} of entries off by > 1e-3; two launches "
+          f"bit-equal ({card})", flush=True)
+    record("histogram", (h - ph).abs().max(), ms, plain_ms,
+           f"SHORT_SHOT B={b} K={k} N={pts.shape[1]} D=32", nb_, ops, lib_ms)
 
 
 def serve_files(serve, model_path, clouds, labels, extra, colours=None):

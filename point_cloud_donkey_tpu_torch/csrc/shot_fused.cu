@@ -12,8 +12,8 @@
 // local-frame coordinates (p - q) . axis, the PCL volume bit pattern, and
 // the quadrilinear soft binning of ops/shot.py (cosine, radial, inclination,
 // azimuth) -- five weighted slots into the keypoint's 32 x 11 histogram
-// (shot_slots, shared by both kernels).  The raw histogram and the
-// in-radius count are written out; the wrapper normalises and sets
+// (shot_slots.cuh, shared by both kernels and K8).  The raw histogram and
+// the in-radius count are written out; the wrapper normalises and sets
 // validity.
 //
 // What bounds them on the H100: arithmetic on the in-radius pairs.  A
@@ -24,26 +24,24 @@
 // A cell grid would not prune: at r = 0.6 the cells around a keypoint cover
 // most of a ~1.8-unit cloud.
 // Design (K3): one CTA per 8-keypoint tile, one warp per keypoint.
-//   1. The CTA stages its cloud in shared memory once, 1024 points at a
-//      time (x, y, z and the normal as six float arrays, 24 KB; ~40 KB
-//      with the histograms and queues, so four CTAs share an SM), dropping
-//      masked points and points with a non-finite normal as it stages; the
-//      points keep their index order (ballots and a scan of the warps'
-//      counts).
-//   2. Each warp gates the staged points for its keypoint, four a lane a
-//      round (independent loads and compares in flight), with the twin's
-//      float operations, and pushes the in-radius ones into its own queue
-//      in index order (__ballot_sync, __popc).  Whenever 32 are queued,
-//      all 32 lanes bin one each: the ~300-instruction body runs on full
-//      warps, and a pair outside the radius costs only the gate.
+//   1-2. pairs::sweep (radius_pairs.cuh, shared with K8 and K9): the CTA
+//      stages its cloud 1024 points at a time (x, y, z and the normal,
+//      24 KB; ~40 KB with the histograms and queues, so four CTAs share an
+//      SM), dropping masked points and points with a non-finite normal, in
+//      index order; each warp gates the staged points for its keypoint with
+//      the twin's float operations and queues the in-radius ones, and
+//      whenever 32 are queued all 32 lanes bin one each: the
+//      ~300-instruction body runs on full warps, and a pair outside the
+//      radius costs only the gate.
 //   3. The warp owns its keypoint's [352] histogram in shared memory, so no
 //      other warp adds to it.  The five slots of a batch enter it in slot
-//      order; within a slot the lanes that hit one bin (__match_any_sync)
-//      sum their weights in lane order by shuffles, and the lowest of them
-//      adds the sum with a plain load and store.  The batches are the
-//      in-radius points of each chunk in index order, 32 at a time, so
-//      every sum's order depends only on the inputs: two launches give
-//      equal bits.  The count is the sum of the warp's ballot popcounts.
+//      order (pairs::warp_add); within a slot the lanes that hit one bin
+//      (__match_any_sync) sum their weights in lane order by shuffles, and
+//      the lowest of them adds the sum with a plain load and store.  The
+//      batches are the in-radius points of each chunk in index order, 32
+//      at a time, so every sum's order depends only on the inputs: two
+//      launches give equal bits.  The count is the sum of the warp's ballot
+//      popcounts.
 // Dead rows (keypoints at 1e9) meet no point and come out zero.  acosf and
 // atan2f stay full precision: the bin edges and weights are the twin's.
 // Design (K7): on the TPU the grid's point axis runs in order and the tile
@@ -59,207 +57,27 @@
 // row exits at once: about 45% of the dense grid is padding at the bench
 // geometry.
 #include "common.cuh"
+#include "radius_pairs.cuh"
+#include "shot_slots.cuh"
 
 namespace {
 
-constexpr int TK = 8;          // keypoints per tile
-constexpr int NR_BINS = 10;
-constexpr int NR_SECTORS = 32;
-constexpr int NB = NR_BINS + 1;
-constexpr int DESC = NR_SECTORS * NB;  // 352
-constexpr int THREADS = 256;   // K3: one warp per keypoint of a tile
-constexpr int SLOTS = 5;
-constexpr unsigned FULL = 0xffffffffu;
+using shot::DESC;
+using shot::shot_slots;
+using shot::SLOTS;
+using ShotSlots = shot::Slots;
 
-constexpr float RAD_45 = (float)(3.14159265358979323846 / 4.0);
-constexpr float RAD_90 = (float)(3.14159265358979323846 / 2.0);
-constexpr float RAD_135 = (float)(3.0 * 3.14159265358979323846 / 4.0);
-constexpr float RAD_PI_7_8 = (float)(3.14159265358979323846 * 7.0 / 8.0);
-
-// The five weighted slots of one in-radius pair, PCL's quadrilinear soft
-// binning: the central bin, the cosine neighbour, and the radial,
-// inclination and azimuth neighbours; idx is -1 where the pair has no such
-// slot.
-struct ShotSlots {
-  int idx[SLOTS];
-  float w[SLOTS];
-};
-
-__device__ __forceinline__ ShotSlots shot_slots(float x_l, float y_l,
-                                                float z_l, float cos_desc,
-                                                float d, float r_half,
-                                                float r34, float r14) {
-  const float bin_dist = (1.0f + cos_desc) * (NR_BINS / 2.0f);
-  const int step = (int)floorf(bin_dist + 0.5f);
-  const float bd = bin_dist - (float)step;
-
-  const int bit4 = (y_l > 0.f) || (y_l == 0.f && x_l < 0.f);
-  const bool bit3_cond = (x_l > 0.f) || (x_l == 0.f && y_l > 0.f);
-  const int bit3 = bit3_cond ? 1 - bit4 : bit4;
-  int desc = ((bit4 << 3) + (bit3 << 2)) << 1;
-  const bool inner = (x_l * y_l > 0.f) || (x_l == 0.f);
-  const int add4 = inner ? (fabsf(x_l) >= fabsf(y_l) ? 0 : 4)
-                         : (fabsf(x_l) > fabsf(y_l) ? 4 : 0);
-  desc += add4 + (z_l > 0.f ? 1 : 0);
-  desc += d > r_half ? 2 : 0;
-
-  float central_w = 1.0f - fabsf(bd);
-  const int cos_bin = bd > 0.f ? (step + 1) % NR_BINS
-                               : (step - 1 + NR_BINS) % NR_BINS;
-  const float cos_w = fabsf(bd);
-
-  // radial interpolation (adjacent shell)
-  const float rd_out = (d - r34) / r_half;
-  const float rd_in = (d - r14) / r_half;
-  const bool outer = d > r_half;
-  const float rd = outer ? rd_out : rd_in;
-  const bool has_rad = outer ? (d <= r34) : (d >= r14);
-  central_w += outer ? (d > r34 ? 1.0f - rd_out : 1.0f + rd_out)
-                     : (d < r14 ? 1.0f + rd_in : 1.0f - rd_in);
-  const float rad_w = has_rad ? fabsf(rd) : 0.f;
-  const int rad_vol = desc + (outer ? -2 : 2);
-
-  // inclination interpolation (adjacent elevation volume)
-  const float incl_cos = fminf(fmaxf(z_l / d, -1.0f), 1.0f);
-  const float incl = acosf(incl_cos);
-  const bool lower = (incl > RAD_90) || (incl == RAD_90 && z_l <= 0.f);
-  const float id_low = (incl - RAD_135) / RAD_90;
-  const float id_up = (incl - RAD_45) / RAD_90;
-  central_w += lower ? (incl > RAD_135 ? 1.0f - id_low : 1.0f + id_low)
-                     : (incl < RAD_45 ? 1.0f + id_up : 1.0f - id_up);
-  const bool has_incl = lower ? (incl <= RAD_135) : (incl >= RAD_45);
-  const float incl_w = has_incl ? (lower ? fabsf(id_low) : fabsf(id_up)) : 0.f;
-  const int incl_vol = desc + (lower ? 1 : -1);
-
-  // azimuth interpolation (adjacent sector, +-4 mod 32)
-  const bool has_az = (x_l != 0.f) || (y_l != 0.f);
-  const float azimuth = atan2f(y_l, x_l);
-  const int sel = desc >> 2;
-  float az_dist = (azimuth - (-RAD_PI_7_8 + RAD_45 * (float)sel)) / RAD_45;
-  az_dist = fminf(fmaxf(az_dist, -0.5f), 0.5f);
-  central_w += has_az ? 1.0f - fabsf(az_dist) : 0.f;
-  const int az_vol = az_dist > 0.f ? (desc + 4) % NR_SECTORS
-                                   : (desc - 4 + NR_SECTORS) % NR_SECTORS;
-  const float az_w = has_az ? fabsf(az_dist) : 0.f;
-
-  ShotSlots s;
-  s.idx[0] = desc * NB + step;
-  s.w[0] = central_w;
-  s.idx[1] = desc * NB + cos_bin;
-  s.w[1] = cos_w;
-  s.idx[2] = has_rad ? rad_vol * NB + step : -1;
-  s.w[2] = rad_w;
-  s.idx[3] = has_incl ? incl_vol * NB + step : -1;
-  s.w[3] = incl_w;
-  s.idx[4] = has_az ? az_vol * NB + step : -1;
-  s.w[4] = az_w;
-  return s;
-}
+constexpr int TK = pairs::TK;            // keypoints per tile
+constexpr int THREADS = pairs::THREADS;  // K3: one warp per keypoint
 
 // ---- K3: compacted in-radius pairs into warp-owned histograms ----------------
 
-constexpr int CH = 1024;   // points staged per chunk
-constexpr int GATE = 4;    // points a lane gates per round
-constexpr int QLEN = 32 * (GATE + 1);   // a warp's queue: < 32 left over
-                                        // + a round's 32 * GATE
+constexpr int CH = 1024;   // points staged per chunk (x, y, z, normal)
 
 struct TileSmem {
-  float px[CH], py[CH], pz[CH];   // the chunk's usable points, index order
-  float nx[CH], ny[CH], nz[CH];   // and their normals
+  pairs::Staged<CH, 6> st;
   float h[TK][DESC];              // warp k's histogram
-  int queue[TK][QLEN];            // warp k's in-radius points (staged ids)
-  int wcount[TK];
 };
-
-// Stage points [base, base + n) of the cloud: those unmasked with a finite
-// normal, in index order.  Every thread of the CTA calls; returns the
-// number staged.
-__device__ int stage_chunk(TileSmem& sm, const float* __restrict__ pb,
-                           const float* __restrict__ nb,
-                           const unsigned char* __restrict__ mb, int base,
-                           int n) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  int total = 0;
-  for (int j0 = 0; j0 < n; j0 += THREADS) {
-    const int j = base + j0 + threadIdx.x;
-    float v[6] = {};
-    bool keep = false;
-    if (j0 + threadIdx.x < n && mb[j]) {
-#pragma unroll
-      for (int c = 0; c < 3; ++c) v[3 + c] = nb[(size_t)j * 3 + c];
-      keep = isfinite(v[3]) && isfinite(v[4]) && isfinite(v[5]);
-#pragma unroll
-      for (int c = 0; c < 3; ++c) v[c] = pb[(size_t)j * 3 + c];
-    }
-    const unsigned bal = __ballot_sync(FULL, keep);
-    if (lane == 0) sm.wcount[warp] = __popc(bal);
-    __syncthreads();
-    int off = total;
-#pragma unroll
-    for (int w = 0; w < TK; ++w) {
-      const int c = sm.wcount[w];
-      off += w < warp ? c : 0;
-      total += c;
-    }
-    if (keep) {
-      const int pos = off + __popc(bal & ((1u << lane) - 1u));
-      sm.px[pos] = v[0]; sm.py[pos] = v[1]; sm.pz[pos] = v[2];
-      sm.nx[pos] = v[3]; sm.ny[pos] = v[4]; sm.nz[pos] = v[5];
-    }
-    __syncthreads();
-  }
-  return total;
-}
-
-// Bin one batch of a warp: lane l holds staged point j (when act) of the
-// keypoint whose frame rows and position are f[0:9], f[9:12].  The five
-// slots enter h in slot order; the weights of the lanes of one slot that
-// hit one bin are summed in lane order, and the lowest of them adds the
-// sum to h.
-__device__ __forceinline__ void bin_batch(float* h, const TileSmem& sm, int j,
-                                          bool act, const float (&f)[12],
-                                          float r_half, float r34,
-                                          float r14) {
-  const int lane = threadIdx.x & 31;
-  ShotSlots s;
-  if (act) {
-    const float dx = sm.px[j] - f[9], dy = sm.py[j] - f[10],
-                dz = sm.pz[j] - f[11];
-    const float d2 = dx * dx + dy * dy + dz * dz;
-    const float x_l = dx * f[0] + dy * f[1] + dz * f[2];
-    const float y_l = dx * f[3] + dy * f[4] + dz * f[5];
-    const float z_l = dx * f[6] + dy * f[7] + dz * f[8];
-    const float cos_desc = fminf(
-        fmaxf(sm.nx[j] * f[6] + sm.ny[j] * f[7] + sm.nz[j] * f[8], -1.0f),
-        1.0f);
-    s = shot_slots(x_l, y_l, z_l, cos_desc, sqrtf(d2), r_half, r34, r14);
-  } else {
-#pragma unroll
-    for (int i = 0; i < SLOTS; ++i) {
-      s.idx[i] = -1;
-      s.w[i] = 0.f;
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < SLOTS; ++i) {
-    const int key = s.idx[i];
-    const float w = s.w[i];
-    const unsigned peers = __match_any_sync(FULL, key);
-    const int first = __ffs(peers) - 1;
-    // every lane of a group sums its weights in lane order by shuffles
-    float sum = __shfl_sync(FULL, w, first);
-    unsigned m = key >= 0 ? peers & (peers - 1u) : 0u;
-    while (__any_sync(FULL, m != 0u)) {
-      const float v = __shfl_sync(FULL, w, m ? __ffs(m) - 1 : lane);
-      if (m) {
-        sum += v;
-        m &= m - 1u;
-      }
-    }
-    if (key >= 0 && lane == first) h[key] += sum;
-    __syncwarp();
-  }
-}
 
 // One CTA per tile t (rows t*8 .. t*8+7, all of cloud tile_cloud[t]); warp
 // k describes row t*8 + k.
@@ -286,62 +104,39 @@ shot_fused_kernel(const float* __restrict__ kp, const float* __restrict__ fr,
 #pragma unroll
   for (int c = 0; c < 3; ++c) f[9 + c] = kp[row * 3 + c];
   float* h = sm.h[warp];
-  int* queue = sm.queue[warp];
   for (int e = lane; e < DESC; e += 32) h[e] = 0.f;
 
   const size_t b = tile_cloud[t];
-  const float* pb = points + b * N * 3;
-  const float* nb = normals + b * N * 3;
-  const unsigned char* mb = mask + b * N;
-  int cnt = 0;
-  for (int base = 0; base < N; base += CH) {
-    const int ns = stage_chunk(sm, pb, nb, mb, base, min(CH, N - base));
-    int qn = 0;   // queued, the same in every lane
-    for (int j0 = 0; j0 < ns; j0 += 32 * GATE) {
-      bool use[GATE];
+  const float* const src[2] = {points + b * N * 3, normals + b * N * 3};
+  const float (&v)[6][CH] = sm.st.v;
+  // bin one batch: lane l holds staged point j (when act); the five slots
+  // enter h in slot order, each by pairs::warp_add
+  auto bin_batch = [&](int j, bool act) {
+    ShotSlots s;
+    if (act) {
+      const float dx = v[0][j] - f[9], dy = v[1][j] - f[10],
+                  dz = v[2][j] - f[11];
+      const float d2 = dx * dx + dy * dy + dz * dz;
+      const float x_l = dx * f[0] + dy * f[1] + dz * f[2];
+      const float y_l = dx * f[3] + dy * f[4] + dz * f[5];
+      const float z_l = dx * f[6] + dy * f[7] + dz * f[8];
+      const float cos_desc = fminf(
+          fmaxf(v[3][j] * f[6] + v[4][j] * f[7] + v[5][j] * f[8], -1.0f),
+          1.0f);
+      s = shot_slots(x_l, y_l, z_l, cos_desc, sqrtf(d2), r_half, r34, r14);
+    } else {
 #pragma unroll
-      for (int u = 0; u < GATE; ++u) {
-        const int j = j0 + 32 * u + lane;
-        use[u] = false;
-        if (j < ns) {
-          const float dx = sm.px[j] - f[9], dy = sm.py[j] - f[10],
-                      dz = sm.pz[j] - f[11];
-          const float d2 = dx * dx + dy * dy + dz * dz;
-          use[u] = d2 <= r2 && d2 > 1e-15f;
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < GATE; ++u) {
-        const unsigned bal = __ballot_sync(FULL, use[u]);
-        if (use[u])
-          queue[qn + __popc(bal & ((1u << lane) - 1u))] = j0 + 32 * u + lane;
-        qn += __popc(bal);
-        cnt += __popc(bal);
-      }
-      while (qn >= 32) {   // bin the first 32 queued, move the rest down
-        __syncwarp();
-        const int jb = queue[lane];
-        const int rest = qn - 32;
-        int moved[GATE];
-#pragma unroll
-        for (int u = 0; u < GATE; ++u)
-          moved[u] = lane + 32 * u < rest ? queue[32 * (u + 1) + lane] : 0;
-        __syncwarp();
-#pragma unroll
-        for (int u = 0; u < GATE; ++u)
-          if (lane + 32 * u < rest) queue[32 * u + lane] = moved[u];
-        __syncwarp();
-        qn = rest;
-        bin_batch(h, sm, jb, true, f, r_half, r34, r14);
+      for (int i = 0; i < SLOTS; ++i) {
+        s.idx[i] = -1;
+        s.w[i] = 0.f;
       }
     }
-    if (qn > 0) {   // the chunk's last, partial batch
-      __syncwarp();
-      const int jb = lane < qn ? queue[lane] : 0;
-      bin_batch(h, sm, jb, lane < qn, f, r_half, r34, r14);
-    }
-    __syncthreads();   // the next chunk restages the points
-  }
+#pragma unroll
+    for (int i = 0; i < SLOTS; ++i) pairs::warp_add(h, s.idx[i], s.w[i]);
+  };
+  const int cnt = pairs::sweep<CH, 6, true>(sm.st, src, mask + b * N, N,
+                                            true, f[9], f[10], f[11], r2,
+                                            bin_batch);
   __syncwarp();
   float* out = hist + row * DESC;
   for (int e = lane; e < DESC; e += 32) out[e] = h[e];

@@ -1,11 +1,21 @@
-"""K9: batched weighted histograms, H[r, b] = sum_c w[r, c] [idx[r, c] = b].
+"""K9: SHORT_SHOT histograms over the dense [B, K] keypoint grid, the
+(keypoint, point) pairs binned on chip.
 
 Port of point_cloud_donkey_tpu/ops/pallas/histogram.py (`_hist_kernel`,
-`batched_histogram`), whose function is ops/shot.py
-`_histogram_from_slots`, the accumulation of the SHORT_SHOT descriptor.  An
-index outside [0, L) adds nothing.  Kernel in csrc/histogram.cu; plain twin
-:func:`histogram_plain`: one fixed-order ``index_add_`` over each row's
-entries in column order -- the order in which the kernel adds them.
+`batched_histogram`), whose function is ops/shot.py `_histogram_from_slots`
+over the slots of ops/short_shot.py `_short_shot_core`: here the slot math
+is fused in front of the histogram, so the kernel reads points, keypoints
+and frames, and no [B * K, N * 4] slot array exists.
+:func:`short_shot_hist` (kernel in csrc/histogram.cu) and its plain twin
+:func:`short_shot_hist_plain` -- the slot arrays of ops/short_shot.py
+`short_shot_slot_arrays`, one chunk of clouds at a time, through
+:func:`histogram_plain` -- compute the same raw histograms; rows that are
+not live come out zero.  Bin grids of up to MAX_BINS = 256 bins (every
+SHORT_SHOT `AUTO_BINS` size); a larger one is refused.
+
+:func:`histogram_plain` is the function of the TPU kernel itself:
+H[r, b] = sum_c w[r, c] [idx[r, c] = b], an index outside [0, L) adding
+nothing, summed with one fixed-order ``index_add_`` in column order.
 """
 
 from __future__ import annotations
@@ -13,25 +23,16 @@ from __future__ import annotations
 import torch
 
 from ...kernels import build
-from . import check, stream_of, uses_kernel
+from . import check, f32, stream_of, uses_kernel
 
-_ROWS = 8                     # rows per CTA (csrc/histogram.cu)
-_SMEM_MAX = 227 * 1024        # shared memory a CTA can use on Hopper
+MAX_BINS = 256                # 8 f32 registers a lane (csrc/histogram.cu)
 _ELEM_BUDGET = 1 << 24        # [rows, C] entries per chunk of the twin
-
-
-def _check(idx, w, length):
-    r, c = idx.shape if idx.dim() == 2 else (None, None)
-    check("idx", idx, torch.int32, (r, c))
-    check("w", w, torch.float32, (r, c))
-    if not 1 <= length or _ROWS * length * 4 > _SMEM_MAX:
-        raise ValueError(f"length={length}: a CTA's {_ROWS} histograms must "
-                         f"fit in {_SMEM_MAX} bytes of shared memory")
 
 
 def histogram_plain(idx: torch.Tensor, w: torch.Tensor,
                     length: int) -> torch.Tensor:
-    """Plain twin of K9: [R, length] f32."""
+    """The weighted histograms [R, length] f32 of the rows of (idx [R, C]
+    i32, w [R, C] f32)."""
     r, c = idx.shape
     hist = torch.zeros((r * length,), dtype=torch.float32, device=idx.device)
     step_rows = max(1, _ELEM_BUDGET // max(c, 1))
@@ -44,20 +45,62 @@ def histogram_plain(idx: torch.Tensor, w: torch.Tensor,
     return hist.reshape(r, length)
 
 
-def histogram(idx: torch.Tensor,   # [R, C] i32 bin of each entry
-              w: torch.Tensor,     # [R, C] f32 weight of each entry
-              length: int) -> torch.Tensor:
-    """K9: the weighted histograms [R, length] of the rows of (idx, w)."""
-    _check(idx, w, length)
-    if not uses_kernel(idx, w):
-        return histogram_plain(idx, w, length)
-    r, c = idx.shape
-    out = torch.empty((r, length), dtype=torch.float32, device=idx.device)
-    if r:
-        with torch.cuda.device(idx.device):
-            err = build.lib().pcd_histogram(idx.data_ptr(), w.data_ptr(),
-                                            out.data_ptr(), r, c, length,
-                                            stream_of(idx))
+def _check(kp, frames, live, points, mask, r_bins, e_bins, a_bins):
+    b, k = live.shape if live.dim() == 2 else (None, None)
+    n = points.shape[1] if points.dim() == 3 else None
+    check("kp", kp, torch.float32, (b, k, 3))
+    check("frames", frames, torch.float32, (b, k, 3, 3))
+    check("live", live, torch.bool, (b, k))
+    check("points", points, torch.float32, (b, n, 3))
+    check("mask", mask, torch.bool, (b, n))
+    if min(r_bins, e_bins, a_bins) < 1 or \
+            r_bins * e_bins * a_bins > MAX_BINS:
+        raise ValueError(f"SHORT_SHOT bins {r_bins} x {e_bins} x {a_bins}: "
+                         f"each at least 1 and at most {MAX_BINS} in all")
+
+
+def short_shot_hist_plain(kp, frames, live, points, mask, radius, r_bins,
+                          e_bins, a_bins) -> torch.Tensor:
+    """Plain twin of K9: raw histograms [B, K, D] from the slot arrays of
+    each chunk of clouds; rows that are not live stay zero."""
+    # ops/short_shot.py imports this module for short_shot_hist
+    from ..shot import cloud_chunks
+    from ..short_shot import short_shot_slot_arrays
+    b, k, _ = kp.shape
+    dims = r_bins * e_bins * a_bins
+    hist = torch.zeros((b, k, dims), dtype=torch.float32, device=kp.device)
+    for b0, b1 in cloud_chunks(b, k, points.shape[1]):
+        idx, w = short_shot_slot_arrays(kp[b0:b1], frames[b0:b1],
+                                        points[b0:b1], mask[b0:b1], radius,
+                                        r_bins, e_bins, a_bins)
+        hist[b0:b1] = histogram_plain(idx, w, dims).reshape(b1 - b0, k, dims)
+    return torch.where(live[..., None], hist, torch.zeros_like(hist))
+
+
+def short_shot_hist(kp: torch.Tensor,      # [B, K, 3] keypoints
+                    frames: torch.Tensor,  # [B, K, 3, 3] rows = axes
+                    live: torch.Tensor,    # [B, K] bool rows to describe
+                    points: torch.Tensor,  # [B, N, 3]
+                    mask: torch.Tensor,    # [B, N] bool
+                    radius: float, r_bins: int = 2, e_bins: int = 2,
+                    a_bins: int = 8) -> torch.Tensor:
+    """K9: raw SHORT_SHOT histograms [B, K, r_bins * e_bins * a_bins] of
+    every live row of the dense keypoint grid, each against the points of
+    its cloud."""
+    _check(kp, frames, live, points, mask, r_bins, e_bins, a_bins)
+    if not uses_kernel(kp, frames, live, points, mask):
+        return short_shot_hist_plain(kp, frames, live, points, mask, radius,
+                                     r_bins, e_bins, a_bins)
+    b, k = live.shape
+    hist = torch.empty((b, k, r_bins * e_bins * a_bins), dtype=torch.float32,
+                       device=kp.device)
+    if b and k:
+        with torch.cuda.device(kp.device):
+            err = build.lib().pcd_short_shot_hist(
+                kp.data_ptr(), frames.data_ptr(), live.data_ptr(),
+                points.data_ptr(), mask.data_ptr(), hist.data_ptr(), b, k,
+                points.shape[1], f32(radius), r_bins, e_bins, a_bins,
+                stream_of(kp))
         build.check(err, "histogram")
         build.count_launch("histogram")
-    return out
+    return hist

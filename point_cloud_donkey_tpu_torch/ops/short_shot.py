@@ -13,11 +13,11 @@ options of the JAX training descriptor are not ported.
 
 The dense form takes the radius gate and the local coordinates from exact
 coordinate differences (the JAX dense path gates on the matmul identity),
-as the port's SHOT does.  Its four slots per (keypoint, point) pair are
-accumulated by K9 (ops/kernels/histogram.py).  Bins come from truncating
-float coordinates (raw.astype(int32)) and from degrees(arccos) and
-arctan2, so a pair that sits on a bin edge can land in the neighbouring
-bin when two float implementations differ by an ulp.
+as the port's SHOT does.  K9 (ops/kernels/histogram.py) bins its
+(keypoint, point) pairs; the four slots a pair of K9's plain twin are built
+here.  Bins come from truncating float coordinates (raw.astype(int32)) and
+from degrees(arccos) and arctan2, so a pair that sits on a bin edge can land
+in the neighbouring bin when two float implementations differ by an ulp.
 """
 
 from __future__ import annotations
@@ -27,8 +27,8 @@ from typing import NamedTuple, Tuple
 import torch
 
 from .kernels import f32
-from .kernels.histogram import histogram
-from .shot import _dense_batch, cloud_chunks
+from .kernels.histogram import short_shot_hist
+from .shot import _dense_batch
 
 AUTO_BINS = {
     8: (1, 1, 8),
@@ -91,19 +91,13 @@ def short_shot_descriptor_dense(
         a_bins: int = 8) -> ShortShotResult:
     """SHORT_SHOT of every keypoint against its cloud (the JAX
     ``short_shot_descriptor_dense``): [..., K, r_bins * e_bins * a_bins].
-    The slots are built in plain torch over the [keypoint, point] grid, one
-    chunk of clouds at a time, and K9 accumulates them."""
+    K9 bins the pairs of the rows with a valid frame (the others come out
+    invalid)."""
     single, keypoints, points, mask, frames, frame_valid = _dense_batch(
         keypoints, points, mask, frames, frame_valid)
-    b, k, _ = keypoints.shape
-    n = points.shape[1]
-    dims = r_bins * e_bins * a_bins
-    hist = torch.empty((b, k, dims), dtype=points.dtype, device=points.device)
-    for b0, b1 in cloud_chunks(b, k, n):
-        idx, w = short_shot_slot_arrays(
-            keypoints[b0:b1], frames[b0:b1], points[b0:b1], mask[b0:b1],
-            radius, r_bins, e_bins, a_bins)
-        hist[b0:b1] = histogram(idx, w, dims).reshape(b1 - b0, k, dims)
+    hist = short_shot_hist(keypoints.contiguous(), frames.contiguous(),
+                           frame_valid.contiguous(), points.contiguous(),
+                           mask.contiguous(), radius, r_bins, e_bins, a_bins)
     norm = torch.linalg.norm(hist, dim=-1, keepdim=True)
     desc = hist / torch.clamp(norm, min=1e-30)
     valid = (frame_valid & (norm[..., 0] > 0)
@@ -115,9 +109,9 @@ def short_shot_descriptor_dense(
 
 def short_shot_slot_arrays(kp, frames, points, mask, radius, r_bins=2,
                            e_bins=2, a_bins=8):
-    """The slots of a chunk of clouds [c, K] x [c, N], the arguments of
-    K9: (bins [c * K, N * 4] i32, weights [c * K, N * 4] f32), each
-    point's four slots side by side."""
+    """The slots of a chunk of clouds [c, K] x [c, N], the slot arrays of
+    K9's plain twin: (bins [c * K, N * 4] i32, weights [c * K, N * 4] f32),
+    each point's four slots side by side."""
     c, k, _ = kp.shape
     n = points.shape[1]
     dx = points[:, None, :, 0] - kp[:, :, None, 0]              # [c, K, N]

@@ -1,7 +1,8 @@
 """SHOT-352 and CSHOT-1344 descriptors (port of
 point_cloud_donkey_tpu/ops/shot.py): the plain PyTorch twin of K3 and K7
-(ops/kernels/shot_fused.py), and the dense CSHOT of the CSHOT serving step,
-which accumulates its slots with K8 (ops/kernels/shot_hist.py).
+(ops/kernels/shot_fused.py), and the dense CSHOT of the CSHOT serving and
+training steps, whose pairs K8 bins (ops/kernels/shot_hist.py); the slot
+arrays of K8's plain twin are built here.
 
 Spec: Tombari et al. ECCV 2010 as implemented by PCL (SHOTEstimation::
 interpolateSingleChannel).  32 spatial volumes (8 azimuth x 2 elevation x
@@ -32,23 +33,22 @@ import torch
 
 from .color import color_distance, rgb_to_cielab_normalized
 from .kernels import f32
-from .kernels.shot_hist import shot_hist
+from .kernels.shot_hist import CSHOT_LEN, cshot_hist
 
 NR_BINS = 10            # cosine histogram bins (slot count per volume = 11)
 NR_SECTORS = 32         # spatial volumes
 NB = NR_BINS + 1
 DESC_LEN = NR_SECTORS * NB  # 352
 NR_COLOR_BINS = 30      # colour histogram bins (slot count per volume = 31)
-CSHOT_LEN = DESC_LEN + NR_SECTORS * (NR_COLOR_BINS + 1)  # 1344
 
 _RAD_45 = math.pi / 4.0
 _RAD_90 = math.pi / 2.0
 _RAD_135 = 3.0 * math.pi / 4.0
 _RAD_PI_7_8 = math.pi * 7.0 / 8.0
 _PAIR_BUDGET = 1 << 22  # [rows, N] elements per chunk
-# [keypoints, N] pairs per chunk of the dense CSHOT: the whole 128-cloud
-# serving batch (128 x 192 x 2048 = 5e7 pairs) is one chunk, so K8 runs
-# twice a step; each [chunk] f32 temporary is then 0.2 GB
+# [keypoints, N] pairs per chunk of the slot arrays of K8's and K9's plain
+# twins (the whole 128-cloud serving batch, 128 x 192 x 2048 = 5e7 pairs,
+# is one chunk; each [chunk] f32 temporary is then 0.2 GB)
 DENSE_PAIR_BUDGET = 1 << 26
 
 
@@ -276,48 +276,32 @@ def cshot_descriptor_dense(keypoints: torch.Tensor,    # [K, 3] / [B, K, 3]
                            min_neighbors: int = 5) -> ShotResult:
     """CSHOT-1344 of every keypoint against its cloud (the JAX
     ``cshot_descriptor_dense``; colours in [0, 1]): [..., K, 1344], shape
-    channel first.  The slot arrays are built in plain torch over the
-    [keypoint, point] grid, one chunk of clouds at a time, and K8
-    accumulates each channel; both channels are normalised jointly."""
+    channel first.  The keypoints' and the points' colours go to
+    normalised Lab here, in one elementwise pass; K8 bins the pairs of the
+    rows with a valid frame (the others come out invalid); both channels
+    are normalised jointly."""
     (single, keypoints, points, mask, kp_rgb, frames, frame_valid, normals,
      rgb) = _dense_batch(keypoints, points, mask, kp_rgb, frames,
                          frame_valid, normals, rgb)
-    b, k, _ = keypoints.shape
-    n = points.shape[1]
-    hist = torch.empty((b, k, CSHOT_LEN), dtype=points.dtype,
-                       device=points.device)
-    count = torch.empty((b, k), dtype=torch.int32, device=points.device)
-    lab_kp = rgb_to_cielab_normalized(kp_rgb)                   # [B, K, 3]
-    lab_pt = rgb_to_cielab_normalized(rgb)                      # [B, N, 3]
-    nrm_ok = mask & torch.isfinite(normals).all(-1)             # [B, N]
-    for b0, b1 in cloud_chunks(b, k, n):
-        h, c = _cshot_chunk(keypoints[b0:b1], lab_kp[b0:b1], frames[b0:b1],
-                            points[b0:b1], normals[b0:b1], lab_pt[b0:b1],
-                            nrm_ok[b0:b1], radius)
-        hist[b0:b1], count[b0:b1] = h, c
+    k = keypoints.shape[1]
+    lab = rgb_to_cielab_normalized(torch.cat([kp_rgb, rgb], dim=1))
+    hist, count = cshot_hist(
+        keypoints.contiguous(), lab[:, :k].contiguous(), frames.contiguous(),
+        frame_valid.contiguous(), points.contiguous(), normals.contiguous(),
+        lab[:, k:].contiguous(), mask.contiguous(), radius)
     res = normalize_descriptors(hist, count, frame_valid, min_neighbors)
     if single:
         res = ShotResult(res.descriptors[0], res.valid[0])
     return res
 
 
-def _cshot_chunk(kp, lab_kp, frames, points, normals, lab_pt, nrm_ok,
-                 radius):
-    """Raw CSHOT histograms [c, K, 1344] and in-radius counts [c, K] of a
-    chunk of clouds: K8 over each channel's slot arrays."""
-    c, k, _ = kp.shape
-    channels, count = cshot_slot_arrays(kp, lab_kp, frames, points, normals,
-                                        lab_pt, nrm_ok, radius)
-    hist = torch.cat([shot_hist(*args) for args in channels], dim=1)
-    return hist.reshape(c, k, CSHOT_LEN), count
-
-
 def cshot_slot_arrays(kp, lab_kp, frames, points, normals, lab_pt, nrm_ok,
                       radius):
     """The binning of the JAX ``_cshot_core_from_coords`` for a chunk of
-    clouds [c, K] x [c, N]: (the arguments of K8 for the shape channel and
-    for the colour channel -- eleven [c * K, N] slot arrays and n_bin --,
-    in-radius counts [c, K] i32).  Unused pairs weigh zero."""
+    clouds [c, K] x [c, N], the slot arrays of K8's plain twin: (the
+    arguments of ``shot_hist_plain`` for the shape channel and for the
+    colour channel -- eleven [c * K, N] slot arrays and n_bin --, in-radius
+    counts [c, K] i32).  Unused pairs weigh zero."""
     c, k, _ = kp.shape
     r = f32(radius)
     dx = points[:, None, :, 0] - kp[:, :, None, 0]              # [c, K, N]

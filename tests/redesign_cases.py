@@ -1,11 +1,11 @@
 """Edge-case inputs for K1 (radius moments), K2 (LRF sign votes), K3
-(tile-compacted SHOT-352) and K4 (chi-square top-k), made with numpy from
-a seed: the cases a cell-binned radius sweep, compacted in-radius pairs
-binned into warp-owned histograms and a register-tiled chi-square kernel
-make risky.  tests/test_torch_redesign.py holds the plain twins against
-the JAX package on them (CPU); tests/test_torch_cuda.py holds the CUDA
-kernels against the twins on them (card).  numpy only: both files import
-this module."""
+(tile-compacted SHOT-352), K4 (chi-square top-k), K8 (CSHOT-1344) and K9
+(SHORT_SHOT), made with numpy from a seed: the cases a cell-binned radius
+sweep, compacted in-radius pairs binned into warp-owned histograms (or
+registers) and a register-tiled chi-square kernel make risky.
+tests/test_torch_redesign.py holds the plain twins against the JAX package
+on them (CPU); tests/test_torch_cuda.py holds the CUDA kernels against the
+twins on them (card).  numpy only: both files import this module."""
 
 import numpy as np
 
@@ -255,3 +255,153 @@ def k3_case(name, n=512, k=32):
     if name in ("on_axis", "in_plane", "shell_edges", "cos_pm1"):
         _exact_geometry(name, rng, kp, frames, pts, nrm)
     return kp, frames, frame_valid, kp_mask, pts, nrm, mask
+
+
+# --- K8 / K9: the dense [B, K] keypoint grid of CSHOT and SHORT_SHOT --------
+
+# a dyadic radius: r^2, r/4, r/2 and 3r/4 are exact in float32, so pairs
+# at exactly those distances are built to the bit
+K8_RADIUS = K9_RADIUS = 0.5
+_DENSE_CASES = ("dead_rows", "masked_garbage", "self_pairs", "on_radius",
+                "invalid_frames", "empty_cloud", "ragged_n")
+K8_CASES = _DENSE_CASES + ("bad_normals", "colour_edges", "colour_past_one")
+K9_CASES = _DENSE_CASES + ("theta_90", "phi_180", "r_half", "bins_2x4x8")
+K8_KEYS = ("keypoints", "kp_col", "frames", "frame_valid", "points",
+           "normals", "col", "mask")
+K9_KEYS = ("keypoints", "frames", "frame_valid", "points", "mask")
+# the colours of K8's colour_past_one case are normalised Lab, fed past the
+# RGB conversion (no real colour is more than a distance of 1 apart)
+K8_LAB_CASES = ("colour_past_one",)
+# 8-bit colour pairs whose CSHOT colour distance d has d * 30 an integer
+# in float32 (the soft bin's bd = 0 edge): (keypoint colour, point colours)
+EDGE_COLOURS = ((56, 220, 107), ((238, 103, 215), (252, 198, 17)))
+
+
+def k9_bins(name):
+    """(r_bins, e_bins, a_bins) of a K9 case."""
+    return (2, 4, 8) if name == "bins_2x4x8" else (2, 2, 8)
+
+
+def _place_exact(kp, frames, pts, offs, per_cloud=4):
+    """Put the first `per_cloud` keypoints of each cloud on a 1/64 grid
+    with frames of 0 / +-1 entries, and points at the local offsets `offs`
+    around each (in place of the cloud's last points): local coordinates
+    and squared distances are exact in float32 on both sides of the
+    comparison (exact differences and the matmul identity)."""
+    m = len(offs)
+    for i in range(kp.shape[0]):
+        for s in range(per_cloud):
+            fr = _EXACT_FRAMES[s % len(_EXACT_FRAMES)]
+            frames[i, s] = fr
+            kp[i, s] = np.round(kp[i, s] * 64) / 64
+            rows = slice(pts.shape[1] - (s + 1) * m, pts.shape[1] - s * m)
+            pts[i, rows] = kp[i, s] + offs @ fr
+            d = pts[i, rows] - kp[i, s]
+            loc = np.stack([(d * fr[a]).sum(-1, dtype=np.float32)
+                            for a in range(3)], -1)
+            assert (loc == offs).all()
+
+
+def _dense_case(name, seed, n=512, k=32):
+    """The inputs shared by K8 and K9 cases: (keypoints [B, K, 3], frames
+    [B, K, 3, 3], frame_valid [B, K], points [B, N, 3], mask [B, N], rng),
+    B = 2, at K8_RADIUS.  Rows past a cloud's keypoint count hold the
+    pipelines' 1e9 pad and an invalid frame, and with 21 and 13 keypoints
+    the last tile of 8 rows of each cloud is all dead."""
+    rng = np.random.default_rng(seed)
+    b = 2
+    if name == "ragged_n":
+        n = 2500
+    pts = np.stack([shapes.make_instance(rng, i + 1, n=n, rotate=True)
+                    for i in range(b)]).astype(np.float32)
+    mask = np.ones((b, n), bool)
+    counts = (21, 13)
+    kp = np.full((b, k, 3), 1e9, np.float32)
+    kp_mask = np.zeros((b, k), bool)
+    frames = _rotations(rng, b * k).reshape(b, k, 3, 3)
+    for i, c in enumerate(counts):
+        idx = rng.choice(n, c, replace=False)
+        kp[i, :c] = pts[i, idx] + rng.normal(scale=0.02, size=(c, 3))
+        kp_mask[i, :c] = True
+    frame_valid = kp_mask.copy()
+    if name == "invalid_frames":
+        # live rows whose frame is invalid: NaN, zero and a plain rotation
+        frame_valid[:, 1:4] = False
+        frames[:, 1] = np.nan
+        frames[:, 2] = 0.0
+    if name == "masked_garbage":
+        mask = rng.random((b, n)) > 0.15
+        bad = np.array([np.nan, 1e30, -1e30], np.float32)
+        holes = ~mask
+        pts[holes] = bad[rng.integers(0, len(bad), size=(holes.sum(), 3))]
+    if name == "empty_cloud":
+        mask[1] = False
+    # local offsets of the exact rows: none on an azimuth sector edge (a
+    # multiple of 45 degrees) but those the case is about
+    local = {
+        # a point on the keypoint (d^2 = 0 exactly: not used)
+        "self_pairs": [[0, 0, 0], [0.125, -0.0625, 0.25],
+                       [-0.25, 0.1875, -0.125], [0.0625, 0.3125, 0.1875]],
+        # exactly r, and the shell edges r/4, r/2, 3r/4
+        "on_radius": [[0.5, 0, 0], [0, -0.5, 0], [0, 0, 0.5], [-0.5, 0, 0],
+                      [0.125, 0, 0], [0, 0.25, 0], [0, 0, -0.375]],
+        # z_l = 0: theta = 90 degrees, the e-bin edge
+        "theta_90": [[0.25, 0.125, 0], [-0.1875, 0.3125, 0],
+                     [0.0625, -0.375, 0], [-0.25, -0.0625, 0]],
+        # y_l = +0, x_l < 0: phi = 180 degrees
+        "phi_180": [[-0.25, 0, 0.125], [-0.375, 0, -0.0625],
+                    [-0.1875, 0, 0], [-0.4375, 0, 0.1875]],
+        # |local| = r / 2: the r-bin edge
+        "r_half": [[0.25, 0, 0], [0, -0.25, 0], [0, 0, 0.25], [0, 0, -0.25]],
+    }
+    if name in local:
+        _place_exact(kp, frames, pts, np.array(local[name], np.float32))
+    return kp, frames, frame_valid, pts, mask, rng
+
+
+def k8_case(name):
+    """(keypoints, kp_col, frames, frame_valid, points, normals, col,
+    mask) -- K8_KEYS -- for CSHOT at K8_RADIUS: _dense_case's inputs with
+    unit normals and 8-bit colours / 255 (normalised Lab for
+    K8_LAB_CASES).  bad_normals: NaN and +-inf normal components;
+    colour_edges: keypoints of EDGE_COLOURS[0] among points of that colour
+    (distance 0) and of EDGE_COLOURS[1] (d * 30 = 10 and 5);
+    colour_past_one: Lab values past the converter's range, so that some
+    distances exceed 1 and the clamp holds them at 1."""
+    kp, frames, fv, pts, mask, rng = _dense_case(name,
+                                                 K8_CASES.index(name) + 70)
+    b, n = mask.shape
+    nrm = _unit(rng, (b, n))
+    col8 = rng.integers(0, 256, (b, n, 3))
+    kp8 = rng.integers(0, 256, kp.shape)
+    if name == "bad_normals":
+        bad = np.argwhere(rng.random((b, n)) < 0.1)
+        nrm[bad[:, 0], bad[:, 1], rng.integers(0, 3, len(bad))] = \
+            rng.choice(np.array([np.nan, np.inf, -np.inf], np.float32),
+                       len(bad))
+    if name == "masked_garbage":
+        nrm[~mask] = np.nan
+    if name == "colour_edges":
+        kp8[:, :8] = EDGE_COLOURS[0]
+        pick = rng.integers(0, 4, (b, n))
+        for j, c in enumerate((EDGE_COLOURS[0],) + EDGE_COLOURS[1]):
+            col8[pick == j] = c
+    kp_col = (kp8 / np.float32(255)).astype(np.float32)
+    col = (col8 / np.float32(255)).astype(np.float32)
+    if name in K8_LAB_CASES:
+        # L in [0, 1.5], a and b in [-1, 1]: keypoints at (0, 1, 1), a
+        # third of the points at (1.5, -1, -1), distance (1.5 + 2) / 3
+        kp_col = rng.uniform([0, -1, -1], [1.5, 1, 1], kp.shape)
+        col = rng.uniform([0, -1, -1], [1.5, 1, 1], (b, n, 3))
+        kp_col[:, :8] = (0, 1, 1)
+        col[rng.random((b, n)) < 1 / 3] = (1.5, -1, -1)
+        kp_col, col = kp_col.astype(np.float32), col.astype(np.float32)
+    return kp, kp_col, frames, fv, pts, nrm, col, mask
+
+
+def k9_case(name):
+    """(keypoints, frames, frame_valid, points, mask) -- K9_KEYS -- for
+    SHORT_SHOT at K9_RADIUS with the bins of k9_bins(name)."""
+    kp, frames, fv, pts, mask, _ = _dense_case(name,
+                                               K9_CASES.index(name) + 90)
+    return kp, frames, fv, pts, mask

@@ -155,7 +155,7 @@ def test_shot_hist_twin_matches_2pass(n_bin):
     args = _slot_arrays(n_bin)
     want = np.asarray(_shot_histogram_2pass(*map(jnp.asarray, args),
                                             n_bin=n_bin))
-    got = tk8.shot_hist(*map(t, args), n_bin)
+    got = tk8.shot_hist_plain(*map(t, args), n_bin)
     assert got.shape == (37, 32 * n_bin)
     np.testing.assert_allclose(n(got), want, rtol=1e-5, atol=1e-4)
 
@@ -178,7 +178,7 @@ def pallas_shot_hist(tmp_path_factory):
 def test_shot_hist_twin_matches_pallas_interpret(n_bin, pallas_shot_hist):
     """K8's twin vs the Pallas kernel it replaces, interpret mode: the
     tolerance of the JAX package's own Pallas-vs-XLA test (atol 1e-3)."""
-    got = tk8.shot_hist(*map(t, _slot_arrays(n_bin)), n_bin)
+    got = tk8.shot_hist_plain(*map(t, _slot_arrays(n_bin)), n_bin)
     np.testing.assert_allclose(n(got), pallas_shot_hist[f"s{n_bin}"],
                                atol=1e-3)
 
@@ -187,18 +187,19 @@ def test_shot_hist_ignores_out_of_range_indices():
     """As in the one-hot products, an index outside [0, 32) x [0, n_bin)
     adds nothing, and zero weights add nothing."""
     args = [t(a) for a in _slot_arrays(11)]
-    want = tk8.shot_hist(*args, 11)
+    want = tk8.shot_hist_plain(*args, 11)
     bad = [a.clone() for a in args]
     bad[0][:, :5] = 32      # desc out of range: pass A of those columns
     bad[2][:, :5] = 0.0
     bad[4][:, :5] = 0.0     # ... and their weights zero: same histogram
     bad[5][0, 10] = -1      # a negative radial volume drops one slot
-    got = tk8.shot_hist(*bad, 11)
+    got = tk8.shot_hist_plain(*bad, 11)
     fix = [a.clone() for a in args]
     fix[2][:, :5] = 0.0
     fix[4][:, :5] = 0.0
     fix[6][0, 10] = 0.0
-    np.testing.assert_allclose(n(got), n(tk8.shot_hist(*fix, 11)), atol=0)
+    np.testing.assert_allclose(n(got), n(tk8.shot_hist_plain(*fix, 11)),
+                               atol=0)
     assert not torch.equal(got, want)
 
 

@@ -16,8 +16,9 @@ import torch
 import shapes
 from bench_data import KEYPOINT_CAPACITY, bench_clouds, bench_colors
 from redesign_cases import (K1_CASES, K1_RADIUS, K2_CASES, K3_CASES,
-                            K3_RADIUS, K4_DIMS, k1_case, k2_case, k3_case,
-                            k4_case)
+                            K3_RADIUS, K4_DIMS, K8_CASES, K8_LAB_CASES,
+                            K8_RADIUS, K9_CASES, K9_RADIUS, k1_case, k2_case,
+                            k3_case, k4_case, k8_case, k9_bins, k9_case)
 from torch_parity import (assert_decisions_match, assert_descriptors_close,
                           assert_topk_close, cuda_device, n, t)  # noqa: F401
 
@@ -28,6 +29,8 @@ from point_cloud_donkey_tpu_torch.models.pipeline import (IsmClassifier,
                                                           IsmDetector,
                                                           PipelineConfig)
 from point_cloud_donkey_tpu_torch.ops import binned
+from point_cloud_donkey_tpu_torch.ops import short_shot as tss
+from point_cloud_donkey_tpu_torch.ops.color import rgb_to_cielab_normalized
 from point_cloud_donkey_tpu_torch.ops.kernels import chisq as tchisq
 from point_cloud_donkey_tpu_torch.ops.kernels import histogram as thist
 from point_cloud_donkey_tpu_torch.ops.kernels import lrf_moments as tlrfm
@@ -370,32 +373,144 @@ def test_windowed_slice_matches_jax_reference(cuda_device):
     assert (n(scores).argmax(1) == ref["labels"]).all()
 
 
-@pytest.mark.parametrize("n_bin", [11, 31])
-def test_shot_hist_matches_plain(cuda_device, n_bin):
-    """K8 vs its twin on random slot arrays with ~20% live columns and
-    some out-of-range indices: both add each row's slots in (column,
-    slot) order, so the kernel equals the CPU twin bit for bit."""
-    g = torch.Generator().manual_seed(n_bin)
-    r, m = 300, 2048
-    ints = [torch.randint(-1, hi + 1, (r, m), generator=g, dtype=torch.int32)
-            for hi in (32, n_bin, n_bin, 32, 32, 32)]
-    ws = [torch.rand(r, m, generator=g)
-          * (torch.rand(r, m, generator=g) < 0.2) for _ in range(5)]
-    d, st, cb, rv, iv, av = ints
-    cw, cosw, rw, iw, aw = ws
-    args = [d, st, cw, cb, cosw, rv, rw, iv, iw, av, aw]
-    h = tsh.shot_hist(*(a.to(cuda_device) for a in args), n_bin)
-    assert torch.equal(h.cpu(), tsh.shot_hist_plain(*args, n_bin))
+def _same_bits(a, b):
+    """Equal bit for bit (NaN included)."""
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
 
 
-def test_histogram_matches_plain(cuda_device):
-    """K9 vs its twin: bit-equal to the CPU twin (column order)."""
-    g = torch.Generator().manual_seed(5)
-    idx = torch.randint(-2, 34, (300, 8192), generator=g, dtype=torch.int32)
-    w = torch.rand(300, 8192, generator=g) \
-        * (torch.rand(300, 8192, generator=g) < 0.1)
-    h = thist.histogram(idx.to(cuda_device), w.to(cuda_device), 32)
-    assert torch.equal(h.cpu(), thist.histogram_plain(idx, w, 32))
+def _k8_inputs(case, device, all_live=False):
+    """cshot_hist's arguments for a K8 case (Lab from the port's
+    conversion, or the case's own Lab), on `device`; with all_live, every
+    row -- the 1e9 pad rows too -- is described."""
+    kp, kp_col, fr, fv, pts, nrm, col, mask = (t(x) for x in k8_case(case))
+    if case not in K8_LAB_CASES:
+        kp_col = rgb_to_cielab_normalized(kp_col)
+        col = rgb_to_cielab_normalized(col)
+    live = torch.ones_like(fv) if all_live else fv
+    return tuple(x.contiguous().to(device) for x in (
+        kp, kp_col, fr, live, pts, nrm, col, mask)) + (K8_RADIUS,)
+
+
+@pytest.mark.parametrize("all_live", [False, True])
+@pytest.mark.parametrize("case", K8_CASES)
+def test_cshot_hist_edge_cases_match_plain(cuda_device, case, all_live):
+    """K8 (the CSHOT pairs binned on chip) vs its CPU twin (slot arrays,
+    then their histograms) at tests/redesign_cases.py's edge cases --
+    dead rows and all-dead tiles, masked garbage, exact self pairs and
+    on-radius pairs, invalid frames, an empty cloud, N = 2500, NaN and
+    +-inf normals, colour distances on a bin edge and past 1 -- with the
+    live rows as the descriptor gives them and with every row live (the
+    1e9 rows meet no point): counts equal, validity equal, descriptor
+    cosine > 0.999 with fewer than 1e-4 of the entries off by more than
+    1e-3; rows that are not live zero; two launches equal bit for bit."""
+    args = _k8_inputs(case, cuda_device, all_live)
+    h, c = tsh.cshot_hist(*args)
+    h2, c2 = tsh.cshot_hist(*args)
+    assert _same_bits(h, h2) and torch.equal(c, c2)
+    ph, pc = tsh.cshot_hist(*(a.cpu() if torch.is_tensor(a) else a
+                              for a in args))
+    assert torch.equal(c.cpu(), pc)
+    live = args[3]
+    assert not h[~live].any() and not c[~live].any()
+    dead = args[0][..., 0] == 1e9
+    assert not h[dead].any() and not c[dead].any()
+    fv = t(k8_case(case)[3]).to(cuda_device)
+    got = normalize_descriptors(h, c, fv)
+    want = normalize_descriptors(ph, pc, fv.cpu())
+    assert_descriptors_close(got.descriptors, got.valid, want.descriptors,
+                             want.valid)
+
+
+def _short_shot_unit(hist, frame_valid):
+    """(descriptors, valid) of raw SHORT_SHOT histograms, as
+    short_shot_descriptor_dense makes them."""
+    norm = torch.linalg.norm(hist, dim=-1, keepdim=True)
+    desc = hist / norm.clamp(min=1e-30)
+    return desc, (frame_valid & (norm[..., 0] > 0)
+                  & torch.isfinite(desc).all(-1))
+
+
+@pytest.mark.parametrize("all_live", [False, True])
+@pytest.mark.parametrize("case", K9_CASES)
+def test_short_shot_hist_edge_cases_match_plain(cuda_device, case,
+                                                all_live):
+    """K9 (the SHORT_SHOT pairs binned on chip, the histogram in
+    registers) vs its CPU twin at tests/redesign_cases.py's edge cases --
+    those of K8 without normals and colours, and theta = 90, phi = 180 and
+    r = r/2 bin edges and a 2 x 4 x 8 grid: validity equal, descriptor
+    cosine > 0.999 with fewer than 1e-4 of the entries off by more than
+    1e-3 (every bin adds in the twin's (point, slot) order, so only
+    acosf / atan2f can move a pair); rows that are not live zero; two
+    launches equal bit for bit."""
+    kp, fr, fv, pts, mask = (t(x) for x in k9_case(case))
+    live = torch.ones_like(fv) if all_live else fv
+    args = (kp, fr, live, pts, mask, K9_RADIUS) + k9_bins(case)
+    dargs = tuple(a.to(cuda_device) if torch.is_tensor(a) else a
+                  for a in args)
+    h = thist.short_shot_hist(*dargs)
+    assert _same_bits(h, thist.short_shot_hist(*dargs))
+    ph = thist.short_shot_hist(*args)
+    assert not h[~dargs[2]].any()
+    assert not h[dargs[0][..., 0] == 1e9].any()
+    assert_descriptors_close(*_short_shot_unit(h.cpu(), fv),
+                             *_short_shot_unit(ph, fv))
+
+
+@pytest.mark.parametrize("dims", sorted(tss.AUTO_BINS))
+def test_short_shot_hist_every_auto_bin_size(cuda_device, dims):
+    """K9 at every AUTO_BINS grid (1 to 8 registers a lane) vs its CPU
+    twin on masked garbage: raw histograms within f32 rounding of the
+    bins' edges (rtol 1e-5 on the row sums, each entry within 1e-3 of the
+    row's largest)."""
+    kp, fr, fv, pts, mask = (t(x) for x in k9_case("masked_garbage"))
+    args = (kp, fr, fv, pts, mask, K9_RADIUS) + tss.AUTO_BINS[dims]
+    h = thist.short_shot_hist(*(a.to(cuda_device) if torch.is_tensor(a)
+                                else a for a in args)).cpu()
+    ph = thist.short_shot_hist(*args)
+    assert h.shape[-1] == dims
+    torch.testing.assert_close(h.sum(-1), ph.sum(-1), rtol=1e-5, atol=1e-5)
+    scale = ph.amax(-1, keepdim=True).clamp(min=1e-30)
+    assert ((h - ph).abs() / scale).max() <= 1e-3
+
+
+@pytest.mark.parametrize("descriptor", ["CSHOT", "SHORT_SHOT"])
+def test_fused_k8_k9_at_serving_shapes(cuda_device, descriptor):
+    """K8 / K9 at the serving step's shapes (16 bench clouds x 192
+    keypoints x 2048 points, their voxel keypoints and keypoint LRFs, the
+    bench colours) vs their twins on the card: counts equal, descriptor
+    contract; two launches equal bit for bit."""
+    ref = np.load(DATA + "bench_reference.npz")
+    pts = t(ref["points"]).to(cuda_device)
+    mask = torch.ones(pts.shape[:2], dtype=torch.bool, device=cuda_device)
+    rgb = t(bench_colors(ref["points"])).to(cuda_device)
+    kres = voxel_grid(pts, mask, 0.35, capacity=KEYPOINT_CAPACITY,
+                      features=rgb)
+    kp = torch.where(kres.mask[..., None], kres.centroids[..., :3],
+                     torch.full_like(kres.centroids[..., :3], 1e9))
+    lrf = shot_lrf(kp, kres.mask, pts, mask, 0.5)
+    if descriptor == "CSHOT":
+        nrm = compute_normals_fast(pts, mask, 0.25)
+        args = (kp.contiguous(),
+                rgb_to_cielab_normalized(kres.centroids[..., 3:6]),
+                lrf.frames, lrf.valid, pts, nrm,
+                rgb_to_cielab_normalized(rgb), mask, 0.6)
+        h, c = tsh.cshot_hist(*args)
+        h2, c2 = tsh.cshot_hist(*args)
+        ph, pc = tsh.cshot_hist_plain(*args)
+        assert torch.equal(c, c2) and torch.equal(c, pc)
+        got = normalize_descriptors(h, c, lrf.valid)
+        want = normalize_descriptors(ph, pc, lrf.valid)
+        got, want = (got.descriptors, got.valid), (want.descriptors,
+                                                   want.valid)
+    else:
+        args = (kp.contiguous(), lrf.frames, lrf.valid, pts, mask, 0.6)
+        h = thist.short_shot_hist(*args)
+        h2 = thist.short_shot_hist(*args)
+        ph = thist.short_shot_hist_plain(*args, 2, 2, 8)
+        got = _short_shot_unit(h, lrf.valid)
+        want = _short_shot_unit(ph, lrf.valid)
+    assert torch.equal(h, h2)
+    assert_descriptors_close(*got, *want)
 
 
 @pytest.mark.parametrize("descriptor,kernel", [("CSHOT", "shot_hist"),
@@ -403,8 +518,8 @@ def test_histogram_matches_plain(cuda_device):
 def test_descriptor_slices_match_jax_reference(cuda_device, descriptor,
                                                kernel):
     """The CSHOT / SHORT_SHOT classify step on the card vs the committed
-    JAX-CPU scores of the 16 reference clouds; K8 (twice) / K9 (once)
-    launched; two runs equal."""
+    JAX-CPU scores of the 16 reference clouds; K8 / K9 launched once; two
+    runs equal."""
     ref = np.load(DATA + "bench_reference.npz")
     dref = np.load(DATA + "descriptor_reference.npz")
     path = DATA + descriptor.lower() + "_codebook.ism"
@@ -423,7 +538,7 @@ def test_descriptor_slices_match_jax_reference(cuda_device, descriptor,
         scores = model(pts, mask, rgb)
         counts = build.launch_counts()
         again = model(pts, mask, rgb)
-    assert counts[kernel] == (2 if descriptor == "CSHOT" else 1), counts
+    assert counts[kernel] == 1, counts
     assert_decisions_match(scores, dref["scores_" + descriptor.lower()])
     assert torch.equal(scores, again)
 

@@ -9,26 +9,40 @@ exact on-axis, in-plane and shell-edge local geometry, cos_desc = +-1,
 dead rows and an empty cloud; ragged D, C off the tiles, k in {1, 2, 3},
 masked, all-zero and duplicated codewords.  K2's and K3's Pallas
 references run in a process of their own (torch_parity.pallas_interpret).
+K8's and K9's twins (the slot arrays, then their histograms) are held
+against the JAX dense CSHOT and SHORT_SHOT on the dense [B, K] grid, each
+in a process of its own too: dead rows at 1e9, all-dead tiles, masked
+garbage, exact-zero self pairs, pairs at exactly r and on the shell, theta
+and phi and r bin edges, invalid frames, an empty cloud, ragged N, NaN and
++-inf normals and colour distances on a bin edge and past 1.
 tests/test_torch_cuda.py holds the CUDA kernels against these twins on the
 same inputs."""
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 from jax.experimental.pallas import tpu as pltpu
 
 from redesign_cases import (K1_CASES, K1_RADIUS, K2_CASES, K3_CASES,
-                            K3_KEYS, K3_RADIUS, K4_DIMS, k1_case, k2_case,
-                            k3_case, k4_case)
+                            K3_KEYS, K3_RADIUS, K4_DIMS, K8_CASES,
+                            K8_KEYS, K8_LAB_CASES, K8_RADIUS, K9_CASES,
+                            K9_KEYS, K9_RADIUS, k1_case, k2_case, k3_case,
+                            k4_case, k8_case, k9_bins, k9_case)
 from torch_parity import (assert_descriptors_close, assert_topk_close, n,
                           pallas_interpret, t)
 
 from point_cloud_donkey_tpu.ops.pallas import lrf_moments as jlrf
 from point_cloud_donkey_tpu.ops.pallas.chisq import \
     chi_square_distance_matrix_pallas
+from point_cloud_donkey_tpu_torch.ops import color as tcolor
+from point_cloud_donkey_tpu_torch.ops import shot as tshot_ops
+from point_cloud_donkey_tpu_torch.ops import short_shot as tss
 from point_cloud_donkey_tpu_torch.ops.kernels import chisq as tchisq
+from point_cloud_donkey_tpu_torch.ops.kernels import histogram as tk9
 from point_cloud_donkey_tpu_torch.ops.kernels import lrf_moments as tlrfm
 from point_cloud_donkey_tpu_torch.ops.kernels import shot_fused as tshot
+from point_cloud_donkey_tpu_torch.ops.kernels import shot_hist as tk8
 
 
 def _jax_moments(q, q_mask, p, mask, radius):
@@ -240,3 +254,173 @@ def test_shot_twin_matches_pallas_at_edge_cases(pallas_k3, case):
     np.testing.assert_allclose(n(tf), j("frames")[:rows], atol=1e-6)
     assert n(count)[n(alive)].min() >= 0 and n(count).max() > 5
     assert not n(count)[~n(alive)].any()
+
+
+# --- K8 / K9: CSHOT and SHORT_SHOT on the dense keypoint grid ----------------
+
+def _jax_input(points, mask, normals=None):
+    """The same cloud as the JAX dense descriptors need it: they multiply
+    unused pairs by zero, so a NaN in a masked point -- or, for CSHOT, a
+    non-finite normal anywhere -- makes every descriptor of its cloud NaN.
+    The port leaves such points out (a point with a non-finite normal is
+    not used, as the JAX gate intends), so the reference gets them masked,
+    at 1e9 (the pipelines' pad), with a zero normal."""
+    drop = ~mask | ~np.isfinite(points).all(-1)
+    if normals is not None:
+        drop |= ~np.isfinite(normals).all(-1)
+        normals = np.where(drop[..., None], 0, normals).astype(np.float32)
+    pts = np.where(drop[..., None] & ~np.isfinite(points), 1e9, points)
+    return pts.astype(np.float32), mask & ~drop, normals
+
+
+_K8_CODE = """
+import jax
+import jax.numpy as jnp
+import numpy as np
+from point_cloud_donkey_tpu.ops import color
+from point_cloud_donkey_tpu.ops.neighbors import pairwise_sqdist
+from point_cloud_donkey_tpu.ops.shot import cshot_descriptor_dense
+r = %r
+to_lab = color.rgb_to_cielab_normalized
+out = {}
+for case in %r:
+    g = lambda key: jnp.asarray(a[case + "__" + key])
+    # Lab cases feed their colours past the conversion
+    color.rgb_to_cielab_normalized = to_lab if case not in %r else (
+        lambda c: c)
+    f = jax.jit(jax.vmap(lambda *x: cshot_descriptor_dense(*x, r)))
+    res = f(*(g(key) for key in %r))
+    out[case + "__desc"] = np.asarray(res.descriptors)
+    out[case + "__valid"] = np.asarray(res.valid)
+    d2 = jax.vmap(pairwise_sqdist)(g("keypoints"), g("points"))
+    use = (d2 <= r * r) & (d2 > 1e-15) & g("mask")[:, None, :]
+    out[case + "__count"] = np.asarray(use.sum(-1))
+""" % (K8_RADIUS, K8_CASES, K8_LAB_CASES, K8_KEYS)
+
+
+@pytest.fixture(scope="module")
+def jax_k8(tmp_path_factory):
+    """The JAX dense CSHOT (vmapped over the clouds) and its gate's
+    in-radius counts at every K8 case, on _jax_input's clouds."""
+    arrays = {}
+    for case in K8_CASES:
+        x = dict(zip(K8_KEYS, k8_case(case)))
+        x["points"], x["mask"], x["normals"] = _jax_input(
+            x["points"], x["mask"], x["normals"])
+        arrays.update({f"{case}__{key}": v for key, v in x.items()})
+    return pallas_interpret(_K8_CODE, str(tmp_path_factory.mktemp("k8")),
+                            **arrays)
+
+
+@pytest.mark.parametrize("case", K8_CASES)
+def test_cshot_twin_matches_jax_at_edge_cases(jax_k8, case):
+    """K8's twin (the slot arrays of each chunk of clouds, then their
+    histograms) through `cshot_descriptor_dense` vs the JAX dense CSHOT:
+    validity equal, descriptor cosine > 0.999 with fewer than 1e-4 of the
+    entries off by more than 1e-3, in-radius counts +-1 on the live rows
+    (equal where the geometry is exact) and 0 elsewhere.  Masked garbage,
+    NaN and +-inf normals, a keypoint's coincident point (d^2 = 0) and the
+    empty cloud add nothing; points at exactly r count; colour distances
+    with d * 30 an integer and past 1 (clamped) bin as the reference
+    bins them."""
+    kp, kp_col, fr, fv, pts, nrm, col, mask = arrays = k8_case(case)
+    j = lambda key: jax_k8[f"{case}__{key}"]          # noqa: E731
+    lab = case in K8_LAB_CASES
+    kp_lab = t(kp_col) if lab else tcolor.rgb_to_cielab_normalized(t(kp_col))
+    pt_lab = t(col) if lab else tcolor.rgb_to_cielab_normalized(t(col))
+    hist, count = tk8.cshot_hist(t(kp), kp_lab, t(fr), t(fv), t(pts), t(nrm),
+                                 pt_lab, t(mask), K8_RADIUS)
+    got = tshot_ops.normalize_descriptors(hist, count, t(fv))
+    if not lab:
+        res = tshot_ops.cshot_descriptor_dense(*map(t, arrays), K8_RADIUS)
+        assert torch.equal(res.descriptors, got.descriptors)
+    assert_descriptors_close(got.descriptors, got.valid, j("desc"),
+                             j("valid"))
+    count = n(count)
+    assert not count[~fv].any() and not n(hist)[~fv].any()
+    diff = np.abs(count - j("count"))[fv]
+    assert diff.max() <= 1 and count.max() > 5
+    if case == "on_radius":
+        assert not (count - j("count"))[:, :4].any()
+    if case == "empty_cloud":
+        assert not count[1].any() and not n(got.valid)[1].any()
+    if case in ("colour_edges", "colour_past_one"):
+        # the edge is reached: in-radius pairs of the first 8 keypoints at
+        # d * 30 an integer, or at a distance past 1
+        near = (((pts[:, None] - kp[:, :8, None]) ** 2).sum(-1)
+                <= K8_RADIUS ** 2)
+        d = np.abs(n(kp_lab)[:, :8, None] - n(pt_lab)[:, None])
+        raw = ((d[..., 0] + (d[..., 1] + d[..., 2]) * np.float32(0.5))
+               * np.float32(tcolor._recip(3.0)))
+        if case == "colour_edges":
+            v = np.clip(raw, 0, 1) * np.float32(30)
+            hit = near & (v == np.round(v)) & (v > 0)
+        else:
+            hit = near & (raw > 1)
+        assert hit.sum() > 20, hit.sum()
+
+
+_K9_CODE = """
+import jax
+import jax.numpy as jnp
+import numpy as np
+from point_cloud_donkey_tpu.ops.short_shot import short_shot_descriptor_dense
+out = {}
+for case, bins in %r:
+    g = lambda key: jnp.asarray(a[case + "__" + key])
+    f = jax.jit(jax.vmap(lambda *x: short_shot_descriptor_dense(
+        *x, %r, *bins)))
+    res = f(*(g(key) for key in %r))
+    out[case + "__desc"] = np.asarray(res.descriptors)
+    out[case + "__valid"] = np.asarray(res.valid)
+""" % (tuple((c, k9_bins(c)) for c in K9_CASES), K9_RADIUS, K9_KEYS)
+
+
+@pytest.fixture(scope="module")
+def jax_k9(tmp_path_factory):
+    """The JAX dense SHORT_SHOT (vmapped over the clouds) at every K9
+    case, on _jax_input's clouds."""
+    arrays = {}
+    for case in K9_CASES:
+        x = dict(zip(K9_KEYS, k9_case(case)))
+        x["points"], x["mask"], _ = _jax_input(x["points"], x["mask"])
+        arrays.update({f"{case}__{key}": v for key, v in x.items()})
+    return pallas_interpret(_K9_CODE, str(tmp_path_factory.mktemp("k9")),
+                            **arrays)
+
+
+@pytest.mark.parametrize("case", K9_CASES)
+def test_short_shot_twin_matches_jax_at_edge_cases(jax_k9, case):
+    """K9's twin (the slot arrays of each chunk of clouds, then their
+    histogram) through `short_shot_descriptor_dense` vs the JAX dense
+    SHORT_SHOT: validity equal, descriptor cosine > 0.999 with fewer than
+    1e-4 of the entries off by more than 1e-3; rows that are not live stay
+    zero.  Where the geometry is exact -- z_l = 0 (theta = 90, the e-bin
+    edge), y_l = +0 with x_l < 0 (phi = 180, the cyclic a-bin edge) and r
+    at exactly r/2 (the r-bin edge) -- the descriptors agree to 1e-6."""
+    kp, fr, fv, pts, mask = k9_case(case)
+    bins = k9_bins(case)
+    j = lambda key: jax_k9[f"{case}__{key}"]          # noqa: E731
+    got = tss.short_shot_descriptor_dense(t(kp), t(fr), t(fv), t(pts),
+                                          t(mask), K9_RADIUS, *bins)
+    assert got.descriptors.shape[-1] == np.prod(bins)
+    hist = tk9.short_shot_hist(t(kp), t(fr), t(fv), t(pts), t(mask),
+                               K9_RADIUS, *bins)
+    assert not n(hist)[~fv].any()
+    assert_descriptors_close(got.descriptors, got.valid, j("desc"),
+                             j("valid"))
+    if case == "empty_cloud":
+        assert not n(got.valid)[1].any()
+    if case in ("theta_90", "phi_180", "r_half"):
+        np.testing.assert_allclose(n(got.descriptors)[:, :4],
+                                   j("desc")[:, :4], atol=1e-6)
+
+
+def test_short_shot_bins_past_256_are_refused():
+    """K9 holds a lane's bins in registers: up to 256 bins (every
+    AUTO_BINS size), and a larger grid raises on either device."""
+    kp, fr, fv, pts, mask = map(t, k9_case("dead_rows"))
+    hist = tk9.short_shot_hist(kp, fr, fv, pts, mask, K9_RADIUS, 8, 4, 8)
+    assert hist.shape[-1] == max(tss.AUTO_BINS) == tk9.MAX_BINS
+    with pytest.raises(ValueError, match="256"):
+        tk9.short_shot_hist(kp, fr, fv, pts, mask, K9_RADIUS, 4, 9, 8)

@@ -52,7 +52,8 @@ def test_histogram_twin_matches_histogram_from_slots():
     idx, w = _slots()
     want = np.asarray(_histogram_from_slots(jnp.asarray(idx), jnp.asarray(w),
                                             32))
-    got = tk9.histogram(t(idx.reshape(37, -1)), t(w.reshape(37, -1)), 32)
+    got = tk9.histogram_plain(t(idx.reshape(37, -1)), t(w.reshape(37, -1)),
+                              32)
     assert got.shape == (37, 32)
     np.testing.assert_allclose(n(got), want, rtol=1e-5, atol=1e-4)
 
@@ -80,7 +81,8 @@ def test_histogram_twin_matches_pallas_interpret(length, pallas_histogram):
     SHORT_SHOT width and at a width that is no power of two: f32 summation
     order only, rtol 1e-5."""
     idx, w = _slots(length=length)
-    got = tk9.histogram(t(idx.reshape(37, -1)), t(w.reshape(37, -1)), length)
+    got = tk9.histogram_plain(t(idx.reshape(37, -1)), t(w.reshape(37, -1)),
+                              length)
     np.testing.assert_allclose(n(got), pallas_histogram[f"h{length}"],
                                rtol=1e-5, atol=1e-4)
 
@@ -95,8 +97,8 @@ def test_histogram_ignores_out_of_range_indices():
     fix = w.clone()
     fix[:, :3] = 0.0
     fix[0, 5] = 0.0
-    np.testing.assert_array_equal(n(tk9.histogram(bad, w, 32)),
-                                  n(tk9.histogram(idx, fix, 32)))
+    np.testing.assert_array_equal(n(tk9.histogram_plain(bad, w, 32)),
+                                  n(tk9.histogram_plain(idx, fix, 32)))
 
 
 @pytest.mark.parametrize("dims,kind,bins", [
