@@ -13,12 +13,14 @@ Phases (each prints its results; any failure raises and exits nonzero):
      batch, window calibrated on it), K7 at the mean-shift step's (32
      clouds x 192 keypoints), and K7 with and without its point-chunk
      split at 1, 8 and 32 clouds; K1 and K2 (the cell-binned sweep, K1
-     also at the detection batch, B=32), K3 (compacted in-radius pairs
-     into warp-owned histograms, with its swept pairs and in-radius
-     share) and K4 (register-tiled, also at CSHOT's D=1344 and at the
-     training self-kNN, Q=C=2000) each beside its previous design's time,
-     its bound (K4 also its special-function floor) and torch.profiler's
-     device time, with two launches bit-equal;
+     also at the detection batch, B=32; the bits of their outputs), K3
+     (compacted in-radius pairs into warp-owned histograms, with its swept
+     pairs and in-radius share), K4 (register-tiled, also at CSHOT's
+     D=1344 and at the training self-kNN, Q=C=2000) and K5 (the binned
+     sweep over the windows, beside K1 on the same sorted batch) each
+     beside its previous design's time, its bound (K4 also its
+     special-function floor) and torch.profiler's device time, with two
+     launches bit-equal;
   2c. K8 and K9, which bin the CSHOT and SHORT_SHOT pairs on chip, at
      those steps' shapes (the 128 bench clouds, coloured by
      tests/bench_data.bench_colors, 128 x 192 keypoints x 2048 points)
@@ -31,7 +33,9 @@ Phases (each prints its results; any failure raises and exits nonzero):
   2d. K10 (and K11) at the v2 LRF passes' shapes -- the serving normals
      (Q=N=2048, K10 with K2 z-only), the training normals' full LRF
      (Q=N=2048, K11) and the keypoint LRFs (Q=192) -- against their twins
-     and against K1 / K2, timed beside their twins and K1 / K2;
+     and against K1 / K2, timed beside their twins, K1 / K2 and K10's
+     previous design, two launches of K10 bit-equal, and K10's uniform
+     weighting against its twin at the keypoint LRFs' shape;
   3. LRF frames and SHOT descriptors against tests/golden/descriptors.npz;
   4. the dense classify step: IsmClassifier on the 128 x 2048 bench batch
      with the committed codebook -- per-stage ms, clouds/s, K1-K4 launched,
@@ -64,7 +68,8 @@ Phases (each prints its results; any failure raises and exits nonzero):
      committed references; training clouds/s on 24 clouds; the train entry
      point on 8 PCD files, then serve on its model.
 Every step of phases 4-8 also prints its peak device memory, and phase 2
-the bits (sha256) of K3's output and of K7's in-radius counts.
+the bits (sha256) of K1's, K2's and K3's outputs and of K7's in-radius
+counts (tests/port_fingerprint.py prints the same for any checkout).
 Before the last line it prints one JSON line with every kernel's launches
 (summed over one run of each path, counted from 0 just before each),
 error against its twin, times and bound, then the card's name and power
@@ -111,7 +116,7 @@ KERNELS = {
                   "point_cloud_donkey_tpu/ops/pallas/shot_hist.py:62"),
     "histogram": ("point_cloud_donkey_tpu_torch/csrc/histogram.cu",
                   "point_cloud_donkey_tpu/ops/pallas/histogram.py:51"),
-    "lrf_moments_v2": ("point_cloud_donkey_tpu_torch/csrc/lrf_moments_v2.cu",
+    "lrf_moments_v2": ("point_cloud_donkey_tpu_torch/csrc/lrf_moments.cu",
                        "point_cloud_donkey_tpu/ops/pallas/lrf_moments.py:161"),
     "sign_votes_v2": ("point_cloud_donkey_tpu_torch/csrc/lrf_moments_v2.cu",
                       "point_cloud_donkey_tpu/ops/pallas/lrf_moments.py:237"),
@@ -169,12 +174,16 @@ SHORT_SHOT_BODY_OPS = 75   # frame coords (15), r (6), theta and phi (7),
 # threads over points with shared-memory atomics, K4's one thread per
 # (descriptor, codeword) pair at the dense step's shapes; K8 (both
 # channels) and K9 over slot arrays at the CSHOT and SHORT_SHOT steps'
-# shapes, not counting the slot build -- from PERF.md's kernel table (H100
-# 80GB HBM3 at 700 W), printed beside this run's
+# shapes, not counting the slot build; K5's all-pairs sweep of the windows
+# and K10's dense bf16x3 mma.sync tiles at their steps' shapes -- from
+# PERF.md's kernel table (H100 80GB HBM3 at 700 W), printed beside this
+# run's
 PREVIOUS_MS = {"K1 normals": 0.834, "K1 keypoints": 0.279,
                "K4 serving": 2.079, "K2 normals": 0.482,
                "K2 keypoints": 0.170, "K3 serving": 0.874,
-               "K8 CSHOT": 0.684 + 0.715, "K9 SHORT_SHOT": 0.829}
+               "K8 CSHOT": 0.684 + 0.715, "K9 SHORT_SHOT": 0.829,
+               "K5 windowed": 0.441, "K10 normals": 1.184,
+               "K10 keypoints": 0.180}
 
 # detection against the JAX-CPU detect_maxima_jit reference: the best
 # class's maximum within a few times mean-shift's 1e-3 stopping shift, its
@@ -261,6 +270,7 @@ def main():
     import numpy as np
 
     from bench_data import KEYPOINT_CAPACITY, bench_clouds, bench_colors
+    from port_fingerprint import lrf_bits
     from point_cloud_donkey_tpu_torch import serve
     from point_cloud_donkey_tpu_torch.kernels import build
     from point_cloud_donkey_tpu_torch.models.codebook import (
@@ -407,6 +417,20 @@ def main():
                            pcnt, timed=starts is None, previous=previous)
         pairs = q.shape[0] * q.shape[1] * swept
         inside = int(cnt.sum())
+        if starts is not None:
+            again = mom_fn()
+            assert torch.equal(mom, again[0]) and torch.equal(cnt, again[1]), \
+                f"two K5 launches differ ({what})"
+            ms = cuda_ms(mom_fn, 20)
+            dev_ms = device_ms(mom_fn, "MomentsBody", 20)
+            k1_ms = cuda_ms(lambda: klrf.moments(q, p, mask_l, radius), 20)
+            b_ms, by = bound(nbytes(q, p, mask_l, mom, cnt, starts),
+                             inside * (GATE_OPS + MOMENT_BODY_OPS))
+            print(f"{'lrf_moments_windowed':20s} {what}: binned sweep of the "
+                  f"windows {ms:.4f} ms, device {fmt_ms(dev_ms)}; K1 over all "
+                  f"N on the same batch {k1_ms:.4f} ms (previous design "
+                  f"{PREVIOUS_MS['K5 windowed']:.3f} ms, bound {b_ms:.4f} ms "
+                  f"by {by}); two launches bit-equal ({card})", flush=True)
         print(f"{'':20s} {what}: {pairs:.3e} pairs swept, in-radius share "
               f"{inside / pairs:.4f}")
         extra = (starts,) if starts is not None else ()
@@ -456,6 +480,8 @@ def main():
         lrf_pair(kp, kres.mask, cfg.ref_frame_radius, False,
                  f"keypoint LRF B={BATCH} Q={kp.shape[1]}",
                  previous="K1 keypoints")
+        print(f"{'lrf_moments':20s} output bits (K1 and K2, normals and "
+              f"keypoint LRFs): {json.dumps(lrf_bits(pts, mask, kp, kres.mask, cfg))}")
         # K1 at the detection batch's shapes (B=32): timed, not recorded
         for queries, q_mask, radius, what in (
                 (pts, mask, cfg.normal_radius, "normals"),
@@ -656,9 +682,11 @@ def main():
     # -- 2d. K10 / K11 at the main paths' shapes ----------------------------
     phase(f"2d. K10 / K11 vs plain twins and vs K1 / K2 on the card ({card})")
 
-    def moments_v2_check(q, p, q_mask, radius, what, mom, cnt, cov, inside):
-        """K10's moments against its twin and against K1, timed beside
-        both and recorded."""
+    def moments_v2_check(q, p, q_mask, radius, what, mom, cnt, cov, inside,
+                         previous):
+        """K10's moments against its twin and against K1, two launches
+        bit-equal, timed beside both and its previous design
+        (PREVIOUS_MS[previous]) and recorded."""
         pmom, pcnt = klrf.moments_v2_plain(q, p, mask, radius)
         m1, c1 = klrf.moments(q, p, mask, radius)
         for other, ocnt, vs in ((pmom, pcnt, "its twin"), (m1, c1, "K1")):
@@ -672,32 +700,40 @@ def main():
                   f"{float(cerr):.2e}")
             assert rel <= 2e-4 and dc <= 1 and cerr <= 5e-4, \
                 f"K10 differs from {vs} ({what})"
-        k1_ms = cuda_ms(lambda: klrf.moments(q, p, mask, radius), 5)
-        ms = cuda_ms(lambda: klrf.moments_v2(q, p, mask, radius), 5)
-        print(f"{'':20s} {what}: K10 {ms:.4f} ms, K1 {k1_ms:.4f} ms at the "
-              f"same inputs ({card})")
+        again = klrf.moments_v2(q, p, mask, radius)
+        assert torch.equal(mom, again[0]) and torch.equal(cnt, again[1]), \
+            f"two K10 launches differ ({what})"
+        k1_ms = cuda_ms(lambda: klrf.moments(q, p, mask, radius), 20)
+        ms = cuda_ms(lambda: klrf.moments_v2(q, p, mask, radius), 20)
+        dev_ms = device_ms(lambda: klrf.moments_v2(q, p, mask, radius),
+                           "MomentsV2Body", 20)
+        print(f"{'':20s} {what}: K10 (binned sweep) {ms:.4f} ms, device "
+              f"{fmt_ms(dev_ms)}, K1 {k1_ms:.4f} ms at the same inputs "
+              f"(previous design {PREVIOUS_MS[previous]:.3f} ms); two "
+              f"launches bit-equal ({card})")
         record("lrf_moments_v2", (mom - pmom).abs().max(), ms,
                cuda_ms(lambda: klrf.moments_v2_plain(q, p, mask, radius), 2),
                what, nbytes(q, p, mask, mom, cnt),
                inside * (GATE_OPS + MOMENT_BODY_OPS))
 
-    def lrf_v2(queries, q_mask, radius, z_only, what, moments=True):
+    def lrf_v2(queries, q_mask, radius, z_only, what, moments=None):
         """K10 (and K11 unless z_only: the z-only normals vote with K2)
         at one main-path call against its twin -- moments: weight sums
         rtol 2e-4, counts +-1, covariance atol 5e-4; votes +-1 -- and
         against K1 / K2 to the JAX package's v1-vs-v2 contract
         (tests/test_pallas_kernels.py:101-125): the same, valid flags
-        equal, >= 97% of frames with every axis at |cos| > 0.999.  With
-        moments False, K10 is held and recorded by another call at the same
-        shape (its moments do not depend on z_only), and only its
-        covariance feeds K11 here."""
+        equal, >= 97% of frames with every axis at |cos| > 0.999.  moments
+        names K10's previous-design time (PREVIOUS_MS) where K10 is held and
+        recorded here; without it, K10 is held and recorded by another call
+        at the same shape (its moments do not depend on z_only), and only
+        its covariance feeds K11 here."""
         q, p = klrf.prep_shift(queries, pts, mask)
         mom, cnt = klrf.moments_v2(q, p, mask, radius)
         cov, _ = klrf.cov_from_moments(mom, q, q_mask)
         inside = int(cnt.sum())
         if moments:
             moments_v2_check(q, p, q_mask, radius, what, mom, cnt, cov,
-                             inside)
+                             inside, moments)
         _, vecs = eigh3x3(cov)
         axes = torch.cat([vecs[..., :, 2], vecs[..., :, 0]], -1).contiguous()
         if not z_only:
@@ -733,13 +769,38 @@ def main():
 
     with torch.no_grad():
         lrf_v2(pts, mask, cfg.normal_radius, True,
-               f"normals B={BATCH} Q=N={pts.shape[1]}")
+               f"normals B={BATCH} Q=N={pts.shape[1]}", "K10 normals")
         # the training normals: the full LRF, K11 at Q = N
         lrf_v2(pts, mask, cfg.normal_radius, False,
-               f"full-LRF normals B={BATCH} Q=N={pts.shape[1]}",
-               moments=False)
+               f"full-LRF normals B={BATCH} Q=N={pts.shape[1]}")
         lrf_v2(kp, kres.mask, cfg.ref_frame_radius, False,
-               f"keypoint LRF B={BATCH} Q={kp.shape[1]}")
+               f"keypoint LRF B={BATCH} Q={kp.shape[1]}", "K10 keypoints")
+        # K10's uniform weighting (no main path calls it: the training
+        # normals' uniform PCA covariance is ops/neighbors.radius_covariance)
+        # at the keypoint LRFs' shape: its twin's contract, its weight sums
+        # equal to its counts, two launches bit-equal
+        q, p = klrf.prep_shift(kp, pts, mask)
+        mom, cnt = klrf.moments_v2(q, p, mask, cfg.ref_frame_radius,
+                                   "uniform")
+        pmom, pcnt = klrf.moments_v2_plain(q, p, mask, cfg.ref_frame_radius,
+                                           "uniform")
+        assert torch.equal(mom, klrf.moments_v2(
+            q, p, mask, cfg.ref_frame_radius, "uniform")[0]), \
+            "two uniform K10 launches differ"
+        assert torch.equal(mom[..., 0], cnt.to(mom.dtype)), \
+            "uniform K10 weight sums differ from its counts"
+        rel = ((mom[..., 0] - pmom[..., 0]).abs()
+               / pmom[..., 0].abs().clamp(min=1e-6)).max()
+        cov, _ = klrf.cov_from_moments(mom, q, kres.mask)
+        pcov, _ = klrf.cov_from_moments(pmom, q, kres.mask)
+        cerr = (cov - pcov).abs().max()
+        dc = int((cnt - pcnt).abs().max())
+        print(f"{'lrf_moments_v2':20s} uniform keypoint LRF B={BATCH} "
+              f"Q={kp.shape[1]} vs its twin: weight sums rtol "
+              f"{float(rel):.2e}, counts +-{dc}, covariance {float(cerr):.2e}; "
+              f"two launches bit-equal")
+        assert rel <= 2e-4 and dc <= 1 and cerr <= 5e-4, \
+            "uniform K10 differs from its twin"
 
     # -- 3. goldens ---------------------------------------------------------
     phase("3. goldens (tests/golden/descriptors.npz, atol 2e-3)")

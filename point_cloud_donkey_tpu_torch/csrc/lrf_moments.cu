@@ -1,10 +1,11 @@
 // K1 radius moments and K2 sign votes of the SHOT local reference frame,
-// and their windowed forms K5 and K6.
+// their windowed forms K5 and K6, and K10, the v2 form of K1.
 //
 // Replaces point_cloud_donkey_tpu/ops/pallas/lrf_moments.py `_moments_call`
-// (K1) and `_sign_votes_call` (K2), reached through `shot_lrf_pallas`, and
+// (K1) and `_sign_votes_call` (K2), reached through `shot_lrf_pallas`,
 // `_moments_call_gathered` (K5) and `_sign_votes_call_gathered` (K6),
-// reached through `shot_lrf_pallas_windowed`.
+// reached through `shot_lrf_pallas_windowed`, and `_moments_call_v2` (K10),
+// which `_moments_dispatch` selects under PCD_PALLAS_LRF_V=2.
 //
 // K1: for every query q and every point p of its cloud with |p - q|^2 <= r^2
 // (exact coordinate differences), accumulate w = r - |p - q| into
@@ -18,26 +19,39 @@
 // principal axis and every tile of TQW = 256 consecutive queries sweeps
 // only its own window [start, start + W) of them (ops/binned.py plans the
 // starts; exactness is the caller's contract).
+// K10: K1's sums with the matmul-identity gate d2 = (|q|^2 + |p|^2) -
+// 2 q.p, the weight r - sqrt(max(d2, 0)) ("shot") or 1 ("uniform"), and
+// every moment as the TPU kernel's bf16x3 product w_hi F_hi + w_hi F_lo +
+// w_lo F_hi, where x_hi = bf16(x) and x_lo = bf16(x - x_hi).
 //
 // What bounds them on the H100: arithmetic on the pairs swept.  A pair
 // costs ~10 fp32 operations for the gate and an in-radius pair ~21 more and
-// a sqrt (K1) or ~6 (K2).  At the serving normals (128 clouds, r = 0.25)
-// only ~3% of the 5.4e8 (query, point) pairs are in radius, so the least
-// work is the in-radius pairs'; the bytes are a few MB.
+// a sqrt (K1), ~6 (K2) or ~85 (K10: ten bf16 splits, two to a conversion,
+// and thirty products, twenty of them fused with their sums).
+// At the serving normals (128 clouds, r = 0.25) only ~3% of the 5.4e8
+// (query, point) pairs are in radius, so the least work is the in-radius
+// pairs'; the bytes are a few MB.
 //
-// K1 and K2 share one design, a cell-binned sweep templated on its body
-// (MomentsBody, VotesBody), its grid built inside each CTA.  A CTA of 512
-// threads takes one cloud and a tile of its queries; the host uses as few
-// tiles per cloud as fill one wave of two CTAs per SM (B = 128: 2 tiles;
-// B = 32: 8), since every CTA rebuilds its cloud's grid.  The CTA
-//   1. reads the cloud once from device memory, staging it in shared memory
-//      as float4 (2048 points: 32 KB), reduces the bounding box of its
-//      unmasked points and lays a uniform grid over it: cell edges
+// K1, K2, K5 and K10 share one design, a cell-binned sweep templated on its
+// body (MomentsBody, VotesBody, MomentsV2Body), its gate (the exact
+// difference, or K10's identity) and its point range (the whole cloud, or
+// K5's windows), its grid built inside each CTA.  A CTA of 512 threads
+// takes one cloud and a tile of its queries; the host uses as few tiles per
+// cloud as fill one wave of two CTAs per SM (B = 128: 2 tiles; B = 32: 8),
+// since every CTA rebuilds its cloud's grid.  The CTA
+//   1. reads its points once from device memory -- the cloud, or for K5
+//      the union of the windows of the plan tiles its queries lie in (a
+//      contiguous range of the sorted points) -- staging them in shared
+//      memory as float4 (2048 points: 32 KB), reduces the bounding box of
+//      the unmasked ones and lays a uniform grid over it: cell edges
 //      >= 1.01 r / 2 where at most 2048 such cells cover the box, else
 //      >= 1.01 r (the 1% covers float rounding of the cell coordinates and
 //      of the gate), the largest axis shrinking until the table fits
 //      (edges only grow, so the sweep stays exact and a large extent costs
-//      only speed); an empty, infinite or NaN extent is one cell;
+//      only speed); an empty, infinite or NaN extent is one cell.  Under
+//      the identity gate the edges cover r^2 + 2^-19 (P^2 + r^2), P^2 the
+//      box's largest |p|^2: the identity's rounding (~6 ulp of |q|^2 +
+//      |p|^2) can pass a pair that far, and the sweep must visit it;
 //   2. sorts its queries by cell (a counting sort in shared memory), so the
 //      lanes of a warp walk nearly the same cells;
 //   3. bins the unmasked points with a counting sort -- shared-memory
@@ -47,44 +61,69 @@
 //      rows of 3 cells with edges r, 5 x 5 rows of 5 with edges r / 2 (58%
 //      of the volume), each row a contiguous run of the sorted points;
 //      every point within r of the query lies there.  The gate is the
-//      twins' float operations.  S lanes share a query (S = 1 at the
-//      serving normals, up to 32 when a CTA has few queries), striding
-//      through each run; a fixed shuffle tree sums them.  The order of
-//      every sum depends only on the cloud and S (fixed by B and Q), so two
-//      launches give equal bits.
+//      twins' float operations (K10: |q|^2 once per query, |p|^2 staged
+//      in the sorted point's fourth word, both in the twin's order).  K5
+//      skips the points outside its query's own tile window: the sorted
+//      point's fourth word holds its index, and a point within r but
+//      outside the window stays out, as in the TPU kernel.  S lanes share a
+//      query (S = 1 at the serving normals, up to 32 when a CTA has few
+//      queries), striding through each run; a fixed shuffle tree sums them.
+//      The order of every sum depends only on the points swept and S (fixed
+//      by B and Q), so two launches give equal bits.
 // The bodies: K1 adds the moments of an in-radius point (the weight's sqrt
 // is sqrt.approx, ~1 ulp, far inside the moments contract); K2 reads the
 // query's two axis candidates by its original row and counts the signs of
-// (p - q) . axis, integer sums that are exact in any order.
+// (p - q) . axis, integer sums that are exact in any order; K10 splits the
+// weight and the nine point features into bf16 hi / lo parts in fp32
+// registers and adds the three products of each moment, as the twin and
+// the TPU kernel compute them (dropping the split would make K10 compute
+// K1's function).  A product of two bf16 values is exact in fp32, so K10
+// fuses two of them with their sums (fmaf) without changing a bit.  Its
+// body is ~4x K1's and a warp runs it whenever one lane's pair is in
+// radius, so K10 takes ~2x K1's time: the split, not the sweep, is its
+// cost.  A per-lane queue that ran the body with more lanes busy cost as
+// much in its flattened loop as it saved.  K10 uses no tensor cores: the
+// binned sweep gives each query its own runs of points, so a 16-query x
+// 16-point weight tile would be ~97% zeros at the normals radius --
+// multiplying zeros is the work the sweep exists to skip -- and the gate
+// would still run on the CUDA cores.
 // Masked points never enter the grid (their coordinates may be garbage or
 // NaN).  Cell coordinates are clamped in float before conversion; a query
 // a neighbourhood or more outside the grid (a 1e9 pad, NaN) visits nothing
-// and gets 0.  Results go back to each query's own row.  Clouds over 2048
-// points are binned and swept chunk by chunk.  No PyTorch launch surrounds
-// the kernels.
-// K5 and K6 sweep every pair of their windows: one CTA per
-// (cloud, tile of 128 queries), one thread per query, the window's points
-// streamed through shared memory in 1024-point chunks as float4 (x, y, z,
-// mask).  The 3x3 EVD between the two passes stays in PyTorch.
+// and gets 0.  Results go back to each query's own row.  Point ranges over
+// 2048 points are binned and swept chunk by chunk.  No PyTorch launch
+// surrounds the kernels.
+// K6 sweeps every pair of its windows: one CTA per (cloud, tile of 128
+// queries), one thread per query, the window's points streamed through
+// shared memory in 1024-point chunks as float4 (x, y, z, mask).  The 3x3
+// EVD between the two passes stays in PyTorch.
 #include <cfloat>
+#include <cuda_bf16.h>
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int TQ = 128;   // queries per windowed CTA (one thread each)
+constexpr int TQ = 128;   // queries per K6 CTA (one thread each)
 constexpr int TN = 1024;  // points staged in shared memory per chunk
-constexpr int TQW = 256;  // queries per window-plan tile (2 CTAs)
+constexpr int TQW = 256;  // queries per window-plan tile (K6: 2 CTAs)
 static_assert(TQW % TQ == 0, "a CTA must lie inside one plan tile");
 
-// Sweep range [lo, hi) of this CTA's queries: the window its plan tile was
+// Points [lo, hi) of cloud b that plan tile t sweeps: the window it was
 // given (starts [B, T], clamped to N).
+__device__ __forceinline__ void plan_window(const int* __restrict__ starts,
+                                            int b, int t, int T, int W,
+                                            int N, int& lo, int& hi) {
+  lo = starts[(size_t)b * T + t];
+  lo = max(0, min(lo, N));
+  hi = min(lo + W, N);
+}
+
+// Sweep range [lo, hi) of this K6 CTA's queries: its plan tile's window.
 __device__ __forceinline__ void window_range(const int* __restrict__ starts,
                                              int T, int W, int N, int& lo,
                                              int& hi) {
-  lo = starts[(size_t)blockIdx.y * T + (blockIdx.x * TQ) / TQW];
-  lo = max(0, min(lo, N));
-  hi = min(lo + W, N);
+  plan_window(starts, blockIdx.y, (blockIdx.x * TQ) / TQW, T, W, N, lo, hi);
 }
 
 __device__ __forceinline__ void stage_points(float4* sp, const float* pb,
@@ -93,58 +132,6 @@ __device__ __forceinline__ void stage_points(float4* sp, const float* pb,
   for (int j = threadIdx.x; j < n; j += blockDim.x) {
     const float* pp = pb + (size_t)(base + j) * 3;
     sp[j] = make_float4(pp[0], pp[1], pp[2], mb[base + j] ? 1.f : 0.f);
-  }
-}
-
-__global__ void __launch_bounds__(TQ)
-lrf_moments_windowed_kernel(const float* __restrict__ q,
-                            const float* __restrict__ p,
-                            const unsigned char* __restrict__ mask,
-                            const int* __restrict__ starts,
-                            float* __restrict__ mom, int* __restrict__ count,
-                            int Q, int N, int T, int W, float r) {
-  __shared__ float4 sp[TN];
-  const int b = blockIdx.y;
-  const int qi = blockIdx.x * TQ + threadIdx.x;
-  const bool active = qi < Q;
-  const float r2 = r * r;
-  float qx = 0.f, qy = 0.f, qz = 0.f;
-  if (active) {
-    const float* qq = q + ((size_t)b * Q + qi) * 3;
-    qx = qq[0]; qy = qq[1]; qz = qq[2];
-  }
-  float s0 = 0.f, sx = 0.f, sy = 0.f, sz = 0.f;
-  float xx = 0.f, yy = 0.f, zz = 0.f, xy = 0.f, xz = 0.f, yz = 0.f;
-  int cnt = 0;
-  const float* pb = p + (size_t)b * N * 3;
-  const unsigned char* mb = mask + (size_t)b * N;
-  int lo, hi;
-  window_range(starts, T, W, N, lo, hi);
-  for (int base = lo; base < hi; base += TN) {
-    const int n = min(TN, hi - base);
-    __syncthreads();
-    stage_points(sp, pb, mb, base, n);
-    __syncthreads();
-    if (!active) continue;
-    for (int j = 0; j < n; ++j) {
-      const float4 pt = sp[j];
-      const float dx = qx - pt.x, dy = qy - pt.y, dz = qz - pt.z;
-      const float d2 = dx * dx + dy * dy + dz * dz;
-      if (d2 <= r2 && pt.w != 0.f) {
-        const float w = r - sqrtf(d2);
-        const float wx = w * pt.x, wy = w * pt.y, wz = w * pt.z;
-        s0 += w; sx += wx; sy += wy; sz += wz;
-        xx += wx * pt.x; yy += wy * pt.y; zz += wz * pt.z;
-        xy += wx * pt.y; xz += wx * pt.z; yz += wy * pt.z;
-        ++cnt;
-      }
-    }
-  }
-  if (active) {
-    float* o = mom + ((size_t)b * Q + qi) * 10;
-    o[0] = s0; o[1] = sx; o[2] = sy; o[3] = sz;
-    o[4] = xx; o[5] = yy; o[6] = zz; o[7] = xy; o[8] = xz; o[9] = yz;
-    count[(size_t)b * Q + qi] = cnt;
   }
 }
 
@@ -199,7 +186,7 @@ sign_votes_windowed_kernel(const float* __restrict__ q,
   }
 }
 
-// ---- K1 / K2: the cell-binned radius sweep ---------------------------------
+// ---- K1 / K2 / K5 / K10: the cell-binned radius sweep ---------------------
 
 constexpr int KT = 512;            // threads of a binned CTA
 constexpr int NCH = 2048;          // points binned per chunk
@@ -207,6 +194,10 @@ constexpr int QCAP = 1024;         // most queries of a CTA
 constexpr int CELL_CAP = 2048;     // most cells of a cloud's grid
 constexpr float CELL_MARGIN = 1.01f;  // cell edge >= 1.01 r: float slack
 constexpr unsigned FULL = 0xffffffffu;
+
+// The radius gate of a sweep: exact coordinate differences (K1, K2, K5) or
+// the matmul identity (|q|^2 + |p|^2) - 2 q.p (K10).
+enum Gate { EXACT_GATE, IDENTITY_GATE };
 
 // A uniform grid over the bounding box of a cloud's unmasked points: cell
 // (cx, cy, cz) has id (cz * n[1] + cy) * n[0] + cx, edges >= 1.01 r / f, so
@@ -222,7 +213,8 @@ struct CellGrid {
 
 struct BinnedSmem {
   float4 raw[NCH];           // the chunk's points in index order (w: cell)
-  float4 pts[NCH];           // its unmasked points in cell order
+  float4 pts[NCH];           // its unmasked points in cell order (w: the
+                             // point's index; |p|^2 under the identity gate)
   int start[CELL_CAP + 1];   // first sorted point of each cell
   int cursor[CELL_CAP + 1];  // counts, then scatter cursors
   float4 q[QCAP];            // the CTA's queries in cell order (w: row)
@@ -350,7 +342,10 @@ __device__ __forceinline__ void make_grid(CellGrid& g, const float (&lo)[3],
 // (shared-memory counts, a block scan), then one warp scatters in point
 // order, so every cell keeps its points in index order and two launches
 // sum in the same order.  With stage, the points come from device memory;
-// otherwise sm.raw holds them already (w: 1 unmasked, 0 masked).
+// otherwise sm.raw holds them already (w: 1 unmasked, 0 masked).  Each
+// sorted point keeps its index in w, or under the identity gate its |p|^2
+// (the twin's (x x + y y) + z z).
+template <int GATE>
 __device__ void bin_chunk(BinnedSmem& sm, const CellGrid& g,
                           const float* __restrict__ pb,
                           const unsigned char* __restrict__ mb, int base,
@@ -388,7 +383,10 @@ __device__ void bin_chunk(BinnedSmem& sm, const CellGrid& g,
       const int pos = c >= 0 ? sm.cursor[c] + rank : 0;
       __syncwarp();
       if (c >= 0) {
-        sm.pts[pos] = make_float4(v.x, v.y, v.z, 0.f);
+        const float w = GATE == IDENTITY_GATE
+                            ? v.x * v.x + v.y * v.y + v.z * v.z
+                            : __int_as_float(base + j);
+        sm.pts[pos] = make_float4(v.x, v.y, v.z, w);
         if (rank == 0) sm.cursor[c] += __popc(peers);
       }
       __syncwarp();
@@ -490,13 +488,70 @@ struct VotesBody {
   }
 };
 
+// The bf16 hi / lo parts of a and b at once (cvt.rn.bf16x2.f32, round to
+// nearest even as torch's float -> bfloat16): x_hi = bf16(x), x_lo =
+// bf16(x - x_hi), as fp32.
+__device__ __forceinline__ void bf16_split2(float a, float b, float& ah,
+                                            float& al, float& bh, float& bl) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  ah = __low2float(h);
+  bh = __high2float(h);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(a - ah, b - bh);
+  al = __low2float(l);
+  bl = __high2float(l);
+}
+
+// One moment term of an in-radius pair, w_hi F_hi + w_hi F_lo + w_lo F_hi
+// in the twin's association.  Products of two bf16 values are exact in
+// fp32, so each fused multiply-add rounds as the separate product and sum
+// do.
+__device__ __forceinline__ float split_term(float wh, float wl, float fh,
+                                            float fl) {
+  return __fmaf_rn(wl, fh, __fmaf_rn(wh, fl, wh * fh));
+}
+
+// K10's body: K1's sums and outputs, with the weight r - sqrt(max(d2, 0))
+// (SHOT) or 1 (uniform) of the identity gate's d2, and every moment as the
+// bf16x3 product of the weight and the point feature (1, x, y, z, xx, yy,
+// zz, xy, xz, yz).
+template <bool SHOT>
+struct MomentsV2Body : MomentsBody {
+  __device__ __forceinline__ void add(Acc& a, const float4& pt, float, float,
+                                      float, float d2) const {
+    const float w = SHOT ? r - sqrt_approx(fmaxf(d2, 0.f)) : 1.f;
+    const float x = pt.x, y = pt.y, z = pt.z;
+    float wh, wl, xh, xl, yh, yl, zh, zl;
+    bf16_split2(w, x, wh, wl, xh, xl);
+    bf16_split2(y, z, yh, yl, zh, zl);
+    float h0, l0, h1, l1;
+    a.s0 += wh + wl;   // the feature 1: hi 1, lo 0
+    a.sx += split_term(wh, wl, xh, xl);
+    a.sy += split_term(wh, wl, yh, yl);
+    a.sz += split_term(wh, wl, zh, zl);
+    bf16_split2(x * x, y * y, h0, l0, h1, l1);
+    a.xx += split_term(wh, wl, h0, l0);
+    a.yy += split_term(wh, wl, h1, l1);
+    bf16_split2(z * z, x * y, h0, l0, h1, l1);
+    a.zz += split_term(wh, wl, h0, l0);
+    a.xy += split_term(wh, wl, h1, l1);
+    bf16_split2(x * z, y * z, h0, l0, h1, l1);
+    a.xz += split_term(wh, wl, h0, l0);
+    a.yz += split_term(wh, wl, h1, l1);
+    ++a.cnt;
+  }
+};
+
 // One CTA per (cloud, tile of tq queries); S lanes per query (a power of
-// two <= 32) share its sweep, striding through each run of points.
-template <class Body>
+// two <= 32) share its sweep, striding through each run of points.  GATE
+// picks the radius gate; WINDOWED sweeps, for each query, only the window
+// of its plan tile (starts [B, T], W points each, clamped to N), else the
+// whole cloud.
+template <class Body, int GATE, bool WINDOWED>
 __global__ void __launch_bounds__(KT, 2)
 binned_sweep_kernel(const float* __restrict__ q, const float* __restrict__ p,
-                    const unsigned char* __restrict__ mask, Body body, int Q,
-                    int N, int tq, int S, float r) {
+                    const unsigned char* __restrict__ mask,
+                    const int* __restrict__ starts, Body body, int Q, int N,
+                    int T, int W, int tq, int S, float r) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   BinnedSmem& sm = *reinterpret_cast<BinnedSmem*>(smem_raw);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -508,16 +563,31 @@ binned_sweep_kernel(const float* __restrict__ q, const float* __restrict__ p,
   const float* pb = p + (size_t)b * N * 3;
   const unsigned char* mb = mask + (size_t)b * N;
   const float* qb = q + ((size_t)b * Q + q0) * 3;
-  const bool one_chunk = N <= NCH;
+  // the points the CTA sweeps, [pbeg, pend): the cloud, or the union of the
+  // windows of the plan tiles its queries lie in
+  int pbeg = 0, pend = N;
+  if (WINDOWED) {
+    pbeg = N;
+    pend = 0;
+    for (int t = q0 / TQW; t <= (q0 + nq - 1) / TQW; ++t) {
+      int a, e;
+      plan_window(starts, b, t, T, W, N, a, e);
+      pbeg = min(pbeg, a);
+      pend = max(pend, e);
+    }
+    pend = max(pend, pbeg);
+  }
+  const int span = pend - pbeg;
+  const bool one_chunk = span <= NCH;
 
-  // 1. the bounding box of the cloud's unmasked points (staging the cloud
-  // when it fits one chunk) and the grid over it
+  // 1. the bounding box of the swept unmasked points (staging them when
+  // they fit one chunk) and the grid over it
   float lo[3] = {INFINITY, INFINITY, INFINITY};
   float hi[3] = {-INFINITY, -INFINITY, -INFINITY};
-  for (int j = tid; j < N; j += KT) {
-    const float* pp = pb + (size_t)j * 3;
+  for (int j = tid; j < span; j += KT) {
+    const float* pp = pb + (size_t)(pbeg + j) * 3;
     const float v[3] = {pp[0], pp[1], pp[2]};
-    const bool m = mb[j] != 0;
+    const bool m = mb[pbeg + j] != 0;
     if (one_chunk) sm.raw[j] = make_float4(v[0], v[1], v[2], m ? 1.f : 0.f);
     if (m)
 #pragma unroll
@@ -547,7 +617,17 @@ binned_sweep_kernel(const float* __restrict__ q, const float* __restrict__ p,
         lo[k] = fminf(lo[k], sm.red[k][w]);
         hi[k] = fmaxf(hi[k], sm.red[3 + k][w]);
       }
-    make_grid(sm.grid, lo, hi, r);
+    float reach = r;
+    if (GATE == IDENTITY_GATE) {
+      // the identity's rounding: |q|^2 + |p|^2 <= ~4 P^2 for any pair it
+      // could pass, and ~6 ulp of that bounds its error
+      float p2 = 0.f;
+#pragma unroll
+      for (int k = 0; k < 3; ++k)
+        p2 += fmaxf(lo[k] * lo[k], hi[k] * hi[k]);
+      reach = sqrtf(r * r + 0x1p-19f * (p2 + r * r));
+    }
+    make_grid(sm.grid, lo, hi, reach);
   }
   __syncthreads();
   const CellGrid g = sm.grid;
@@ -568,7 +648,7 @@ binned_sweep_kernel(const float* __restrict__ q, const float* __restrict__ p,
     sm.q[slot] = make_float4(x, y, z, __int_as_float(i));
   }
   __syncthreads();
-  if (one_chunk) bin_chunk(sm, g, pb, mb, 0, N, false);
+  if (one_chunk) bin_chunk<GATE>(sm, g, pb, mb, pbeg, span, false);
 
   // 3. rounds of KT / S queries: each sweeps the (2f + 1)^2 rows of 2f + 1
   // consecutive cells around its cell (runs of the sorted points; every
@@ -578,12 +658,16 @@ binned_sweep_kernel(const float* __restrict__ q, const float* __restrict__ p,
   for (int r0 = 0; r0 < nq; r0 += KT / S) {
     const int slot = r0 + tid / S;
     const bool active = slot < nq;
-    float qx = 0.f, qy = 0.f, qz = 0.f;
+    float qx = 0.f, qy = 0.f, qz = 0.f, qq = 0.f;
     int row = 0, x0 = 0, x1 = -1, y0 = 0, y1 = -1, z0 = 0, z1 = -1;
+    int wlo = 0, whi = 0;
     if (active) {
       const float4 mq = sm.q[slot];
       qx = mq.x; qy = mq.y; qz = mq.z;
       row = __float_as_int(mq.w);
+      if (GATE == IDENTITY_GATE) qq = qx * qx + qy * qy + qz * qz;
+      if (WINDOWED)
+        plan_window(starts, b, (q0 + row) / TQW, T, W, N, wlo, whi);
       int c[3];
       if (query_cell(qx, qy, qz, g, c)) {
         x0 = max(c[0] - g.f, 0); x1 = min(c[0] + g.f, g.n[0] - 1);
@@ -593,17 +677,28 @@ binned_sweep_kernel(const float* __restrict__ q, const float* __restrict__ p,
     }
     typename Body::Acc acc;
     body.begin(acc, (size_t)b * Q + q0 + row, active);
-    for (int base = 0; base < N; base += NCH) {
-      if (!one_chunk) bin_chunk(sm, g, pb, mb, base, min(NCH, N - base), true);
+    for (int base = pbeg; base < pend; base += NCH) {
+      if (!one_chunk)
+        bin_chunk<GATE>(sm, g, pb, mb, base, min(NCH, pend - base), true);
       for (int cz = z0; cz <= z1; ++cz)
         for (int cy = y0; cy <= y1; ++cy) {
           const int rc = (cz * g.n[1] + cy) * g.n[0];
           const int je = sm.start[rc + x1 + 1];
           for (int j = sm.start[rc + x0] + sub; j < je; j += S) {
             const float4 pt = sm.pts[j];
-            const float dx = qx - pt.x, dy = qy - pt.y, dz = qz - pt.z;
-            const float d2 = dx * dx + dy * dy + dz * dz;
-            if (d2 <= r2) body.add(acc, pt, dx, dy, dz, d2);
+            if (WINDOWED) {
+              const int idx = __float_as_int(pt.w);
+              if (idx < wlo || idx >= whi) continue;
+            }
+            if (GATE == IDENTITY_GATE) {
+              const float qp = qx * pt.x + qy * pt.y + qz * pt.z;
+              const float d2 = (qq + pt.w) - 2.f * qp;
+              if (d2 <= r2) body.add(acc, pt, 0.f, 0.f, 0.f, d2);
+            } else {
+              const float dx = qx - pt.x, dy = qy - pt.y, dz = qz - pt.z;
+              const float d2 = dx * dx + dy * dy + dz * dz;
+              if (d2 <= r2) body.add(acc, pt, dx, dy, dz, d2);
+            }
           }
         }
       if (!one_chunk) __syncthreads();   // the next chunk reuses sm.pts
@@ -614,12 +709,13 @@ binned_sweep_kernel(const float* __restrict__ q, const float* __restrict__ p,
 }
 
 // Launch a binned sweep: as few CTAs per cloud as fill one wave of two
-// CTAs per SM (each CTA builds its cloud's grid), at least 16 and at most
-// QCAP queries a CTA; lanes per query: the most that still fit a CTA's
-// threads.
-template <class Body>
+// CTAs per SM (each CTA builds its grid), at least 16 and at most QCAP
+// queries a CTA; lanes per query: the most that still fit a CTA's
+// threads.  starts, T and W: the window plan of a WINDOWED sweep.
+template <class Body, int GATE = EXACT_GATE, bool WINDOWED = false>
 int launch_binned(const void* q, const void* p, const void* mask, Body body,
-                  int B, int Q, int N, float r, void* stream) {
+                  int B, int Q, int N, float r, void* stream,
+                  const void* starts = nullptr, int T = 0, int W = 0) {
   if (B == 0 || Q == 0) return pcd_last_error();
   int dev = 0, sms = 0;
   cudaGetDevice(&dev);
@@ -631,16 +727,17 @@ int launch_binned(const void* q, const void* p, const void* mask, Body body,
   int lanes = 1;
   while (lanes < 32 && 2 * lanes * tq <= KT) lanes *= 2;
   const int smem = (int)sizeof(BinnedSmem);
-  static bool smem_set[64] = {};   // one table per body
+  const auto kernel = binned_sweep_kernel<Body, GATE, WINDOWED>;
+  static bool smem_set[64] = {};   // one table per instance
   if (dev >= 64 || !smem_set[dev]) {
-    cudaFuncSetAttribute(binned_sweep_kernel<Body>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         smem);
     if (dev < 64) smem_set[dev] = true;
   }
   dim3 grid((Q + tq - 1) / tq, B);
-  binned_sweep_kernel<Body><<<grid, KT, smem, (cudaStream_t)stream>>>(
-      (const float*)q, (const float*)p, (const unsigned char*)mask, body, Q,
-      N, tq, lanes, r);
+  kernel<<<grid, KT, smem, (cudaStream_t)stream>>>(
+      (const float*)q, (const float*)p, (const unsigned char*)mask,
+      (const int*)starts, body, Q, N, T, W, tq, lanes, r);
   return pcd_last_error();
 }
 
@@ -663,11 +760,23 @@ PCD_EXPORT int pcd_lrf_moments_windowed(const void* q, const void* p,
                                         void* mom, void* count, int B, int Q,
                                         int N, int T, int W, float r,
                                         void* stream) {
-  dim3 grid((Q + TQ - 1) / TQ, B);
-  lrf_moments_windowed_kernel<<<grid, TQ, 0, (cudaStream_t)stream>>>(
-      (const float*)q, (const float*)p, (const unsigned char*)mask,
-      (const int*)starts, (float*)mom, (int*)count, Q, N, T, W, r);
-  return pcd_last_error();
+  return launch_binned<MomentsBody, EXACT_GATE, true>(
+      q, p, mask, MomentsBody{(float*)mom, (int*)count, r}, B, Q, N, r,
+      stream, starts, T, W);
+}
+
+// as pcd_lrf_moments with the identity gate and bf16x3 moments; shot = 1
+// for the (r - d) weights, 0 for uniform ones
+PCD_EXPORT int pcd_lrf_moments_v2(const void* q, const void* p,
+                                  const void* mask, void* mom, void* count,
+                                  int B, int Q, int N, float r, int shot,
+                                  void* stream) {
+  const MomentsBody m{(float*)mom, (int*)count, r};
+  if (shot)
+    return launch_binned<MomentsV2Body<true>, IDENTITY_GATE>(
+        q, p, mask, MomentsV2Body<true>{m}, B, Q, N, r, stream);
+  return launch_binned<MomentsV2Body<false>, IDENTITY_GATE>(
+      q, p, mask, MomentsV2Body<false>{m}, B, Q, N, r, stream);
 }
 
 // axes [B, Q, 6] f32 (x candidate, z candidate) -> votes [B, Q, 2] i32

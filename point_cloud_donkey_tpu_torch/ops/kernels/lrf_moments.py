@@ -9,12 +9,14 @@ Port of point_cloud_donkey_tpu/ops/pallas/lrf_moments.py: `_moments_call`
 `_moments_call_v2` -> :func:`moments_v2`, `_sign_votes_call_v2` ->
 :func:`sign_votes_v2`, `_prep_lanes` -> :func:`prep_shift`,
 `shot_lrf_pallas` -> :func:`shot_lrf_fused`, `shot_lrf_pallas_windowed` ->
-:func:`shot_lrf_windowed`.  The kernels are in csrc/lrf_moments.cu and
-csrc/lrf_moments_v2.cu.  The plain twins below compute the same sums with
+:func:`shot_lrf_windowed`.  The kernels are in csrc/lrf_moments.cu (K1,
+K2, K5, K6, K10) and csrc/lrf_moments_v2.cu (K11).  The plain twins below compute the same sums with
 the same float operations: K1/K2/K5/K6 on exact coordinate differences,
 K10/K11 on the matmul identity d2 = |q|^2 + |p|^2 - 2 q.p, K10's moments as
-bf16x3 products (their accumulation order is the tensor cores' own, so
-K10 is held to the moment contract, not to equal bits).
+bf16x3 products (the twin sums them as matrix products, the kernel pair by
+pair in the cell-binned sweep's order, so K10 is held to the moment
+contract, not to equal bits).  K1, K2, K5 and K10 are one cell-binned
+sweep in the kernel, with a body, a gate and a point range each.
 
 All tensors are batched over clouds: queries [B, Q, 3], points [B, N, 3],
 mask [B, N] bool.  Unlike the TPU layout, nothing is parked at 1e9: the
@@ -212,9 +214,10 @@ def moments_v2_plain(q: torch.Tensor, p: torch.Tensor, mask: torch.Tensor,
 def moments_v2(q: torch.Tensor, p: torch.Tensor, mask: torch.Tensor,
                radius: float, weighting: str = "shot"
                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K10: K1's moments and counts with the identity gate, the moments on
-    the tensor cores (bf16x3).  weighting "shot" (w = r - d) or "uniform"
-    (w = 1).  q [B, Q, 3], p [B, N, 3] (centroid-shifted), mask [B, N] ->
+    """K10: K1's moments and counts with the identity gate, each moment
+    the bf16x3 product w_hi F_hi + w_hi F_lo + w_lo F_hi (K1's cell-binned
+    sweep with the identity gate).  weighting "shot" (w = r - d) or
+    "uniform" (w = 1).  q [B, Q, 3], p [B, N, 3] (centroid-shifted), mask [B, N] ->
     (mom [B, Q, 10], count [B, Q])."""
     _check_common(q, p, mask)
     if weighting not in WEIGHTINGS:
@@ -323,7 +326,9 @@ def moments_windowed(q: torch.Tensor, p: torch.Tensor, mask: torch.Tensor,
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K5: K1 over principal-axis-sorted points, each tile of 256 queries
     sweeping only points [starts[b, t], starts[b, t] + window) of its
-    cloud.  starts [B, ceil(Q / 256)] int32 (ops/binned.window_starts)."""
+    cloud (K1's cell-binned sweep over the union of a CTA's windows; a
+    point outside its query's window stays out even within the radius).
+    starts [B, ceil(Q / 256)] int32 (ops/binned.window_starts)."""
     _check_windowed(q, p, mask, starts, window)
     if not uses_kernel(q, p, mask, starts):
         return moments_windowed_plain(q, p, mask, starts, window, radius)

@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Peak device memory of the port's CSHOT and SHORT_SHOT classify steps,
-and the bits of K3's output and of K7's in-radius counts (its float sums
-are atomic adds, whose order varies from run to run) at their main paths'
-shapes, for the port in a given checkout, on one NVIDIA GPU: what PERF.md
-compares between two checkouts of the port in one call (chip_smoke.py
-prints the same for its own checkout).
+and the bits of K1's and K2's outputs (the dense step's normals and
+keypoint LRFs), of K3's output and of K7's in-radius counts (its float
+sums are atomic adds, whose order varies from run to run) at their main
+paths' shapes, for the port in a given checkout, on one NVIDIA GPU: what
+PERF.md compares between two checkouts of the port in one call
+(chip_smoke.py prints the same for its own checkout).
 
     python tests/port_fingerprint.py [ROOT]    # ROOT: a checkout (default:
                                                # the one holding this file)
@@ -28,6 +29,30 @@ def digest(*tensors):
     for t in tensors:
         h.update(t.detach().cpu().numpy().tobytes())
     return h.hexdigest()[:16]
+
+
+def lrf_bits(pts, mask, kp, kp_mask, cfg):
+    """sha256 of K1's (moments, counts) and K2's votes at the dense
+    classify step's two LRF passes: the z-only normals (Q = N) and the
+    keypoint LRFs, K2 on the axes of K1's covariance.  Returns {name:
+    digest}."""
+    import torch
+
+    from point_cloud_donkey_tpu_torch.ops.eigh3 import eigh3x3
+    from point_cloud_donkey_tpu_torch.ops.kernels import lrf_moments as klrf
+    out = {}
+    for what, queries, q_mask, radius, z_only in (
+            ("normals", pts, mask, cfg.normal_radius, True),
+            ("keypoints", kp, kp_mask, cfg.ref_frame_radius, False)):
+        q, p = klrf.prep_shift(queries, pts, mask)
+        mom, cnt = klrf.moments(q, p, mask, radius)
+        cov, _ = klrf.cov_from_moments(mom, q, q_mask)
+        _, vecs = eigh3x3(cov)
+        axes = torch.cat([vecs[..., :, 2], vecs[..., :, 0]], -1).contiguous()
+        out[f"K1_{what}_sha256"] = digest(mom, cnt)
+        out[f"K2_{what}_sha256"] = digest(klrf.sign_votes(q, p, mask, axes,
+                                                          radius, z_only))
+    return out
 
 
 def step_memory(model, pts, mask, extra):
@@ -93,6 +118,7 @@ def main(root):
                           capacity=cfg.keypoint_capacity)
         kp = torch.where(kres.mask[..., None], kres.centroids,
                          torch.full_like(kres.centroids, 1e9))
+        out.update(lrf_bits(pts, mask, kp, kres.mask, cfg))
         lrf = shot_lrf(kp, kres.mask, pts, mask, cfg.ref_frame_radius)
         gidx, alive, tile_cloud = kshot.compact_layout(kres.mask)
         kp_rows = torch.where(alive[:, None], kp.reshape(-1, 3)[gidx],

@@ -63,6 +63,108 @@ def k1_case(name, n_points=None):
     return qry, q_mask, pts, mask
 
 
+K5_CASES = ("clamped_end", "inexact", "query_tail", "masked_nan_huge",
+            "full_window", "narrow_window", "overlapping")
+K5_TILE = 256   # queries per window-plan tile (TQW)
+
+
+def _principal_sort(pts, mask, rng):
+    """Sort each cloud along its principal axis (the unmasked points'
+    PCA); a masked point takes the key of a random unmasked one, so the
+    masked points spread through the windows.  Returns (points, mask,
+    keys [B, N] ascending)."""
+    out = ([], [], [])
+    for p, m in zip(pts, mask):
+        c = p[m] - p[m].mean(0)
+        key = c @ np.linalg.svd(c, full_matrices=False)[2][0]
+        full = np.empty(len(p), np.float32)
+        full[m] = key
+        full[~m] = rng.choice(key, size=(~m).sum())
+        order = np.argsort(full, kind="stable")
+        for lst, x in zip(out, (p, m, full)):
+            lst.append(x[order])
+    return tuple(np.stack(x) for x in out)
+
+
+def _plan_starts(keys, mask, window, radius=K1_RADIUS):
+    """Per-tile window starts centred on the candidate range of each plan
+    tile's unmasked queries along the sorted keys ([B, T] int32, clamped
+    to [0, N - W]): the window planner's rule without its 128-point
+    alignment."""
+    b, n = keys.shape
+    t = -(-n // K5_TILE)
+    starts = np.zeros((b, t), np.int32)
+    for i in range(b):
+        for k in range(t):
+            tile = slice(k * K5_TILE, (k + 1) * K5_TILE)
+            valid = keys[i, tile][mask[i, tile]]
+            lo = np.searchsorted(keys[i], valid.min() - radius)
+            hi = np.searchsorted(keys[i], valid.max() + radius, side="right")
+            starts[i, k] = min(max((lo + hi - window) // 2, 0),
+                               max(n - window, 0))
+    return starts
+
+
+def k5_case(name, n_points=None, window=None):
+    """(points [B, N, 3], mask [B, N], starts [B, T] int32, window W) of
+    K5, the windowed moments, whose queries are the points themselves (the
+    windowed self-LRF; q_mask = mask), centroid-shifted and sorted along
+    each cloud's principal axis, T = ceil(N / 256) plan tiles, W = 512
+    unless named: a window running past the cloud's end and one starting
+    past it (both clamped to N), an inexact plan (each tile sweeps only its
+    own 256 points, so points within r of a query lie outside its window),
+    a query tail (N = 700), masked points holding NaN and +-1e30 / +-inf
+    inside the windows, W = N, W = 128, and neighbouring windows that
+    share all but 64 points.  n_points and window resize a case."""
+    rng = np.random.default_rng(K5_CASES.index(name) + 60)
+    b = 2
+    n = n_points or (700 if name == "query_tail" else 768)
+    pts = np.stack([shapes.make_instance(rng, (i + 2) % 5, n=n, rotate=True)
+                    for i in range(b)]).astype(np.float32)
+    mask = np.ones((b, n), bool)
+    if name == "masked_nan_huge":
+        mask = rng.random((b, n)) > 0.15
+    pts = np.stack([_centre(pts[i], mask[i]) for i in range(b)])
+    if name == "masked_nan_huge":
+        bad = np.array([np.nan, 1e30, -1e30, np.inf, -np.inf], np.float32)
+        holes = ~mask
+        pts[holes] = bad[rng.integers(0, len(bad), size=(holes.sum(), 3))]
+    pts, mask, keys = _principal_sort(pts, mask, rng)
+    t = -(-n // K5_TILE)
+    window = window or {"full_window": n, "narrow_window": 128,
+                        "inexact": K5_TILE, "overlapping": 640}.get(name, 512)
+    if name == "inexact":
+        starts = np.tile(np.arange(t, dtype=np.int32) * K5_TILE, (b, 1))
+    elif name == "narrow_window":
+        starts = np.tile(np.arange(t, dtype=np.int32) * K5_TILE + 64, (b, 1))
+    elif name == "overlapping":
+        starts = np.tile(np.clip(np.arange(t) * K5_TILE - 192, 0, n - window)
+                         .astype(np.int32), (b, 1))
+    else:
+        starts = _plan_starts(keys, mask, window)
+    if name == "clamped_end":
+        starts[0, -1] = n - 200        # [n - 200, n - 200 + W) runs past n
+        starts[1, -1] = n + 5          # past the end: an empty window
+    return pts, mask, starts.astype(np.int32), window
+
+
+def k5_windows_exact(pts, mask, starts, window, radius=K1_RADIUS):
+    """Whether every in-radius (unmasked query, unmasked point) pair of the
+    K5 case lies in the query's tile window: then K5 equals K1 over the
+    whole cloud."""
+    n = pts.shape[1]
+    idx = np.arange(n)
+    for p, m, s in zip(pts, mask, starts):
+        with np.errstate(invalid="ignore", over="ignore"):
+            d2 = ((p[:, None, :] - p[None, :, :]) ** 2).sum(-1)
+        near = (d2 <= np.float32(radius) ** 2) & m[:, None] & m[None, :]
+        lo = np.clip(s[idx // K5_TILE], 0, n)[:, None]
+        if (near & ((idx[None, :] < lo) | (idx[None, :] >= lo + window))
+                ).any():
+            return False
+    return True
+
+
 def k4_case(dim, q=70, c=150, seed=8, signed=False):
     """(a [Q, D], b [C, D], b_mask [C]) float32 / bool: sparse non-negative
     histograms (60% zeros), C not a multiple of any tile, masked

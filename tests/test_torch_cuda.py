@@ -16,9 +16,10 @@ import torch
 import shapes
 from bench_data import KEYPOINT_CAPACITY, bench_clouds, bench_colors
 from redesign_cases import (K1_CASES, K1_RADIUS, K2_CASES, K3_CASES,
-                            K3_RADIUS, K4_DIMS, K8_CASES, K8_LAB_CASES,
-                            K8_RADIUS, K9_CASES, K9_RADIUS, k1_case, k2_case,
-                            k3_case, k4_case, k8_case, k9_bins, k9_case)
+                            K3_RADIUS, K4_DIMS, K5_CASES, K8_CASES,
+                            K8_LAB_CASES, K8_RADIUS, K9_CASES, K9_RADIUS,
+                            k1_case, k2_case, k3_case, k4_case, k5_case,
+                            k5_windows_exact, k8_case, k9_bins, k9_case)
 from torch_parity import (assert_decisions_match, assert_descriptors_close,
                           assert_topk_close, cuda_device, n, t)  # noqa: F401
 
@@ -182,6 +183,12 @@ def test_moments_edge_cases_match_plain(cuda_device, case):
     again = tlrfm.moments(q, p, mask, K1_RADIUS)
     assert torch.equal(mom, again[0]) and torch.equal(cnt, again[1])
     pmom, pcnt = tlrfm.moments_plain(q, p, mask, K1_RADIUS)
+    _assert_moments_close(mom, cnt, pmom, pcnt, q, q_mask)
+
+
+def _assert_moments_close(mom, cnt, pmom, pcnt, q, q_mask):
+    """The moments contract on the valid queries: weight sums rtol 2e-4,
+    counts +-1, covariance atol 5e-4; exactly 0 on the invalid ones."""
     assert torch.isfinite(mom).all()
     assert not cnt[~q_mask].any() and not mom[~q_mask].any()
     torch.testing.assert_close(mom[q_mask][:, 0], pmom[q_mask][:, 0],
@@ -190,6 +197,53 @@ def test_moments_edge_cases_match_plain(cuda_device, case):
     cov, _ = tlrfm.cov_from_moments(mom, q, q_mask)
     pcov, _ = tlrfm.cov_from_moments(pmom, q, q_mask)
     assert ((cov - pcov)[q_mask].abs() <= 5e-4).all()
+
+
+@pytest.mark.parametrize("weighting", ["shot", "uniform"])
+@pytest.mark.parametrize("case", K1_CASES + ("beyond_smem",))
+def test_moments_v2_edge_cases_match_plain(cuda_device, case, weighting):
+    """K10 (K1's cell-binned sweep with the identity gate and the bf16x3
+    body) vs its twin at tests/redesign_cases.py's K1 edge cases -- among
+    them the grid's cap trip (`wide_extent`, where the identity's rounding
+    widens the cells) -- and at N = 20000 (points binned and swept in
+    chunks), with either weighting: the moments contract on the valid
+    queries, exactly 0 on the invalid ones, uniform weight sums equal to
+    the counts; two launches equal bit for bit."""
+    arrays = (k1_case("ragged_n", n_points=20000) if case == "beyond_smem"
+              else k1_case(case))
+    q, q_mask, p, mask = (t(x).to(cuda_device) for x in arrays)
+    mom, cnt = tlrfm.moments_v2(q, p, mask, K1_RADIUS, weighting)
+    again = tlrfm.moments_v2(q, p, mask, K1_RADIUS, weighting)
+    assert torch.equal(mom, again[0]) and torch.equal(cnt, again[1])
+    pmom, pcnt = tlrfm.moments_v2_plain(q, p, mask, K1_RADIUS, weighting)
+    if weighting == "uniform":
+        assert torch.equal(mom[..., 0], cnt.to(mom.dtype))
+    _assert_moments_close(mom, cnt, pmom, pcnt, q, q_mask)
+
+
+@pytest.mark.parametrize("case", K5_CASES + ("beyond_one_chunk",))
+def test_windowed_moments_edge_cases_match_plain(cuda_device, case):
+    """K5 (K1's cell-binned sweep over the union of a CTA's windows, each
+    query kept to its own tile's window) vs its twin at
+    tests/redesign_cases.py's K5 cases, and with W = 2560 over N = 6000
+    (a CTA's windows binned and swept in chunks): the moments contract on
+    the valid queries, exactly 0 on the masked ones; two launches equal bit
+    for bit; on an exact plan, K1 over the whole cloud within the same
+    contract."""
+    pts, mask, starts, window = (
+        k5_case("query_tail", n_points=6000, window=2560)
+        if case == "beyond_one_chunk" else k5_case(case))
+    p, m, s = (t(x).to(cuda_device) for x in (pts, mask, starts))
+    mom, cnt = tlrfm.moments_windowed(p, p, m, s, window, K1_RADIUS)
+    again = tlrfm.moments_windowed(p, p, m, s, window, K1_RADIUS)
+    assert torch.equal(mom, again[0]) and torch.equal(cnt, again[1])
+    pmom, pcnt = tlrfm.moments_windowed_plain(p, p, m, s, window, K1_RADIUS)
+    _assert_moments_close(mom, cnt, pmom, pcnt, p, m)
+    assert cnt[m].max() > 1
+    if case != "beyond_one_chunk" and k5_windows_exact(pts, mask, starts,
+                                                       window):
+        k1, k1_cnt = tlrfm.moments(p, p, m, K1_RADIUS)
+        _assert_moments_close(mom, cnt, k1, k1_cnt, p, m)
 
 
 @pytest.mark.parametrize("z_only", [False, True])
@@ -547,9 +601,10 @@ def test_descriptor_slices_match_jax_reference(cuda_device, descriptor,
 def test_moments_v2_and_sign_votes_v2_match_plain(cuda_device, clouds,
                                                   weighting):
     """K10 vs its twin: weight sums rtol 2e-4, counts +-1, covariance
-    atol 5e-4 (the tensor cores accumulate in their own order); K11 vs its
-    twin: counts +-1 (the same float operations: in practice equal), at a
-    small shape with a masked tail and a ragged last chunk (N = 1500)."""
+    atol 5e-4 (the sweep sums pair by pair, the twin by matrix products);
+    K11 vs its twin: counts +-1 (the same float operations: in practice
+    equal), at a small shape with a masked tail and a ragged last chunk
+    (N = 1500)."""
     pts, mask = (x[:2, :1500].contiguous().to(cuda_device) for x in clouds)
     mask[1, 1400:] = False
     q, p = tlrfm.prep_shift(pts[:, :300].contiguous(), pts, mask)

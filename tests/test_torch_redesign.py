@@ -1,14 +1,17 @@
 """The plain twins of K1 (radius moments), K2 (LRF sign votes), K3
-(tile-compacted SHOT-352) and K4 (chi-square top-k) against the JAX
-package's Pallas kernels, run in interpret mode on the CPU, at the edge
-cases of tests/redesign_cases.py: padded and invalid queries, masked
-points holding NaN and huge coordinates, a cloud far wider than the
-radius, ragged N, points at exactly r and offsets orthogonal to an axis,
-N beyond one binning chunk; keypoints coincident with points, NaN normals,
-exact on-axis, in-plane and shell-edge local geometry, cos_desc = +-1,
-dead rows and an empty cloud; ragged D, C off the tiles, k in {1, 2, 3},
-masked, all-zero and duplicated codewords.  K2's and K3's Pallas
-references run in a process of their own (torch_parity.pallas_interpret).
+(tile-compacted SHOT-352), K4 (chi-square top-k), K5 (windowed moments)
+and K10 (v2 moments) against the JAX package's Pallas kernels, run in
+interpret mode on the CPU, at the edge cases of tests/redesign_cases.py:
+padded and invalid queries, masked points holding NaN and huge
+coordinates, a cloud far wider than the radius, ragged N, points at
+exactly r and offsets orthogonal to an axis, N beyond one binning chunk;
+keypoints coincident with points, NaN normals, exact on-axis, in-plane
+and shell-edge local geometry, cos_desc = +-1, dead rows and an empty
+cloud; ragged D, C off the tiles, k in {1, 2, 3}, masked, all-zero and
+duplicated codewords; windows clamped at the cloud's end, an inexact
+plan, a query tail, W = N, W = 128 and overlapping windows.  K2's, K3's,
+K5's and K10's Pallas references run in a process of their own
+(torch_parity.pallas_interpret).
 K8's and K9's twins (the slot arrays, then their histograms) are held
 against the JAX dense CSHOT and SHORT_SHOT on the dense [B, K] grid, each
 in a process of its own too: dead rows at 1e9, all-dead tiles, masked
@@ -25,10 +28,11 @@ import torch
 from jax.experimental.pallas import tpu as pltpu
 
 from redesign_cases import (K1_CASES, K1_RADIUS, K2_CASES, K3_CASES,
-                            K3_KEYS, K3_RADIUS, K4_DIMS, K8_CASES,
-                            K8_KEYS, K8_LAB_CASES, K8_RADIUS, K9_CASES,
-                            K9_KEYS, K9_RADIUS, k1_case, k2_case, k3_case,
-                            k4_case, k8_case, k9_bins, k9_case)
+                            K3_KEYS, K3_RADIUS, K4_DIMS, K5_CASES, K5_TILE,
+                            K8_CASES, K8_KEYS, K8_LAB_CASES, K8_RADIUS,
+                            K9_CASES, K9_KEYS, K9_RADIUS, k1_case, k2_case,
+                            k3_case, k4_case, k5_case, k5_windows_exact,
+                            k8_case, k9_bins, k9_case)
 from torch_parity import (assert_descriptors_close, assert_topk_close, n,
                           pallas_interpret, t)
 
@@ -80,12 +84,188 @@ def test_moments_twin_matches_pallas_at_edge_cases(case):
     if case == "no_valid_queries":
         return
     assert cnt[q_mask].max() > 1
+    _assert_moment_contract(mom, cnt, jmom, jcnt, q, q_mask)
+
+
+def _assert_moment_contract(mom, cnt, jmom, jcnt, q, q_mask, s0_atol=1e-6,
+                            cov_atol=5e-4):
+    """The moments contract on the valid queries: weight sums rtol 2e-4
+    (plus s0_atol), counts +-1, covariance atol 5e-4 (or cov_atol)."""
     np.testing.assert_allclose(mom[q_mask][:, 0], jmom[q_mask][:, 0],
-                               rtol=2e-4, atol=1e-6)
+                               rtol=2e-4, atol=s0_atol)
     assert (np.abs(cnt - jcnt)[q_mask] <= 1).all()
     tcov, _ = tlrfm.cov_from_moments(t(mom), t(q), t(q_mask))
     jcov, _ = tlrfm.cov_from_moments(t(jmom), t(q), t(q_mask))
-    np.testing.assert_allclose(n(tcov)[q_mask], n(jcov)[q_mask], atol=5e-4)
+    np.testing.assert_allclose(n(tcov)[q_mask], n(jcov)[q_mask],
+                               atol=cov_atol)
+
+
+# --- K10: v2 moments ---------------------------------------------------------
+
+_K10_CODE = """
+import jax.numpy as jnp
+import numpy as np
+from point_cloud_donkey_tpu.ops.pallas import lrf_moments as L
+out = {}
+for case in %r:
+    for w in ("shot", "uniform"):
+        out[case + "__" + w] = np.stack([np.asarray(L._moments_call_v2(
+            jnp.asarray(ql), jnp.asarray(pl_), jnp.float32(%r), w))
+            for ql, pl_ in zip(a[case + "__ql"], a[case + "__pl"])])
+""" % (K1_CASES, K1_RADIUS)
+
+
+def _lanes(x, valid, tile):
+    """[B, L, 3] -> [B, 8, L padded to tile] rows x, y, z, with invalid and
+    padded entries parked at 1e9 (jlrf.to_lanes per cloud)."""
+    b, length, _ = x.shape
+    out = np.full((b, 8, -(-length // tile) * tile), 1e9, np.float32)
+    out[:, :3, :length] = np.where(valid[..., None], x, np.float32(1e9)
+                                   ).transpose(0, 2, 1)
+    return out
+
+
+@pytest.fixture(scope="module")
+def pallas_k10(tmp_path_factory):
+    """`_moments_call_v2` per cloud at every K1 case and both weightings,
+    on the lanes the JAX package builds."""
+    arrays = {}
+    for case in K1_CASES:
+        q, q_mask, p, mask = k1_case(case)
+        arrays[case + "__ql"] = _lanes(q, q_mask, jlrf.TQ)
+        arrays[case + "__pl"] = _lanes(p, mask, jlrf.TN)
+    return pallas_interpret(_K10_CODE, str(tmp_path_factory.mktemp("k10")),
+                            **arrays)
+
+
+def _v2_tolerances(p, mask, weighting):
+    """(weight-sum atol, covariance atol) of the v2 moments contract on a
+    cloud whose unmasked points reach |p|^2 <= P^2.  At unit scale (P^2 <=
+    32) they are the contract's: 1e-3 under "shot" (the identity leaves d2
+    ~ eps |p|^2 off at a query's own point, and r - sqrt(d2) turns that
+    into ~3e-4, tests/test_torch_lrf_v2.py) and 5e-4.  Past it they scale
+    with the extent, as the v2 function's error does: d2 is up to ~8 ulp
+    of 2 P^2 (2^-19 P^2) off at a query's own point, sqrt(2^-19 P^2) of
+    weight; the bf16x3 split carries the moments to 2^-16 of their size
+    (~P^2 s0), and the interpret mode keeps the lo parts in f32 where the
+    twin (like the TPU's and the tensor cores' bf16 passes) rounds them, so
+    the covariance holds to 2^-16 P^2.  `wide_extent` (|p| up to 26) is
+    past it.  Under "uniform" a weight sum is a count: +-1, as the
+    counts."""
+    p2 = float(np.nanmax(np.where(mask, (p.astype(np.float64) ** 2).sum(-1),
+                                  0.0)))
+    unit = p2 <= 32.0
+    s0_atol = (1e-3 if unit else np.sqrt(2.0 ** -19 * p2)) \
+        if weighting == "shot" else 1.0
+    return s0_atol, 5e-4 if unit else 2.0 ** -16 * p2
+
+
+@pytest.mark.parametrize("weighting", ["shot", "uniform"])
+@pytest.mark.parametrize("case", K1_CASES)
+def test_moments_v2_twin_matches_pallas_at_edge_cases(pallas_k10, case,
+                                                      weighting):
+    """K10's twin vs `_moments_call_v2` at K1's edge cases, with either
+    weighting: the moments contract on the valid queries -- weight sums
+    rtol 2e-4 plus the identity's atol, counts +-1, covariance atol 5e-4,
+    both atols scaled with the cloud's extent past unit scale
+    (_v2_tolerances).  Invalid queries get 0 from the twin; uniform weight
+    sums equal the counts."""
+    q, q_mask, p, mask = k1_case(case)
+    want = pallas_k10[f"{case}__{weighting}"]
+    nq = q.shape[1]
+    jmom = want[:, :10, :nq].transpose(0, 2, 1)
+    jcnt = want[:, jlrf.R_CNT, :nq].astype(np.int32)
+    mom, cnt = tlrfm.moments_v2(t(q), t(p), t(mask), K1_RADIUS, weighting)
+    mom, cnt = n(mom), n(cnt)
+    assert np.isfinite(mom).all()
+    assert not cnt[~q_mask].any() and not mom[~q_mask].any()
+    if weighting == "uniform":
+        np.testing.assert_array_equal(mom[..., 0], cnt)
+    if case == "no_valid_queries":
+        return
+    assert cnt[q_mask].max() > 1
+    _assert_moment_contract(mom, cnt, jmom, jcnt, q, q_mask,
+                            *_v2_tolerances(p, mask, weighting))
+
+
+# --- K5: windowed moments ----------------------------------------------------
+
+_K5_CODE = """
+import jax.numpy as jnp
+import numpy as np
+from point_cloud_donkey_tpu.ops.pallas import lrf_moments as L
+out = {}
+for case in %r:
+    w = int(a[case + "__w"])
+    out[case] = np.stack([np.asarray(L._moments_call_gathered(
+        jnp.asarray(qt), jnp.asarray(pw), jnp.float32(%r), "shot", w))
+        for qt, pw in zip(a[case + "__qt"], a[case + "__pw"])])
+""" % (K5_CASES, K1_RADIUS)
+
+
+def _k5_lanes(pts, mask, starts, window):
+    """The lanes `_moments_call_gathered` takes for one K5 case, as
+    shot_lrf_pallas_windowed builds them per cloud: the queries (the
+    points) qt [B, 8, T * 256] and every plan tile's window pw [B, 8,
+    T * W], masked points, pad queries and window slots past N parked at
+    1e9."""
+    b, n_pts, _ = pts.shape
+    qt = _lanes(pts, mask, K5_TILE)
+    idx = np.clip(starts, 0, n_pts)[..., None] + np.arange(window)
+    idx = idx.reshape(b, -1)
+    inside = idx < n_pts
+    idx = np.minimum(idx, n_pts - 1)
+    win = np.take_along_axis(pts, idx[..., None], 1)
+    return qt, _lanes(win, np.take_along_axis(mask, idx, 1) & inside, 1)
+
+
+@pytest.fixture(scope="module")
+def pallas_k5(tmp_path_factory):
+    """`_moments_call_gathered` per cloud at every K5 case."""
+    arrays = {}
+    for case in K5_CASES:
+        pts, mask, starts, window = k5_case(case)
+        arrays[case + "__qt"], arrays[case + "__pw"] = _k5_lanes(
+            pts, mask, starts, window)
+        arrays[case + "__w"] = np.array(window)
+    return pallas_interpret(_K5_CODE, str(tmp_path_factory.mktemp("k5")),
+                            **arrays)
+
+
+@pytest.mark.parametrize("case", K5_CASES)
+def test_windowed_moments_twin_matches_pallas_at_edge_cases(pallas_k5,
+                                                            case):
+    """K5's twin vs `_moments_call_gathered` on the self-LRF's valid
+    queries: the moments contract (weight sums rtol 2e-4, counts +-1,
+    covariance atol 5e-4).  Masked queries (holding NaN and +-1e30 /
+    +-inf) get 0, as do the queries of a window past the cloud's end.  On
+    the inexact plan some point within r of a query lies outside its
+    tile's window and stays out of its sums, in the twin as in the JAX
+    kernel; on an exact plan the twin equals K1's over the whole cloud
+    within the contract."""
+    pts, mask, starts, window = k5_case(case)
+    want = pallas_k5[case]
+    nq = pts.shape[1]
+    jmom = want[:, :10, :nq].transpose(0, 2, 1)
+    jcnt = want[:, jlrf.R_CNT, :nq].astype(np.int32)
+    mom, cnt = tlrfm.moments_windowed(t(pts), t(pts), t(mask), t(starts),
+                                      window, K1_RADIUS)
+    mom, cnt = n(mom), n(cnt)
+    assert np.isfinite(mom).all()
+    assert not cnt[~mask].any() and not mom[~mask].any()
+    assert cnt[mask].max() > 1
+    _assert_moment_contract(mom, cnt, jmom, jcnt, pts, mask)
+    full, full_cnt = (n(x) for x in tlrfm.moments(t(pts), t(pts), t(mask),
+                                                  K1_RADIUS))
+    exact = k5_windows_exact(pts, mask, starts, window)
+    assert exact == (case in ("query_tail", "masked_nan_huge",
+                              "full_window", "overlapping"))
+    if exact:
+        _assert_moment_contract(mom, cnt, full, full_cnt, pts, mask)
+    else:
+        assert (cnt < full_cnt)[mask].any()
+    if case == "clamped_end":
+        assert not cnt[1, 2 * K5_TILE:].any()
 
 
 @pytest.mark.parametrize("signed", [False, True])
