@@ -11,16 +11,16 @@ Phases (each prints its results; any failure raises and exits nonzero):
      shapes its main path gives it: K1-K4 at the dense classify step's on
      the 128-cloud bench batch, K5/K6 at the windowed step's (the sorted
      batch, window calibrated on it), K7 at the mean-shift step's (32
-     clouds x 192 keypoints), and K7 with and without its point-chunk
-     split at 1, 8 and 32 clouds; K1 and K2 (the cell-binned sweep, K1
-     also at the detection batch, B=32; the bits of their outputs), K3
-     (compacted in-radius pairs into warp-owned histograms, with its swept
-     pairs and in-radius share), K4 (register-tiled, also at CSHOT's
-     D=1344 and at the training self-kNN, Q=C=2000) and K5 (the binned
-     sweep over the windows, beside K1 on the same sorted batch) each
-     beside its previous design's time, its bound (K4 also its
-     special-function floor) and torch.profiler's device time, with two
-     launches bit-equal;
+     clouds x 192 keypoints), and K7 also at 1 and 8 clouds; K1 and K2
+     (the cell-binned sweep, K1 also at the detection batch, B=32; the
+     bits of their outputs), K3 and K7 (compacted in-radius pairs into
+     warp-owned histograms, with their swept pairs and in-radius share;
+     K7 also beside one scatter_add_ over SHOT's slot arrays), K4
+     (register-tiled, also at CSHOT's D=1344 and at the training
+     self-kNN, Q=C=2000), K5 and K6 (the binned sweep over the windows,
+     K5 beside K1 on the same sorted batch) each beside its previous
+     design's time, its bound (K4 also its special-function floor) and
+     torch.profiler's device time, with two launches bit-equal;
   2c. K8 and K9, which bin the CSHOT and SHORT_SHOT pairs on chip, at
      those steps' shapes (the 128 bench clouds, coloured by
      tests/bench_data.bench_colors, 128 x 192 keypoints x 2048 points)
@@ -51,7 +51,7 @@ Phases (each prints its results; any failure raises and exits nonzero):
   6. the mean-shift detection step: IsmDetector on the first 32 bench
      clouds -- per-stage ms, clouds/s, K7 launched, densities (decisions,
      rms and max relative delta) and the best class's maximum against the
-     committed JAX-CPU detect_maxima_jit reference; then
+     committed JAX-CPU detect_maxima_jit reference, two runs equal; then
      serve --maxima --device cuda on 8 PCD files;
   5b. serve --device cuda with the CSHOT model on 8 coloured PCD files, and
      its --maxima refusal;
@@ -65,11 +65,13 @@ Phases (each prints its results; any failure raises and exits nonzero):
      ImplicitShapeModel.train (SHOT with K1/K2 and with
      PCD_PALLAS_LRF_V=2, CSHOT, SHORT_SHOT) against the committed
      JAX-trained codebooks, each served on the bench batch against the
-     committed references; training clouds/s on 24 clouds; the train entry
-     point on 8 PCD files, then serve on its model.
+     committed references, and whether a second SHOT training gives the
+     same codebook bit for bit (printed); training clouds/s on 24 clouds;
+     the train entry point on 8 PCD files, then serve on its model.
 Every step of phases 4-8 also prints its peak device memory, and phase 2
-the bits (sha256) of K1's, K2's and K3's outputs and of K7's in-radius
-counts (tests/port_fingerprint.py prints the same for any checkout).
+the bits (sha256) of K1's, K2's, K3's and K6's outputs and of K7's
+in-radius counts and histograms (tests/port_fingerprint.py prints the
+same for any checkout).
 Before the last line it prints one JSON line with every kernel's launches
 (summed over one run of each path, counted from 0 just before each),
 error against its twin, times and bound, then the card's name and power
@@ -174,16 +176,18 @@ SHORT_SHOT_BODY_OPS = 75   # frame coords (15), r (6), theta and phi (7),
 # threads over points with shared-memory atomics, K4's one thread per
 # (descriptor, codeword) pair at the dense step's shapes; K8 (both
 # channels) and K9 over slot arrays at the CSHOT and SHORT_SHOT steps'
-# shapes, not counting the slot build; K5's all-pairs sweep of the windows
-# and K10's dense bf16x3 mma.sync tiles at their steps' shapes -- from
-# PERF.md's kernel table (H100 80GB HBM3 at 700 W), printed beside this
-# run's
+# shapes, not counting the slot build; K5's and K6's all-pairs sweeps of
+# the windows and K10's dense bf16x3 mma.sync tiles at their steps'
+# shapes; K7's threads over points with atomic sums (and its point-chunk
+# split) at 32, 1 and 8 clouds -- from PERF.md's kernel table and PR 9's
+# entry (H100 80GB HBM3 at 700 W), printed beside this run's
 PREVIOUS_MS = {"K1 normals": 0.834, "K1 keypoints": 0.279,
                "K4 serving": 2.079, "K2 normals": 0.482,
                "K2 keypoints": 0.170, "K3 serving": 0.874,
                "K8 CSHOT": 0.684 + 0.715, "K9 SHORT_SHOT": 0.829,
                "K5 windowed": 0.441, "K10 normals": 1.184,
-               "K10 keypoints": 0.180}
+               "K10 keypoints": 0.180, "K6 windowed": 0.271,
+               "K7 detect": 0.277, "K7 B=1": 0.1225, "K7 B=8": 0.1057}
 
 # detection against the JAX-CPU detect_maxima_jit reference: the best
 # class's maximum within a few times mean-shift's 1e-3 stopping shift, its
@@ -461,7 +465,18 @@ def main():
                   f"{by}); votes +-{int(err)}; two launches bit-equal "
                   f"({card})", flush=True)
         else:
-            vms = cuda_ms(lambda: vote_fn(axes), 5)
+            assert torch.equal(v, vote_fn(axes)), \
+                f"two K6 launches differ ({what})"
+            vms = cuda_ms(lambda: vote_fn(axes), 20)
+            dev_ms = device_ms(lambda: vote_fn(axes), "VotesBody", 20)
+            b_ms, by = bound(vote_bytes, vote_ops)
+            print(f"{'sign_votes_windowed':20s} {what}: binned sweep of the "
+                  f"windows {vms:.4f} ms, device {fmt_ms(dev_ms)} (previous "
+                  f"design {PREVIOUS_MS['K6 windowed']:.3f} ms, bound "
+                  f"{b_ms:.4f} ms by {by}); votes +-{int(err)}; two launches "
+                  f"bit-equal ({card})", flush=True)
+            print(f"{'sign_votes_windowed':20s} output bits: sha256 "
+                  f"{digest(v)}")
         record(k_vote, err, vms,
                cuda_ms(lambda: vote_fn(axes, plain=True), 2), what,
                vote_bytes, vote_ops)
@@ -514,7 +529,7 @@ def main():
             "two K3 launches differ"
         k3_ms = cuda_ms(lambda: kshot.shot_tiles(*shot_args), 20)
         k3_dev = device_ms(lambda: kshot.shot_tiles(*shot_args),
-                           "shot_fused_kernel", 20)
+                           "CompactTiles", 20)
         k3_bytes = nbytes(kp_rows, fr_rows, tile_cloud, pts, normals, mask,
                           hist, cnt)
         k3_ops = int(cnt.sum()) * (GATE_OPS + SHOT_BODY_OPS)
@@ -624,40 +639,49 @@ def main():
         dh, dc = kshot.shot_dense(*dense_args)
         pdh, pdc = kshot.shot_dense_plain(*dense_args)
         assert torch.equal(dc, pdc), "K7 in-radius counts differ"
-        contract(normalize_descriptors(dh, dc, mlrf.valid),
-                 normalize_descriptors(pdh, pdc, mlrf.valid), "K7")
+        cos, off = contract(normalize_descriptors(dh, dc, mlrf.valid),
+                            normalize_descriptors(pdh, pdc, mlrf.valid), "K7")
+        again = kshot.shot_dense(*dense_args)
+        assert torch.equal(dh.view(torch.int32),
+                           again[0].view(torch.int32)) and \
+            torch.equal(dc, again[1]), "two K7 launches differ"
         live = int(mlrf.valid.sum())
-        tiles = mkp.shape[0] * mkp.shape[1] // kshot.TK
-        sms = torch.cuda.get_device_properties(0).multi_processor_count
-        chunks = kshot.dense_chunks(tiles, mp.shape[1], sms)
-        # K7 with one point chunk per tile against the wrapper's rule, at a
-        # single cloud, a small serving batch and the mean-shift batch
-        rule = kshot.dense_chunks
-        for nb in (1, 8, MS_BATCH):
+        b7, k7 = mlrf.valid.shape
+        ctas = b7 * -(-k7 // kshot.TK)
+        k7_ms = cuda_ms(lambda: kshot.shot_dense(*dense_args), 20)
+        k7_dev = device_ms(lambda: kshot.shot_dense(*dense_args),
+                           "DenseTiles", 20)
+        k7_bytes = nbytes(*dense_args[:6], dh, dc)
+        k7_ops = int(dc.sum()) * (GATE_OPS + SHOT_BODY_OPS)
+        b_ms, by = bound(k7_bytes, k7_ops)
+        swept = live * mp.shape[1]
+        print(f"{'shot_dense':20s} SHOT B={b7} K={k7} ({ctas} CTAs, {live} "
+              f"live rows): {swept:.3e} live pairs, in-radius share "
+              f"{int(dc.sum()) / swept:.4f}; warp-owned histograms "
+              f"{k7_ms:.4f} ms, device {fmt_ms(k7_dev)} (previous design "
+              f"{PREVIOUS_MS['K7 detect']:.3f} ms, bound {b_ms:.4f} ms by "
+              f"{by}); counts equal, cosine min {cos:.7f}, {off:.2e} of "
+              f"entries off by > 1e-3; two launches bit-equal ({card})",
+              flush=True)
+        # K7 at a single cloud and a small serving batch, where the grid
+        # (24 and 192 CTAs) fills a fraction of the card
+        for nb in (1, 8):
             args_b = tuple(a[:nb].contiguous() for a in dense_args[:6]) \
                 + (cfg.radius,)
-            tiles_b = nb * mkp.shape[1] // kshot.TK
-            pick = rule(tiles_b, mp.shape[1], sms)
-            try:
-                kshot.dense_chunks = lambda *a: 1
-                one = cuda_ms(lambda: kshot.shot_dense(*args_b), 5)
-                _, c1 = kshot.shot_dense(*args_b)
-            finally:
-                kshot.dense_chunks = rule
-            split = cuda_ms(lambda: kshot.shot_dense(*args_b), 5)
-            _, cr = kshot.shot_dense(*args_b)
-            assert torch.equal(c1, cr), "K7 counts depend on the chunks"
-            print(f"{'shot_dense':20s} B={nb} ({tiles_b} tiles): 1 chunk "
-                  f"{one:.4f} ms, the rule's {pick} chunks {split:.4f} ms")
-        print(f"{'shot_dense':20s} in-radius counts (B={MS_BATCH}): sha256 "
-              f"{digest(dc)} (its float sums are atomic adds, whose order "
-              f"varies from run to run)")
-        record("shot_dense", (dh - pdh).abs().max(),
-               cuda_ms(lambda: kshot.shot_dense(*dense_args), 5),
+            hb, cb = kshot.shot_dense(*args_b)
+            assert torch.equal(cb, dc[:nb]) and torch.equal(hb, dh[:nb]), \
+                f"K7 at B={nb} differs from its rows at B={MS_BATCH}"
+            ms_b = cuda_ms(lambda: kshot.shot_dense(*args_b), 20)
+            print(f"{'shot_dense':20s} B={nb} ({nb * -(-k7 // kshot.TK)} "
+                  f"CTAs): {ms_b:.4f} ms (previous design "
+                  f"{PREVIOUS_MS[f'K7 B={nb}']:.4f} ms); equal to its rows "
+                  f"at B={MS_BATCH} ({card})", flush=True)
+        print(f"{'shot_dense':20s} output bits (B={MS_BATCH}): counts "
+              f"sha256 {digest(dc)}, histograms sha256 {digest(dh)}")
+        k7_lib = shot_slot_library(dense_args, kshot_ops, card)
+        record("shot_dense", (dh - pdh).abs().max(), k7_ms,
                cuda_ms(lambda: kshot.shot_dense_plain(*dense_args), 2),
-               f"SHOT {tiles} tiles x {chunks} chunks, {live} live",
-               nbytes(*dense_args[:6], dh, dc),
-               int(dc.sum()) * (GATE_OPS + SHOT_BODY_OPS))
+               f"SHOT {ctas} CTAs, {live} live", k7_bytes, k7_ops, k7_lib)
 
     # -- 2c. K8 / K9 at the CSHOT and SHORT_SHOT steps' shapes -------------
     phase(f"2c. K8 / K9 (pairs binned on chip) vs plain twins, the slot "
@@ -939,6 +963,12 @@ def main():
     (dens, pos), launches["detect"] = drive("detect", detector,
                                             DETECT_STAGES, mp, mm, MS_ROUNDS,
                                             card)
+    with torch.no_grad():
+        again = detector(mp, mm)
+    assert torch.equal(dens.view(torch.int32), again[0].view(torch.int32)) \
+        and torch.equal(pos.view(torch.int32), again[1].view(torch.int32)), \
+        "two runs of the detection step differ"
+    print("two runs of the step: densities and positions identical")
     d, p = dens.cpu().numpy(), pos.cpu().numpy()
     assert np.isfinite(d).all() and np.isfinite(p).all()
     rd, rp = ref["detect_densities"], ref["detect_positions"]
@@ -1172,6 +1202,14 @@ def training(launches, card, data, pts, mask, rgb, labels, ref, dref):
         ism, _ = run("SHOT", shot_items, "train")
         compare(ism.state.codebook, want, "SHOT")
         check_decisions(served(ism), ref["scores"], labels)
+        # a second training on the same files: the same codebook bit for
+        # bit?  (printed, not asserted: PERF.md names what differs)
+        twice, _ = run("SHOT", shot_items, None)
+        a, b = ism.state.codebook._asdict(), twice.state.codebook._asdict()
+        differ = [key for key in a if not np.array_equal(
+            np.asarray(a[key]), np.asarray(b[key]), equal_nan=True)]
+        print(f"two SHOT trainings on the same files: codebooks equal bit "
+              f"for bit {not differ}; fields that differ: {differ}")
 
         old = os.environ.get("PCD_PALLAS_LRF_V")
         os.environ["PCD_PALLAS_LRF_V"] = "2"
@@ -1299,6 +1337,39 @@ def slot_library(name, slots, length, rows, card):
           f"{scatter:.4f} ms; the eager slot build plus that scatter_add_ "
           f"{total:.4f} ms ({card})", flush=True)
     return scatter, total
+
+
+def shot_slot_library(args, shot_ops, card):
+    """K7's library yardstick: one scatter_add_ over SHOT's five slot
+    arrays (ops/shot.shot_bin_slots) of every (row, point) pair of the
+    dense grid, weights zero where the pair is not used or its row is not
+    live; returns its ms."""
+    import torch
+    kp, frames, live, pts, nrm, mask, radius = args
+    b, k = live.shape
+    n = pts.shape[1]
+
+    def slots():
+        d = pts[:, None] - kp[:, :, None]                    # [B, K, N, 3]
+        d2 = (d * d).sum(-1)
+        use = (d2 <= radius * radius) & (d2 > 1e-15) & live[..., None] \
+            & (mask & torch.isfinite(nrm).all(-1))[:, None]
+        loc = torch.einsum("bknc,bkac->bkna", d, frames)
+        cos = torch.clamp((nrm[:, None] * frames[:, :, None, 2]).sum(-1),
+                          -1.0, 1.0)
+        out = []
+        for idx, w in shot_ops.shot_bin_slots(
+                *(x.reshape(-1) for x in (loc[..., 0], loc[..., 1],
+                                           loc[..., 2], cos)),
+                torch.sqrt(d2).reshape(-1), radius):
+            keep = use.reshape(-1)
+            out.append((torch.where(keep, idx, 0).reshape(b * k, n),
+                        torch.where(keep, w, 0.0).reshape(b * k, n)))
+        return out
+
+    scatter, _ = slot_library("shot_dense", slots, shot_ops.DESC_LEN, b * k,
+                              card)
+    return scatter
 
 
 def fused_k8(args, ksh, shot_ops, record, card):

@@ -32,16 +32,16 @@
 // (query, point) pairs are in radius, so the least work is the in-radius
 // pairs'; the bytes are a few MB.
 //
-// K1, K2, K5 and K10 share one design, a cell-binned sweep templated on its
-// body (MomentsBody, VotesBody, MomentsV2Body), its gate (the exact
+// K1, K2, K5, K6 and K10 share one design, a cell-binned sweep templated on
+// its body (MomentsBody, VotesBody, MomentsV2Body), its gate (the exact
 // difference, or K10's identity) and its point range (the whole cloud, or
-// K5's windows), its grid built inside each CTA.  A CTA of 512 threads
-// takes one cloud and a tile of its queries; the host uses as few tiles per
-// cloud as fill one wave of two CTAs per SM (B = 128: 2 tiles; B = 32: 8),
-// since every CTA rebuilds its cloud's grid.  The CTA
+// K5's and K6's windows), its grid built inside each CTA.  A CTA of 512
+// threads takes one cloud and a tile of its queries; the host uses as few
+// tiles per cloud as fill one wave of two CTAs per SM (B = 128: 2 tiles;
+// B = 32: 8), since every CTA rebuilds its cloud's grid.  The CTA
 //   1. reads its points once from device memory -- the cloud, or for K5
-//      the union of the windows of the plan tiles its queries lie in (a
-//      contiguous range of the sorted points) -- staging them in shared
+//      and K6 the union of the windows of the plan tiles its queries lie in
+//      (a contiguous range of the sorted points) -- staging them in shared
 //      memory as float4 (2048 points: 32 KB), reduces the bounding box of
 //      the unmasked ones and lays a uniform grid over it: cell edges
 //      >= 1.01 r / 2 where at most 2048 such cells cover the box, else
@@ -63,11 +63,12 @@
 //      every point within r of the query lies there.  The gate is the
 //      twins' float operations (K10: |q|^2 once per query, |p|^2 staged
 //      in the sorted point's fourth word, both in the twin's order).  K5
-//      skips the points outside its query's own tile window: the sorted
-//      point's fourth word holds its index, and a point within r but
-//      outside the window stays out, as in the TPU kernel.  S lanes share a
-//      query (S = 1 at the serving normals, up to 32 when a CTA has few
-//      queries), striding through each run; a fixed shuffle tree sums them.
+//      and K6 skip the points outside a query's own tile window: the
+//      sorted point's fourth word holds its index, and a point within r
+//      but outside the window stays out, as in the TPU kernel.  S lanes
+//      share a query (S = 1 at the serving normals, up to 32 when a CTA
+//      has few queries), striding through each run; a fixed shuffle tree
+//      sums them.
 //      The order of every sum depends only on the points swept and S (fixed
 //      by B and Q), so two launches give equal bits.
 // The bodies: K1 adds the moments of an in-radius point (the weight's sqrt
@@ -93,10 +94,6 @@
 // and gets 0.  Results go back to each query's own row.  Point ranges over
 // 2048 points are binned and swept chunk by chunk.  No PyTorch launch
 // surrounds the kernels.
-// K6 sweeps every pair of its windows: one CTA per (cloud, tile of 128
-// queries), one thread per query, the window's points streamed through
-// shared memory in 1024-point chunks as float4 (x, y, z, mask).  The 3x3
-// EVD between the two passes stays in PyTorch.
 #include <cfloat>
 #include <cuda_bf16.h>
 
@@ -104,10 +101,7 @@
 
 namespace {
 
-constexpr int TQ = 128;   // queries per K6 CTA (one thread each)
-constexpr int TN = 1024;  // points staged in shared memory per chunk
-constexpr int TQW = 256;  // queries per window-plan tile (K6: 2 CTAs)
-static_assert(TQW % TQ == 0, "a CTA must lie inside one plan tile");
+constexpr int TQW = 256;  // queries per window-plan tile
 
 // Points [lo, hi) of cloud b that plan tile t sweeps: the window it was
 // given (starts [B, T], clamped to N).
@@ -119,74 +113,7 @@ __device__ __forceinline__ void plan_window(const int* __restrict__ starts,
   hi = min(lo + W, N);
 }
 
-// Sweep range [lo, hi) of this K6 CTA's queries: its plan tile's window.
-__device__ __forceinline__ void window_range(const int* __restrict__ starts,
-                                             int T, int W, int N, int& lo,
-                                             int& hi) {
-  plan_window(starts, blockIdx.y, (blockIdx.x * TQ) / TQW, T, W, N, lo, hi);
-}
-
-__device__ __forceinline__ void stage_points(float4* sp, const float* pb,
-                                             const unsigned char* mb,
-                                             int base, int n) {
-  for (int j = threadIdx.x; j < n; j += blockDim.x) {
-    const float* pp = pb + (size_t)(base + j) * 3;
-    sp[j] = make_float4(pp[0], pp[1], pp[2], mb[base + j] ? 1.f : 0.f);
-  }
-}
-
-__global__ void __launch_bounds__(TQ)
-sign_votes_windowed_kernel(const float* __restrict__ q,
-                           const float* __restrict__ p,
-                           const unsigned char* __restrict__ mask,
-                           const int* __restrict__ starts,
-                           const float* __restrict__ axes,
-                           int* __restrict__ votes, int Q, int N, int T,
-                           int W, float r, int z_only) {
-  __shared__ float4 sp[TN];
-  const int b = blockIdx.y;
-  const int qi = blockIdx.x * TQ + threadIdx.x;
-  const bool active = qi < Q;
-  const float r2 = r * r;
-  float qx = 0.f, qy = 0.f, qz = 0.f;
-  float vx = 0.f, vy = 0.f, vz = 0.f, ux = 0.f, uy = 0.f, uz = 0.f;
-  if (active) {
-    const size_t row = (size_t)b * Q + qi;
-    const float* qq = q + row * 3;
-    qx = qq[0]; qy = qq[1]; qz = qq[2];
-    const float* a = axes + row * 6;
-    vx = a[0]; vy = a[1]; vz = a[2];
-    ux = a[3]; uy = a[4]; uz = a[5];
-  }
-  int plus_x = 0, plus_z = 0;
-  const float* pb = p + (size_t)b * N * 3;
-  const unsigned char* mb = mask + (size_t)b * N;
-  int lo, hi;
-  window_range(starts, T, W, N, lo, hi);
-  for (int base = lo; base < hi; base += TN) {
-    const int n = min(TN, hi - base);
-    __syncthreads();
-    stage_points(sp, pb, mb, base, n);
-    __syncthreads();
-    if (!active) continue;
-    for (int j = 0; j < n; ++j) {
-      const float4 pt = sp[j];
-      const float dx = pt.x - qx, dy = pt.y - qy, dz = pt.z - qz;
-      const float d2 = dx * dx + dy * dy + dz * dz;
-      if (d2 <= r2 && pt.w != 0.f) {
-        plus_z += (dx * ux + dy * uy + dz * uz) >= 0.f;
-        if (!z_only) plus_x += (dx * vx + dy * vy + dz * vz) >= 0.f;
-      }
-    }
-  }
-  if (active) {
-    int* o = votes + ((size_t)b * Q + qi) * 2;
-    o[0] = plus_x;
-    o[1] = plus_z;
-  }
-}
-
-// ---- K1 / K2 / K5 / K10: the cell-binned radius sweep ---------------------
+// ---- K1 / K2 / K5 / K6 / K10: the cell-binned radius sweep ----------------
 
 constexpr int KT = 512;            // threads of a binned CTA
 constexpr int NCH = 2048;          // points binned per chunk
@@ -795,12 +722,9 @@ PCD_EXPORT int pcd_sign_votes_windowed(const void* q, const void* p,
                                        const void* axes, void* votes, int B,
                                        int Q, int N, int T, int W, float r,
                                        int z_only, void* stream) {
-  dim3 grid((Q + TQ - 1) / TQ, B);
-  sign_votes_windowed_kernel<<<grid, TQ, 0, (cudaStream_t)stream>>>(
-      (const float*)q, (const float*)p, (const unsigned char*)mask,
-      (const int*)starts, (const float*)axes, (int*)votes, Q, N, T, W, r,
-      z_only);
-  return pcd_last_error();
+  return launch_binned<VotesBody, EXACT_GATE, true>(
+      q, p, mask, VotesBody{(const float*)axes, (int*)votes, z_only}, B, Q,
+      N, r, stream, starts, T, W);
 }
 
 PCD_EXPORT const char* pcd_error_string(int err) {

@@ -15,8 +15,9 @@ the same float operations: K1/K2/K5/K6 on exact coordinate differences,
 K10/K11 on the matmul identity d2 = |q|^2 + |p|^2 - 2 q.p, K10's moments as
 bf16x3 products (the twin sums them as matrix products, the kernel pair by
 pair in the cell-binned sweep's order, so K10 is held to the moment
-contract, not to equal bits).  K1, K2, K5 and K10 are one cell-binned
-sweep in the kernel, with a body, a gate and a point range each.
+contract, not to equal bits).  K1, K2, K5, K6 and K10 are one
+cell-binned sweep in the kernel, with a body, a gate and a point range
+each.
 
 All tensors are batched over clouds: queries [B, Q, 3], points [B, N, 3],
 mask [B, N] bool.  Unlike the TPU layout, nothing is parked at 1e9: the
@@ -365,7 +366,8 @@ def sign_votes_windowed(q: torch.Tensor, p: torch.Tensor, mask: torch.Tensor,
                         axes: torch.Tensor, starts: torch.Tensor,
                         window: int, radius: float,
                         z_only: bool = False) -> torch.Tensor:
-    """K6: K2 over the windows of :func:`moments_windowed`."""
+    """K6: K2 over the windows of :func:`moments_windowed` (K2's body on
+    K5's binned sweep of the windows)."""
     _check_windowed(q, p, mask, starts, window)
     check("axes", axes, torch.float32, (q.shape[0], q.shape[1], 6))
     if not uses_kernel(q, p, mask, axes, starts):

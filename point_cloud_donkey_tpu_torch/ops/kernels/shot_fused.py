@@ -19,7 +19,6 @@ layout (mean-shift groups votes by cloud and class).
 
 from __future__ import annotations
 
-import functools
 from typing import Optional, Tuple
 
 import numpy as np
@@ -30,14 +29,6 @@ from ..shot import DESC_LEN, normalize_descriptors, shot_histogram_rows
 from . import check, f32, stream_of, uses_kernel
 
 TK = 8  # keypoints per tile
-# K7 splits each tile's point sweep over CTAs until the grid holds about
-# two waves of the SMs.  A wave is one CTA per SM: at 150 registers a
-# thread (ptxas, sm_90a) one 256-thread CTA fits an SM.  At the mean-shift
-# shapes (768 tiles) that is one chunk; 1-4 chunks time the same there,
-# 6-8 slower.  Small batches split: on an H100 a single cloud ran
-# 1.2-1.8x faster at 8 chunks and 8 clouds 8-14% faster at 2 (PERF.md).
-_WAVES = 2
-_MIN_CHUNK = 256  # points per CTA at least
 
 
 def _check(kp, frames, tile_cloud, points, normals, mask):
@@ -148,8 +139,6 @@ def shot_descriptor_fused_compact(
 def _check_dense(kp, frames, live, points, normals, mask):
     b, k = live.shape
     n = points.shape[1]
-    if k % TK:
-        raise ValueError(f"K={k} must be a multiple of {TK}")
     check("kp", kp, torch.float32, (b, k, 3))
     check("frames", frames, torch.float32, (b, k, 3, 3))
     check("live", live, torch.bool, (b, k))
@@ -173,19 +162,7 @@ def shot_dense_plain(kp, frames, live, points, normals, mask, radius):
     return hist, count
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
-def dense_chunks(tiles: int, n: int, sms: int) -> int:
-    """Point chunks per K7 tile: enough CTAs for _WAVES waves of the card,
-    each chunk at least _MIN_CHUNK points."""
-    want = -(-_WAVES * sms // max(tiles, 1))
-    return max(1, min(want, n // _MIN_CHUNK))
-
-
-def shot_dense(kp: torch.Tensor,       # [B, K, 3], K % 8 == 0
+def shot_dense(kp: torch.Tensor,       # [B, K, 3]
                frames: torch.Tensor,   # [B, K, 3, 3] rows = axes
                live: torch.Tensor,     # [B, K] bool rows to describe
                points: torch.Tensor,   # [B, N, 3]
@@ -199,17 +176,15 @@ def shot_dense(kp: torch.Tensor,       # [B, K, 3], K % 8 == 0
         return shot_dense_plain(kp, frames, live, points, normals, mask,
                                 radius)
     b, k = live.shape
-    n = points.shape[1]
-    hist = torch.zeros((b, k, DESC_LEN), dtype=torch.float32,
+    hist = torch.empty((b, k, DESC_LEN), dtype=torch.float32,
                        device=kp.device)
-    count = torch.zeros((b, k), dtype=torch.int32, device=kp.device)
-    if b and k and n:
-        chunks = dense_chunks(b * k // TK, n, _sm_count(kp.device.index or 0))
+    count = torch.empty((b, k), dtype=torch.int32, device=kp.device)
+    if b and k:
         with torch.cuda.device(kp.device):
             err = build.lib().pcd_shot_dense(
                 kp.data_ptr(), frames.data_ptr(), live.data_ptr(),
                 points.data_ptr(), normals.data_ptr(), mask.data_ptr(),
-                hist.data_ptr(), count.data_ptr(), b, k, n, chunks,
+                hist.data_ptr(), count.data_ptr(), b, k, points.shape[1],
                 f32(radius), stream_of(kp))
         build.check(err, "shot_dense")
         build.count_launch("shot_dense")
@@ -224,18 +199,11 @@ def shot_descriptor_fused(keypoints: torch.Tensor,    # [B, K, 3]
                           mask: torch.Tensor,         # [B, N]
                           radius: float,
                           min_neighbors: int = 5):
-    """SHOT-352 of every row of the dense keypoint grid through K7 (K padded
-    to a multiple of 8).  Returns (descriptors [B, K, 352], valid [B, K]);
-    rows with an invalid frame are not described and come out invalid."""
-    b, k, _ = keypoints.shape
-    pad = (-k) % TK
-    if pad:
-        keypoints = torch.nn.functional.pad(keypoints, (0, 0, 0, pad),
-                                            value=1e9)
-        frames = torch.nn.functional.pad(frames, (0, 0, 0, 0, 0, pad))
-        frame_valid = torch.nn.functional.pad(frame_valid, (0, pad))
+    """SHOT-352 of every row of the dense keypoint grid through K7.
+    Returns (descriptors [B, K, 352], valid [B, K]); rows with an invalid
+    frame are not described and come out invalid."""
     hist, count = shot_dense(keypoints.contiguous(), frames.contiguous(),
                              frame_valid.contiguous(), points.contiguous(),
                              normals.contiguous(), mask.contiguous(), radius)
     res = normalize_descriptors(hist, count, frame_valid, min_neighbors)
-    return res.descriptors[:, :k], res.valid[:, :k]
+    return res.descriptors, res.valid

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Peak device memory of the port's CSHOT and SHORT_SHOT classify steps,
 and the bits of K1's and K2's outputs (the dense step's normals and
-keypoint LRFs), of K3's output and of K7's in-radius counts (its float
-sums are atomic adds, whose order varies from run to run) at their main
+keypoint LRFs), of K3's output, of K6's votes (the windowed step's
+normals) and of K7's in-radius counts and histograms at their main
 paths' shapes, for the port in a given checkout, on one NVIDIA GPU: what
 PERF.md compares between two checkouts of the port in one call
 (chip_smoke.py prints the same for its own checkout).
@@ -53,6 +53,28 @@ def lrf_bits(pts, mask, kp, kp_mask, cfg):
         out[f"K2_{what}_sha256"] = digest(klrf.sign_votes(q, p, mask, axes,
                                                           radius, z_only))
     return out
+
+
+def windowed_votes_bits(pts, mask, radius):
+    """sha256 of K6's votes at the windowed step's normals: the batch
+    sorted along each cloud's principal axis, the window calibrated on it,
+    K6 (z only) on the axes of K5's covariance."""
+    import torch
+
+    from point_cloud_donkey_tpu_torch.ops import binned
+    from point_cloud_donkey_tpu_torch.ops.eigh3 import eigh3x3
+    from point_cloud_donkey_tpu_torch.ops.kernels import lrf_moments as klrf
+    window = binned.required_window(pts, mask, radius)
+    srt = binned.sort_clouds_ex(pts, mask)
+    plan = binned.window_starts(srt.keys, srt.mask, srt.keys, radius, window)
+    q, p = klrf.prep_shift(srt.points, srt.points, srt.mask)
+    mom, _ = klrf.moments_windowed(q, p, srt.mask, plan.starts, window,
+                                   radius)
+    cov, _ = klrf.cov_from_moments(mom, q, srt.mask)
+    _, vecs = eigh3x3(cov)
+    axes = torch.cat([vecs[..., :, 2], vecs[..., :, 0]], -1).contiguous()
+    return digest(klrf.sign_votes_windowed(q, p, srt.mask, axes, plan.starts,
+                                           window, radius, True))
 
 
 def step_memory(model, pts, mask, extra):
@@ -133,9 +155,13 @@ def main(root):
         mkp = torch.where(mk.mask[..., None], mk.centroids,
                           torch.full_like(mk.centroids, 1e9)).contiguous()
         mlrf = shot_lrf(mkp, mk.mask, mp, mm, cfg.ref_frame_radius)
-        out["K7_counts_sha256"] = digest(kshot.shot_dense(
-            mkp, mlrf.frames.contiguous(), mlrf.valid.contiguous(), mp, mn,
-            mm, cfg.radius)[1])
+        hist, cnt = kshot.shot_dense(mkp, mlrf.frames.contiguous(),
+                                     mlrf.valid.contiguous(), mp, mn, mm,
+                                     cfg.radius)
+        out["K7_counts_sha256"] = digest(cnt)
+        out["K7_hist_sha256"] = digest(hist)
+        out["K6_windowed_sha256"] = windowed_votes_bits(pts, mask,
+                                                        cfg.normal_radius)
     print(json.dumps(out))
 
 

@@ -1,6 +1,7 @@
 """Edge-case inputs for K1 (radius moments), K2 (LRF sign votes), K3
-(tile-compacted SHOT-352), K4 (chi-square top-k), K8 (CSHOT-1344) and K9
-(SHORT_SHOT), made with numpy from a seed: the cases a cell-binned radius
+(tile-compacted SHOT-352), K4 (chi-square top-k), K5 / K6 (the windowed
+moments and sign votes), K7 (SHOT-352 on the dense keypoint grid), K8
+(CSHOT-1344) and K9 (SHORT_SHOT), made with numpy from a seed: the cases a cell-binned radius
 sweep, compacted in-radius pairs binned into warp-owned histograms (or
 registers) and a register-tiled chi-square kernel make risky.
 tests/test_torch_redesign.py holds the plain twins against the JAX package
@@ -163,6 +164,17 @@ def k5_windows_exact(pts, mask, starts, window, radius=K1_RADIUS):
                 ).any():
             return False
     return True
+
+
+def k6_case(name):
+    """(points, mask, starts, window, axes [B, N, 6]) of K6, the windowed
+    sign votes: k5_case's inputs with x and z axis candidates for every
+    query (the points), unit vectors made from a seed."""
+    pts, mask, starts, window = k5_case(name)
+    rng = np.random.default_rng(K5_CASES.index(name) + 80)
+    axes = np.concatenate([_unit(rng, mask.shape), _unit(rng, mask.shape)],
+                          -1)
+    return pts, mask, starts, window, axes
 
 
 def k4_case(dim, q=70, c=150, seed=8, signed=False):
@@ -371,6 +383,11 @@ K9_CASES = _DENSE_CASES + ("theta_90", "phi_180", "r_half", "bins_2x4x8")
 K8_KEYS = ("keypoints", "kp_col", "frames", "frame_valid", "points",
            "normals", "col", "mask")
 K9_KEYS = ("keypoints", "frames", "frame_valid", "points", "mask")
+K7_RADIUS = K8_RADIUS
+K7_CASES = _DENSE_CASES + ("bad_normals", "dead_tile_beside_live",
+                           "k_not_multiple_of_8", "beyond_one_chunk")
+K7_KEYS = ("keypoints", "frames", "frame_valid", "points", "normals",
+           "mask")
 # the colours of K8's colour_past_one case are normalised Lab, fed past the
 # RGB conversion (no real colour is more than a distance of 1 apart)
 K8_LAB_CASES = ("colour_past_one",)
@@ -507,3 +524,33 @@ def k9_case(name):
     kp, frames, fv, pts, mask, _ = _dense_case(name,
                                                K9_CASES.index(name) + 90)
     return kp, frames, fv, pts, mask
+
+
+def k7_case(name):
+    """(keypoints, frames, frame_valid, points, normals, mask) -- K7_KEYS
+    -- for SHOT-352 on the dense [B, K] grid at K7_RADIUS, the live rows
+    being frame_valid: _dense_case's inputs with unit normals.
+    bad_normals: NaN and +-inf normal components; dead_tile_beside_live:
+    the real keypoints of rows 8-15 of cloud 0 are not live, between two
+    live tiles; k_not_multiple_of_8: K = 22 (a last tile of 6 rows, five
+    of them live in cloud 0);
+    beyond_one_chunk: N = 1100 (a second staging chunk of 76 points), a
+    tenth of the points masked and some normals NaN."""
+    k = 22 if name == "k_not_multiple_of_8" else 32
+    n = 1100 if name == "beyond_one_chunk" else 512
+    kp, frames, fv, pts, mask, rng = _dense_case(
+        name, K7_CASES.index(name) + 110, n=n, k=k)
+    b, n = mask.shape
+    nrm = _unit(rng, (b, n))
+    if name in ("bad_normals", "beyond_one_chunk"):
+        bad = np.argwhere(rng.random((b, n)) < 0.1)
+        nrm[bad[:, 0], bad[:, 1], rng.integers(0, 3, len(bad))] = \
+            rng.choice(np.array([np.nan, np.inf, -np.inf], np.float32),
+                       len(bad))
+    if name == "beyond_one_chunk":
+        mask = rng.random((b, n)) > 0.1
+    if name == "masked_garbage":
+        nrm[~mask] = np.nan
+    if name == "dead_tile_beside_live":
+        fv[0, 8:16] = False
+    return kp, frames, fv, pts, nrm, mask

@@ -16,10 +16,11 @@ import torch
 import shapes
 from bench_data import KEYPOINT_CAPACITY, bench_clouds, bench_colors
 from redesign_cases import (K1_CASES, K1_RADIUS, K2_CASES, K3_CASES,
-                            K3_RADIUS, K4_DIMS, K5_CASES, K8_CASES,
-                            K8_LAB_CASES, K8_RADIUS, K9_CASES, K9_RADIUS,
-                            k1_case, k2_case, k3_case, k4_case, k5_case,
-                            k5_windows_exact, k8_case, k9_bins, k9_case)
+                            K3_RADIUS, K4_DIMS, K5_CASES, K7_CASES,
+                            K7_RADIUS, K8_CASES, K8_LAB_CASES, K8_RADIUS,
+                            K9_CASES, K9_RADIUS, k1_case, k2_case, k3_case,
+                            k4_case, k5_case, k5_windows_exact, k6_case,
+                            k7_case, k8_case, k9_bins, k9_case)
 from torch_parity import (assert_decisions_match, assert_descriptors_close,
                           assert_topk_close, cuda_device, n, t)  # noqa: F401
 
@@ -118,7 +119,8 @@ def test_windowed_moments_and_sign_votes_match_plain(cuda_device, clouds):
 
 def test_shot_dense_matches_plain(cuda_device, clouds):
     """K7 vs its twin on the dense keypoint grid, some rows not live:
-    counts equal, raw histograms within f32 summation order (atomics)."""
+    counts equal, raw histograms within f32 summation order (the kernel
+    sums in lane order, the twin by index_add_)."""
     pts, mask = (x.to(cuda_device) for x in clouds)
     nrm = compute_normals_fast(pts, mask, 0.25)
     kres = voxel_grid(pts, mask, 0.35, capacity=KEYPOINT_CAPACITY)
@@ -135,7 +137,8 @@ def test_shot_dense_matches_plain(cuda_device, clouds):
 
 def test_detector_matches_jax_reference(cuda_device):
     """IsmDetector on the card vs the committed JAX-CPU detect_maxima_jit
-    densities of the first 32 bench clouds; K7 was launched."""
+    densities of the first 32 bench clouds; K7 was launched once a step,
+    and two steps give equal densities and positions bit for bit."""
     ref = np.load(DATA + "bench_reference.npz")
     config = IsmConfig.load(DATA + "bench_codebook.ism")
     cb = load_codebook(DATA + "bench_codebook.ism").to(cuda_device)
@@ -149,7 +152,9 @@ def test_detector_matches_jax_reference(cuda_device):
     build.reset_launch_counts()
     with torch.no_grad():
         dens, pos = model(pts, mask)
-    assert build.launch_counts()["shot_dense"] == 1
+        again = model(pts, mask)
+    assert build.launch_counts()["shot_dense"] == 2
+    assert _same_bits(dens, again[0]) and _same_bits(pos, again[1])
     assert_decisions_match(dens, ref["detect_densities"])
     assert (n(dens).argmax(1) == labels).all()
 
@@ -265,6 +270,31 @@ def test_sign_votes_edge_cases_match_plain(cuda_device, case, z_only):
     assert (v - pv).abs().max() <= 1
 
 
+@pytest.mark.parametrize("z_only", [False, True])
+@pytest.mark.parametrize("case", K5_CASES)
+def test_windowed_sign_votes_edge_cases_match_plain(cuda_device, case,
+                                                    z_only):
+    """K6 (K2's body on K5's binned sweep of the windows) vs its twin at
+    tests/redesign_cases.py's K5 cases: votes equal (the gate and the dot
+    products are the twin's float operations on p - q, negated exactly),
+    0 on the masked queries and in x when z_only; two launches equal bit
+    for bit; on an exact plan, equal to K2 over the whole cloud."""
+    pts, mask, starts, window, axes = k6_case(case)
+    p, m, s, ax = (t(x).to(cuda_device) for x in (pts, mask, starts, axes))
+    v = tlrfm.sign_votes_windowed(p, p, m, ax, s, window, K1_RADIUS, z_only)
+    assert torch.equal(v, tlrfm.sign_votes_windowed(p, p, m, ax, s, window,
+                                                    K1_RADIUS, z_only))
+    pv = tlrfm.sign_votes_windowed_plain(p, p, m, ax, s, window, K1_RADIUS,
+                                         z_only)
+    assert torch.equal(v, pv)
+    assert not v[~m].any() and v[m].max() > 1
+    if z_only:
+        assert not v[..., 0].any()
+    if k5_windows_exact(pts, mask, starts, window):
+        full = tlrfm.sign_votes(p, p, m, ax, K1_RADIUS, z_only)
+        assert torch.equal(v[m], full[m])
+
+
 def _k3_inputs(arrays, device, dead_tile=False):
     """The rows K3 gets from shot_descriptor_fused_compact for one case
     (plus a tile of 1e9 keypoints when dead_tile): (shot_tiles arguments,
@@ -310,10 +340,80 @@ def test_shot_tiles_edge_cases_match_plain(cuda_device, case):
                              want.valid)
 
 
+def _k7_inputs(case, device, all_live=False):
+    """shot_dense's arguments for a K7 case on `device`; with all_live,
+    every row whose frame is finite -- the 1e9 pad rows too -- is
+    described."""
+    kp, fr, fv, pts, nrm, mask = (t(x) for x in k7_case(case))
+    live = torch.isfinite(fr).all(-1).all(-1) if all_live else fv
+    return tuple(x.contiguous().to(device) for x in (
+        kp, fr, live, pts, nrm, mask)) + (K7_RADIUS,)
+
+
+def _assert_k7_matches_plain(args, frame_valid):
+    """K7 vs its twin on shot_dense's arguments: counts equal, rows that
+    are not live zero, two launches equal bit for bit, and the descriptor
+    contract (validity equal, cosine > 0.999, fewer than 1e-4 of the
+    entries off by more than 1e-3) on the rows with a valid frame."""
+    h, c = tshot.shot_dense(*args)
+    h2, c2 = tshot.shot_dense(*args)
+    assert _same_bits(h, h2) and torch.equal(c, c2)
+    ph, pc = tshot.shot_dense_plain(*args)
+    assert torch.equal(c, pc)
+    live = args[2]
+    assert not h[~live].any() and not c[~live].any()
+    got = normalize_descriptors(h, c, frame_valid)
+    want = normalize_descriptors(ph, pc, frame_valid)
+    assert_descriptors_close(got.descriptors.reshape(-1, 352),
+                             got.valid.reshape(-1),
+                             want.descriptors.reshape(-1, 352),
+                             want.valid.reshape(-1))
+    return c
+
+
+@pytest.mark.parametrize("all_live", [False, True])
+@pytest.mark.parametrize("case", K7_CASES)
+def test_shot_dense_edge_cases_match_plain(cuda_device, case, all_live):
+    """K7 (K3's warp-owned histograms on the dense [B, K] grid) vs its twin
+    at tests/redesign_cases.py's K7 cases -- dead rows and all-dead tiles,
+    masked garbage, exact self pairs and on-radius pairs, invalid frames,
+    an empty cloud, N = 2500 and 1100, NaN and +-inf normals, real
+    keypoints that are not live between live tiles, K = 22 -- with the
+    rows of a valid frame live and with every row of a finite frame live
+    (the 1e9 rows meet no point): counts equal, the descriptor contract,
+    rows that are not live zero, two launches equal bit for bit."""
+    args = _k7_inputs(case, cuda_device, all_live)
+    fv = t(k7_case(case)[2]).to(cuda_device)
+    c = _assert_k7_matches_plain(args, fv)
+    dead = args[0][..., 0] == 1e9
+    assert not c[dead].any()
+
+
+@pytest.mark.parametrize("b", [1, 8])
+def test_shot_dense_small_batches_match_plain(cuda_device, b):
+    """K7 at one cloud and at 8 (24 and 192 CTAs, where the grid fills a
+    fraction of the card's SMs) on bench-geometry clouds: the twin's
+    counts, the descriptor contract, two launches bit-equal."""
+    rng = np.random.default_rng(23 + b)
+    pts = t(np.stack([shapes.make_instance(rng, i % 5, n=2048, rotate=True)
+                      for i in range(b)]).astype(np.float32)).to(cuda_device)
+    mask = torch.ones(pts.shape[:2], dtype=torch.bool, device=cuda_device)
+    nrm = compute_normals_fast(pts, mask, 0.25)
+    kres = voxel_grid(pts, mask, 0.35, capacity=KEYPOINT_CAPACITY)
+    kp = torch.where(kres.mask[..., None], kres.centroids,
+                     torch.full_like(kres.centroids, 1e9))
+    lrf = shot_lrf(kp, kres.mask, pts, mask, 0.5)
+    args = (kp.contiguous(), lrf.frames.contiguous(), lrf.valid, pts, nrm,
+            mask, 0.6)
+    _assert_k7_matches_plain(args, lrf.valid)
+
+
 def test_sign_votes_and_shot_tiles_repeat_bit_for_bit(cuda_device, clouds):
     """K2 at the normals (Q = N = 2048, z only and full, as serving and
-    training call it) and at the keypoint LRFs, and K3 on compacted
-    keypoints: two launches equal bit for bit and agree with the twins."""
+    training call it) and at the keypoint LRFs, K6 over the calibrated
+    windows of the sorted clouds, K3 on compacted keypoints and K7 on the
+    dense keypoint grid: two launches equal bit for bit and agree with the
+    twins."""
     pts, mask = (x.to(cuda_device) for x in clouds)
     kres = voxel_grid(pts, mask, 0.35, capacity=KEYPOINT_CAPACITY)
     kp = torch.where(kres.mask[..., None], kres.centroids,
@@ -339,6 +439,25 @@ def test_sign_votes_and_shot_tiles_repeat_bit_for_bit(cuda_device, clouds):
     h2, c2 = tshot.shot_tiles(*args)
     assert torch.equal(h, h2) and torch.equal(c, c2)
     assert torch.equal(c, tshot.shot_tiles_plain(*args)[1])
+    dense = (kp.contiguous(), lrf.frames.contiguous(), lrf.valid, pts, nrm,
+             mask, 0.6)
+    h, c = tshot.shot_dense(*dense)
+    h2, c2 = tshot.shot_dense(*dense)
+    assert _same_bits(h, h2) and torch.equal(c, c2)
+    assert torch.equal(c, tshot.shot_dense_plain(*dense)[1])
+    s = binned.sort_clouds_ex(pts, mask)
+    win = binned.required_window(pts, mask, 0.25)
+    plan = binned.window_starts(s.keys, s.mask, s.keys, 0.25, win)
+    q, p = tlrfm.prep_shift(s.points, s.points, s.mask)
+    axes = torch.nn.functional.normalize(
+        torch.randn(*q.shape[:2], 6, device=cuda_device), dim=-1)
+    for z_only in (False, True):
+        v = tlrfm.sign_votes_windowed(q, p, s.mask, axes, plan.starts, win,
+                                      0.25, z_only)
+        assert torch.equal(v, tlrfm.sign_votes_windowed(
+            q, p, s.mask, axes, plan.starts, win, 0.25, z_only))
+        assert torch.equal(v, tlrfm.sign_votes_windowed_plain(
+            q, p, s.mask, axes, plan.starts, win, 0.25, z_only))
 
 
 @pytest.mark.parametrize("signed", [False, True])

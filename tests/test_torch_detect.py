@@ -157,8 +157,10 @@ def test_shot_dense_matches_pallas_interpret(grid):
 
 
 def test_shot_dense_skips_dead_rows_and_checks_k(grid):
-    """Rows that are not live get a zero histogram and count; K must be a
-    multiple of 8."""
+    """Rows that are not live get a zero histogram and count; any K is
+    taken (the grid's K = 30 is not a multiple of 8) and gives the rows
+    of a smaller K (counts equal, histograms within the float summation
+    order), and a live mask that does not match K is refused."""
     pts, mask, nrm, kp, fr, fv = grid
     live = np.zeros((2, 24), bool)
     live[0, :5] = True
@@ -166,18 +168,16 @@ def test_shot_dense_skips_dead_rows_and_checks_k(grid):
                             t(nrm), t(mask), 0.6)
     assert (n(c)[~live] == 0).all() and (n(h)[~live] == 0).all()
     assert (n(c)[live] > 0).all()
+    h30, c30 = tshot.shot_dense(t(kp), t(fr), t(fv), t(pts), t(nrm),
+                                t(mask), 0.6)
+    assert h30.shape == (2, 30, 352) and n(c30)[fv].min() > 0
+    h24, c24 = tshot.shot_dense(t(kp[:, :24]), t(fr[:, :24]), t(fv[:, :24]),
+                                t(pts), t(nrm), t(mask), 0.6)
+    assert torch.equal(c30[:, :24], c24)
+    torch.testing.assert_close(h30[:, :24], h24, rtol=1e-6, atol=1e-6)
     with pytest.raises(ValueError):
-        tshot.shot_dense(t(kp), t(fr), t(fv), t(pts), t(nrm), t(mask), 0.6)
-
-
-def test_dense_chunks_fill_two_waves():
-    """Two waves of 132 SMs at one CTA each: the mean-shift shapes (32
-    clouds x 192 keypoints = 768 tiles) need no split, 4 clouds (96 tiles)
-    3 chunks; never a chunk < 256 points."""
-    assert tshot.dense_chunks(768, 2048, 132) == 1
-    assert tshot.dense_chunks(96, 2048, 132) == 3
-    assert tshot.dense_chunks(8, 2048, 132) == 8
-    assert tshot.dense_chunks(8, 100, 132) == 1
+        tshot.shot_dense(t(kp), t(fr), t(fv[:, :24]), t(pts), t(nrm),
+                         t(mask), 0.6)
 
 
 def _detector(device="cpu"):

@@ -1,7 +1,8 @@
 """The plain twins of K1 (radius moments), K2 (LRF sign votes), K3
-(tile-compacted SHOT-352), K4 (chi-square top-k), K5 (windowed moments)
-and K10 (v2 moments) against the JAX package's Pallas kernels, run in
-interpret mode on the CPU, at the edge cases of tests/redesign_cases.py:
+(tile-compacted SHOT-352), K4 (chi-square top-k), K5 (windowed moments),
+K6 (windowed sign votes), K7 (dense-grid SHOT-352) and K10 (v2 moments)
+against the JAX package's Pallas kernels, run in interpret mode on the
+CPU, at the edge cases of tests/redesign_cases.py:
 padded and invalid queries, masked points holding NaN and huge
 coordinates, a cloud far wider than the radius, ragged N, points at
 exactly r and offsets orthogonal to an axis, N beyond one binning chunk;
@@ -9,9 +10,11 @@ keypoints coincident with points, NaN normals, exact on-axis, in-plane
 and shell-edge local geometry, cos_desc = +-1, dead rows and an empty
 cloud; ragged D, C off the tiles, k in {1, 2, 3}, masked, all-zero and
 duplicated codewords; windows clamped at the cloud's end, an inexact
-plan, a query tail, W = N, W = 128 and overlapping windows.  K2's, K3's,
-K5's and K10's Pallas references run in a process of their own
-(torch_parity.pallas_interpret).
+plan, a query tail, W = N, W = 128 and overlapping windows; on the dense
+keypoint grid, rows that are not live (a tile of them between live ones),
+K not a multiple of 8 and a cloud past one staging chunk.  K2's, K3's,
+K5's, K6's, K7's and K10's Pallas references run in a process of their
+own (torch_parity.pallas_interpret).
 K8's and K9's twins (the slot arrays, then their histograms) are held
 against the JAX dense CSHOT and SHORT_SHOT on the dense [B, K] grid, each
 in a process of its own too: dead rows at 1e9, all-dead tiles, masked
@@ -29,9 +32,10 @@ from jax.experimental.pallas import tpu as pltpu
 
 from redesign_cases import (K1_CASES, K1_RADIUS, K2_CASES, K3_CASES,
                             K3_KEYS, K3_RADIUS, K4_DIMS, K5_CASES, K5_TILE,
-                            K8_CASES, K8_KEYS, K8_LAB_CASES, K8_RADIUS,
-                            K9_CASES, K9_KEYS, K9_RADIUS, k1_case, k2_case,
-                            k3_case, k4_case, k5_case, k5_windows_exact,
+                            K7_CASES, K7_KEYS, K7_RADIUS, K8_CASES, K8_KEYS,
+                            K8_LAB_CASES, K8_RADIUS, K9_CASES, K9_KEYS,
+                            K9_RADIUS, k1_case, k2_case, k3_case, k4_case,
+                            k5_case, k5_windows_exact, k6_case, k7_case,
                             k8_case, k9_bins, k9_case)
 from torch_parity import (assert_descriptors_close, assert_topk_close, n,
                           pallas_interpret, t)
@@ -268,6 +272,71 @@ def test_windowed_moments_twin_matches_pallas_at_edge_cases(pallas_k5,
         assert not cnt[1, 2 * K5_TILE:].any()
 
 
+# --- K6: windowed sign votes ------------------------------------------------
+
+_K6_CODE = """
+import jax.numpy as jnp
+import numpy as np
+from point_cloud_donkey_tpu.ops.pallas import lrf_moments as L
+out = {}
+for case in %r:
+    w = int(a[case + "__w"])
+    g = lambda key: a[case + "__" + key]
+    for z_only in (False, True):
+        out[case + "__z%%d" %% z_only] = np.stack([np.asarray(
+            L._sign_votes_call_gathered(
+                jnp.asarray(qt), jnp.asarray(pw), jnp.asarray(ax),
+                jnp.float32(%r), z_only, w))
+            for qt, pw, ax in zip(g("qt"), g("pw"), g("ax"))])
+""" % (K5_CASES, K1_RADIUS)
+
+
+@pytest.fixture(scope="module")
+def pallas_k6(tmp_path_factory):
+    """`_sign_votes_call_gathered` per cloud at every K5 case with K6's
+    axis candidates, with and without z_only, on the lanes
+    shot_lrf_pallas_windowed builds (_k5_lanes; the axes in rows 0-5 of
+    the query lanes)."""
+    arrays = {}
+    for case in K5_CASES:
+        pts, mask, starts, window, axes = k6_case(case)
+        qt, pw = _k5_lanes(pts, mask, starts, window)
+        ax = np.zeros_like(qt)
+        ax[:, :6, :pts.shape[1]] = axes.transpose(0, 2, 1)
+        arrays.update({case + "__qt": qt, case + "__pw": pw,
+                       case + "__ax": ax, case + "__w": np.array(window)})
+    return pallas_interpret(_K6_CODE, str(tmp_path_factory.mktemp("k6")),
+                            **arrays)
+
+
+@pytest.mark.parametrize("z_only", [False, True])
+@pytest.mark.parametrize("case", K5_CASES)
+def test_windowed_sign_votes_twin_matches_pallas_at_edge_cases(
+        pallas_k6, case, z_only):
+    """K6's twin vs `_sign_votes_call_gathered` at the K5 cases: votes
+    equal on the self-LRF's valid queries (both take p - q exactly, square
+    and dot it in one order, and count integers), 0 on the masked ones,
+    on the queries of a window past the cloud's end and in x when z_only.
+    On an exact plan the twin equals K2's over the whole cloud."""
+    pts, mask, starts, window, axes = k6_case(case)
+    nq = pts.shape[1]
+    want = pallas_k6[f"{case}__z{int(z_only)}"][:, :2, :nq].transpose(
+        0, 2, 1).astype(np.int32)
+    got = n(tlrfm.sign_votes_windowed(t(pts), t(pts), t(mask), t(axes),
+                                      t(starts), window, K1_RADIUS, z_only))
+    assert not got[~mask].any()
+    if z_only:
+        assert not got[..., 0].any()
+    assert got[mask].max() > 1
+    np.testing.assert_array_equal(got[mask], want[mask])
+    if k5_windows_exact(pts, mask, starts, window):
+        full = n(tlrfm.sign_votes(t(pts), t(pts), t(mask), t(axes),
+                                  K1_RADIUS, z_only))
+        np.testing.assert_array_equal(got[mask], full[mask])
+    if case == "clamped_end":
+        assert not got[1, 2 * K5_TILE:].any()
+
+
 @pytest.mark.parametrize("signed", [False, True])
 @pytest.mark.parametrize("k", [1, 2, 3])
 @pytest.mark.parametrize("dim", K4_DIMS)
@@ -434,6 +503,82 @@ def test_shot_twin_matches_pallas_at_edge_cases(pallas_k3, case):
     np.testing.assert_allclose(n(tf), j("frames")[:rows], atol=1e-6)
     assert n(count)[n(alive)].min() >= 0 and n(count).max() > 5
     assert not n(count)[~n(alive)].any()
+
+
+# --- K7: SHOT-352 on the dense keypoint grid --------------------------------
+
+_K7_CODE = """
+import jax.numpy as jnp
+import numpy as np
+from point_cloud_donkey_tpu.ops.pallas import shot_fused as SF
+counts = []
+_call = SF._shot_fused_call
+
+
+def _spy(*args, **kw):          # keep the in-radius counts the call returns
+    hist, cnt = _call(*args, **kw)
+    counts.append(np.asarray(cnt)[:, 0])
+    return hist, cnt
+
+
+SF._shot_fused_call = _spy
+out = {}
+for case in %r:
+    g = lambda key: jnp.asarray(a[case + "__" + key])
+    desc, valid = SF.shot_descriptor_fused(
+        *(g(key) for key in %r), %r, interpret=True)
+    out[case + "__desc"] = np.asarray(desc)
+    out[case + "__valid"] = np.asarray(valid)
+    out[case + "__count"] = counts[-1]
+""" % (K7_CASES, K7_KEYS, K7_RADIUS)
+
+
+@pytest.fixture(scope="module")
+def pallas_k7(tmp_path_factory):
+    """`shot_descriptor_fused(..., interpret=True)` at every K7 case, and
+    the in-radius counts of its `_shot_fused_call` (rows of K padded to a
+    multiple of 8)."""
+    arrays = {f"{case}__{key}": x for case in K7_CASES
+              for key, x in zip(K7_KEYS, k7_case(case))}
+    return pallas_interpret(_K7_CODE, str(tmp_path_factory.mktemp("k7")),
+                            **arrays)
+
+
+@pytest.mark.parametrize("case", K7_CASES)
+def test_shot_dense_twin_matches_pallas_at_edge_cases(pallas_k7, case):
+    """K7's twin (`shot_dense`, and `shot_descriptor_fused` over it) vs
+    the Pallas dense-grid kernel: in-radius counts equal on the live rows
+    (the rows with a valid frame), validity equal, descriptor cosine >
+    0.999 with fewer than 1e-4 of the entries off by more than 1e-3; rows
+    that are not live keep a zero histogram and count, whatever their
+    keypoint.  Masked garbage, NaN and +-inf normals, a keypoint's
+    coincident point (d^2 = 0) and the empty cloud add nothing; points at
+    exactly r count."""
+    arrays = k7_case(case)
+    kp, fr, fv, pts, nrm, mask = (t(x) for x in arrays)
+    live = arrays[2]
+    b, k = live.shape
+    j = lambda key: pallas_k7[f"{case}__{key}"]          # noqa: E731
+    hist, count = tshot.shot_dense(kp, fr, fv, pts, nrm, mask, K7_RADIUS)
+    hist, count = n(hist), n(count)
+    jcount = j("count").reshape(b, -1)[:, :k]
+    np.testing.assert_array_equal(count[live], jcount[live])
+    assert not count[~live].any() and not hist[~live].any()
+    assert count.max() > 5
+    td, tv = tshot.shot_descriptor_fused(kp, fr, fv, pts, nrm, mask,
+                                         K7_RADIUS)
+    assert td.shape == (b, k, 352)
+    assert_descriptors_close(td.reshape(-1, 352), tv.reshape(-1),
+                             j("desc").reshape(-1, 352),
+                             j("valid").reshape(-1))
+    if case == "empty_cloud":
+        assert not count[1].any() and not n(tv)[1].any()
+    if case == "dead_tile_beside_live":
+        # real keypoints that are not live, between two live tiles
+        assert jcount[0, 8:16].all() and live[0, :8].all() \
+            and live[0, 16:21].all()
+    if case == "k_not_multiple_of_8":
+        assert k % 8 and count[0, 16:21].all()
 
 
 # --- K8 / K9: CSHOT and SHORT_SHOT on the dense keypoint grid ----------------
