@@ -33,9 +33,12 @@ Phases (each prints its results; any failure raises and exits nonzero):
   2d. K10 (and K11) at the v2 LRF passes' shapes -- the serving normals
      (Q=N=2048, K10 with K2 z-only), the training normals' full LRF
      (Q=N=2048, K11) and the keypoint LRFs (Q=192) -- against their twins
-     and against K1 / K2, timed beside their twins, K1 / K2 and K10's
-     previous design, two launches of K10 bit-equal, and K10's uniform
-     weighting against its twin at the keypoint LRFs' shape;
+     and against K1 / K2 (K11: the rows whose votes differ from the
+     twin's), timed beside their twins, K1 / K2 and their previous
+     designs, with their bounds and torch.profiler's device time, two
+     launches of each bit-equal, the bits of K10's and K11's outputs, and
+     K10's uniform weighting against its twin at the keypoint LRFs'
+     shape;
   3. LRF frames and SHOT descriptors against tests/golden/descriptors.npz;
   4. the dense classify step: IsmClassifier on the 128 x 2048 bench batch
      with the committed codebook -- per-stage ms, clouds/s, K1-K4 launched,
@@ -120,7 +123,7 @@ KERNELS = {
                   "point_cloud_donkey_tpu/ops/pallas/histogram.py:51"),
     "lrf_moments_v2": ("point_cloud_donkey_tpu_torch/csrc/lrf_moments.cu",
                        "point_cloud_donkey_tpu/ops/pallas/lrf_moments.py:161"),
-    "sign_votes_v2": ("point_cloud_donkey_tpu_torch/csrc/lrf_moments_v2.cu",
+    "sign_votes_v2": ("point_cloud_donkey_tpu_torch/csrc/lrf_moments.cu",
                       "point_cloud_donkey_tpu/ops/pallas/lrf_moments.py:237"),
 }
 # the path whose step must launch each kernel
@@ -179,15 +182,18 @@ SHORT_SHOT_BODY_OPS = 75   # frame coords (15), r (6), theta and phi (7),
 # shapes, not counting the slot build; K5's and K6's all-pairs sweeps of
 # the windows and K10's dense bf16x3 mma.sync tiles at their steps'
 # shapes; K7's threads over points with atomic sums (and its point-chunk
-# split) at 32, 1 and 8 clouds -- from PERF.md's kernel table and PR 9's
-# entry (H100 80GB HBM3 at 700 W), printed beside this run's
+# split) at 32, 1 and 8 clouds; K11's one thread per query over the whole
+# cloud at the training normals' full LRF and the keypoint LRFs -- from
+# PERF.md's kernel table and findings (H100 80GB HBM3 at 700 W), printed
+# beside this run's
 PREVIOUS_MS = {"K1 normals": 0.834, "K1 keypoints": 0.279,
                "K4 serving": 2.079, "K2 normals": 0.482,
                "K2 keypoints": 0.170, "K3 serving": 0.874,
                "K8 CSHOT": 0.684 + 0.715, "K9 SHORT_SHOT": 0.829,
                "K5 windowed": 0.441, "K10 normals": 1.184,
                "K10 keypoints": 0.180, "K6 windowed": 0.271,
-               "K7 detect": 0.277, "K7 B=1": 0.1225, "K7 B=8": 0.1057}
+               "K7 detect": 0.277, "K7 B=1": 0.1225, "K7 B=8": 0.1057,
+               "K11 keypoints": 0.180, "K11 full-LRF normals": 0.580}
 
 # detection against the JAX-CPU detect_maxima_jit reference: the best
 # class's maximum within a few times mean-shift's 1e-3 stopping shift, its
@@ -274,7 +280,7 @@ def main():
     import numpy as np
 
     from bench_data import KEYPOINT_CAPACITY, bench_clouds, bench_colors
-    from port_fingerprint import lrf_bits
+    from port_fingerprint import lrf_bits, lrf_v2_bits
     from point_cloud_donkey_tpu_torch import serve
     from point_cloud_donkey_tpu_torch.kernels import build
     from point_cloud_donkey_tpu_torch.models.codebook import (
@@ -740,7 +746,8 @@ def main():
                what, nbytes(q, p, mask, mom, cnt),
                inside * (GATE_OPS + MOMENT_BODY_OPS))
 
-    def lrf_v2(queries, q_mask, radius, z_only, what, moments=None):
+    def lrf_v2(queries, q_mask, radius, z_only, what, moments=None,
+               votes=None):
         """K10 (and K11 unless z_only: the z-only normals vote with K2)
         at one main-path call against its twin -- moments: weight sums
         rtol 2e-4, counts +-1, covariance atol 5e-4; votes +-1 -- and
@@ -750,7 +757,8 @@ def main():
         names K10's previous-design time (PREVIOUS_MS) where K10 is held and
         recorded here; without it, K10 is held and recorded by another call
         at the same shape (its moments do not depend on z_only), and only
-        its covariance feeds K11 here."""
+        its covariance feeds K11 here.  votes names K11's previous-design
+        time where K11 runs (not z_only)."""
         q, p = klrf.prep_shift(queries, pts, mask)
         mom, cnt = klrf.moments_v2(q, p, mask, radius)
         cov, _ = klrf.cov_from_moments(mom, q, q_mask)
@@ -764,22 +772,37 @@ def main():
             v = klrf.sign_votes_v2(q, p, mask, axes, radius)
             pv = klrf.sign_votes_v2_plain(q, p, mask, axes, radius)
             err = int((v - pv).abs().max())
+            rows = int((v != pv).any(-1).sum())
             err1 = int((v - klrf.sign_votes(q, p, mask, axes, radius))
                        .abs().max())
-            print(f"{'sign_votes_v2':20s} {what}: votes vs its twin +-{err}, "
-                  f"vs K2 +-{err1}")
+            print(f"{'sign_votes_v2':20s} {what}: votes vs its twin +-{err} "
+                  f"({rows} of {v.shape[0] * v.shape[1]} rows differ), vs "
+                  f"K2 +-{err1}")
             assert err <= 1 and err1 <= 1, f"K11 votes differ ({what})"
+            assert torch.equal(v, klrf.sign_votes_v2(q, p, mask, axes,
+                                                     radius)), \
+                f"two K11 launches differ ({what})"
             k2_ms = cuda_ms(lambda: klrf.sign_votes(q, p, mask, axes,
-                                                    radius), 5)
+                                                    radius), 20)
+            k2_dev = device_ms(lambda: klrf.sign_votes(q, p, mask, axes,
+                                                       radius),
+                               "VotesBody", 20)
             ms = cuda_ms(lambda: klrf.sign_votes_v2(q, p, mask, axes,
-                                                    radius), 5)
-            print(f"{'':20s} {what}: K11 {ms:.4f} ms, K2 {k2_ms:.4f} ms at "
-                  f"the same inputs ({card})")
+                                                    radius), 20)
+            dev_ms = device_ms(lambda: klrf.sign_votes_v2(q, p, mask, axes,
+                                                          radius),
+                               "VotesV2Body", 20)
+            v_bytes = nbytes(q, p, mask, axes, v)
+            v_ops = inside * (GATE_OPS + 2 * VOTE_BODY_OPS)
+            b_ms, by = bound(v_bytes, v_ops)
+            print(f"{'':20s} {what}: K11 (binned sweep) {ms:.4f} ms, device "
+                  f"{fmt_ms(dev_ms)} (previous design "
+                  f"{PREVIOUS_MS[votes]:.3f} ms, bound {b_ms:.4f} ms by "
+                  f"{by}); K2 {k2_ms:.4f} ms, device {fmt_ms(k2_dev)} at "
+                  f"the same inputs; two launches bit-equal ({card})")
             record("sign_votes_v2", err, ms,
                    cuda_ms(lambda: klrf.sign_votes_v2_plain(
-                       q, p, mask, axes, radius), 2), what,
-                   nbytes(q, p, mask, axes, v),
-                   inside * (GATE_OPS + 2 * VOTE_BODY_OPS))
+                       q, p, mask, axes, radius), 2), what, v_bytes, v_ops)
         one = shot_lrf(queries, q_mask, pts, mask, radius, z_only=z_only)
         two = shot_lrf(queries, q_mask, pts, mask, radius, z_only=z_only,
                        lrf_version=2)
@@ -796,9 +819,15 @@ def main():
                f"normals B={BATCH} Q=N={pts.shape[1]}", "K10 normals")
         # the training normals: the full LRF, K11 at Q = N
         lrf_v2(pts, mask, cfg.normal_radius, False,
-               f"full-LRF normals B={BATCH} Q=N={pts.shape[1]}")
+               f"full-LRF normals B={BATCH} Q=N={pts.shape[1]}",
+               votes="K11 full-LRF normals")
         lrf_v2(kp, kres.mask, cfg.ref_frame_radius, False,
-               f"keypoint LRF B={BATCH} Q={kp.shape[1]}", "K10 keypoints")
+               f"keypoint LRF B={BATCH} Q={kp.shape[1]}", "K10 keypoints",
+               "K11 keypoints")
+        print(f"{'sign_votes_v2':20s} output bits (K10's moments and "
+              f"counts, K11's votes on their axes; full-LRF normals and "
+              f"keypoint LRFs): "
+              f"{json.dumps(lrf_v2_bits(pts, mask, kp, kres.mask, cfg))}")
         # K10's uniform weighting (no main path calls it: the training
         # normals' uniform PCA covariance is ops/neighbors.radius_covariance)
         # at the keypoint LRFs' shape: its twin's contract, its weight sums
@@ -921,6 +950,8 @@ def main():
                                          mask, ROUNDS, card)
     assert launches["dense_v2"]["lrf_moments"] == 0, \
         f"K1 launched by the v2 step: {launches['dense_v2']}"
+    assert launches["dense_v2"]["sign_votes_v2"] == 1, \
+        f"K11 not launched once by the v2 step: {launches['dense_v2']}"
     with torch.no_grad():
         assert torch.equal(scores, v2model(pts, mask)), \
             "two runs of the v2 step differ"
@@ -1222,6 +1253,11 @@ def training(launches, card, data, pts, mask, rgb, labels, ref, dref):
                 os.environ["PCD_PALLAS_LRF_V"] = old
         ism, _ = run("SHOT", shot_items, "train_v2", version)
         assert launches["train_v2"]["lrf_moments"] == 0, "K1 launched"
+        got = launches["train_v2"]
+        # per chunk: the normals' full LRF and the keypoint LRFs
+        assert got["sign_votes_v2"] == got["lrf_moments_v2"] and \
+            got["sign_votes_v2"] % 2 == 0, \
+            f"K11 not launched twice a chunk: {got}"
         compare(ism.state.codebook, want, "SHOT, PCD_PALLAS_LRF_V=2")
         check_decisions(served(ism), ref["scores"], labels)
 

@@ -1,11 +1,13 @@
 // K1 radius moments and K2 sign votes of the SHOT local reference frame,
-// their windowed forms K5 and K6, and K10, the v2 form of K1.
+// their windowed forms K5 and K6, and their v2 forms K10 and K11.
 //
 // Replaces point_cloud_donkey_tpu/ops/pallas/lrf_moments.py `_moments_call`
 // (K1) and `_sign_votes_call` (K2), reached through `shot_lrf_pallas`,
 // `_moments_call_gathered` (K5) and `_sign_votes_call_gathered` (K6),
-// reached through `shot_lrf_pallas_windowed`, and `_moments_call_v2` (K10),
-// which `_moments_dispatch` selects under PCD_PALLAS_LRF_V=2.
+// reached through `shot_lrf_pallas_windowed`, `_moments_call_v2` (K10) and
+// `_sign_votes_call_v2` (K11), which `_moments_dispatch` and
+// `_sign_votes_dispatch` select under PCD_PALLAS_LRF_V=2 (K11 without
+// z_only).
 //
 // K1: for every query q and every point p of its cloud with |p - q|^2 <= r^2
 // (exact coordinate differences), accumulate w = r - |p - q| into
@@ -23,18 +25,23 @@
 // 2 q.p, the weight r - sqrt(max(d2, 0)) ("shot") or 1 ("uniform"), and
 // every moment as the TPU kernel's bf16x3 product w_hi F_hi + w_hi F_lo +
 // w_lo F_hi, where x_hi = bf16(x) and x_lo = bf16(x - x_hi).
+// K11: K2's counts (both candidates) under K10's identity gate, the vote
+// a.p - a.q >= 0 (not K2's (p - q) . a: the two differ at ties), a.q once
+// per query.
 //
 // What bounds them on the H100: arithmetic on the pairs swept.  A pair
 // costs ~10 fp32 operations for the gate and an in-radius pair ~21 more and
 // a sqrt (K1), ~6 (K2) or ~85 (K10: ten bf16 splits, two to a conversion,
-// and thirty products, twenty of them fused with their sums).
+// and thirty products, twenty of them fused with their sums) or ~14 (K11:
+// two dots, each with a subtraction and a compare).
 // At the serving normals (128 clouds, r = 0.25) only ~3% of the 5.4e8
 // (query, point) pairs are in radius, so the least work is the in-radius
 // pairs'; the bytes are a few MB.
 //
-// K1, K2, K5, K6 and K10 share one design, a cell-binned sweep templated on
-// its body (MomentsBody, VotesBody, MomentsV2Body), its gate (the exact
-// difference, or K10's identity) and its point range (the whole cloud, or
+// K1, K2, K5, K6, K10 and K11 share one design, a cell-binned sweep
+// templated on its body (MomentsBody, VotesBody, MomentsV2Body,
+// VotesV2Body), its gate (the exact difference, or K10's and K11's
+// identity) and its point range (the whole cloud, or
 // K5's and K6's windows), its grid built inside each CTA.  A CTA of 512
 // threads takes one cloud and a tile of its queries; the host uses as few
 // tiles per cloud as fill one wave of two CTAs per SM (B = 128: 2 tiles;
@@ -61,14 +68,14 @@
 //      rows of 3 cells with edges r, 5 x 5 rows of 5 with edges r / 2 (58%
 //      of the volume), each row a contiguous run of the sorted points;
 //      every point within r of the query lies there.  The gate is the
-//      twins' float operations (K10: |q|^2 once per query, |p|^2 staged
-//      in the sorted point's fourth word, both in the twin's order).  K5
-//      and K6 skip the points outside a query's own tile window: the
-//      sorted point's fourth word holds its index, and a point within r
-//      but outside the window stays out, as in the TPU kernel.  S lanes
-//      share a query (S = 1 at the serving normals, up to 32 when a CTA
-//      has few queries), striding through each run; a fixed shuffle tree
-//      sums them.
+//      twins' float operations (K10, K11: |q|^2 once per query, |p|^2
+//      staged in the sorted point's fourth word, both in the twin's
+//      order).  K5 and K6 skip the points outside a query's own tile
+//      window: the sorted point's fourth word holds its index, and a point
+//      within r but outside the window stays out, as in the TPU kernel.  S
+//      lanes share a query (S = 1 at the serving normals, up to 32 when a
+//      CTA has few queries), striding through each run; a fixed shuffle
+//      tree sums them.
 //      The order of every sum depends only on the points swept and S (fixed
 //      by B and Q), so two launches give equal bits.
 // The bodies: K1 adds the moments of an in-radius point (the weight's sqrt
@@ -88,6 +95,17 @@
 // 16-point weight tile would be ~97% zeros at the normals radius --
 // multiplying zeros is the work the sweep exists to skip -- and the gate
 // would still run on the CUDA cores.
+// K11, the sweep's sixth kernel, is K2's body (VotesV2Body) under K10's
+// gate.  The identity gate passes the body no offset, so K11 votes on the
+// exact coordinates: the query's as the sweep holds them (every body's
+// begin gets them; K11 forms a.q there) and the staged point's x, y, z.
+// It needs no other change to the sweep: the gate, its widened cells and
+// the launch shape are K10's, and its sums are integers, exact in any
+// order.  Its products and sums stay separate roundings (-fmad=false, no
+// fmaf): unlike K10's bf16 products they are not exact, and the twin
+// rounds each.  Its dots have depth 3, a sixteenth of an mma's, so they
+// stay on the CUDA cores beside the gate.  A masked point never enters
+// the grid; an unmasked non-finite one fails the gate, as in the twin.
 // Masked points never enter the grid (their coordinates may be garbage or
 // NaN).  Cell coordinates are clamped in float before conversion; a query
 // a neighbourhood or more outside the grid (a 1e9 pad, NaN) visits nothing
@@ -122,8 +140,8 @@ constexpr int CELL_CAP = 2048;     // most cells of a cloud's grid
 constexpr float CELL_MARGIN = 1.01f;  // cell edge >= 1.01 r: float slack
 constexpr unsigned FULL = 0xffffffffu;
 
-// The radius gate of a sweep: exact coordinate differences (K1, K2, K5) or
-// the matmul identity (|q|^2 + |p|^2) - 2 q.p (K10).
+// The radius gate of a sweep: exact coordinate differences (K1, K2, K5,
+// K6) or the matmul identity (|q|^2 + |p|^2) - 2 q.p (K10, K11).
 enum Gate { EXACT_GATE, IDENTITY_GATE };
 
 // A uniform grid over the bounding box of a cloud's unmasked points: cell
@@ -334,7 +352,8 @@ struct MomentsBody {
     int cnt;
   };
 
-  __device__ __forceinline__ void begin(Acc& a, size_t, bool) const {
+  __device__ __forceinline__ void begin(Acc& a, size_t, bool, float, float,
+                                        float) const {
     a.s0 = a.sx = a.sy = a.sz = 0.f;
     a.xx = a.yy = a.zz = a.xy = a.xz = a.yz = 0.f;
     a.cnt = 0;
@@ -385,8 +404,8 @@ struct VotesBody {
     int plus_x, plus_z;
   };
 
-  __device__ __forceinline__ void begin(Acc& a, size_t row,
-                                        bool active) const {
+  __device__ __forceinline__ void begin(Acc& a, size_t row, bool active,
+                                        float, float, float) const {
     a.vx = a.vy = a.vz = a.ux = a.uy = a.uz = 0.f;
     if (active) {
       const float* ax = axes + row * 6;
@@ -412,6 +431,29 @@ struct VotesBody {
   __device__ __forceinline__ void write(const Acc& a, size_t o) const {
     votes[o * 2] = a.plus_x;
     votes[o * 2 + 1] = a.plus_z;
+  }
+};
+
+// K11's body: K2's counts and outputs (both candidates, never z_only) on
+// the identity gate's pairs, where the sweep passes no offset: the vote is
+// a.p - a.q >= 0 with a.q once per query, both dots in the twin's order
+// (ax x + ay y) + az z on the exact coordinates (the query's as the sweep
+// holds them, the staged point's x, y, z; its w is |p|^2 here).
+struct VotesV2Body : VotesBody {
+  struct Acc : VotesBody::Acc {
+    float qv, qu;   // x and z candidates . q
+  };
+
+  __device__ __forceinline__ void begin(Acc& a, size_t row, bool active,
+                                        float qx, float qy, float qz) const {
+    VotesBody::begin(a, row, active, qx, qy, qz);
+    a.qv = qx * a.vx + qy * a.vy + qz * a.vz;
+    a.qu = qx * a.ux + qy * a.uy + qz * a.uz;
+  }
+  __device__ __forceinline__ void add(Acc& a, const float4& pt, float, float,
+                                      float, float) const {
+    a.plus_x += (pt.x * a.vx + pt.y * a.vy + pt.z * a.vz) - a.qv >= 0.f;
+    a.plus_z += (pt.x * a.ux + pt.y * a.uy + pt.z * a.uz) - a.qu >= 0.f;
   }
 };
 
@@ -603,7 +645,7 @@ binned_sweep_kernel(const float* __restrict__ q, const float* __restrict__ p,
       }
     }
     typename Body::Acc acc;
-    body.begin(acc, (size_t)b * Q + q0 + row, active);
+    body.begin(acc, (size_t)b * Q + q0 + row, active, qx, qy, qz);
     for (int base = pbeg; base < pend; base += NCH) {
       if (!one_chunk)
         bin_chunk<GATE>(sm, g, pb, mb, base, min(NCH, pend - base), true);
@@ -714,6 +756,17 @@ PCD_EXPORT int pcd_sign_votes(const void* q, const void* p, const void* mask,
   return launch_binned(q, p, mask,
                        VotesBody{(const float*)axes, (int*)votes, z_only}, B,
                        Q, N, r, stream);
+}
+
+// axes [B, Q, 6] f32 (x candidate, z candidate) -> votes [B, Q, 2] i32
+// (counts, under the identity gate, with a.p - a.q >= 0 for x, z)
+PCD_EXPORT int pcd_sign_votes_v2(const void* q, const void* p,
+                                 const void* mask, const void* axes,
+                                 void* votes, int B, int Q, int N, float r,
+                                 void* stream) {
+  return launch_binned<VotesV2Body, IDENTITY_GATE>(
+      q, p, mask, VotesV2Body{{(const float*)axes, (int*)votes, 0}}, B, Q, N,
+      r, stream);
 }
 
 // as pcd_sign_votes over the windows of pcd_lrf_moments_windowed

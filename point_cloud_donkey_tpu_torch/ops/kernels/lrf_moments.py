@@ -9,15 +9,14 @@ Port of point_cloud_donkey_tpu/ops/pallas/lrf_moments.py: `_moments_call`
 `_moments_call_v2` -> :func:`moments_v2`, `_sign_votes_call_v2` ->
 :func:`sign_votes_v2`, `_prep_lanes` -> :func:`prep_shift`,
 `shot_lrf_pallas` -> :func:`shot_lrf_fused`, `shot_lrf_pallas_windowed` ->
-:func:`shot_lrf_windowed`.  The kernels are in csrc/lrf_moments.cu (K1,
-K2, K5, K6, K10) and csrc/lrf_moments_v2.cu (K11).  The plain twins below compute the same sums with
-the same float operations: K1/K2/K5/K6 on exact coordinate differences,
-K10/K11 on the matmul identity d2 = |q|^2 + |p|^2 - 2 q.p, K10's moments as
-bf16x3 products (the twin sums them as matrix products, the kernel pair by
-pair in the cell-binned sweep's order, so K10 is held to the moment
-contract, not to equal bits).  K1, K2, K5, K6 and K10 are one
-cell-binned sweep in the kernel, with a body, a gate and a point range
-each.
+:func:`shot_lrf_windowed`.  The kernels are in csrc/lrf_moments.cu.  The
+plain twins below compute the same sums with the same float operations:
+K1/K2/K5/K6 on exact coordinate differences, K10/K11 on the matmul
+identity d2 = |q|^2 + |p|^2 - 2 q.p, K10's moments as bf16x3 products
+(the twin sums them as matrix products, the kernel pair by pair in the
+cell-binned sweep's order, so K10 is held to the moment contract, not to
+equal bits).  All six are one cell-binned sweep in the kernel, with a
+body, a gate and a point range each.
 
 All tensors are batched over clouds: queries [B, Q, 3], points [B, N, 3],
 mask [B, N] bool.  Unlike the TPU layout, nothing is parked at 1e9: the
@@ -268,7 +267,8 @@ def sign_votes_v2(q: torch.Tensor, p: torch.Tensor, mask: torch.Tensor,
                   axes: torch.Tensor, radius: float) -> torch.Tensor:
     """K11: K2's votes (no z_only) with the identity gate: per query, the
     in-radius counts with a.p - a.q >= 0 for the x (axes[..., 0:3]) and z
-    (axes[..., 3:6]) candidates -> [B, Q, 2]."""
+    (axes[..., 3:6]) candidates -> [B, Q, 2] (K2's body on the cell-binned
+    sweep under K10's gate; equal to the twin)."""
     _check_common(q, p, mask)
     check("axes", axes, torch.float32, (q.shape[0], q.shape[1], 6))
     if not uses_kernel(q, p, mask, axes):

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Peak device memory of the port's CSHOT and SHORT_SHOT classify steps,
 and the bits of K1's and K2's outputs (the dense step's normals and
-keypoint LRFs), of K3's output, of K6's votes (the windowed step's
-normals) and of K7's in-radius counts and histograms at their main
-paths' shapes, for the port in a given checkout, on one NVIDIA GPU: what
+keypoint LRFs), of K10's and K11's (lrf_version 2: the training normals'
+full LRF at Q = N and the keypoint LRFs), of K3's output, of K6's votes
+(the windowed step's normals) and of K7's in-radius counts and
+histograms at their main paths' shapes, for the port in a given checkout, on one NVIDIA GPU: what
 PERF.md compares between two checkouts of the port in one call
 (chip_smoke.py prints the same for its own checkout).
 
@@ -52,6 +53,30 @@ def lrf_bits(pts, mask, kp, kp_mask, cfg):
         out[f"K1_{what}_sha256"] = digest(mom, cnt)
         out[f"K2_{what}_sha256"] = digest(klrf.sign_votes(q, p, mask, axes,
                                                           radius, z_only))
+    return out
+
+
+def lrf_v2_bits(pts, mask, kp, kp_mask, cfg):
+    """sha256 of K10's (moments, counts) and K11's votes at the v2 LRF
+    passes that launch K11: the training normals' full LRF (Q = N) and the
+    keypoint LRFs, K11 on the axes of K10's covariance.  Returns {name:
+    digest}."""
+    import torch
+
+    from point_cloud_donkey_tpu_torch.ops.eigh3 import eigh3x3
+    from point_cloud_donkey_tpu_torch.ops.kernels import lrf_moments as klrf
+    out = {}
+    for what, queries, q_mask, radius in (
+            ("full_normals", pts, mask, cfg.normal_radius),
+            ("keypoints", kp, kp_mask, cfg.ref_frame_radius)):
+        q, p = klrf.prep_shift(queries, pts, mask)
+        mom, cnt = klrf.moments_v2(q, p, mask, radius)
+        cov, _ = klrf.cov_from_moments(mom, q, q_mask)
+        _, vecs = eigh3x3(cov)
+        axes = torch.cat([vecs[..., :, 2], vecs[..., :, 0]], -1).contiguous()
+        out[f"K10_{what}_sha256"] = digest(mom, cnt)
+        out[f"K11_{what}_sha256"] = digest(klrf.sign_votes_v2(q, p, mask,
+                                                              axes, radius))
     return out
 
 
@@ -141,6 +166,7 @@ def main(root):
         kp = torch.where(kres.mask[..., None], kres.centroids,
                          torch.full_like(kres.centroids, 1e9))
         out.update(lrf_bits(pts, mask, kp, kres.mask, cfg))
+        out.update(lrf_v2_bits(pts, mask, kp, kres.mask, cfg))
         lrf = shot_lrf(kp, kres.mask, pts, mask, cfg.ref_frame_radius)
         gidx, alive, tile_cloud = kshot.compact_layout(kres.mask)
         kp_rows = torch.where(alive[:, None], kp.reshape(-1, 3)[gidx],

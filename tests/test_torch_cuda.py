@@ -270,6 +270,24 @@ def test_sign_votes_edge_cases_match_plain(cuda_device, case, z_only):
     assert (v - pv).abs().max() <= 1
 
 
+@pytest.mark.parametrize("case", K2_CASES)
+def test_sign_votes_v2_edge_cases_match_plain(cuda_device, case):
+    """K11 (K2's body on the cell-binned sweep under K10's identity gate)
+    vs its twin at tests/redesign_cases.py's K2 edge cases -- among them
+    the grid's cap trip (`wide_extent`, where the identity's rounding
+    widens the cells, so a pair the sweep missed would change a count),
+    masked NaN / +-1e30 / +-inf points, points at exactly r and N = 2500
+    (binned in chunks): votes equal (the gate and both dots are the twin's
+    float operations on the same coordinates, and the sums are integers),
+    exactly 0 on the invalid queries; two launches equal bit for bit."""
+    q, q_mask, p, mask, axes = (t(x).to(cuda_device) for x in k2_case(case))
+    v = tlrfm.sign_votes_v2(q, p, mask, axes, K1_RADIUS)
+    assert torch.equal(v, tlrfm.sign_votes_v2(q, p, mask, axes, K1_RADIUS))
+    assert torch.equal(v, tlrfm.sign_votes_v2_plain(q, p, mask, axes,
+                                                    K1_RADIUS))
+    assert not v[~q_mask].any()
+
+
 @pytest.mark.parametrize("z_only", [False, True])
 @pytest.mark.parametrize("case", K5_CASES)
 def test_windowed_sign_votes_edge_cases_match_plain(cuda_device, case,
@@ -721,8 +739,8 @@ def test_moments_v2_and_sign_votes_v2_match_plain(cuda_device, clouds,
                                                   weighting):
     """K10 vs its twin: weight sums rtol 2e-4, counts +-1, covariance
     atol 5e-4 (the sweep sums pair by pair, the twin by matrix products);
-    K11 vs its twin: counts +-1 (the same float operations: in practice
-    equal), at a small shape with a masked tail and a ragged last chunk
+    K11 vs its twin: votes equal (the same float operations, integer
+    sums), at a small shape with a masked tail and a ragged last chunk
     (N = 1500)."""
     pts, mask = (x[:2, :1500].contiguous().to(cuda_device) for x in clouds)
     mask[1, 1400:] = False
@@ -739,8 +757,7 @@ def test_moments_v2_and_sign_votes_v2_match_plain(cuda_device, clouds,
     axes = torch.nn.functional.normalize(
         torch.randn(*q.shape[:2], 6, device=cuda_device), dim=-1)
     v = tlrfm.sign_votes_v2(q, p, mask, axes, 0.4)
-    assert (v - tlrfm.sign_votes_v2_plain(q, p, mask, axes, 0.4)).abs() \
-        .max() <= 1
+    assert torch.equal(v, tlrfm.sign_votes_v2_plain(q, p, mask, axes, 0.4))
 
 
 def test_training_on_the_card_matches_the_cpu_twins(cuda_device, tmp_path):

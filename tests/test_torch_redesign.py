@@ -1,8 +1,8 @@
 """The plain twins of K1 (radius moments), K2 (LRF sign votes), K3
 (tile-compacted SHOT-352), K4 (chi-square top-k), K5 (windowed moments),
-K6 (windowed sign votes), K7 (dense-grid SHOT-352) and K10 (v2 moments)
-against the JAX package's Pallas kernels, run in interpret mode on the
-CPU, at the edge cases of tests/redesign_cases.py:
+K6 (windowed sign votes), K7 (dense-grid SHOT-352), K10 (v2 moments) and
+K11 (v2 sign votes) against the JAX package's Pallas kernels, run in
+interpret mode on the CPU, at the edge cases of tests/redesign_cases.py:
 padded and invalid queries, masked points holding NaN and huge
 coordinates, a cloud far wider than the radius, ragged N, points at
 exactly r and offsets orthogonal to an axis, N beyond one binning chunk;
@@ -12,9 +12,9 @@ cloud; ragged D, C off the tiles, k in {1, 2, 3}, masked, all-zero and
 duplicated codewords; windows clamped at the cloud's end, an inexact
 plan, a query tail, W = N, W = 128 and overlapping windows; on the dense
 keypoint grid, rows that are not live (a tile of them between live ones),
-K not a multiple of 8 and a cloud past one staging chunk.  K2's, K3's,
-K5's, K6's, K7's and K10's Pallas references run in a process of their
-own (torch_parity.pallas_interpret).
+K not a multiple of 8 and a cloud past one staging chunk.  K2's (with
+K11's), K3's, K5's, K6's, K7's and K10's Pallas references run in a
+process of their own (torch_parity.pallas_interpret).
 K8's and K9's twins (the slot arrays, then their histograms) are held
 against the JAX dense CSHOT and SHORT_SHOT on the dense [B, K] grid, each
 in a process of its own too: dead rows at 1e9, all-dead tiles, masked
@@ -387,14 +387,28 @@ for case in %r:
                                    jnp.float32(%r), z_only=z_only)
             votes.append(np.asarray(v)[:2, :len(qs)].T.astype(np.int32))
         out[case + "__z%%d" %% z_only] = np.stack(votes)
-""" % (K2_CASES, K1_RADIUS)
+    votes = []
+    for qb, qm, pb, pm, ax in zip(g("q"), g("q_mask"), g("p"), g("mask"),
+                                  g("axes")):
+        qs = np.where(qm[:, None], qb, 1e9).astype(np.float32)
+        ps = np.where(pm[:, None], pb, 1e9).astype(np.float32)
+        qpad = L._pad_lanes(len(qs), L.TQ)
+        ql = L.to_lanes(jnp.asarray(qs), qpad)
+        pl_ = L.to_lanes(jnp.asarray(ps), L._pad_lanes(len(ps), L.TN))
+        axl = np.zeros((8, qpad), np.float32)
+        axl[:6, :len(qs)] = ax.T
+        v = L._sign_votes_call_v2(ql, pl_, jnp.asarray(axl), jnp.float32(%r))
+        votes.append(np.asarray(v)[:2, :len(qs)].T.astype(np.int32))
+    out[case + "__v2"] = np.stack(votes)
+""" % (K2_CASES, K1_RADIUS, K1_RADIUS)
 
 
 @pytest.fixture(scope="module")
 def pallas_k2(tmp_path_factory):
     """`_sign_votes_call` per cloud at every K2 case, with and without
-    z_only, on the lanes the JAX package builds (masked points and invalid
-    queries parked at 1e9)."""
+    z_only, and `_sign_votes_call_v2` (K11's reference) on the same inputs,
+    on the lanes the JAX package builds (masked points and invalid queries
+    parked at 1e9)."""
     arrays = {}
     for case in K2_CASES:
         for key, x in zip(("q", "q_mask", "p", "mask", "axes"),
@@ -428,6 +442,26 @@ def test_sign_votes_twin_matches_pallas_at_edge_cases(pallas_k2, case,
     if case == "on_radius_and_orthogonal":
         special = 12      # the queries with exact offsets come first
         np.testing.assert_array_equal(got[:, :special], want[:, :special])
+
+
+@pytest.mark.parametrize("case", K2_CASES)
+def test_sign_votes_v2_twin_matches_pallas_at_edge_cases(pallas_k2, case):
+    """K11's twin vs `_sign_votes_call_v2` at K2's edge cases, with K2's
+    seeded axis candidates, on the valid queries: votes +-1 (the identity's
+    d2 and the dots a.p, a.q come from the twin's elementwise float
+    operations and from the interpret mode's k = 3 HIGHEST products, which
+    may round a point on the gate's or a vote's boundary to the other
+    side).  Invalid queries (at 1e9) get 0 from the twin; the JAX kernel's
+    are garbage (they meet the parked points) and its callers drop them.
+    Masked points holding NaN, +-1e30 and +-inf fail the twin's gate."""
+    q, q_mask, p, mask, axes = k2_case(case)
+    want = pallas_k2[f"{case}__v2"]
+    got = n(tlrfm.sign_votes_v2(t(q), t(p), t(mask), t(axes), K1_RADIUS))
+    assert not got[~q_mask].any()
+    if case == "no_valid_queries":
+        return
+    assert got[q_mask].max() > 1
+    assert (np.abs(got - want)[q_mask] <= 1).all()
 
 
 # --- K3: tile-compacted SHOT-352 ----------------------------------------------
