@@ -39,6 +39,14 @@ Phases (each prints its results; any failure raises and exits nonzero):
      launches of each bit-equal, the bits of K10's and K11's outputs, and
      K10's uniform weighting against its twin at the keypoint LRFs'
      shape;
+  2e. K3w, the windowed descriptor (K7's grid, each 8-keypoint tile over
+     a window of its principal-axis-sorted cloud), at the windowed step's
+     shapes (the sorted batch, 128 x 192 co-sorted keypoints) for the
+     window required_window calibrates on the keypoints and for 1024 (an
+     inexact plan): against its twin, two launches bit-equal, counts equal
+     K7's on the same sorted inputs where the plan is exact, timed beside
+     K3 and K7, its bound, torch.profiler's device time and one
+     scatter_add_ over SHOT's slot arrays of the windows;
   3. LRF frames and SHOT descriptors against tests/golden/descriptors.npz;
   4. the dense classify step: IsmClassifier on the 128 x 2048 bench batch
      with the committed codebook -- per-stage ms, clouds/s, K1-K4 launched,
@@ -50,6 +58,10 @@ Phases (each prints its results; any failure raises and exits nonzero):
      same sorted clouds, and the same decisions as on the unsorted ones;
   4c. the dense classify step with lrf_version 2: K10 / K11 launched, K1
      not, the same decisions;
+  4d. the windowed-descriptor classify step (descriptor_window, K3w), with
+     and without the normals window, against the committed dense and
+     windowed references; then descriptor_window 1024: the plan trips, K7
+     recomputes the descriptor, the decisions hold;
   5. the serve entry point on 8 PCD files with --device cuda;
   6. the mean-shift detection step: IsmDetector on the first 32 bench
      clouds -- per-stage ms, clouds/s, K7 launched, densities (decisions,
@@ -58,6 +70,15 @@ Phases (each prints its results; any failure raises and exits nonzero):
      serve --maxima --device cuda on 8 PCD files;
   5b. serve --device cuda with the CSHOT model on 8 coloured PCD files, and
      its --maxima refusal;
+  5c. the CSHOT classify step with the committed normals window (K5, K6,
+     K8) against the committed JAX-CPU reference;
+  6b. SHORT_SHOT detection (K9, no normals) on the first 32 bench clouds
+     against the committed JAX-CPU reference, two runs equal, and serve
+     --maxima with the SHORT_SHOT model on 8 PCD files;
+  6c. the batched entry points (classify_scores for SHOT, CSHOT and
+     SHORT_SHOT against the committed references, classify_intermediates,
+     classify_scores_instances and classify_scores_mean_shift against
+     classify_scores and IsmDetector bit for bit);
   7. the CSHOT classify step: IsmClassifier with the committed CSHOT
      codebook on the coloured 128-cloud batch -- per-stage ms, clouds/s,
      peak device memory, K8 launched once, decisions against the committed
@@ -125,6 +146,8 @@ KERNELS = {
                        "point_cloud_donkey_tpu/ops/pallas/lrf_moments.py:161"),
     "sign_votes_v2": ("point_cloud_donkey_tpu_torch/csrc/lrf_moments.cu",
                       "point_cloud_donkey_tpu/ops/pallas/lrf_moments.py:237"),
+    "shot_windowed": ("point_cloud_donkey_tpu_torch/csrc/shot_fused.cu",
+                      "point_cloud_donkey_tpu/ops/pallas/shot_fused.py:432"),
 }
 # the path whose step must launch each kernel
 PATH_KERNELS = {
@@ -146,6 +169,17 @@ PATH_KERNELS = {
     "train_cshot": ("lrf_moments", "sign_votes", "shot_hist", "chisq_topk"),
     "train_short_shot": ("lrf_moments", "sign_votes", "histogram",
                          "chisq_topk"),
+    # the windowed descriptor (K3w), CSHOT with a normals window, SHORT_SHOT
+    # detection (no normals: K1/K2 at the keypoints only) and the batched
+    # entry points (classify_scores: the dense grid through K7)
+    "windowed_desc": ("lrf_moments", "sign_votes", "shot_windowed",
+                      "chisq_topk"),
+    "cshot_windowed": ("lrf_moments_windowed", "sign_votes_windowed",
+                       "lrf_moments", "sign_votes", "shot_hist",
+                       "chisq_topk"),
+    "detect_short_shot": ("lrf_moments", "sign_votes", "histogram",
+                          "chisq_topk"),
+    "entry": ("lrf_moments", "sign_votes", "shot_dense", "chisq_topk"),
 }
 
 # Least time of a kernel call: the larger of its bytes (inputs read once,
@@ -285,6 +319,7 @@ def main():
     from point_cloud_donkey_tpu_torch.kernels import build
     from point_cloud_donkey_tpu_torch.models.codebook import (
         CodebookParams, load_codebook)
+    from point_cloud_donkey_tpu_torch.models import pipeline as kpipe
     from point_cloud_donkey_tpu_torch.models.pipeline import (
         DETECT_STAGES, STAGES, IsmClassifier, IsmDetector, PipelineConfig)
     from point_cloud_donkey_tpu_torch.ops import binned
@@ -550,10 +585,20 @@ def main():
               f"{off:.2e} of entries off by > 1e-3; two launches "
               f"bit-equal ({card})", flush=True)
         print(f"{'shot_fused':20s} output bits: sha256 {digest(hist, cnt)}")
+        # the library yardstick: K3's tiles as the "clouds" of a dense grid
+        # of 8 rows, each over its cloud's points (every row is binned)
+        tcl = tile_cloud.long()
+        t3 = tile_cloud.shape[0]
+        k3_lib = shot_slot_library(
+            (kp_rows.reshape(t3, kshot.TK, 3),
+             fr_rows.reshape(t3, kshot.TK, 3, 3),
+             torch.ones(t3, kshot.TK, dtype=torch.bool, device=dev),
+             pts[tcl], normals[tcl], mask[tcl], cfg.radius),
+            kshot_ops, card, "shot_fused")
         record("shot_fused", (hist - phist).abs().max(), k3_ms,
                cuda_ms(lambda: kshot.shot_tiles_plain(*shot_args), 2),
                f"SHOT {tile_cloud.shape[0]} tiles x N={pts.shape[1]}",
-               k3_bytes, k3_ops)
+               k3_bytes, k3_ops, k3_lib)
 
         desc = got.descriptors[got.valid].contiguous()
         cw, cw_mask = codebook.codewords, codebook.cw_mask
@@ -855,6 +900,13 @@ def main():
         assert rel <= 2e-4 and dc <= 1 and cerr <= 5e-4, \
             "uniform K10 differs from its twin"
 
+    # -- 2e. K3w at the windowed descriptor step's shapes -------------------
+    phase(f"2e. K3w (the windowed descriptor) vs its plain twin, K7 and K3 "
+          f"on the card ({card})")
+    with torch.no_grad():
+        desc_window = windowed_descriptor_phase(
+            pts, mask, kres, srt, cfg, k3_ms, record, card)
+
     # -- 3. goldens ---------------------------------------------------------
     phase("3. goldens (tests/golden/descriptors.npz, atol 2e-3)")
     g = np.load(os.path.join(HERE, "tests", "golden", "descriptors.npz"))
@@ -958,6 +1010,39 @@ def main():
     print("two runs of the step: scores identical")
     check_decisions(scores.cpu().numpy(), ref["scores"], labels)
 
+    # -- 4d. the windowed-descriptor classify step ---------------------------
+    phase(f"4d. windowed-descriptor classify step (K3w): IsmClassifier, "
+          f"descriptor window {desc_window}, B={BATCH} x N={pts.shape[1]} "
+          f"({card})")
+    for nw, key, want in ((0, "windowed_desc", "scores"),
+                          (window, "windowed_desc_normals",
+                           "scores_windowed")):
+        print(f"-- normals window {nw or 'none'}")
+        dwmodel = IsmClassifier(codebook, cfg._replace(
+            descriptor_window=desc_window, normals_window=nw), params)
+        scores, launches[key] = drive("windowed_desc", dwmodel, STAGES, pts,
+                                      mask, ROUNDS, card)
+        print(f"dense recomputes: {dwmodel.dense_recomputes}")
+        assert dwmodel.dense_recomputes == 0 and \
+            launches[key]["shot_dense"] == 0, "the calibrated windows tripped"
+        with torch.no_grad():
+            assert torch.equal(scores, dwmodel(pts, mask)), \
+                "two runs of the windowed-descriptor step differ"
+        print("two runs of the step: scores identical")
+        check_decisions(scores.cpu().numpy(), ref[want], labels)
+    tripped = IsmClassifier(codebook, cfg._replace(descriptor_window=1024),
+                            params)
+    with torch.no_grad():
+        build.reset_launch_counts()
+        tscores = tripped(pts, mask)
+        torch.cuda.synchronize()
+        got = build.launch_counts()
+    print(f"descriptor window 1024: dense recomputes {tripped.dense_recomputes}"
+          f", launches {got}")
+    assert tripped.dense_recomputes == 1 and got["shot_dense"] == 1 and \
+        got["shot_windowed"] == 1, "the 1024 window did not trip to K7"
+    check_decisions(tscores.cpu().numpy(), ref["scores"], labels)
+
     # -- 5. serve -------------------------------------------------------------
     phase("5. serve --device cuda on 8 PCD files")
     text = serve_files(serve, model_path, ref["points"][:8],
@@ -985,6 +1070,23 @@ def main():
           f"{err.getvalue().strip()!r}")
     assert rc == 1 and "--maxima does not support CSHOT yet" \
         in err.getvalue(), "serve --maxima did not refuse the CSHOT model"
+
+    # -- 5c. CSHOT with the normals window ------------------------------------
+    phase(f"5c. CSHOT classify step with the normals window {window}: "
+          f"IsmClassifier, B={BATCH} x N={pts.shape[1]} ({card})")
+    cs_model = served_model(data, "cshot", dev, normals_window=window)
+    scores, launches["cshot_windowed"] = drive(
+        "cshot_windowed", cs_model, STAGES, pts, mask, ROUNDS, card, (rgb,))
+    print(f"dense recomputes: {cs_model.dense_recomputes}")
+    assert cs_model.dense_recomputes == 0, "the calibrated window tripped"
+    assert launches["cshot_windowed"]["shot_hist"] == 1, \
+        launches["cshot_windowed"]
+    with torch.no_grad():
+        assert torch.equal(scores, cs_model(pts, mask, rgb)), \
+            "two runs of the windowed CSHOT step differ"
+    print("two runs of the step: scores identical")
+    check_decisions(scores.cpu().numpy(), dref["scores_cshot_windowed"],
+                    labels)
 
     # -- 6. the mean-shift detection step -----------------------------------
     phase(f"6. detection step: IsmDetector, B={MS_BATCH} x N={pts.shape[1]} "
@@ -1019,6 +1121,98 @@ def main():
                       r"maximum \(\S+ \S+ \S+\)$", text, re.M)
     assert len(rows) == 8 and " Accuracy: 100 % " in text, \
         "serve --maxima did not report 8 correct predictions with maxima"
+    shot_dens = dens
+
+    # -- 6b. SHORT_SHOT detection --------------------------------------------
+    phase(f"6b. SHORT_SHOT detection step: IsmDetector, B={MS_BATCH} x "
+          f"N={pts.shape[1]} ({card})")
+    ss_path = os.path.join(data, "short_shot_codebook.ism")
+    ss_model = served_model(data, "short_shot", dev)
+    ss_det = IsmDetector(ss_model.codebook, ss_model.cfg, ss_model.params)
+    (dens, pos), launches["detect_short_shot"] = drive(
+        "detect_short_shot", ss_det, DETECT_STAGES, mp, mm, MS_ROUNDS, card)
+    got = launches["detect_short_shot"]
+    assert got["lrf_moments"] == 1 and got["sign_votes"] == 1 and \
+        got["histogram"] == 1, \
+        f"SHORT_SHOT detection must run K1/K2 at the keypoints only: {got}"
+    with torch.no_grad():
+        again = ss_det(mp, mm)
+    assert torch.equal(dens.view(torch.int32), again[0].view(torch.int32)) \
+        and torch.equal(pos.view(torch.int32), again[1].view(torch.int32)), \
+        "two runs of the SHORT_SHOT detection step differ"
+    print("two runs of the step: densities and positions identical")
+    d, p = dens.cpu().numpy(), pos.cpu().numpy()
+    assert np.isfinite(d).all() and np.isfinite(p).all()
+    rd = dref["detect_densities_short_shot"]
+    rp = dref["detect_positions_short_shot"]
+    best = rd.argmax(1)
+    perr = float(np.abs(p[np.arange(MS_BATCH), best]
+                        - rp[np.arange(MS_BATCH), best]).max())
+    drel = float((np.abs(d - rd) / np.maximum(np.abs(rd), 1.0)).max())
+    print(f"best-class maximum vs JAX-CPU: max |position delta| {perr:.3e} "
+          f"(phase 6's limit {POS_TOL}); densities max relative delta "
+          f"{drel:.3e} (limit {DENS_RTOL})")
+    if perr <= POS_TOL and drel <= DENS_RTOL:
+        print("within phase 6's bounds")
+    else:
+        print("beyond phase 6's bounds: SHORT_SHOT's edge pairs (the card's "
+              "atan2f / acosf against JAX's) move votes; held to the "
+              "SHORT_SHOT classify contract instead")
+    check_decisions(d, rd, labels[:MS_BATCH], require_accuracy=False)
+    text = serve_files(serve, ss_path, ref["points"][:8], ref["labels"][:8],
+                       ["--maxima"])
+    rows = re.findall(r"predicted \d+, ground truth \d+ (?:OK|WRONG) "
+                      r"maximum \(\S+ \S+ \S+\)$", text, re.M)
+    assert len(rows) == 8, \
+        "serve --maxima with the SHORT_SHOT model did not print 8 maxima"
+
+    # -- 6c. the batched entry points -----------------------------------------
+    phase(f"6c. batched entry points: classify_scores, "
+          f"classify_intermediates, classify_scores_instances (B={BATCH}), "
+          f"classify_scores_mean_shift (B={MS_BATCH}) ({card})")
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        build.reset_launch_counts()
+        t0 = time.perf_counter()
+        cs = kpipe.classify_scores(pts, mask, codebook, cfg, params)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches["entry"] = build.launch_counts()
+        print(f"classify_scores: {dt * 1e3:.3f} ms for {BATCH} clouds; "
+              f"launches {launches['entry']}")
+        missing = [k_ for k_ in PATH_KERNELS["entry"]
+                   if launches["entry"][k_] == 0]
+        assert not missing, f"kernels not launched by the entry path: " \
+            f"{missing}"
+        check_decisions(cs.cpu().numpy(), ref["scores"], labels)
+        inter = kpipe.classify_intermediates(pts, mask, codebook, cfg,
+                                             params)
+        assert torch.equal(inter.scores, cs), \
+            "classify_intermediates' scores differ from classify_scores"
+        ninst = int(codebook.vote_instance.max()) + 1
+        cls, inst = kpipe.classify_scores_instances(pts, mask, codebook, cfg,
+                                                    params, ninst)
+        assert torch.equal(cls, cs), \
+            "classify_scores_instances' class scores differ"
+        isum = float(((inst.sum(1) - cls.sum(1)).abs()
+                      / cls.sum(1).abs().clamp(min=1e-6)).max())
+        print(f"classify_intermediates and classify_scores_instances: class "
+              f"scores equal classify_scores bit for bit; {ninst} instances, "
+              f"per-cloud instance sums within {isum:.2e} of the class sums")
+        assert isum <= 1e-5, "instance scores do not sum to the class scores"
+        for name, extra in (("cshot", (rgb,)), ("short_shot", ())):
+            m_ = served_model(data, name, dev)
+            s_ = kpipe.classify_scores(pts, mask, m_.codebook, m_.cfg,
+                                       m_.params, *extra)
+            print(f"classify_scores {name}:")
+            check_decisions(s_.cpu().numpy(), dref["scores_" + name], labels,
+                            require_accuracy=name == "cshot")
+        msd = kpipe.classify_scores_mean_shift(mp, mm, codebook, cfg, params)
+        assert torch.equal(msd.view(torch.int32),
+                           shot_dens.view(torch.int32)), \
+            "classify_scores_mean_shift differs from IsmDetector's densities"
+        print("classify_scores_mean_shift: equal to IsmDetector's densities "
+              "bit for bit")
 
     # -- 7. / 8. the CSHOT and SHORT_SHOT classify steps ----------------------
     for num, desc in (("7", "CSHOT"), ("8", "SHORT_SHOT")):
@@ -1313,6 +1507,25 @@ def training(launches, card, data, pts, mask, rgb, labels, ref, dref):
         shutil.rmtree(tmp)
 
 
+def served_model(data, name, dev, **overrides):
+    """IsmClassifier of the committed `name`_codebook.ism on `dev`, at the
+    bench's keypoint capacity."""
+    from bench_data import KEYPOINT_CAPACITY
+    from point_cloud_donkey_tpu_torch.models.codebook import (
+        CodebookParams, load_codebook)
+    from point_cloud_donkey_tpu_torch.models.pipeline import (IsmClassifier,
+                                                              PipelineConfig)
+    from point_cloud_donkey_tpu_torch.utils.config import IsmConfig
+    path = os.path.join(data, f"{name}_codebook.ism")
+    config = IsmConfig.load(path)
+    cb = load_codebook(path).to(dev)
+    return IsmClassifier(
+        cb, PipelineConfig.from_ism(config, cb.num_classes,
+                                    keypoint_capacity=KEYPOINT_CAPACITY,
+                                    **overrides),
+        CodebookParams.from_config(config.child("Codebook")))
+
+
 def check_decisions(s, rs, labels, what="JAX-CPU reference",
                     require_accuracy=True):
     """Accuracy 1.0 against the labels (unless not required: then it is
@@ -1375,9 +1588,10 @@ def slot_library(name, slots, length, rows, card):
     return scatter, total
 
 
-def shot_slot_library(args, shot_ops, card):
-    """K7's library yardstick: one scatter_add_ over SHOT's five slot
-    arrays (ops/shot.shot_bin_slots) of every (row, point) pair of the
+def shot_slot_library(args, shot_ops, card, name="shot_dense"):
+    """The library yardstick of K7 (and of K3 and K3w, their tiles given
+    as the clouds of a grid of 8 rows): one scatter_add_ over SHOT's five
+    slot arrays (ops/shot.shot_bin_slots) of every (row, point) pair of the
     dense grid, weights zero where the pair is not used or its row is not
     live; returns its ms."""
     import torch
@@ -1403,8 +1617,7 @@ def shot_slot_library(args, shot_ops, card):
                         torch.where(keep, w, 0.0).reshape(b * k, n)))
         return out
 
-    scatter, _ = slot_library("shot_dense", slots, shot_ops.DESC_LEN, b * k,
-                              card)
+    scatter, _ = slot_library(name, slots, shot_ops.DESC_LEN, b * k, card)
     return scatter
 
 
@@ -1511,6 +1724,135 @@ def fused_k9(args, khist, ss_ops, record, card):
           f"bit-equal ({card})", flush=True)
     record("histogram", (h - ph).abs().max(), ms, plain_ms,
            f"SHORT_SHOT B={b} K={k} N={pts.shape[1]} D=32", nb_, ops, lib_ms)
+
+
+def windowed_descriptor_phase(pts, mask, kres, srt, cfg, k3_ms, record,
+                              card):
+    """Phase 2e: K3w at the windowed step's shapes -- the sorted batch, its
+    normals, keypoints and LRFs, the keypoints co-sorted -- for the window
+    required_window calibrates on the batch's keypoints (recorded) and for
+    1024 (an inexact plan): its twin (counts equal, histograms within rtol
+    1e-5 of the largest, the descriptor contract), two launches
+    bit-equal, K7's counts and histograms (rtol 1e-6) where the plan is
+    exact, its time beside K7's on the same sorted inputs and K3's, its
+    bound and device time, and (calibrated window) one scatter_add_ over
+    the windows' slot arrays.  Returns the calibrated window."""
+    import torch
+
+    from point_cloud_donkey_tpu_torch.models.pipeline import cosort_keypoints
+    from point_cloud_donkey_tpu_torch.ops import binned
+    from point_cloud_donkey_tpu_torch.ops import shot as kshot_ops
+    from point_cloud_donkey_tpu_torch.ops.kernels import shot_fused as kshot
+    from point_cloud_donkey_tpu_torch.ops.lrf import shot_lrf
+    from point_cloud_donkey_tpu_torch.ops.normals import compute_normals_fast
+    from point_cloud_donkey_tpu_torch.ops.shot import normalize_descriptors
+    from point_cloud_donkey_tpu_torch.ops.voxel_grid import voxel_grid
+
+    n = pts.shape[1]
+    window = binned.required_window(pts, mask, cfg.radius, tile_q=kshot.TK,
+                                    q_points=kres.centroids,
+                                    q_mask=kres.mask)
+    print(f"descriptor window calibrated on the batch's keypoints "
+          f"(required_window, tile_q=8, q_points): {window} of N={n}")
+    sp, sm = srt.points, srt.mask
+    nrm = compute_normals_fast(sp, sm, cfg.normal_radius)
+    sk = voxel_grid(sp, sm, cfg.leaf_size, capacity=cfg.keypoint_capacity)
+    skp = torch.where(sk.mask[..., None], sk.centroids,
+                      torch.full_like(sk.centroids, 1e9))
+    lrf = shot_lrf(skp, sk.mask, sp, sm, cfg.ref_frame_radius)
+    kp, kk, fr, fv = (x.contiguous() for x in cosort_keypoints(
+        skp, sk.mask, lrf.frames, lrf.valid, srt.axis))
+    b, k = fv.shape
+    tiles = k // kshot.TK
+    live_ctas = int(fv.reshape(b, tiles, kshot.TK).any(-1).sum())
+    dense_args = (kp, fr, fv, sp, nrm, sm, cfg.radius)
+    dh, dc = kshot.shot_dense(*dense_args)
+    k7_ms = cuda_ms(lambda: kshot.shot_dense(*dense_args), 20)
+    # where K3w's time over K3's comes from: K7 on the unsorted batch's
+    # grid (valid rows first, not co-sorted) and K3 on the sorted batch's
+    # compacted tiles
+    unrm = compute_normals_fast(pts, mask, cfg.normal_radius)
+    ukp = torch.where(kres.mask[..., None], kres.centroids,
+                      torch.full_like(kres.centroids, 1e9)).contiguous()
+    ulrf = shot_lrf(ukp, kres.mask, pts, mask, cfg.ref_frame_radius)
+    u_args = (ukp, ulrf.frames.contiguous(), ulrf.valid.contiguous(), pts,
+              unrm, mask, cfg.radius)
+    k7_unsorted_ms = cuda_ms(lambda: kshot.shot_dense(*u_args), 20)
+    gidx, alive, tile_cloud = kshot.compact_layout(sk.mask)
+    s_args = (torch.where(alive[:, None], skp.reshape(-1, 3)[gidx],
+                          torch.full((1, 3), 1e9, device=pts.device)),
+              lrf.frames.reshape(-1, 3, 3)[gidx].contiguous(), tile_cloud,
+              sp, nrm, sm, cfg.radius)
+    k3_sorted_ms = cuda_ms(lambda: kshot.shot_tiles(*s_args), 20)
+    print(f"{'shot_windowed':20s} beside: K7 on the sorted batch's "
+          f"co-sorted grid {k7_ms:.4f} ms, on the unsorted batch's grid "
+          f"{k7_unsorted_ms:.4f} ms; K3 on the unsorted batch's tiles "
+          f"{k3_ms:.4f} ms, on the sorted batch's {k3_sorted_ms:.4f} ms "
+          f"({card})", flush=True)
+    for w in (window, 1024):
+        plan = binned.window_starts(kk, kk < binned.PARK, srt.keys,
+                                    cfg.radius, w, tile_q=kshot.TK,
+                                    align=128)
+        starts = plan.starts.reshape(-1).contiguous()
+        args = (kp, fr, fv, starts, sp, nrm, sm, w, cfg.radius)
+        h, c = kshot.shot_windowed(*args)
+        ph, pc = kshot.shot_windowed_plain(*args)
+        assert torch.equal(c, pc), f"K3w counts differ from its twin (W={w})"
+        herr = float((h - ph).abs().max())
+        scale = float(ph.abs().max())
+        assert herr <= 1e-5 * scale, \
+            f"K3w histograms off by {herr:.3e} of {scale:.3e} (W={w})"
+        cos, off = contract(normalize_descriptors(h, c, fv),
+                            normalize_descriptors(ph, pc, fv), "K3w")
+        again = kshot.shot_windowed(*args)
+        assert torch.equal(h.view(torch.int32), again[0].view(torch.int32)) \
+            and torch.equal(c, again[1]), f"two K3w launches differ (W={w})"
+        exact = bool(plan.exact)
+        vs_k7 = ""
+        if exact:
+            assert torch.equal(c, dc), f"K3w counts differ from K7's (W={w})"
+            rel = float(((h - dh).abs() / dh.abs().clamp(min=1.0)).max())
+            assert rel <= 1e-6, f"K3w histograms off K7's by {rel:.2e}"
+            vs_k7 = f"; counts equal K7's, histograms within {rel:.2e} of K7's"
+        ms = cuda_ms(lambda: kshot.shot_windowed(*args), 20)
+        dev_ms = device_ms(lambda: kshot.shot_windowed(*args),
+                           "WindowedTiles", 20)
+        nb = nbytes(kp, fr, fv, starts, sp, nrm, sm, h, c)
+        ops = int(c.sum()) * (GATE_OPS + SHOT_BODY_OPS)
+        b_ms, by = bound(nb, ops)
+        swept = int(fv.sum()) * w
+        what = f"SHOT B={b} K={k} W={w}"
+        print(f"{'shot_windowed':20s} {what} ({b * tiles} CTAs, {live_ctas} "
+              f"with a live row, {int(fv.sum())} live rows; plan exact "
+              f"{exact}): {swept:.3e} live pairs swept, in-radius share "
+              f"{int(c.sum()) / swept:.4f}; {ms:.4f} ms, device "
+              f"{fmt_ms(dev_ms)}; K7 on the same sorted inputs {k7_ms:.4f} "
+              f"ms, K3 {k3_ms:.4f} ms (bound {b_ms:.4f} ms by {by}); counts "
+              f"equal its twin's, histograms within {herr:.2e} (scale "
+              f"{scale:.2e}), cosine min {cos:.7f}, {off:.2e} of entries off "
+              f"by > 1e-3{vs_k7}; two launches bit-equal ({card})",
+              flush=True)
+        print(f"{'shot_windowed':20s} output bits (W={w}): sha256 "
+              f"{digest(h, c)}")
+        if w != window:
+            continue
+        # the library yardstick over the windows: the tiles as the clouds
+        # of a grid of 8 rows, each over its window's points
+        tcl = torch.div(torch.arange(b * tiles, device=pts.device), tiles,
+                        rounding_mode="floor")[:, None]
+        idx = starts.long()[:, None] + torch.arange(w, device=pts.device)
+        inside = idx < n
+        idx = idx.clamp(max=n - 1)
+        lib = shot_slot_library(
+            (kp.reshape(b * tiles, kshot.TK, 3),
+             fr.reshape(b * tiles, kshot.TK, 3, 3),
+             fv.reshape(b * tiles, kshot.TK), sp[tcl, idx], nrm[tcl, idx],
+             sm[tcl, idx] & inside, cfg.radius), kshot_ops, card,
+            "shot_windowed")
+        record("shot_windowed", herr, ms,
+               cuda_ms(lambda: kshot.shot_windowed_plain(*args), 2), what,
+               nb, ops, lib)
+    return window
 
 
 def serve_files(serve, model_path, clouds, labels, extra, colours=None):

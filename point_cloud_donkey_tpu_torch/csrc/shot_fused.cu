@@ -1,11 +1,17 @@
-// K3: SHOT-352 histograms over tile-compacted keypoints, and K7: the same
-// over the dense [B, K] keypoint grid.
+// K3: SHOT-352 histograms over tile-compacted keypoints, K7: the same over
+// the dense [B, K] keypoint grid, and K3w: the dense grid's tiles each over
+// a window of its principal-axis-sorted cloud.
 //
 // K3 replaces point_cloud_donkey_tpu/ops/pallas/shot_fused.py
 // `_shot_fused_call_windowed` over `_shot_tile_body`, reached through
 // `shot_descriptor_fused_compact` (slab = the tile's whole cloud).
 // K7 replaces `_shot_fused_call`, reached through `shot_descriptor_fused`
 // (the mean-shift serving and detection path).
+// K3w replaces `_shot_fused_call_windowed` in its windowed mode, reached
+// through `shot_descriptor_fused_windowed`: the clouds and the keypoints
+// are sorted by one principal-axis key, and tile t of cloud b sweeps only
+// points [starts[b * tiles + t], + W) of its sorted cloud
+// (ops/binned.window_starts; the plan's exactness flag is the caller's).
 //
 // For each tile of 8 keypoints (all of one cloud) and every point of that
 // cloud with 1e-15 < |p - q|^2 <= r^2, a finite normal and mask set: the
@@ -46,13 +52,15 @@
 //      popcounts.
 // K3's tiles are compacted (tile t: rows t*8 .. t*8+7, all of cloud
 // tile_cloud[t]); its dead rows (keypoints at 1e9) meet no point and come
-// out zero.  K7's are the dense [B, K] grid's, ceil(K / 8) a cloud (tile t
+// out zero.  K7's and K3w's are the dense [B, K] grid's, ceil(K / 8) a cloud (tile t
 // of cloud b: rows b*K + t*8 + k, t*8 + k < K), as K8's: a warp whose row
 // is not live (live[row] false: an invalid frame or a padded keypoint,
 // ~52% of the detection grid) stages with its CTA but bins nothing, and a
 // CTA with no live row writes its zeros and exits.  Every row of hist and
 // count is written, and no float is added atomically: one CTA owns a tile
-// and sweeps its whole cloud.  acosf and atan2f stay full precision: the
+// and sweeps its whole cloud (K3w: its window, in index order, so an exact
+// plan sees every in-radius point K7 sees; the batches of 32 may split
+// elsewhere, so K3w's sums match K7's to rounding, not bit for bit).  acosf and atan2f stay full precision: the
 // bin edges and weights are the twin's.
 #include "common.cuh"
 #include "radius_pairs.cuh"
@@ -81,6 +89,11 @@ struct TileRow {
   bool ok, gate;
 };
 
+// The points a tile sweeps: [lo, lo + n) of its cloud.
+struct Span {
+  int lo, n;
+};
+
 // K3: tile blk holds rows blk*8 .. blk*8+7, all of cloud tile_cloud[blk];
 // every row is binned (dead rows sit at 1e9 and meet no point).
 struct CompactTiles {
@@ -88,6 +101,7 @@ struct CompactTiles {
   __device__ __forceinline__ TileRow at(int blk, int k) const {
     return {(size_t)blk * TK + k, (size_t)tile_cloud[blk], true, true};
   }
+  __device__ __forceinline__ Span span(int, int N) const { return {0, N}; }
 };
 
 // K7: CTA blk is tile blk % tiles of cloud blk / tiles in the dense
@@ -102,6 +116,22 @@ struct DenseTiles {
     const bool ok = kk < K;
     const size_t row = (size_t)b * K + kk;
     return {row, (size_t)b, ok, ok && live[row] != 0};
+  }
+  __device__ __forceinline__ Span span(int, int N) const { return {0, N}; }
+};
+
+// K3w: K7's tiles, tile blk sweeping points [starts[blk], + W) of its
+// sorted cloud (clamped to the cloud).
+struct WindowedTiles {
+  DenseTiles dense;
+  const int* __restrict__ starts;
+  int W;
+  __device__ __forceinline__ TileRow at(int blk, int k) const {
+    return dense.at(blk, k);
+  }
+  __device__ __forceinline__ Span span(int blk, int N) const {
+    const int lo = min(max(starts[blk], 0), N);
+    return {lo, min(W, N - lo)};
   }
 };
 
@@ -142,7 +172,9 @@ shot_tile_kernel(const float* __restrict__ kp, const float* __restrict__ fr,
   for (int e = lane; e < DESC; e += 32) h[e] = 0.f;
 
   const size_t b = tr.cloud;
-  const float* const src[2] = {points + b * N * 3, normals + b * N * 3};
+  const Span sp = tiles.span(blockIdx.x, N);
+  const size_t p0 = b * N + sp.lo;
+  const float* const src[2] = {points + p0 * 3, normals + p0 * 3};
   const float (&v)[6][CH] = sm.st.v;
   // bin one batch: lane l holds staged point j (when act); the five slots
   // enter h in slot order, each by pairs::warp_add
@@ -169,7 +201,7 @@ shot_tile_kernel(const float* __restrict__ kp, const float* __restrict__ fr,
 #pragma unroll
     for (int i = 0; i < SLOTS; ++i) pairs::warp_add(h, s.idx[i], s.w[i]);
   };
-  const int cnt = pairs::sweep<CH, 6, true>(sm.st, src, mask + b * N, N,
+  const int cnt = pairs::sweep<CH, 6, true>(sm.st, src, mask + p0, sp.n,
                                             tr.gate, f[9], f[10], f[11], r2,
                                             bin_batch);
   __syncwarp();
@@ -232,4 +264,21 @@ PCD_EXPORT int pcd_shot_dense(const void* kp, const void* frames,
                       DenseTiles{(const unsigned char*)live, K, tiles},
                       B * tiles, points, normals, mask, hist, count, N, r,
                       stream);
+}
+
+// kp [B*K, 3], frames [B*K, 9], live [B*K] u8 as pcd_shot_dense, the
+// clouds and keypoints sorted by one key per cloud; starts [B * ceil(K/8)]
+// i32, tile t of cloud b sweeping points [starts[b * tiles + t], + W) of
+// its cloud -> hist [B*K, 352], count [B*K] as pcd_shot_dense.
+PCD_EXPORT int pcd_shot_windowed(const void* kp, const void* frames,
+                                 const void* live, const void* starts,
+                                 const void* points, const void* normals,
+                                 const void* mask, void* hist, void* count,
+                                 int B, int K, int N, int W, float r,
+                                 void* stream) {
+  const int tiles = (K + TK - 1) / TK;
+  const WindowedTiles wt{DenseTiles{(const unsigned char*)live, K, tiles},
+                         (const int*)starts, W};
+  return launch_tiles(kp, frames, wt, B * tiles, points, normals, mask, hist,
+                      count, N, r, stream);
 }

@@ -41,7 +41,8 @@ NVCC_FALLBACK = "/usr/local/cuda/bin/nvcc"
 
 KERNELS = ("lrf_moments", "sign_votes", "shot_fused", "chisq_topk",
            "lrf_moments_windowed", "sign_votes_windowed", "shot_dense",
-           "shot_hist", "histogram", "lrf_moments_v2", "sign_votes_v2")
+           "shot_hist", "histogram", "lrf_moments_v2", "sign_votes_v2",
+           "shot_windowed")
 
 _LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 _LIB: Optional[ctypes.CDLL] = None
@@ -64,6 +65,7 @@ _SIGNATURES = {
     "pcd_short_shot_hist": [_P] * 6 + [_I, _I, _I, _F, _I, _I, _I, _P],
     "pcd_lrf_moments_v2": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
     "pcd_sign_votes_v2": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
+    "pcd_shot_windowed": [_P] * 9 + [_I, _I, _I, _I, _F, _P],
 }
 
 

@@ -20,7 +20,7 @@ on the CPU, on exact coordinate differences.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -131,12 +131,23 @@ def window_starts(q_keys: torch.Tensor,   # [B, Q] sorted query keys
 
 
 def required_window(points: torch.Tensor, mask: torch.Tensor, radius: float,
-                    tile_q: int = TQW, align: int = ALIGN) -> int:
+                    tile_q: int = TQW, align: int = ALIGN,
+                    q_points: Optional[torch.Tensor] = None,
+                    q_mask: Optional[torch.Tensor] = None) -> int:
     """Calibrate the window capacity on a workload: the widest candidate
     range over every tile of every cloud, rounded up to `align` (one host
-    read).  A result >= N means the window cannot prune: run dense."""
+    read).  A result >= N means the window cannot prune: run dense.  The
+    queries default to the points themselves (the self-LRF of the normals);
+    `q_points` [B, Q, 3] with `q_mask` [B, Q] (the keypoints, with
+    tile_q=8 for the windowed descriptor) are projected on each cloud's
+    principal axis and sorted, as the windowed descriptor sorts them."""
     s = sort_clouds_ex(points, mask)
-    plan = window_starts(s.keys, s.mask, s.keys, radius, s.keys.shape[1],
+    if q_points is None:
+        q_keys, q_m = s.keys, s.mask
+    else:
+        q_keys = torch.sort(_keys(q_points, q_mask, s.axis), dim=1).values
+        q_m = q_keys < PARK
+    plan = window_starts(q_keys, q_m, s.keys, radius, s.keys.shape[1],
                          tile_q, align)
     span = int(plan.span)
     return max(align, -(-span // align) * align)

@@ -1,5 +1,6 @@
 """K3: SHOT-352 over tile-compacted keypoints; K7: SHOT-352 over the dense
-[B, K] keypoint grid.
+[B, K] keypoint grid; K3w: the dense grid's tiles each over a window of
+its principal-axis-sorted cloud.
 
 Port of point_cloud_donkey_tpu/ops/pallas/shot_fused.py:
 `_shot_fused_call_windowed` over `_shot_tile_body` -> :func:`shot_tiles`
@@ -7,7 +8,10 @@ Port of point_cloud_donkey_tpu/ops/pallas/shot_fused.py:
 ops/shot.py), `shot_descriptor_fused_compact` ->
 :func:`shot_descriptor_fused_compact`, `_shot_fused_call` ->
 :func:`shot_dense` (K7, plain twin :func:`shot_dense_plain`),
-`shot_descriptor_fused` -> :func:`shot_descriptor_fused`.
+`shot_descriptor_fused` -> :func:`shot_descriptor_fused`,
+`_shot_fused_call_windowed` in its windowed mode -> :func:`shot_windowed`
+(K3w, plain twin :func:`shot_windowed_plain`),
+`shot_descriptor_fused_windowed` -> :func:`shot_descriptor_fused_windowed`.
 
 Compaction: the valid keypoints of every cloud are packed into tiles of
 TK = 8 rows (tiles never span clouds).  The tile count is sized from the
@@ -25,6 +29,7 @@ import numpy as np
 import torch
 
 from ...kernels import build
+from ..binned import PARK, window_starts
 from ..shot import DESC_LEN, normalize_descriptors, shot_histogram_rows
 from . import check, f32, stream_of, uses_kernel
 
@@ -207,3 +212,106 @@ def shot_descriptor_fused(keypoints: torch.Tensor,    # [B, K, 3]
                              normals.contiguous(), mask.contiguous(), radius)
     res = normalize_descriptors(hist, count, frame_valid, min_neighbors)
     return res.descriptors, res.valid
+
+
+def _check_windowed(kp, frames, live, starts, points, normals, mask, window):
+    _check_dense(kp, frames, live, points, normals, mask)
+    b, k = live.shape
+    n = points.shape[1]
+    check("starts", starts, torch.int32, (b * -(-k // TK),))
+    if not 0 < window <= n or (window % 128 and window != n):
+        raise ValueError(f"window {window}: expected 0 < W <= N = {n}, a "
+                         "multiple of 128 or N")
+
+
+def shot_windowed_plain(kp, frames, live, starts, points, normals, mask,
+                        window, radius):
+    """Plain twin of K3w: K7's twin with each tile's row against points
+    [start, min(start + W, N)) of its cloud only."""
+    b, k = live.shape
+    n = points.shape[1]
+    tiles = -(-k // TK)
+    hist = torch.zeros((b, k, DESC_LEN), dtype=torch.float32,
+                       device=kp.device)
+    count = torch.zeros((b, k), dtype=torch.int32, device=kp.device)
+    cloud, row = live.nonzero(as_tuple=True)
+    tile = cloud * tiles + torch.div(row, TK, rounding_mode="floor")
+    # the windows of the tiles, one "cloud" a tile
+    lo = starts.long().clamp(0, n)
+    idx = lo[:, None] + torch.arange(window, device=kp.device)    # [T, W]
+    inside = idx < n
+    idx = idx.clamp(max=n - 1)
+    tcloud = torch.div(torch.arange(b * tiles, device=kp.device), tiles,
+                       rounding_mode="floor")[:, None]
+    h, c = shot_histogram_rows(kp[cloud, row], frames[cloud, row], tile,
+                               points[tcloud, idx], normals[tcloud, idx],
+                               mask[tcloud, idx] & inside, radius)
+    hist[cloud, row] = h
+    count[cloud, row] = c
+    return hist, count
+
+
+def shot_windowed(kp: torch.Tensor,       # [B, K, 3] sorted per cloud
+                  frames: torch.Tensor,   # [B, K, 3, 3] rows = axes
+                  live: torch.Tensor,     # [B, K] bool rows to describe
+                  starts: torch.Tensor,   # [B * ceil(K/8)] int32
+                  points: torch.Tensor,   # [B, N, 3] sorted per cloud
+                  normals: torch.Tensor,  # [B, N, 3]
+                  mask: torch.Tensor,     # [B, N] bool
+                  window: int,
+                  radius: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K3w: raw SHOT histograms and in-radius counts of every live row of
+    the dense keypoint grid, tile t of cloud b (rows t*8 .. t*8+7) against
+    points [starts[b * tiles + t], + window) of its cloud.  Rows that are
+    not live come out zero, as K7's."""
+    _check_windowed(kp, frames, live, starts, points, normals, mask, window)
+    if not uses_kernel(kp, frames, live, starts, points, normals, mask):
+        return shot_windowed_plain(kp, frames, live, starts, points, normals,
+                                   mask, window, radius)
+    b, k = live.shape
+    hist = torch.empty((b, k, DESC_LEN), dtype=torch.float32,
+                       device=kp.device)
+    count = torch.empty((b, k), dtype=torch.int32, device=kp.device)
+    if b and k:
+        with torch.cuda.device(kp.device):
+            err = build.lib().pcd_shot_windowed(
+                kp.data_ptr(), frames.data_ptr(), live.data_ptr(),
+                starts.data_ptr(), points.data_ptr(), normals.data_ptr(),
+                mask.data_ptr(), hist.data_ptr(), count.data_ptr(), b, k,
+                points.shape[1], window, f32(radius), stream_of(kp))
+        build.check(err, "shot_windowed")
+        build.count_launch("shot_windowed")
+    return hist, count
+
+
+def shot_descriptor_fused_windowed(
+        keypoints: torch.Tensor,    # [B, K, 3] sorted per cloud by key
+        kp_keys: torch.Tensor,      # [B, K] sorted keys (PARK for invalid)
+        frames: torch.Tensor,       # [B, K, 3, 3] co-sorted
+        frame_valid: torch.Tensor,  # [B, K]
+        points: torch.Tensor,       # [B, N, 3] sorted per cloud by key
+        keys: torch.Tensor,         # [B, N] sorted point keys
+        normals: torch.Tensor,      # [B, N, 3] in the sorted order
+        mask: torch.Tensor,         # [B, N]
+        radius: float,
+        window: int,
+        min_neighbors: int = 5):
+    """SHOT-352 of the dense keypoint grid over principal-axis-sorted clouds
+    with co-sorted keypoints: each 8-keypoint tile sweeps only its window
+    (ops/binned.window_starts, 128-aligned) through K3w.  Returns
+    (descriptors [B, K, 352], valid [B, K], exact [] on the device);
+    `exact` False means some tile's candidate range overflowed the window,
+    and the caller must recompute densely (K7)."""
+    b, k, _ = keypoints.shape
+    n = points.shape[1]
+    window = min(window, n)
+    if k % TK:
+        raise ValueError(f"K={k} must divide by the keypoint tile {TK}")
+    plan = window_starts(kp_keys, kp_keys < PARK, keys, radius, window,
+                         tile_q=TK, align=128)
+    hist, count = shot_windowed(
+        keypoints.contiguous(), frames.contiguous(), frame_valid.contiguous(),
+        plan.starts.reshape(-1).contiguous(), points.contiguous(),
+        normals.contiguous(), mask.contiguous(), window, radius)
+    res = normalize_descriptors(hist, count, frame_valid, min_neighbors)
+    return res.descriptors, res.valid, plan.exact

@@ -10,7 +10,8 @@ point_cloud_donkey_tpu/cli/serve.py without mesh or AOT).
 The model is the JAX package's save format: ``model.ism`` (JSON config)
 beside ``model.ismd.npz`` (trained arrays).  A SHOT, CSHOT or SHORT_SHOT
 model classifies; a CSHOT model reads each file's colours and refuses a
-file without them.  --maxima serves SHOT models only.  PCD_PALLAS_LRF_V=2
+file without them.  --maxima serves SHOT and SHORT_SHOT models (CSHOT is
+refused, as by the JAX CLI: its detection step passes no colours).  PCD_PALLAS_LRF_V=2
 selects the v2 LRF kernels (K10, K11), as it does for the JAX package.
 """
 
@@ -53,9 +54,8 @@ def main(argv=None) -> int:
     cfg = PipelineConfig.from_ism(config, codebook.num_classes,
                                   lrf_version=lrf_version_from_env())
     params = CodebookParams.from_config(config.child("Codebook"))
-    if args.maxima and cfg.descriptor != "SHOT":
-        # the JAX CLI refuses CSHOT here; its SHORT_SHOT detection is not
-        # ported yet
+    if args.maxima and cfg.descriptor == "CSHOT":
+        # the JAX CLI refuses CSHOT here: its detection step reads no colours
         print(f"--maxima does not support {cfg.descriptor} yet",
               file=sys.stderr)
         return 1

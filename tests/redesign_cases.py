@@ -1,6 +1,7 @@
 """Edge-case inputs for K1 (radius moments), K2 (LRF sign votes), K3
 (tile-compacted SHOT-352), K4 (chi-square top-k), K5 / K6 (the windowed
-moments and sign votes), K7 (SHOT-352 on the dense keypoint grid), K8
+moments and sign votes), K7 (SHOT-352 on the dense keypoint grid), K3w
+(K7's grid, each tile over a window of its sorted cloud), K8
 (CSHOT-1344) and K9 (SHORT_SHOT), made with numpy from a seed: the cases a cell-binned radius
 sweep, compacted in-radius pairs binned into warp-owned histograms (or
 registers) and a register-tiled chi-square kernel make risky.
@@ -554,3 +555,102 @@ def k7_case(name):
     if name == "dead_tile_beside_live":
         fv[0, 8:16] = False
     return kp, frames, fv, pts, nrm, mask
+
+
+# --- K3w: SHOT-352 of the dense grid's tiles over sorted-cloud windows ------
+
+K3W_RADIUS = K7_RADIUS
+K3W_TILE = 8      # keypoints per tile (the window plan's tile_q)
+K3W_PARK = 1e9    # the sort key of an invalid keypoint
+K3W_CASES = ("calibrated", "narrow_256", "narrow_128", "masked_nan_huge",
+             "dead_tiles", "clamped_end", "full_window", "bad_normals")
+K3W_KEYS = ("keypoints", "kp_keys", "frames", "frame_valid", "points",
+            "keys", "normals", "mask")
+
+
+def k3w_window(kp_keys, keys, radius=K3W_RADIUS, align=128):
+    """The calibrated window of a K3w case (ops/binned.required_window's
+    rule on the sorted keys): the widest candidate range of any tile of
+    valid keypoints, from its start aligned down to `align`, rounded up."""
+    span = 0
+    for qk, pk in zip(kp_keys, keys):
+        for t0 in range(0, len(qk), K3W_TILE):
+            tile = qk[t0:t0 + K3W_TILE]
+            tile = tile[tile < K3W_PARK]
+            if len(tile):
+                lo = np.searchsorted(pk, np.float32(tile.min() - radius),
+                                     "left")
+                hi = np.searchsorted(pk, np.float32(tile.max() + radius),
+                                     "right")
+                span = max(span, hi - lo // align * align)
+    return max(align, -(-span // align) * align)
+
+
+def k3w_case(name, k=32):
+    """(keypoints, kp_keys, frames, frame_valid, points, keys, normals,
+    mask) -- K3W_KEYS -- and the window of a K3w case: B = 2 clouds of
+    N = 1024 points at K3W_RADIUS, stretched threefold along x, sorted
+    along their principal axes (a masked point takes the key of a random
+    unmasked one, so masked points spread through the windows), and K =
+    `k` keypoints (21 and 13 of them real, the rest at 1e9 with an invalid
+    frame) co-sorted by the same key, invalid ones last at K3W_PARK; the live rows are frame_valid.
+    calibrated: the window k3w_window gives (an exact plan); narrow_256,
+    narrow_128: windows the plan cannot fit (inexact); masked_nan_huge:
+    a tenth of the points masked, holding NaN and +-1e30; dead_tiles: the
+    second tile of cloud 0 not live, between live tiles; clamped_end: a
+    window of 640 whose last starts clamp to N - W; full_window: W = N;
+    bad_normals: NaN and +-inf normal components."""
+    rng = np.random.default_rng(K3W_CASES.index(name) + 140)
+    b, n = 2, 1024
+    # stretched threefold along x, so that the windows prune
+    pts = np.stack([shapes.make_instance(rng, i + 1, n=n, rotate=True)
+                    for i in range(b)]) * np.array([3.0, 1.0, 1.0])
+    pts = pts.astype(np.float32)
+    mask = np.ones((b, n), bool)
+    kp = np.full((b, k, 3), 1e9, np.float32)
+    kp_mask = np.zeros((b, k), bool)
+    for i, c in enumerate((21, 13)):
+        idx = rng.choice(n, c, replace=False)
+        kp[i, :c] = pts[i, idx] + rng.normal(scale=0.02, size=(c, 3))
+        kp_mask[i, :c] = True
+    frames = _rotations(rng, b * k).reshape(b, k, 3, 3)
+    fv = kp_mask.copy()
+    nrm = _unit(rng, (b, n))
+    if name == "masked_nan_huge":
+        mask = rng.random((b, n)) > 0.1
+        bad = np.array([np.nan, 1e30, -1e30], np.float32)
+        holes = ~mask
+        pts[holes] = bad[rng.integers(0, len(bad), size=(holes.sum(), 3))]
+    if name == "bad_normals":
+        bad = np.argwhere(rng.random((b, n)) < 0.1)
+        nrm[bad[:, 0], bad[:, 1], rng.integers(0, 3, len(bad))] = \
+            rng.choice(np.array([np.nan, np.inf, -np.inf], np.float32),
+                       len(bad))
+    # sort the clouds (and their normals) along their principal axes, and
+    # the keypoints by the same key
+    out = {key: [] for key in K3W_KEYS}
+    for i in range(b):
+        m = mask[i]
+        c = pts[i][m] - pts[i][m].mean(0)
+        axis = np.linalg.svd(c, full_matrices=False)[2][0].astype(np.float32)
+        key = (pts[i] * axis).sum(-1, dtype=np.float32)
+        key[~m] = rng.choice(key[m], size=(~m).sum())
+        order = np.argsort(key, kind="stable")
+        qk = np.where(kp_mask[i], (kp[i] * axis).sum(-1, dtype=np.float32),
+                      np.float32(K3W_PARK))
+        korder = np.argsort(qk, kind="stable")
+        for key_, x in (("points", pts[i][order]), ("keys", key[order]),
+                         ("normals", nrm[i][order]), ("mask", m[order]),
+                         ("keypoints", kp[i][korder]),
+                         ("kp_keys", qk[korder]),
+                         ("frames", frames[i][korder]),
+                        ("frame_valid", fv[i][korder])):
+            out[key_].append(x)
+    arrays = {key: np.stack(x) for key, x in out.items()}
+    if name == "dead_tiles":
+        arrays["frame_valid"][0, 8:16] = False
+    window = {"narrow_256": 256, "narrow_128": 128, "clamped_end": 640,
+              "full_window": n}.get(name)
+    if window is None:
+        window = k3w_window(arrays["kp_keys"], arrays["keys"])
+    return tuple(arrays[key] for key in K3W_KEYS) + (window,)

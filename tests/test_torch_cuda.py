@@ -16,17 +16,19 @@ import torch
 import shapes
 from bench_data import KEYPOINT_CAPACITY, bench_clouds, bench_colors
 from redesign_cases import (K1_CASES, K1_RADIUS, K2_CASES, K3_CASES,
-                            K3_RADIUS, K4_DIMS, K5_CASES, K7_CASES,
+                            K3_RADIUS, K3W_CASES, K3W_PARK, K3W_RADIUS,
+                            K4_DIMS, K5_CASES, K7_CASES,
                             K7_RADIUS, K8_CASES, K8_LAB_CASES, K8_RADIUS,
                             K9_CASES, K9_RADIUS, k1_case, k2_case, k3_case,
-                            k4_case, k5_case, k5_windows_exact, k6_case,
-                            k7_case, k8_case, k9_bins, k9_case)
+                            k3w_case, k4_case, k5_case, k5_windows_exact,
+                            k6_case, k7_case, k8_case, k9_bins, k9_case)
 from torch_parity import (assert_decisions_match, assert_descriptors_close,
                           assert_topk_close, cuda_device, n, t)  # noqa: F401
 
 from point_cloud_donkey_tpu_torch.kernels import build
 from point_cloud_donkey_tpu_torch.models.codebook import (CodebookParams,
                                                           load_codebook)
+from point_cloud_donkey_tpu_torch.models import pipeline as tpipe
 from point_cloud_donkey_tpu_torch.models.pipeline import (IsmClassifier,
                                                           IsmDetector,
                                                           PipelineConfig)
@@ -793,3 +795,129 @@ def test_training_on_the_card_matches_the_cpu_twins(cuda_device, tmp_path):
         np.linalg.norm(a.codewords, axis=1)
         * np.linalg.norm(b.codewords, axis=1), 1e-30)
     assert (cos > 0.999).mean() >= 0.97
+
+
+# --- K3w and the serving paths of the windowed descriptor ------------------
+
+def _k3w_inputs(case, device, k=32):
+    """shot_windowed's arguments for a K3w case on `device` (the plan's
+    starts from ops/binned.window_starts), and the plan."""
+    *arrays, window = k3w_case(case, k=k)
+    kp, kk, fr, fv, pts, keys, nrm, mask = (t(x).to(device) for x in arrays)
+    plan = binned.window_starts(kk, kk < K3W_PARK, keys, K3W_RADIUS, window,
+                                tile_q=8, align=128)
+    args = (kp, fr, fv, plan.starts.reshape(-1).contiguous(), pts, nrm,
+            mask, window, K3W_RADIUS)
+    return args, plan
+
+
+@pytest.mark.parametrize("case", K3W_CASES)
+def test_shot_windowed_edge_cases_match_plain(cuda_device, case):
+    """K3w (K7's grid, each tile over its window of the sorted cloud) vs
+    its twin at tests/redesign_cases.py's K3w cases -- the calibrated
+    window, windows of 256 and 128 (inexact plans), masked NaN / huge
+    points inside the windows, a tile that is not live between live ones,
+    windows clamped at the cloud's end, W = N, NaN / inf normals: counts
+    equal, rows that are not live zero, the descriptor contract, two
+    launches equal bit for bit."""
+    args, _ = _k3w_inputs(case, cuda_device)
+    h, c = tshot.shot_windowed(*args)
+    h2, c2 = tshot.shot_windowed(*args)
+    assert _same_bits(h, h2) and torch.equal(c, c2)
+    ph, pc = tshot.shot_windowed_plain(*args)
+    assert torch.equal(c, pc)
+    live = args[2]
+    assert not h[~live].any() and not c[~live].any()
+    got = normalize_descriptors(h, c, live)
+    want = normalize_descriptors(ph, pc, live)
+    assert_descriptors_close(got.descriptors.reshape(-1, 352),
+                             got.valid.reshape(-1),
+                             want.descriptors.reshape(-1, 352),
+                             want.valid.reshape(-1))
+
+
+@pytest.mark.parametrize("k", [32, 22])
+def test_shot_windowed_equals_k7_on_an_exact_plan(cuda_device, k):
+    """On an exact plan K3w's counts equal K7's on the same sorted inputs
+    and its histograms match K7's within rtol 1e-6 (the batches of 32 may
+    split elsewhere, so not bit for bit); K = 22 too."""
+    args, plan = _k3w_inputs("calibrated", cuda_device, k)
+    assert bool(plan.exact)
+    h, c = tshot.shot_windowed(*args)
+    kp, fr, fv, _, pts, nrm, mask, _, radius = args
+    dh, dc = tshot.shot_dense(kp, fr, fv, pts, nrm, mask, radius)
+    assert torch.equal(c, dc) and int(c.max()) > 5
+    torch.testing.assert_close(h, dh, rtol=1e-6, atol=1e-6)
+
+
+def _served(name, device, **overrides):
+    """IsmClassifier / IsmDetector arguments of a committed model on
+    `device`: (codebook, PipelineConfig, CodebookParams)."""
+    config = IsmConfig.load(DATA + name + "_codebook.ism")
+    cb = load_codebook(DATA + name + "_codebook.ism").to(device)
+    cfg = PipelineConfig.from_ism(config, cb.num_classes,
+                                  keypoint_capacity=KEYPOINT_CAPACITY,
+                                  **overrides)
+    return cb, cfg, CodebookParams.from_config(config.child("Codebook"))
+
+
+def test_windowed_descriptor_slice_matches_jax_reference(cuda_device):
+    """IsmClassifier with descriptor_window (K3w) vs the committed JAX-CPU
+    scores at the calibrated window (exact: K3w launched once, K7 not) and
+    at W = 1024 (the plan trips: K7 recomputes the descriptor); two runs
+    equal bit for bit."""
+    ref = np.load(DATA + "bench_reference.npz")
+    pts = t(ref["points"]).to(cuda_device)
+    mask = torch.ones(pts.shape[:2], dtype=torch.bool, device=cuda_device)
+    cb, cfg, params = _served("bench", cuda_device)
+    kres = voxel_grid(pts, mask, cfg.leaf_size, capacity=KEYPOINT_CAPACITY)
+    window = binned.required_window(pts, mask, cfg.radius, tile_q=8,
+                                    q_points=kres.centroids[..., :3],
+                                    q_mask=kres.mask)
+    for w, trips in ((window, False), (1024, None)):
+        model = IsmClassifier(cb, cfg._replace(descriptor_window=w), params)
+        build.reset_launch_counts()
+        with torch.no_grad():
+            scores = model(pts, mask)
+            counts = build.launch_counts()
+            again = model(pts, mask)
+        assert counts["shot_windowed"] == 1, counts
+        if trips is False:
+            assert model.dense_recomputes == 0 and counts["shot_dense"] == 0
+        assert counts["shot_dense"] == (model.dense_recomputes > 0)
+        assert torch.equal(scores, again)
+        assert_decisions_match(scores, ref["scores"])
+
+
+def test_serving_paths_of_this_slice_match_jax_references(cuda_device):
+    """CSHOT with the committed normals window vs its committed JAX-CPU
+    scores; SHORT_SHOT detection vs its committed densities (decisions);
+    classify_scores vs the committed scores and classify_scores_mean_shift
+    equal to IsmDetector's densities bit for bit."""
+    ref = np.load(DATA + "bench_reference.npz")
+    dref = np.load(DATA + "descriptor_reference.npz")
+    pts = t(ref["points"]).to(cuda_device)
+    mask = torch.ones(pts.shape[:2], dtype=torch.bool, device=cuda_device)
+    rgb = t(bench_colors(ref["points"])).to(cuda_device)
+    cb, cfg, params = _served("cshot", cuda_device,
+                              normals_window=int(ref["normals_window"]))
+    model = IsmClassifier(cb, cfg, params)
+    with torch.no_grad():
+        scores = model(pts, mask, rgb)
+    assert model.dense_recomputes == 0
+    assert_decisions_match(scores, dref["scores_cshot_windowed"])
+
+    _, _, mp, labels = bench_clouds(len(dref["detect_densities_short_shot"]))
+    mp = t(mp).to(cuda_device)
+    mm = torch.ones(mp.shape[:2], dtype=torch.bool, device=cuda_device)
+    cb, cfg, params = _served("short_shot", cuda_device)
+    with torch.no_grad():
+        dens, _ = IsmDetector(cb, cfg, params)(mp, mm)
+        again = tpipe.classify_scores_mean_shift(mp, mm, cb, cfg, params)
+    assert _same_bits(dens, again)
+    assert_decisions_match(dens, dref["detect_densities_short_shot"])
+
+    cb, cfg, params = _served("bench", cuda_device)
+    with torch.no_grad():
+        got = tpipe.classify_scores(pts, mask, cb, cfg, params)
+    assert_decisions_match(got, ref["scores"])

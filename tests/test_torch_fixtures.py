@@ -66,8 +66,9 @@ def test_descriptor_codebooks_match_the_jax_package(tmp_path, descriptor,
 
 
 def test_descriptor_reference_matches_the_jax_package(tmp_path):
-    """The committed CSHOT / SHORT_SHOT scores come from today's JAX
-    package with the committed codebooks; the committed colours are
+    """The committed CSHOT / SHORT_SHOT scores (CSHOT also with the
+    committed normals window) and SHORT_SHOT detections come from today's
+    JAX package with the committed codebooks; the committed colours are
     bench_colors of bench_reference.npz's clouds."""
     ref = str(tmp_path / "descriptor_reference.npz")
     build_descriptor_reference(CODEBOOKS, ref)
@@ -80,7 +81,13 @@ def test_descriptor_reference_matches_the_jax_package(tmp_path):
             bench_colors(base["points"]))
         np.testing.assert_array_equal(base["points"],
                                       bench_clouds(N_REF)[2])
-        for k in ("scores_cshot", "scores_short_shot"):
+        for k in ("scores_cshot", "scores_short_shot",
+                  "scores_cshot_windowed", "detect_densities_short_shot",
+                  "detect_positions_short_shot"):
             np.testing.assert_allclose(fresh[k], old[k], rtol=1e-5,
                                        atol=1e-5, err_msg=k)
+        for k in ("scores_cshot", "scores_short_shot",
+                  "scores_cshot_windowed"):
             assert old[k].shape == (N_REF, 5)
+        assert old["detect_densities_short_shot"].shape == (N_DETECT, 5)
+        assert old["detect_positions_short_shot"].shape == (N_DETECT, 5, 3)

@@ -200,20 +200,23 @@ def test_short_shot_slice_matches_committed_jax_scores(monkeypatch):
 
 
 def test_unported_short_shot_and_cshot_paths_raise():
-    """Detection serves SHOT only (SHORT_SHOT / CSHOT detection: ROADMAP
-    A); CSHOT with a normals window is not ported."""
+    """CSHOT detection is refused, as in the JAX package: its detection
+    step (detect_maxima_jit) passes no colours and its CLI refuses CSHOT
+    under --maxima.  SHORT_SHOT detection and CSHOT with a normals window
+    are served."""
     model = short_shot_model()
-    for desc in ("SHORT_SHOT", "CSHOT"):
-        with pytest.raises(NotImplementedError):
-            IsmDetector(model.codebook, model.cfg._replace(descriptor=desc))
-    with pytest.raises(NotImplementedError):
-        IsmClassifier(model.codebook, model.cfg._replace(
-            descriptor="CSHOT", normals_window=1280))
+    with pytest.raises(NotImplementedError, match="CSHOT"):
+        IsmDetector(model.codebook, model.cfg._replace(descriptor="CSHOT"))
+    IsmDetector(model.codebook, model.cfg)
+    IsmClassifier(model.codebook, model.cfg._replace(
+        descriptor="CSHOT", normals_window=1280))
 
 
 def test_serve_classifies_with_the_short_shot_model(tmp_path, capsys):
     """serve.main with the SHORT_SHOT model on 3 PCDs (no colours, no
-    normals): the committed reference's predictions; --maxima is refused."""
+    normals): the committed reference's predictions; with --maxima, one
+    maximum per cloud, the predictions of the committed SHORT_SHOT
+    detection reference."""
     ref = np.load(REFERENCE)
     dref = np.load(DESCRIPTOR_REFERENCE)
     lines = ["# test"]
@@ -231,6 +234,10 @@ def test_serve_classifies_with_the_short_shot_model(tmp_path, capsys):
     expect = dref["scores_short_shot"][:3].argmax(1)
     assert [int(p[0]) for p in preds] == expect.tolist()
     assert serve.main(["-d", CODEBOOKS["SHORT_SHOT"], "-f", str(flist),
-                       "--device", "cpu", "--maxima"]) == 1
-    assert "--maxima does not support SHORT_SHOT yet" in \
-        capsys.readouterr().err
+                       "--device", "cpu", "--maxima"]) == 0
+    out = capsys.readouterr().out
+    rows = re.findall(r"^.+: predicted (\d+), ground truth (\d+) (?:OK|WRONG)"
+                      r" maximum \((\S+) (\S+) (\S+)\)$", out, re.M)
+    assert len(rows) == 3
+    want = dref["detect_densities_short_shot"][:3].argmax(1)
+    assert [int(r[0]) for r in rows] == want.tolist()

@@ -19,6 +19,7 @@ from torch_parity import assert_decisions_match, n, t
 from point_cloud_donkey_tpu_torch import serve
 from point_cloud_donkey_tpu_torch.kernels import build
 from point_cloud_donkey_tpu_torch.models.codebook import (CodebookParams,
+                                                          cast_votes,
                                                           load_codebook)
 from point_cloud_donkey_tpu_torch.models.pipeline import (STAGES,
                                                           IsmClassifier,
@@ -111,12 +112,19 @@ def test_window_flag_trip_recomputes_dense_normals():
 
 
 def test_unported_configurations_raise():
+    """What the port still refuses: a descriptor it does not serve, the
+    normals methods other than 2, and a serving activation other than KNN
+    (Threshold needs K4's top-k widened past KMAX)."""
     cb = load_codebook(CODEBOOK)
-    for bad in ({"descriptor": "CSHOT", "normals_window": 1280},
-                {"descriptor": "FPFH"}, {"descriptor_window": 1280},
-                {"normals_method": 1}):
+    for bad in ({"descriptor": "FPFH"}, {"normals_method": 1}):
         with pytest.raises(NotImplementedError):
             IsmClassifier(cb, PipelineConfig(**bad))
+    f = 3
+    with pytest.raises(NotImplementedError):
+        cast_votes(cb, torch.rand(f, 352), torch.zeros(f, 3),
+                   torch.eye(3).repeat(f, 1, 1),
+                   torch.ones(f, dtype=torch.bool),
+                   CodebookParams(activation_type="Threshold"), "chisq")
 
 
 def test_serve_main_reports_predictions(tmp_path, capsys):

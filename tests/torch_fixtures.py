@@ -19,8 +19,13 @@
   point_cloud_donkey_tpu_torch/data/descriptor_reference.npz:
       the colours of the first N_REF bench clouds (``rgb8``, 8-bit) and the
       JAX-CPU ``classify_scores_batch`` scores of those clouds with each of
-      the two codebooks (``scores_cshot`` with those colours,
-      ``scores_short_shot``).  The clouds are bench_reference.npz's.
+      the two codebooks (``scores_cshot`` with those colours, also with
+      the normals window of bench_reference.npz as
+      ``scores_cshot_windowed``; ``scores_short_shot``), and the JAX-CPU
+      ``jax.vmap(detect_maxima_jit)`` densities and positions of the first
+      N_DETECT clouds with the SHORT_SHOT codebook
+      (``detect_densities_short_shot``, ``detect_positions_short_shot``).
+      The clouds are bench_reference.npz's.
 
 The machine with the GPU has no JAX, so these files carry the reference
 across.  tests/test_torch_fixtures.py regenerates them and checks they
@@ -136,16 +141,17 @@ def jax_window(points: np.ndarray, mask: np.ndarray) -> int:
                                       tile_q=256, align=128))
 
 
-def jax_detect(codebook_path: str, points: np.ndarray, mask: np.ndarray):
-    """JAX-CPU jax.vmap(detect_maxima_jit) with the bench config:
-    (densities [B, C], positions [B, C, 3])."""
+def jax_detect(codebook_path: str, points: np.ndarray, mask: np.ndarray,
+               descriptor: str = "SHOT"):
+    """JAX-CPU jax.vmap(detect_maxima_jit) with the bench config and
+    `descriptor`: (densities [B, C], positions [B, C, 3])."""
     import jax
     import jax.numpy as jnp
     from point_cloud_donkey_tpu.models.codebook import CodebookParams
     from point_cloud_donkey_tpu.models.pipeline_jit import detect_maxima_jit
 
     cb = _jax_codebook(codebook_path)
-    cfg = jax_pipeline_config()
+    cfg = jax_pipeline_config(descriptor)
     params = CodebookParams(knn_k=1)
     step = jax.jit(jax.vmap(lambda p, m: detect_maxima_jit(p, m, cb, cfg,
                                                            params)))
@@ -173,17 +179,28 @@ def build_reference(codebook_path: str, path: str) -> None:
 
 def build_descriptor_reference(codebooks: dict, path: str) -> None:
     """The first N_REF bench clouds' colours and their JAX-CPU scores with
-    the CSHOT and SHORT_SHOT codebooks (`codebooks`: descriptor -> path)."""
-    _, _, clouds, _ = bench_clouds(N_REF)
+    the CSHOT and SHORT_SHOT codebooks (`codebooks`: descriptor -> path),
+    CSHOT also with the calibrated normals window, and the SHORT_SHOT
+    detection of the first N_DETECT clouds."""
+    _, _, clouds, _ = bench_clouds(max(N_REF, N_DETECT))
     mask = np.ones(clouds.shape[:2], bool)
-    rgb = bench_colors(clouds)
-    cshot = jax_scores(codebooks["CSHOT"], clouds, mask, descriptor="CSHOT",
+    ref, ref_mask = clouds[:N_REF], mask[:N_REF]
+    rgb = bench_colors(ref)
+    cshot = jax_scores(codebooks["CSHOT"], ref, ref_mask, descriptor="CSHOT",
                        rgb=rgb)
-    short = jax_scores(codebooks["SHORT_SHOT"], clouds, mask,
+    cshot_w = jax_scores(codebooks["CSHOT"], ref, ref_mask,
+                         jax_window(ref, ref_mask), descriptor="CSHOT",
+                         rgb=rgb)
+    short = jax_scores(codebooks["SHORT_SHOT"], ref, ref_mask,
                        descriptor="SHORT_SHOT")
+    dens, pos = jax_detect(codebooks["SHORT_SHOT"], clouds[:N_DETECT],
+                           mask[:N_DETECT], "SHORT_SHOT")
     np.savez_compressed(path, rgb8=np.round(rgb * 255).astype(np.uint8),
                         scores_cshot=cshot.astype(np.float32),
-                        scores_short_shot=short.astype(np.float32))
+                        scores_short_shot=short.astype(np.float32),
+                        scores_cshot_windowed=cshot_w.astype(np.float32),
+                        detect_densities_short_shot=dens.astype(np.float32),
+                        detect_positions_short_shot=pos.astype(np.float32))
 
 
 def main() -> None:
