@@ -47,6 +47,14 @@ Phases (each prints its results; any failure raises and exits nonzero):
      K7's on the same sorted inputs where the plan is exact, timed beside
      K3 and K7, its bound, torch.profiler's device time and one
      scatter_add_ over SHOT's slot arrays of the windows;
+  2f. K4m, the [Q, C] chi-square matrix (K4's sweep with a storing
+     epilogue), at the classify step's features against the bench
+     codebook (D=352), its partial-SHOT front half (D=176) and at CSHOT's
+     width (D=1344): against its twin, the k=64 selection under the k-NN
+     contract, the k=1..3 selections equal to K4's fused top-k, two
+     launches bit-equal, timed beside its bound and special-function
+     floor, torch.profiler's device time, the selection's time and K4's
+     time on the same inputs;
   3. LRF frames and SHOT descriptors against tests/golden/descriptors.npz;
   4. the dense classify step: IsmClassifier on the 128 x 2048 bench batch
      with the committed codebook -- per-stage ms, clouds/s, K1-K4 launched,
@@ -62,7 +70,15 @@ Phases (each prints its results; any failure raises and exits nonzero):
      and without the normals window, against the committed dense and
      windowed references; then descriptor_window 1024: the plan trips, K7
      recomputes the descriptor, the decisions hold;
+  4e. the classify step (128 clouds) under every configuration of
+     data/config_reference.npz -- KNN K=5, KNNRule, INN, Threshold,
+     partial SHOT, normals methods 0, 1 and 3, and the CSHOT model under
+     method 0 -- each against its committed JAX-CPU reference, two runs
+     equal, with its launches (INN: 6 K4 launches a step; Threshold and
+     K=5: one K4m and no K4);
   5. the serve entry point on 8 PCD files with --device cuda;
+  5d. serve --device cuda on a `.off` mesh the script writes (a
+     tessellated box), sampled on the fly;
   6. the mean-shift detection step: IsmDetector on the first 32 bench
      clouds -- per-stage ms, clouds/s, K7 launched, densities (decisions,
      rms and max relative delta) and the best class's maximum against the
@@ -75,6 +91,12 @@ Phases (each prints its results; any failure raises and exits nonzero):
   6b. SHORT_SHOT detection (K9, no normals) on the first 32 bench clouds
      against the committed JAX-CPU reference, two runs equal, and serve
      --maxima with the SHORT_SHOT model on 8 PCD files;
+  6d. detection under Threshold (K4m) on the first 32 bench clouds against
+     the committed JAX-CPU reference, two runs equal: phase 6's bounds on
+     every cloud whose votes' validity equals that from the plain twins'
+     features (the clouds where a descriptor, within the descriptor
+     contract, moves a vote across the threshold or the 2-sigma gate are
+     counted and printed), the densities' bound and the decisions on all;
   6c. the batched entry points (classify_scores for SHOT, CSHOT and
      SHORT_SHOT against the committed references, classify_intermediates,
      classify_scores_instances and classify_scores_mean_shift against
@@ -103,6 +125,7 @@ limit.  The last line is {"ok": true, "device": {...}}.
 """
 
 import contextlib
+import dataclasses
 import hashlib
 import io
 import json
@@ -148,6 +171,8 @@ KERNELS = {
                       "point_cloud_donkey_tpu/ops/pallas/lrf_moments.py:237"),
     "shot_windowed": ("point_cloud_donkey_tpu_torch/csrc/shot_fused.cu",
                       "point_cloud_donkey_tpu/ops/pallas/shot_fused.py:432"),
+    "chisq_matrix": ("point_cloud_donkey_tpu_torch/csrc/chisq.cu",
+                     "point_cloud_donkey_tpu/ops/pallas/chisq.py:48"),
 }
 # the path whose step must launch each kernel
 PATH_KERNELS = {
@@ -180,6 +205,22 @@ PATH_KERNELS = {
     "detect_short_shot": ("lrf_moments", "sign_votes", "histogram",
                           "chisq_topk"),
     "entry": ("lrf_moments", "sign_votes", "shot_dense", "chisq_topk"),
+    # the activations (K4m where k > 3: KNN K=5, Threshold's 64), partial
+    # SHOT, the PCA normals of methods 0, 1 and 3 (K1/K2 at the keypoints
+    # only) and CSHOT under method 0; detection under Threshold
+    "knn5": ("lrf_moments", "sign_votes", "shot_fused", "chisq_matrix"),
+    "knnrule": ("lrf_moments", "sign_votes", "shot_fused", "chisq_topk"),
+    "inn": ("lrf_moments", "sign_votes", "shot_fused", "chisq_topk"),
+    "threshold": ("lrf_moments", "sign_votes", "shot_fused",
+                  "chisq_matrix"),
+    "partial_front": ("lrf_moments", "sign_votes", "shot_fused",
+                      "chisq_topk"),
+    "normals_m0": ("lrf_moments", "sign_votes", "shot_fused", "chisq_topk"),
+    "normals_m1": ("lrf_moments", "sign_votes", "shot_fused", "chisq_topk"),
+    "normals_m3": ("lrf_moments", "sign_votes", "shot_fused", "chisq_topk"),
+    "cshot_m0": ("lrf_moments", "sign_votes", "shot_hist", "chisq_topk"),
+    "detect_threshold": ("lrf_moments", "sign_votes", "shot_dense",
+                         "chisq_matrix"),
 }
 
 # Least time of a kernel call: the larger of its bytes (inputs read once,
@@ -620,7 +661,7 @@ def main():
                 f"K4 indices differ beyond ties ({what})"
             ms = cuda_ms(lambda: kchisq.chisq_topk(a, b, b_mask, k), 20)
             dev_ms = device_ms(lambda: kchisq.chisq_topk(a, b, b_mask, k),
-                               "chisq_topk_kernel", 20)
+                               "chisq_kernel", 20)
             pms = cuda_ms(lambda: kchisq.chisq_topk_plain(a, b, b_mask, k), 2)
             terms = a.shape[0] * b.shape[0] * a.shape[1]
             ops = terms * CHISQ_TERM_OPS + a.shape[0] * b.shape[0]
@@ -907,6 +948,12 @@ def main():
         desc_window = windowed_descriptor_phase(
             pts, mask, kres, srt, cfg, k3_ms, record, card)
 
+    # -- 2f. K4m at the classify step's features ---------------------------
+    phase(f"2f. K4m (the [Q, C] chi-square matrix) vs its plain twin and K4 "
+          f"on the card ({card})")
+    with torch.no_grad():
+        k4m_phase(desc, codebook, data, dev, record, card)
+
     # -- 3. goldens ---------------------------------------------------------
     phase("3. goldens (tests/golden/descriptors.npz, atol 2e-3)")
     g = np.load(os.path.join(HERE, "tests", "golden", "descriptors.npz"))
@@ -1043,6 +1090,10 @@ def main():
         got["shot_windowed"] == 1, "the 1024 window did not trip to K7"
     check_decisions(tscores.cpu().numpy(), ref["scores"], labels)
 
+    # -- 4e. every activation, partial SHOT and the normals methods ---------
+    cref = np.load(os.path.join(data, "config_reference.npz"))
+    config_steps(data, dev, pts, mask, rgb, labels, cref, launches, card)
+
     # -- 5. serve -------------------------------------------------------------
     phase("5. serve --device cuda on 8 PCD files")
     text = serve_files(serve, model_path, ref["points"][:8],
@@ -1087,6 +1138,11 @@ def main():
     print("two runs of the step: scores identical")
     check_decisions(scores.cpu().numpy(), dref["scores_cshot_windowed"],
                     labels)
+
+    # -- 5d. serve a .off mesh ------------------------------------------------
+    phase("5d. serve --device cuda on a .off mesh (a tessellated box, sampled "
+          "on the fly)")
+    serve_off(serve, model_path)
 
     # -- 6. the mean-shift detection step -----------------------------------
     phase(f"6. detection step: IsmDetector, B={MS_BATCH} x N={pts.shape[1]} "
@@ -1165,6 +1221,12 @@ def main():
                       r"maximum \(\S+ \S+ \S+\)$", text, re.M)
     assert len(rows) == 8, \
         "serve --maxima with the SHORT_SHOT model did not print 8 maxima"
+
+    # -- 6d. detection under Threshold -------------------------------------------
+    phase(f"6d. detection step under Threshold (K4m): IsmDetector, "
+          f"B={MS_BATCH} x N={pts.shape[1]} ({card})")
+    threshold_detection(codebook, cfg, params, mp, mm, labels, cref,
+                        launches, card)
 
     # -- 6c. the batched entry points -----------------------------------------
     phase(f"6c. batched entry points: classify_scores, "
@@ -1271,6 +1333,217 @@ def main():
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
+
+
+def k4m_phase(desc, codebook, data, dev, record, card):
+    """Phase 2f: K4m at the classify step's features (`desc`, the valid
+    rows of the bench batch) against the bench codebook, its partial-SHOT
+    front half and, at CSHOT's width, sparse rows from a seed against the
+    CSHOT codebook: distances within rtol 1e-5 of its twin (+inf exactly at
+    the masked codewords), the k=64 selection under the k-NN contract, the
+    k=1..3 selections equal to K4's fused top-k bit for bit, two launches
+    bit-equal; timed beside its bound, K4's special-function floor, the
+    profiler's device time, the selection's time and K4's time."""
+    import torch
+
+    from point_cloud_donkey_tpu_torch.models.codebook import load_codebook
+    from point_cloud_donkey_tpu_torch.ops.kernels import chisq as kchisq
+    cols, pcw = codebook.partial("front", desc.shape[1])
+    ccb = load_codebook(os.path.join(data, "cshot_codebook.ism")).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    cq = torch.rand(desc.shape[0], ccb.codewords.shape[1], device=dev,
+                    generator=gen)
+    cq = torch.where(cq < 0.6, torch.zeros_like(cq), cq)
+    cq = (cq / cq.sum(1, keepdim=True)).contiguous()
+    cases = (("D=352", desc, codebook.codewords, codebook.cw_mask),
+             ("partial front D=176", desc.index_select(1, cols).contiguous(),
+              pcw, codebook.cw_mask),
+             ("CSHOT D=1344", cq, ccb.codewords, ccb.cw_mask))
+    for name, a, b, m in cases:
+        what = f"{name} Q={a.shape[0]} C={b.shape[0]}"
+        d = kchisq.chisq_matrix(a, b, m)
+        again = kchisq.chisq_matrix(a, b, m)
+        assert torch.equal(d.view(torch.int32), again.view(torch.int32)), \
+            f"two K4m launches differ ({what})"
+        pd = kchisq.chisq_matrix_plain(a, b, m)
+        masked = (~m)[None, :].expand_as(d)
+        assert torch.equal(torch.isinf(d), masked) and \
+            torch.equal(torch.isinf(pd), masked), \
+            f"K4m's +inf entries are not the masked codewords ({what})"
+        fin = torch.isfinite(pd)
+        rel = ((d - pd).abs() / pd.abs().clamp(min=1e-6))[fin].max()
+        assert rel <= 1e-5, f"K4m distances off by rtol {rel:.2e} ({what})"
+        sd, si = kchisq.smallest_k(d, 64)
+        psd, psi = kchisq.smallest_k(pd, 64)
+        srel = ((sd - psd).abs() / psd.abs().clamp(min=1e-6)).max()
+        differ = si != psi
+        assert srel <= 1e-5 and torch.allclose(sd[differ], psd[differ],
+                                               rtol=1e-5), \
+            f"K4m's k=64 selection differs beyond ties ({what})"
+        for k in (1, 2, 3):
+            fd, fi = kchisq.chisq_topk(a, b, m, k)
+            kd, ki = kchisq.smallest_k(d, k)
+            assert torch.equal(fd, kd) and torch.equal(fi, ki), \
+                f"K4m's k={k} selection differs from K4's top-k ({what})"
+        ms = cuda_ms(lambda: kchisq.chisq_matrix(a, b, m), 20)
+        dev_ms = device_ms(lambda: kchisq.chisq_matrix(a, b, m),
+                           "chisq_kernel", 20)
+        sel_ms = cuda_ms(lambda: kchisq.smallest_k(d, 64), 20)
+        k4_ms = cuda_ms(lambda: kchisq.chisq_topk(a, b, m, 1), 20)
+        pms = cuda_ms(lambda: kchisq.chisq_matrix_plain(a, b, m), 2)
+        terms = a.shape[0] * b.shape[0] * a.shape[1]
+        ops = terms * CHISQ_TERM_OPS + a.shape[0] * b.shape[0]
+        nb = nbytes(a, b, m, d)
+        b_ms, by = bound(nb, ops)
+        print(f"{'chisq_matrix':20s} {what}: kernel {ms:.4f} ms, device "
+              f"{fmt_ms(dev_ms)} (K4's fused top-k {k4_ms:.4f} ms, plain "
+              f"{pms:.3f} ms), k=64 selection {sel_ms:.4f} ms; bound "
+              f"{b_ms:.4f} ms by {by} ({nb:.3e} B), special-function floor "
+              f"{terms / SFU_OPS_PER_S * 1e3:.4f} ms; rtol {float(rel):.2e}, "
+              f"k=64: {int(differ.sum())} tied indices differ, k=1..3 equal "
+              f"to K4; two launches bit-equal ({card})", flush=True)
+        if name == "D=352":   # the Threshold and K=5 steps' call
+            record("chisq_matrix", (d - pd)[fin].abs().max(), ms, pms,
+                   "chisq matrix " + what, nb, ops)
+
+
+def config_steps(data, dev, pts, mask, rgb, labels, cref, launches, card):
+    """Phase 4e: the classify step under each configuration of
+    data/config_reference.npz (`cref`), with the launch counts of one step
+    in launches[name]: its decisions against the committed JAX-CPU scores
+    (accuracy required where the reference has it), two runs equal, and
+    its K4 / K4m launches (INN 6 K4; Threshold and K=5 one K4m, no K4;
+    the others one K4), no LRF kernel for the PCA normals."""
+    import torch
+
+    from torch_fixtures import CONFIGS
+    from point_cloud_donkey_tpu_torch.models.pipeline import (STAGES,
+                                                              IsmClassifier)
+    for name, (fields, method, descriptor) in CONFIGS.items():
+        phase(f"4e. classify step under {name} ({fields or 'KNN K=1'}, "
+              f"ConsistentNormalsMethod {method}, {descriptor}): "
+              f"IsmClassifier, B={pts.shape[0]} x N={pts.shape[1]} ({card})")
+        served = served_model(data, "cshot" if descriptor == "CSHOT"
+                              else "bench", dev)
+        model = IsmClassifier(served.codebook,
+                              served.cfg._replace(normals_method=method),
+                              dataclasses.replace(served.params, **fields))
+        extra = (rgb,) if descriptor == "CSHOT" else ()
+        scores, launches[name] = drive(name, model, STAGES, pts, mask, 2,
+                                       card, extra)
+        got = launches[name]
+        want_k4 = {"inn": (6, 0), "threshold": (0, 1), "knn5": (0, 1)}.get(
+            name, (1, 0))
+        assert (got["chisq_topk"], got["chisq_matrix"]) == want_k4, \
+            f"{name}: K4 / K4m launches {got}, want {want_k4}"
+        if method != 2:
+            assert got["lrf_moments"] == 1 and got["sign_votes"] == 1, \
+                f"{name}: the PCA normals launch no LRF kernel: {got}"
+        with torch.no_grad():
+            assert torch.equal(scores, model(pts, mask, *extra)), \
+                f"two runs of the {name} step differ"
+        print("two runs of the step: scores identical")
+        rs = cref["scores_" + name]
+        check_decisions(scores.cpu().numpy(), rs, labels,
+                        require_accuracy=bool(
+                            (rs.argmax(1) == labels[:len(rs)]).all()))
+
+
+def serve_off(serve, model_path):
+    """Phase 5d: serve.main --device cuda on a `.off` mesh written here (a
+    tessellated box): one prediction line."""
+    from bench_data import write_box_off
+    tmp = tempfile.mkdtemp(prefix="pcd_smoke_off_")
+    try:
+        mesh = os.path.join(tmp, "box.off")
+        write_box_off(mesh)
+        flist = os.path.join(tmp, "test.txt")
+        with open(flist, "w") as f:
+            f.write(f"# test\n{mesh} 0\n")
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = serve.main(["-d", model_path, "-f", flist, "--device",
+                             "cuda"])
+    finally:
+        shutil.rmtree(tmp)
+    text = out.getvalue()
+    print(text.rstrip())
+    assert rc == 0 and len(re.findall(
+        r"\.off: predicted \d+, ground truth 0 ", text)) == 1, \
+        "serve did not print one prediction for the .off mesh"
+
+
+def threshold_detection(codebook, cfg, params, pts, mask, labels, cref,
+                        launches, card):
+    """Phase 6d: IsmDetector under Threshold (K4m, no K4) on `pts` against
+    the committed JAX-CPU detection; two runs equal bit for bit.  A vote
+    is cast only below the threshold and within the 2-sigma gate, so a
+    descriptor that differs within the descriptor contract can move a vote
+    across a cut, and Threshold's 17-64 votes a feature carry that into
+    the densities.  The clouds where a vote's validity differs between the
+    card's features and the plain twins' (which compute the JAX package's
+    arithmetic) are counted and printed; every other cloud is held to
+    phase 6's bounds, and every cloud to the densities' bound and the
+    decision contract."""
+    import numpy as np
+    import torch
+
+    from torch_fixtures import CONFIGS
+    from point_cloud_donkey_tpu_torch.models.codebook import (
+        CODEBOOK_FIELDS, Codebook, cast_votes)
+    from point_cloud_donkey_tpu_torch.models.pipeline import (DETECT_STAGES,
+                                                              IsmDetector,
+                                                              extract_features)
+    from point_cloud_donkey_tpu_torch.ops.neighbors import full_fp32
+    tparams = dataclasses.replace(params, **CONFIGS["threshold"][0])
+    det = IsmDetector(codebook, cfg, tparams)
+    b = pts.shape[0]
+    (dens, pos), launches["detect_threshold"] = drive(
+        "detect_threshold", det, DETECT_STAGES, pts, mask, 2, card)
+    assert launches["detect_threshold"]["chisq_topk"] == 0, \
+        launches["detect_threshold"]
+    with torch.no_grad():
+        again = det(pts, mask)
+    assert torch.equal(dens.view(torch.int32), again[0].view(torch.int32)) \
+        and torch.equal(pos.view(torch.int32), again[1].view(torch.int32)), \
+        "two runs of the Threshold detection step differ"
+    print("two runs of the step: densities and positions identical")
+
+    # the votes' validity from the card's features and from the twins'
+    cpu_cb = Codebook(**{name: getattr(codebook, name).cpu()
+                         for name in CODEBOOK_FIELDS})
+    valid = []
+    with torch.no_grad(), full_fp32():
+        for f in (extract_features(pts, mask, cfg),
+                  extract_features(pts.cpu(), mask.cpu(), cfg)):
+            k = f.valid.shape[1]
+            v = cast_votes(cpu_cb, f.descriptors.cpu().reshape(b * k, -1),
+                           f.keypoints.cpu().reshape(b * k, 3),
+                           f.frames.cpu().reshape(b * k, 3, 3),
+                           f.valid.cpu().reshape(b * k), tparams, cfg.metric)
+            valid.append(v.valid.reshape(b, -1))
+    moved = (valid[0] != valid[1]).any(1).numpy()
+
+    d, p = dens.cpu().numpy(), pos.cpu().numpy()
+    assert np.isfinite(d).all() and np.isfinite(p).all()
+    rd = cref["detect_densities_threshold"][:b]
+    rp = cref["detect_positions_threshold"][:b]
+    best = rd.argmax(1)
+    perr = np.abs(p[np.arange(b), best] - rp[np.arange(b), best]).max(1)
+    drel = float((np.abs(d - rd) / np.maximum(np.abs(rd), 1.0)).max())
+    held = ~moved
+    print(f"votes whose validity differs from the twins' features: clouds "
+          f"{np.nonzero(moved)[0].tolist()} (best-maximum deltas "
+          f"{[f'{x:.3e}' for x in perr[moved]]}); the other {int(held.sum())}"
+          f" clouds: max |position delta| {perr[held].max():.3e} (limit "
+          f"{POS_TOL}); all: densities max relative delta {drel:.3e} (limit "
+          f"{DENS_RTOL})")
+    check_decisions(d, rd, labels[:b], require_accuracy=bool(
+        (rd.argmax(1) == labels[:b]).all()))
+    assert held.any() and perr[held].max() <= POS_TOL, \
+        "Threshold maxima differ from the JAX reference"
+    assert drel <= DENS_RTOL, \
+        "Threshold densities differ from the JAX reference"
 
 
 def drive(path, model, stages, pts, mask, rounds, card, extra=()):

@@ -1,4 +1,5 @@
-// K4: exact chi-square distances with a fused running top-k (k <= 3).
+// K4: exact chi-square distances with a fused running top-k (k <= 3), and
+// K4m: the same sweep writing the [Q, C] distance matrix.
 //
 // Replaces point_cloud_donkey_tpu/ops/pallas/chisq.py `_chisq_call`
 // (`chi_square_distance_matrix_pallas`), the flann::ChiSquareDistance
@@ -51,6 +52,15 @@
 //   batch (Q ~ 12k: 374 CTAs, G = 1) and the training self-kNN (Q ~ 2k:
 //   G = 4) both fill the 132 SMs evenly.  Any D (a ragged tail is
 //   zero-filled and contributes 0), any C, k in {1, 2, 3}.
+//
+// K4m (k = 0 below) is `_chisq_call` as the TPU kernel computes it: the
+// [Q, C] matrix, masked codewords +inf, for the selections that do not fit
+// a register top-k (KNN with K > 3, Threshold's 64 nearest; the k smallest
+// of each row are taken outside, ops/neighbors.knn).  It is K4's sweep with
+// a second epilogue: each thread stores its 4 x 4 sums when their tile is
+// complete, so its distances are K4's bit for bit (the same terms, summed
+// in the same order).  The store adds Q x C x 4 bytes (22 MB at the serving
+// batch, ~7 us at 3.35 TB/s) to K4's special-function floor.
 #include <cfloat>
 #include <climits>
 #include <cmath>
@@ -145,95 +155,16 @@ __device__ __forceinline__ void stage(Tile<G>& sm, int st, const float* a,
   }
 }
 
+// Merge the running top-k lists of the TX threads (and, with G > 1, the G
+// groups) that share each descriptor, and write them: out_d / out_i [Q, K].
 template <int G, int K>
-__global__ void __launch_bounds__(THREADS)
-chisq_topk_kernel(const float* __restrict__ a, const float* __restrict__ b,
-                  const unsigned char* __restrict__ bmask,
-                  float* __restrict__ out_d, int* __restrict__ out_i, int Q,
-                  int C, int D) {
-  using T = Tile<G>;
-  constexpr int TQ = T::TQ, DK = T::DK;
-  __shared__ __align__(16) T sm;
+__device__ __forceinline__ void store_topk(float (&bd)[MQ][K],
+                                           int (&bi)[MQ][K], float* out_d,
+                                           int* out_i, int q0, int Q, int g,
+                                           int tx, int ty) {
+  constexpr int TQ = Tile<G>::TQ;
   __shared__ float res_d[G][TQ][K];
   __shared__ int res_i[G][TQ][K];
-
-  const int g = threadIdx.x / (THREADS / G);
-  const int t = threadIdx.x % (THREADS / G);
-  const int tx = t % TX, ty = t / TX;
-  const int q0 = blockIdx.x * TQ;
-
-  float bd[MQ][K];
-  int bi[MQ][K];
-#pragma unroll
-  for (int i = 0; i < MQ; ++i)
-#pragma unroll
-    for (int s = 0; s < K; ++s) {
-      bd[i][s] = INFINITY;
-      bi[i][s] = INT_MAX;
-    }
-
-  // steps walk (round of G codeword tiles, dim chunk); group g computes
-  // codeword tile round * G + g
-  const int n_tiles = (C + TC - 1) / TC;
-  const int n_rounds = (n_tiles + G - 1) / G;
-  const int n_chunks = (D + DK - 1) / DK;
-  const int n_steps = n_rounds * n_chunks;
-
-  float acc[MQ][MC];
-#pragma unroll
-  for (int i = 0; i < MQ; ++i)
-#pragma unroll
-    for (int j = 0; j < MC; ++j) acc[i][j] = 0.f;
-
-  stage<G>(sm, 0, a, b, q0, Q, C, D, 0, 0);
-  cp_async_commit();
-  for (int step = 0; step < n_steps; ++step) {
-    const int st = step & 1;
-    const int round = step / n_chunks, chunk = step % n_chunks;
-    if (step + 1 < n_steps) {
-      const int nr = (step + 1) / n_chunks, nc = (step + 1) % n_chunks;
-      stage<G>(sm, st ^ 1, a, b, q0, Q, C, D, nc * DK, nr * G);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int dd = 0; dd < DK; ++dd) {
-      const float4 av =
-          *reinterpret_cast<const float4*>(&sm.a[st][dd][ty * MQ]);
-      const float4 bv =
-          *reinterpret_cast<const float4*>(&sm.b[st][g][dd][tx * MC]);
-      const float xa[MQ] = {av.x, av.y, av.z, av.w};
-      const float yb[MC] = {bv.x, bv.y, bv.z, bv.w};
-#pragma unroll
-      for (int i = 0; i < MQ; ++i)
-#pragma unroll
-        for (int j = 0; j < MC; ++j)
-          acc[i][j] = chisq_term(xa[i], yb[j], acc[i][j]);
-    }
-    if (chunk == n_chunks - 1) {
-      // this group's tile is complete: fold it into the running top-k
-      const int c0 = (round * G + g) * TC + tx * MC;
-#pragma unroll
-      for (int j = 0; j < MC; ++j) {
-        const int ci = c0 + j;
-        if (ci < C) {
-          const bool live = bmask[ci] != 0;
-#pragma unroll
-          for (int i = 0; i < MQ; ++i)
-            insert<K>(bd[i], bi[i], live ? acc[i][j] : INFINITY, ci);
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < MQ; ++i)
-#pragma unroll
-        for (int j = 0; j < MC; ++j) acc[i][j] = 0.f;
-    }
-    __syncthreads();   // stage st is refilled by the next step's prefetch
-  }
-
   // merge the TX threads that share each descriptor: xor butterfly
 #pragma unroll
   for (int off = TX / 2; off > 0; off >>= 1) {
@@ -298,34 +229,131 @@ chisq_topk_kernel(const float* __restrict__ a, const float* __restrict__ b,
   }
 }
 
+// K in {1, 2, 3}: the running top-k; K = 0: the [Q, C] matrix to out_d.
+template <int G, int K>
+__global__ void __launch_bounds__(THREADS)
+chisq_kernel(const float* __restrict__ a, const float* __restrict__ b,
+                  const unsigned char* __restrict__ bmask,
+                  float* __restrict__ out_d, int* __restrict__ out_i, int Q,
+                  int C, int D) {
+  using T = Tile<G>;
+  constexpr int TQ = T::TQ, DK = T::DK;
+  constexpr int KS = K > 0 ? K : 1;   // top-k slots (unused by K = 0)
+  __shared__ __align__(16) T sm;
+
+  const int g = threadIdx.x / (THREADS / G);
+  const int t = threadIdx.x % (THREADS / G);
+  const int tx = t % TX, ty = t / TX;
+  const int q0 = blockIdx.x * TQ;
+
+  float bd[MQ][KS];
+  int bi[MQ][KS];
+#pragma unroll
+  for (int i = 0; i < MQ; ++i)
+#pragma unroll
+    for (int s = 0; s < KS; ++s) {
+      bd[i][s] = INFINITY;
+      bi[i][s] = INT_MAX;
+    }
+
+  // steps walk (round of G codeword tiles, dim chunk); group g computes
+  // codeword tile round * G + g
+  const int n_tiles = (C + TC - 1) / TC;
+  const int n_rounds = (n_tiles + G - 1) / G;
+  const int n_chunks = (D + DK - 1) / DK;
+  const int n_steps = n_rounds * n_chunks;
+
+  float acc[MQ][MC];
+#pragma unroll
+  for (int i = 0; i < MQ; ++i)
+#pragma unroll
+    for (int j = 0; j < MC; ++j) acc[i][j] = 0.f;
+
+  stage<G>(sm, 0, a, b, q0, Q, C, D, 0, 0);
+  cp_async_commit();
+  for (int step = 0; step < n_steps; ++step) {
+    const int st = step & 1;
+    const int round = step / n_chunks, chunk = step % n_chunks;
+    if (step + 1 < n_steps) {
+      const int nr = (step + 1) / n_chunks, nc = (step + 1) % n_chunks;
+      stage<G>(sm, st ^ 1, a, b, q0, Q, C, D, nc * DK, nr * G);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+#pragma unroll 8
+    for (int dd = 0; dd < DK; ++dd) {
+      const float4 av =
+          *reinterpret_cast<const float4*>(&sm.a[st][dd][ty * MQ]);
+      const float4 bv =
+          *reinterpret_cast<const float4*>(&sm.b[st][g][dd][tx * MC]);
+      const float xa[MQ] = {av.x, av.y, av.z, av.w};
+      const float yb[MC] = {bv.x, bv.y, bv.z, bv.w};
+#pragma unroll
+      for (int i = 0; i < MQ; ++i)
+#pragma unroll
+        for (int j = 0; j < MC; ++j)
+          acc[i][j] = chisq_term(xa[i], yb[j], acc[i][j]);
+    }
+    if (chunk == n_chunks - 1) {
+      // this group's tile is complete: fold it into the running top-k, or
+      // (K = 0) store it
+      const int c0 = (round * G + g) * TC + tx * MC;
+#pragma unroll
+      for (int j = 0; j < MC; ++j) {
+        const int ci = c0 + j;
+        if (ci < C) {
+          const bool live = bmask[ci] != 0;
+#pragma unroll
+          for (int i = 0; i < MQ; ++i) {
+            if constexpr (K == 0) {
+              const int qi = q0 + ty * MQ + i;
+              if (qi < Q) out_d[(size_t)qi * C + ci] = live ? acc[i][j]
+                                                              : INFINITY;
+            } else {
+              insert<K>(bd[i], bi[i], live ? acc[i][j] : INFINITY, ci);
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < MQ; ++i)
+#pragma unroll
+        for (int j = 0; j < MC; ++j) acc[i][j] = 0.f;
+    }
+    __syncthreads();   // stage st is refilled by the next step's prefetch
+  }
+  if constexpr (K > 0)
+    store_topk<G, K>(bd, bi, out_d, out_i, q0, Q, g, tx, ty);
+}
+
 template <int G>
 void launch(const float* a, const float* b, const unsigned char* bmask,
             float* out_d, int* out_i, int Q, int C, int D, int k,
             cudaStream_t stream) {
   const dim3 grid((Q + Tile<G>::TQ - 1) / Tile<G>::TQ);
-  if (k == 1)
-    chisq_topk_kernel<G, 1><<<grid, THREADS, 0, stream>>>(a, b, bmask, out_d,
+  if (k == 0)
+    chisq_kernel<G, 0><<<grid, THREADS, 0, stream>>>(a, b, bmask, out_d,
+                                                          out_i, Q, C, D);
+  else if (k == 1)
+    chisq_kernel<G, 1><<<grid, THREADS, 0, stream>>>(a, b, bmask, out_d,
                                                           out_i, Q, C, D);
   else if (k == 2)
-    chisq_topk_kernel<G, 2><<<grid, THREADS, 0, stream>>>(a, b, bmask, out_d,
+    chisq_kernel<G, 2><<<grid, THREADS, 0, stream>>>(a, b, bmask, out_d,
                                                           out_i, Q, C, D);
   else
-    chisq_topk_kernel<G, 3><<<grid, THREADS, 0, stream>>>(a, b, bmask, out_d,
+    chisq_kernel<G, 3><<<grid, THREADS, 0, stream>>>(a, b, bmask, out_d,
                                                           out_i, Q, C, D);
 }
 
-}  // namespace
-
-// a [Q, D], b [C, D] f32, bmask [C] u8, 1 <= k <= 3, k <= C
-// -> out_d [Q, k] f32 ascending, out_i [Q, k] i32
-PCD_EXPORT int pcd_chisq_topk(const void* a, const void* b, const void* bmask,
-                              void* out_d, void* out_i, int Q, int C, int D,
-                              int k, void* stream) {
-  if (Q == 0) return pcd_last_error();
+// The smallest group count that gives >= 2 CTAs per SM, then the launch.
+void dispatch(const void* a, const void* b, const void* bmask, void* out_d,
+              void* out_i, int Q, int C, int D, int k, void* stream) {
   int dev = 0, sms = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  // the smallest group count that gives >= 2 CTAs per SM
   int G = 1;
   while (G < 4 && (Q + 32 / G - 1) / (32 / G) < 2 * sms) G *= 2;
   const auto* pa = (const float*)a;
@@ -340,5 +368,26 @@ PCD_EXPORT int pcd_chisq_topk(const void* a, const void* b, const void* bmask,
     launch<2>(pa, pb, pm, pd, pi, Q, C, D, k, s);
   else
     launch<4>(pa, pb, pm, pd, pi, Q, C, D, k, s);
+}
+
+}  // namespace
+
+// a [Q, D], b [C, D] f32, bmask [C] u8, 1 <= k <= 3, k <= C
+// -> out_d [Q, k] f32 ascending, out_i [Q, k] i32
+PCD_EXPORT int pcd_chisq_topk(const void* a, const void* b, const void* bmask,
+                              void* out_d, void* out_i, int Q, int C, int D,
+                              int k, void* stream) {
+  if (Q == 0) return pcd_last_error();
+  dispatch(a, b, bmask, out_d, out_i, Q, C, D, k, stream);
+  return pcd_last_error();
+}
+
+// K4m: a [Q, D], b [C, D] f32, bmask [C] u8 -> out [Q, C] f32, masked
+// codewords +inf
+PCD_EXPORT int pcd_chisq_matrix(const void* a, const void* b,
+                                const void* bmask, void* out, int Q, int C,
+                                int D, void* stream) {
+  if (Q == 0 || C == 0) return pcd_last_error();
+  dispatch(a, b, bmask, out, nullptr, Q, C, D, 0, stream);
   return pcd_last_error();
 }

@@ -42,7 +42,7 @@ NVCC_FALLBACK = "/usr/local/cuda/bin/nvcc"
 KERNELS = ("lrf_moments", "sign_votes", "shot_fused", "chisq_topk",
            "lrf_moments_windowed", "sign_votes_windowed", "shot_dense",
            "shot_hist", "histogram", "lrf_moments_v2", "sign_votes_v2",
-           "shot_windowed")
+           "shot_windowed", "chisq_matrix")
 
 _LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 _LIB: Optional[ctypes.CDLL] = None
@@ -56,6 +56,7 @@ _SIGNATURES = {
     "pcd_sign_votes": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
     "pcd_shot_fused": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _P],
     "pcd_chisq_topk": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "pcd_chisq_matrix": [_P, _P, _P, _P, _I, _I, _I, _P],
     "pcd_lrf_moments_windowed": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                  _F, _P],
     "pcd_sign_votes_windowed": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,

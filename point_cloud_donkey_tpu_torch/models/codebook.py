@@ -1,11 +1,15 @@
 """Codebook training and serving (port of point_cloud_donkey_tpu/models/
-codebook.py, KNN / KNNRule activation).
+codebook.py, every activation strategy: KNN, KNNRule, INN and Threshold,
+and partial SHOT matching).
 
-Training (codebook.cpp:64-365): every training feature activates its k
-nearest codewords (the self-kNN through K4 when the codewords are the
-features), each activation records a vote (the object centre seen from the
-feature's LRF), KNN k=1 keeps the codewords with exactly one vote, and the
-votes get their centre weights and statistical class weights.  The host
+Training (codebook.cpp:64-365): every training feature activates its
+codewords (KNN: its k nearest, the self-kNN through K4 -- K4m for k > 3 --
+when the codewords are the features; KNNRule: the nearest; INN: the
+nearest of its refined query; Threshold: its 64 nearest within the
+threshold), each activation records a vote (the object centre seen from
+the feature's LRF), KNN k=1 and INN keep the codewords with exactly one
+vote, and the votes get their centre weights and statistical class
+weights.  The host
 half is the JAX package's numpy code, so the same activations give the
 same arrays; the kNN and the class-sigma distance sums run in torch on the
 device of the descriptors.
@@ -56,6 +60,20 @@ class Codebook(nn.Module):
             raise ValueError(f"codebook arrays missing: {sorted(missing)}")
         for name in CODEBOOK_FIELDS:
             self.register_buffer(name, arrays[name])
+        self._partial: Dict[tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
+
+    def partial(self, partial_type: str, dim: int
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(column index [D'], partial codewords [C, D']) of a partial-SHOT
+        type at descriptor width `dim`, on the codewords' device; built
+        once per (type, width, device)."""
+        key = (partial_type, dim, self.codewords.device)
+        if key not in self._partial:
+            cols = torch.from_numpy(partial_shot_columns(
+                signature_mask(partial_type), dim)).to(self.codewords.device)
+            self._partial[key] = (
+                cols, self.codewords.index_select(1, cols).contiguous())
+        return self._partial[key]
 
     @classmethod
     def from_numpy(cls, arrays: Mapping[str, np.ndarray]) -> "Codebook":
@@ -92,7 +110,8 @@ def load_codebook(path: str) -> Codebook:
 
 @dataclass
 class CodebookParams:
-    """Codebook + KNN activation parameters (codebook.cpp:32-41)."""
+    """Codebook + ActivationStrategy parameters (codebook.cpp:32-41,
+    activation_strategy*.h), with the JAX package's defaults."""
     use_class_weight: bool = False
     use_vote_weight: bool = False
     use_matching_weight: bool = False
@@ -101,7 +120,14 @@ class CodebookParams:
     knn_k: int = 1
     use_distance_ratio: bool = False
     distance_ratio_threshold: float = 0.8
+    threshold: float = 1.0         # ActivationStrategyThreshold distance
+    threshold_capacity: int = 64   # cap on the within-threshold activations
+    inn_iterations: int = 5        # ActivationStrategyINN
+    inn_residual_weight: float = 0.01
+    # partial SHOT/CSHOT matching at detection (codebook.cpp:37-38,
+    # :416-475, :952-1036); training ignores it, as the JAX package does
     use_partial_shot: bool = False
+    partial_shot_type: str = "front"
 
     @classmethod
     def from_config(cls, cfg: ComponentConfig) -> "CodebookParams":
@@ -117,7 +143,12 @@ class CodebookParams:
             knn_k=act.get("K", 1),
             use_distance_ratio=act.get("UseDistanceRatio", False),
             distance_ratio_threshold=act.get("DistanceRatioThreshold", 0.8),
-            use_partial_shot=cfg.get("UsePartialShot", False))
+            threshold=act.get("Threshold", 1.0),
+            threshold_capacity=act.get("TpuThresholdCapacity", 64),
+            inn_iterations=act.get("Iterations", 5),
+            inn_residual_weight=act.get("ResidualWeight", 0.01),
+            use_partial_shot=cfg.get("UsePartialShot", False),
+            partial_shot_type=cfg.get("PartialShotType", "front"))
 
 
 class CastVotes(NamedTuple):
@@ -133,6 +164,69 @@ class CastVotes(NamedTuple):
     valid: torch.Tensor       # [T]
 
 
+def signature_mask(partial_type: str) -> np.ndarray:
+    """[32] bool mask over SHOT signature bins (Codebook::getSignatureMask,
+    codebook.cpp:952-1036).  Unknown types keep the complete descriptor."""
+    m = np.zeros(32, bool)
+    t = partial_type
+    if t in ("front", "dense_x"):
+        m[8:24] = True
+    elif t in ("back", "sparse_x"):
+        m[0:8] = True
+        m[24:32] = True
+    elif t in ("left", "positive_y"):
+        m[16:32] = True
+    elif t in ("right", "negative_y"):
+        m[0:16] = True
+    elif t in ("top", "dense_z"):
+        m[1::2] = True
+    elif t in ("bottom", "sparse_z"):
+        m[0::2] = True
+    elif t == "dense_x_or_z":
+        m[8:24] = True
+        m[1::2] = True
+    elif t == "dense_x_and_z":
+        m[9:24:2] = True
+    elif t == "front_turn_left":
+        m[12:28] = True
+    elif t == "front_turn_right":
+        m[4:20] = True
+    else:
+        return np.ones(32, bool)
+    return m
+
+
+def partial_shot_columns(mask: np.ndarray, dim: int) -> np.ndarray:
+    """Descriptor column indices kept by the signature mask: SHOT-352 has 32
+    signature bins x 11; CSHOT-1344 appends 32 x 31 color bins
+    (codebook.cpp:418-422, :438-470)."""
+    cols = [np.arange(s * 11, (s + 1) * 11) for s in range(32) if mask[s]]
+    if dim > 352:
+        cols += [352 + np.arange(s * 31, (s + 1) * 31)
+                 for s in range(32) if mask[s]]
+    return np.concatenate(cols)
+
+
+def inn_refine_queries(descriptors: torch.Tensor,  # [F, D]
+                       codewords: torch.Tensor,    # [C, D]
+                       cw_mask: torch.Tensor,      # [C]
+                       metric: str, iterations: int,
+                       residual_weight: float) -> torch.Tensor:
+    """INN activation's query refinement (activation_strategy_inn.h:37-75):
+    `iterations` rounds of the 1-NN, each pushing the query away from its
+    projection onto that neighbour, q + w (q - <nb, q> nb).  The dot
+    product is elementwise (no matmul, so no TF32 question); the refined
+    queries can hold negative entries, whose chi-square terms with a + b
+    <= 0 count 0."""
+    q = descriptors
+    for _ in range(iterations):
+        _, idx = knn(q, codewords, cw_mask, 1, metric)
+        nb = codewords[idx[:, 0]]
+        factor = torch.sum(nb * q, dim=1, keepdim=True)
+        q = q + residual_weight * (q - factor * nb)
+    return q
+
+
 def cast_votes(cb: Codebook,
                descriptors: torch.Tensor,  # [F, D]
                positions: torch.Tensor,    # [F, 3]
@@ -140,25 +234,71 @@ def cast_votes(cb: Codebook,
                f_mask: torch.Tensor,       # [F]
                params: CodebookParams,
                metric: str) -> CastVotes:
-    """Codebook::castVotes + CodewordDistribution::castVotes for the KNN
-    activation: k nearest codewords per feature, their votes rotated back
-    into the scene frame, the 2-sigma gate and the epsilon weight cut."""
-    if params.activation_type != "KNN":
-        raise NotImplementedError(
-            f"activation {params.activation_type!r}: the port serves KNN only")
-    if params.use_partial_shot:
-        raise NotImplementedError("partial SHOT matching is not ported")
-    k = params.knn_k
-    search_k = k + 1 if (params.use_distance_ratio and k == 1) else k
-    dists, idx = knn(descriptors, cb.codewords, cb.cw_mask,
-                     min(search_k, cb.codewords.shape[0]), metric)
-    keep = torch.ones((descriptors.shape[0], k), dtype=torch.bool,
-                      device=descriptors.device)
-    if params.use_distance_ratio and k == 1 and dists.shape[1] >= 2:
-        ratio_bad = dists[:, 0] / torch.clamp(dists[:, 1], min=1e-30) \
-            > params.distance_ratio_threshold
-        keep = (~ratio_bad)[:, None]
-    dists, idx = dists[:, :k], idx[:, :k]
+    """Codebook::castVotes + CodewordDistribution::castVotes: each feature
+    activates codewords by the activation strategy -- KNN (any K, with the
+    distance ratio at K = 1), KNNRule's 3-NN class rule, Threshold (the
+    min(capacity, C) nearest, kept below the threshold) or INN (the 1-NN of
+    the refined query); any other name is KNN, as in the JAX package --
+    after partial SHOT has cut descriptors and codewords to the masked
+    signature bins (D in (352, 1344) only).  The activated codewords'
+    votes are rotated back into the scene frame, with the 2-sigma gate and
+    the epsilon weight cut."""
+    cw, cw_mask = cb.codewords, cb.cw_mask
+    dim = descriptors.shape[1]
+    if params.use_partial_shot and dim in (352, 1344) \
+            and not signature_mask(params.partial_shot_type).all():
+        cols, cw = cb.partial(params.partial_shot_type, dim)
+        descriptors = descriptors.index_select(1, cols)
+    n_feat = descriptors.shape[0]
+    strategy = params.activation_type
+    if strategy == "KNNRule":
+        # the detection-time 3-NN class rule
+        # (activation_strategy_knn_rule.h:60-115)
+        dists3, idx3 = knn(descriptors, cw, cw_mask, min(3, cw.shape[0]),
+                           metric)
+        vc = cb.vote_class[idx3, 0]            # class of each neighbour
+        c0, c1, c2 = vc[:, 0], vc[:, 1], vc[:, 2]
+        rt = params.distance_ratio_threshold
+        r02 = dists3[:, 0] / torch.clamp(dists3[:, 2], min=1e-30)
+        r01 = dists3[:, 0] / torch.clamp(dists3[:, 1], min=1e-30)
+        all_same = (c0 == c1) & (c0 == c2)
+        first_two = (c0 == c1) & (c0 != c2)
+        last_two = (c0 != c1) & (c1 == c2)
+        none_same = (c0 != c1) & (c1 != c2)
+        accept_first = all_same | (first_two & (r02 < rt)) \
+            | (none_same & (r01 < rt))
+        accept_second = last_two & (r01 >= rt)
+        sel = accept_second.long()[:, None]
+        idx = torch.gather(idx3, 1, sel)
+        dists = torch.gather(dists3, 1, sel)
+        keep = (accept_first | accept_second)[:, None]
+        k = 1
+    elif strategy == "Threshold":
+        # every codeword within the threshold, capped
+        # (activation_strategy_threshold.cpp:27-44)
+        k = min(params.threshold_capacity, cw.shape[0])
+        dists, idx = knn(descriptors, cw, cw_mask, k, metric)
+        keep = dists < params.threshold
+    elif strategy == "INN":
+        q = inn_refine_queries(descriptors, cw, cw_mask, metric,
+                               params.inn_iterations,
+                               params.inn_residual_weight)
+        dists, idx = knn(q, cw, cw_mask, 1, metric)
+        keep = torch.ones((n_feat, 1), dtype=torch.bool,
+                          device=descriptors.device)
+        k = 1
+    else:  # KNN
+        k = params.knn_k
+        search_k = k + 1 if (params.use_distance_ratio and k == 1) else k
+        dists, idx = knn(descriptors, cw, cw_mask,
+                         min(search_k, cw.shape[0]), metric)
+        keep = torch.ones((n_feat, k), dtype=torch.bool,
+                          device=descriptors.device)
+        if params.use_distance_ratio and k == 1 and dists.shape[1] >= 2:
+            ratio_bad = dists[:, 0] / torch.clamp(dists[:, 1], min=1e-30) \
+                > params.distance_ratio_threshold
+            keep = (~ratio_bad)[:, None]
+        dists, idx = dists[:, :k], idx[:, :k]
     keep = keep & f_mask[:, None]
 
     votes = cb.votes[idx]                   # [F, k, MV, 3]
@@ -191,7 +331,7 @@ def cast_votes(cb: Codebook,
     frame_quat = matrix_to_quat(frames)                     # [F, 4]
     out_quat = quat_multiply(cb.bbox_quat[idx], frame_quat[:, None, None, :])
 
-    f, mv = descriptors.shape[0], votes.shape[2]
+    f, mv = n_feat, votes.shape[2]
     t = f * k * mv
 
     def flat(x):
@@ -236,18 +376,6 @@ class TrainedCodebook(NamedTuple):
         return int(self.cw_mask.sum())
 
 
-def training_k(params: CodebookParams) -> int:
-    """Neighbours per feature of the training activation: K for KNN, 1 for
-    KNNRule (activation_strategy_knn_rule.h trains like KNN k=1)."""
-    if params.activation_type == "KNN":
-        return params.knn_k
-    if params.activation_type == "KNNRule":
-        return 1
-    raise NotImplementedError(
-        f"activation {params.activation_type!r}: the port trains KNN and "
-        "KNNRule only")
-
-
 def activate_knn(queries: torch.Tensor,    # [F, D]
                  codewords: torch.Tensor,  # [C, D]
                  k: int, metric: str) -> Tuple[np.ndarray, np.ndarray]:
@@ -265,6 +393,36 @@ def activate_knn(queries: torch.Tensor,    # [F, D]
         d, i = knn(queries.contiguous(), codewords.contiguous(), mask, k,
                    metric)
     return d.cpu().numpy(), i.cpu().numpy()
+
+
+def training_activation(queries: torch.Tensor,    # [F, D]
+                        codewords: torch.Tensor,  # [C, D]
+                        params: CodebookParams, metric: str
+                        ) -> Tuple[np.ndarray, np.ndarray]:
+    """The training activation (codebook.cpp:109-142, the JAX
+    ``training_activation``) as numpy (dists, idx): KNN takes its K
+    nearest; KNNRule trains like KNN k=1 (activation_strategy_knn_rule.h);
+    INN refines the queries, then takes the 1-NN; Threshold takes the
+    min(capacity, C) nearest with index -1 at or beyond the threshold."""
+    t = params.activation_type
+    if t == "KNN":
+        return activate_knn(queries, codewords, params.knn_k, metric)
+    if t == "KNNRule":
+        return activate_knn(queries, codewords, 1, metric)
+    if t == "INN":
+        mask = torch.ones(codewords.shape[0], dtype=torch.bool,
+                          device=codewords.device)
+        q, c = queries.contiguous(), codewords.contiguous()
+        with full_fp32():
+            q = inn_refine_queries(q, c, mask, metric, params.inn_iterations,
+                                   params.inn_residual_weight)
+            d, i = knn(q, c, mask, 1, metric)
+        return d.cpu().numpy(), i.cpu().numpy()
+    if t == "Threshold":
+        cap = min(params.threshold_capacity, codewords.shape[0])
+        d, idx = activate_knn(queries, codewords, cap, metric)
+        return d, np.where(d < params.threshold, idx, -1)
+    raise ValueError(f"unknown activation strategy {t!r}")
 
 
 def _pair_distance_sums(a: torch.Tensor, b: torch.Tensor, metric: str
@@ -289,16 +447,16 @@ def train_codebook(
         descriptor_rows: torch.Tensor,          # [F, D] on the device
         ) -> TrainedCodebook:
     """Codebook training (the JAX ``train_codebook``, codebook.cpp:64-365):
-    one activation of every model's features, vote recording per class,
-    the class sigma from sampled feature x codeword distances, the KNN k=1
-    clean-up, centre weights and statistical class weights.
+    one activation of every model's features (:func:`training_activation`),
+    vote recording per class (Threshold's -1 entries record none), the
+    class sigma from sampled feature x codeword distances, the KNN k=1 and
+    INN clean-up, centre weights and statistical class weights.  Partial
+    SHOT is a detection option; training ignores it, as the JAX package
+    does.
     `descriptor_rows` are every model's descriptors, concatenated in model
     order, as the extraction left them on the device. Under Clustering
     None they are also the codewords, so the activation is their
     self-kNN."""
-    k = training_k(params)
-    if params.use_partial_shot:
-        raise NotImplementedError("partial SHOT matching is not ported")
     num_models = len(features_per_model)
     assert num_models == len(class_per_model) == len(boxes_per_model)
     classes = sorted(set(class_per_model))
@@ -314,8 +472,8 @@ def train_codebook(
     act_nonzero = [i for i, s in enumerate(sizes) if s]
     act_per_model: Dict[int, Tuple[np.ndarray, np.ndarray]] = {}
     if act_nonzero:
-        all_d, all_i = activate_knn(descriptor_rows, descriptor_rows, k,
-                                    metric)
+        all_d, all_i = training_activation(descriptor_rows, descriptor_rows,
+                                           params, metric)
         off = 0
         for i in act_nonzero:
             act_per_model[i] = (all_d[off:off + sizes[i]],
@@ -354,7 +512,7 @@ def train_codebook(
             conj = frame_quats * np.array([1, -1, -1, -1], np.float32)
             new_quat = quat_multiply_np(box_quat[None, :], conj)
 
-            jj, kk = np.nonzero(idx >= 0)
+            jj, kk = np.nonzero(idx >= 0)   # Threshold: -1 beyond the cut
             rec["cw"].append(idx[jj, kk].astype(np.int64))
             rec["vote"].append(vote_local[jj].astype(np.float32))
             rec["class"].append(np.full(len(jj), class_id, np.int32))
@@ -413,8 +571,9 @@ def train_codebook(
     uniq_cw, group_start, group_size = np.unique(
         cw_arr[order], return_index=True, return_counts=True)
 
-    # KNN k=1 clean-up: keep single-vote codewords only
-    if params.activation_type == "KNN" and params.knn_k == 1:
+    # KNN k=1 / INN clean-up: keep single-vote codewords only
+    if (params.activation_type == "KNN" and params.knn_k == 1) \
+            or params.activation_type == "INN":
         keep_g = group_size == 1
         uniq_cw = uniq_cw[keep_g]
         group_start = group_start[keep_g]

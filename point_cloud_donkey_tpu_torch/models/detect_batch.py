@@ -4,8 +4,9 @@ and ``_extract_local_features_fused_train`` of
 point_cloud_donkey_tpu/models/detect_batch.py).
 
 Per chunk of clouds padded to one bucket size, one batched torch function:
-normals (method 2: the full SHOT LRF of every point, PCA where it is
-invalid) -> voxel-grid keypoints, valid first in voxel-key order -> SHOT
+normals (ops/normals.compute_normals; method 2: the full SHOT LRF of every
+point, PCA where it is invalid; methods 0 and 1: the oriented PCA normal)
+-> voxel-grid keypoints, valid first in voxel-key order -> SHOT
 LRFs at the keypoints -> the descriptor of every keypoint on the dense
 [B, K] grid (SHOT through K7, CSHOT through K8, SHORT_SHOT through K9).
 The kept rows' descriptors stay on the device for the activation
@@ -51,9 +52,9 @@ def train_fused_ineligible(fcfg: FeatureConfig, kp_params: KeypointParams,
         return "keypoint culling in training"
     if any(nl is not None for nl in normals_list):
         return "normals provided by the cloud files"
-    if fcfg.needs_normals() and consistent_normals_method != 2:
-        return f"ConsistentNormalsMethod {consistent_normals_method} " \
-               "(method 2 only)"
+    if fcfg.needs_normals() and consistent_normals_method == 3:
+        return "ConsistentNormalsMethod 3 (its EMST orientation runs on " \
+               "the staged route)"
     if fcfg.type == "SHORT_SHOT" and (fcfg.use_min_radius
                                       or fcfg.short_shot_log_radius):
         return "SHORT_SHOT with a minimum or logarithmic radius"

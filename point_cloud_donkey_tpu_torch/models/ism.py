@@ -11,8 +11,8 @@ Uniform ranking (keeps all) -> Clustering None (one codeword per feature)
 times go to ``processing_times`` under the JAX package's ``train_*`` keys.
 
 The configuration is checked up front: what the fused route cannot train
-(preprocessing, MVBB boxes, global features and the SVM, other ranking,
-clustering or activation types, feature caching, several devices) raises
+(preprocessing, MVBB boxes, global features and the SVM, other ranking
+or clustering types, feature caching, several devices) raises
 NotImplementedError with the reason before any cloud is read.  Because
 only Clustering None and Uniform ranking are ported, the codewords are
 always the features themselves and the activation always runs on the
@@ -34,8 +34,7 @@ from ..ops.geometry import BoundingBox, quat_to_matrix_np
 from ..utils.config import IsmConfig
 from ..utils.io import PointCloud, read_cloud
 from .clustering import run_clustering
-from .codebook import (CodebookParams, TrainedCodebook,
-                       train_codebook, training_k)
+from .codebook import CodebookParams, TrainedCodebook, train_codebook
 from .detect_batch import (FusedChunk, extract_features_fused_train,
                            train_fused_ineligible)
 from .features import FeatureConfig
@@ -100,8 +99,7 @@ class ImplicitShapeModel:
         for cid, iid, box in zip(class_ids, instance_ids, boxes):
             self._training.append((filename, int(cid), int(iid), box))
 
-    def _check_trainable(self, fcfg: FeatureConfig,
-                         cb_params: CodebookParams) -> None:
+    def _check_trainable(self, fcfg: FeatureConfig) -> None:
         """Raise NotImplementedError, with the reason, for what the port
         does not train."""
         root = self.root
@@ -130,14 +128,6 @@ class ImplicitShapeModel:
         clustering = self.config.child("Clustering").type or "None"
         if clustering != "None":
             reasons.append(f"Clustering {clustering!r} (None only)")
-        if cb_params.activation_type not in ("KNN", "KNNRule"):
-            reasons.append(f"activation {cb_params.activation_type!r} (KNN "
-                           "and KNNRule only)")
-        elif not 1 <= training_k(cb_params) <= 3:
-            reasons.append(f"activation K={cb_params.knn_k} (the "
-                           "chi-square kNN kernel takes K <= 3)")
-        if cb_params.use_partial_shot:
-            reasons.append("UsePartialShot")
         why = train_fused_ineligible(
             fcfg, KeypointParams.from_config(self.config.child("Keypoints")),
             [], self.root.get("ConsistentNormalsMethod", 2))
@@ -173,7 +163,7 @@ class ImplicitShapeModel:
         normal_radius = self.root.get("NormalRadius", 0.05)
         cn_method = self.root.get("ConsistentNormalsMethod", 2)
         cb_params = CodebookParams.from_config(self.config.child("Codebook"))
-        self._check_trainable(fcfg, cb_params)
+        self._check_trainable(fcfg)
         set_color_to_zero = self.root.get("SetColorToZero", False)
 
         features_per_model: List[FeatureSet] = []

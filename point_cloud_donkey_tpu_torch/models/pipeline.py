@@ -38,6 +38,10 @@ The per-cloud entry points of the JAX module (``classify_scores``,
 ``classify_scores_mean_shift``) are here as batched functions, each
 computing what ``jax.vmap`` of its JAX counterpart computes, on the dense
 grid through :func:`extract_features`.
+With ConsistentNormalsMethod 0, 1 or 3 every normal stage is the PCA
+normal of ``ops/normals.compute_normals`` (oriented towards the origin,
+away from the centroid, or as it comes), as the JAX step computes it; the
+normals window is then ignored.
 With ``lrf_version`` 2 (PCD_PALLAS_LRF_V=2) every dense LRF pass runs the
 v2 kernels instead: K10 for the moments, K11 for the keypoint LRFs' votes,
 K2 for the z-only normals' votes.
@@ -63,7 +67,7 @@ from ..ops.kernels.shot_fused import (TK, shot_descriptor_fused,
                                       shot_descriptor_fused_windowed)
 from ..ops.lrf import shot_lrf
 from ..ops.neighbors import full_fp32
-from ..ops.normals import compute_normals_fast
+from ..ops.normals import compute_normals, compute_normals_fast
 from ..ops.shot import cshot_descriptor_dense
 from ..ops.short_shot import short_shot_descriptor_dense
 from ..ops.voxel_grid import voxel_grid
@@ -96,8 +100,9 @@ class PipelineConfig(NamedTuple):
     num_classes: int = 5
     # sorted-axis window of the normals (ops/binned.py); 0 = dense.
     # Calibrate with ops.binned.required_window; a window >= N runs dense.
-    # SHOT and CSHOT classify; SHORT_SHOT has no normals and ignores it,
-    # as the JAX step (and detection, as detect_maxima_jit)
+    # SHOT and CSHOT classify at ConsistentNormalsMethod 2; SHORT_SHOT has
+    # no normals, and the other methods and detection (detect_maxima_jit)
+    # ignore it, as the JAX step does
     normals_window: int = 0
     # sorted-axis window of the SHOT descriptor (points swept per
     # 8-keypoint tile, K3w); 0 = the compacted route (K3).  Calibrate with
@@ -136,9 +141,18 @@ def _check_supported(cfg: PipelineConfig) -> None:
         raise NotImplementedError(
             f"descriptor {cfg.descriptor!r}: the port serves "
             f"{', '.join(DESCRIPTORS)}")
-    if cfg.normals_method != 2:
-        raise NotImplementedError(
-            "ConsistentNormalsMethod != 2 (PCA normals) is not ported")
+
+
+def _dense_normals(points, mask, cfg):
+    """The normal stage over whole clouds, as the JAX ``_pre_descriptor``
+    computes it: ConsistentNormalsMethod 2's fast path (the inverted z axis
+    of each point's z-only SHOT LRF, +z where it is invalid), or
+    ``compute_normals`` for the other methods (ops/normals.py)."""
+    if cfg.normals_method == 2:
+        return compute_normals_fast(points, mask, cfg.normal_radius,
+                                    cfg.lrf_version)
+    return compute_normals(points, mask, cfg.normal_radius,
+                           cfg.normals_method, cfg.lrf_version).normals
 
 
 def _keypoints(points, mask, cfg, rgb=None):
@@ -170,7 +184,8 @@ def extract_features(points: torch.Tensor,   # [B, N, 3]
                      ) -> Features:
     """The stages before the votes on the dense [B, K] keypoint grid (the
     JAX ``_pre_descriptor`` + ``extract_features_jit``, batched): normals
-    (K1, K2; none for SHORT_SHOT; `normals` short-circuits the stage),
+    (:func:`_dense_normals`: K1, K2; none for SHORT_SHOT; `normals`
+    short-circuits the stage),
     voxel keypoints (with their voxel's mean colour for CSHOT, which needs
     `rgb`), keypoint LRFs (K1, K2), and the descriptor -- SHOT through K7,
     CSHOT through K8, SHORT_SHOT through K9.  A row is valid when its
@@ -181,8 +196,7 @@ def extract_features(points: torch.Tensor,   # [B, N, 3]
         raise ValueError("CSHOT needs RGB data (rgb [B, N, 3])")
     with full_fp32():
         if normals is None and cfg.descriptor != "SHORT_SHOT":
-            normals = compute_normals_fast(points, mask, cfg.normal_radius,
-                                           cfg.lrf_version)
+            normals = _dense_normals(points, mask, cfg)
         mark("normals")
 
         kp, kp_mask, kp_rgb = _keypoints(
@@ -267,8 +281,9 @@ class IsmClassifier(nn.Module):
     """Per-class scores [B, num_classes] of a batch of clouds against a
     trained codebook (the JAX ``classify_scores_batch``).
 
-    With 0 < cfg.normals_window < N (SHOT, CSHOT) the normals run over the
-    sorted-axis windows; with 0 < cfg.descriptor_window (SHOT) so does the
+    With 0 < cfg.normals_window < N (SHOT, CSHOT; ConsistentNormalsMethod
+    2 only: the other methods ignore the window, as the JAX step does) the
+    normals run over the sorted-axis windows; with 0 < cfg.descriptor_window (SHOT) so does the
     descriptor (K3w, the JAX route with ``descriptor_tile_capacity = 0``:
     the port has no tile capacity).  Results are never approximate: a
     window plan's exactness flag is read in the step's one host read (SHOT:
@@ -311,7 +326,7 @@ class IsmClassifier(nn.Module):
                     rgb.contiguous() if cfg.descriptor == "CSHOT" else None,
                     mark)
         b, n = points.shape[0], points.shape[1]
-        windowed = 0 < cfg.normals_window < n
+        windowed = 0 < cfg.normals_window < n and cfg.normals_method == 2
         with full_fp32():
             srt = None
             if windowed or cfg.descriptor_window > 0:
@@ -325,9 +340,7 @@ class IsmClassifier(nn.Module):
                     points, mask, srt.keys, cfg.normal_radius,
                     cfg.normals_window)
             else:
-                normals = compute_normals_fast(points, mask,
-                                               cfg.normal_radius,
-                                               cfg.lrf_version)
+                normals = _dense_normals(points, mask, cfg)
             mark("normals")
 
             kp, kp_mask, _ = _keypoints(points, mask, cfg)
@@ -410,7 +423,8 @@ class IsmClassifier(nn.Module):
         cfg = self.cfg
         b, n = points.shape[0], points.shape[1]
         normals = None
-        if cfg.descriptor == "CSHOT" and 0 < cfg.normals_window < n:
+        if cfg.descriptor == "CSHOT" and 0 < cfg.normals_window < n \
+                and cfg.normals_method == 2:
             srt = sort_clouds_ex(points, mask)
             points, mask = srt.points, srt.mask
             rgb = torch.gather(rgb, 1, srt.order[..., None].expand_as(rgb))

@@ -1,17 +1,22 @@
-"""K4: exact chi-square k-nearest codewords (k <= 3), top-k fused.
+"""K4: exact chi-square k-nearest codewords (k <= 3), top-k fused; K4m:
+the [Q, C] chi-square matrix.
 
 Port of point_cloud_donkey_tpu/ops/pallas/chisq.py (`_chisq_call`,
 `chi_square_distance_matrix_pallas`) together with the top-k that
-`ops/neighbors.knn` applies to its result.  The kernel
-(csrc/chisq.cu) never writes the [Q, C] matrix; the plain twin builds it
-in row chunks and sorts.  Distances: flann::ChiSquareDistance,
+`ops/neighbors.knn` applies to its result.  K4 (csrc/chisq.cu) never
+writes the [Q, C] matrix; K4m is the same sweep with a second epilogue that
+stores it, for the selections a register top-k cannot hold (k > 3: KNN
+with K > 3, Threshold's 64 nearest), which `smallest_k` then takes outside
+the kernel, as the JAX package takes `lax.top_k` outside its Pallas kernel.
+K4m's distances are K4's bit for bit.  The plain twins build the matrix in
+row chunks (and sort).  Distances: flann::ChiSquareDistance,
 sum (a - b)^2 / (a + b) over dims with a + b > 0; masked codewords are
 +inf; ties go to the lower index, as lax.top_k gives them.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -19,11 +24,15 @@ from ...kernels import build
 from . import check, stream_of, uses_kernel
 
 KMAX = 3
+INF = float("inf")
 _ELEM_BUDGET = 1 << 24  # [rows, C, D] elements per chunk of the twin
 
 
-def chisq_matrix_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """[Q, D] x [C, D] -> [Q, C] chi-square distances, in row chunks."""
+def chisq_matrix_plain(a: torch.Tensor, b: torch.Tensor,
+                       b_mask: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
+    """[Q, D] x [C, D] -> [Q, C] chi-square distances, in row chunks; +inf
+    at the codewords that `b_mask` masks (K4m's twin)."""
     q, c = a.shape[0], b.shape[0]
     out = torch.empty((q, c), dtype=a.dtype, device=a.device)
     rows = max(1, _ELEM_BUDGET // max(c * a.shape[1], 1))
@@ -35,6 +44,8 @@ def chisq_matrix_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         term = torch.where(pos, diff * diff / torch.where(pos, s, 1.0),
                            torch.zeros_like(s))
         out[r0:r0 + rows] = term.sum(-1)
+    if b_mask is not None:
+        out = torch.where(b_mask[None, :], out, torch.full_like(out, INF))
     return out
 
 
@@ -46,9 +57,32 @@ def smallest_k(d: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 def chisq_topk_plain(a, b, b_mask, k):
-    d = chisq_matrix_plain(a, b)
-    d = torch.where(b_mask[None, :], d, torch.full_like(d, float("inf")))
-    return smallest_k(d, k)
+    return smallest_k(chisq_matrix_plain(a, b, b_mask), k)
+
+
+def chisq_matrix(a: torch.Tensor,       # [Q, D] f32
+                 b: torch.Tensor,       # [C, D] f32
+                 b_mask: torch.Tensor,  # [C] bool
+                 ) -> torch.Tensor:
+    """K4m: the [Q, C] chi-square distances of every query to every
+    codeword, +inf at masked codewords."""
+    qn, dim = a.shape if a.dim() == 2 else (None, None)
+    check("a", a, torch.float32, (qn, dim))
+    check("b", b, torch.float32, (None, dim))
+    check("b_mask", b_mask, torch.bool, (b.shape[0],))
+    if dim == 0:
+        raise ValueError("chisq_matrix needs D > 0")
+    if not uses_kernel(a, b, b_mask):
+        return chisq_matrix_plain(a, b, b_mask)
+    out = torch.empty((qn, b.shape[0]), dtype=torch.float32, device=a.device)
+    if qn and b.shape[0]:
+        with torch.cuda.device(a.device):
+            err = build.lib().pcd_chisq_matrix(
+                a.data_ptr(), b.data_ptr(), b_mask.data_ptr(),
+                out.data_ptr(), qn, b.shape[0], dim, stream_of(a))
+        build.check(err, "chisq_matrix")
+        build.count_launch("chisq_matrix")
+    return out
 
 
 def chisq_topk(a: torch.Tensor,       # [Q, D] f32

@@ -4,8 +4,10 @@
 
 ``knn`` is exact for both metrics, as the JAX package is on CPU and GPU
 backends: "l2" is squared L2 through the matmul identity in full fp32,
-"chisq" is flann::ChiSquareDistance through K4 (ops/kernels/chisq.py).
-Masked database entries are +inf; ties go to the lower index.
+"chisq" is flann::ChiSquareDistance through K4 (ops/kernels/chisq.py) for
+k <= 3 and, for larger k, K4m's [Q, C] matrix in row chunks with the k
+smallest of each row taken by a stable sort.  Masked database entries are
++inf; ties go to the lower index.
 """
 
 from __future__ import annotations
@@ -15,9 +17,11 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-from .kernels.chisq import chisq_matrix_plain, chisq_topk, smallest_k
+from .kernels.chisq import (KMAX, chisq_matrix, chisq_matrix_plain,
+                            chisq_topk, smallest_k)
 
 _PAIR_BUDGET = 1 << 25  # elements of a [B, chunk, N] temporary
+_MATRIX_BYTES = 256 << 20  # a [rows, C] f32 block of K4m's matrix
 
 chi_square_distance_matrix = chisq_matrix_plain
 
@@ -141,6 +145,24 @@ def knn(queries: torch.Tensor,    # [Q, D]
         d = torch.where(db_mask[None, :], d, torch.full_like(d, float("inf")))
         return smallest_k(d, k)
     if metric == "chisq":
-        return chisq_topk(queries.contiguous(), database.contiguous(),
-                          db_mask.contiguous(), k)
+        a, b, m = (x.contiguous() for x in (queries, database, db_mask))
+        if k <= KMAX:
+            return chisq_topk(a, b, m, k)
+        return _chisq_smallest_k(a, b, m, k)
     raise ValueError(f"unknown metric {metric}")
+
+
+def _chisq_smallest_k(a, b, b_mask, k):
+    """k > KMAX: K4m's matrix in row chunks of at most _MATRIX_BYTES, the
+    k smallest of each row by `smallest_k`."""
+    c = b.shape[0]
+    if not 1 <= k <= c:
+        raise ValueError(f"knn needs 1 <= k <= C; got k={k}, C={c}")
+    rows = max(1, _MATRIX_BYTES // (4 * c))
+    parts = [smallest_k(chisq_matrix(a[r0:r0 + rows], b, b_mask), k)
+             for r0 in range(0, a.shape[0], rows)]
+    if not parts:
+        return (torch.empty((0, k), dtype=torch.float32, device=a.device),
+                torch.empty((0, k), dtype=torch.int64, device=a.device))
+    return (torch.cat([d for d, _ in parts]),
+            torch.cat([i for _, i in parts]))

@@ -2,7 +2,7 @@
 point_cloud_donkey_tpu/utils/io.py that serving reads).
 
   * `.pcd` (DATA ascii, binary and binary_compressed) and `.ply` (ascii and
-    binary) files; serving reads the coordinates and, for CSHOT, the
+    binary) files, and `.off` meshes sampled on the fly (utils/mesh.py); serving reads the coordinates and, for CSHOT, the
     colours: :func:`read_cloud` returns a :class:`PointCloud` (xyz [N, 3]
     float32, rgb [N, 3] float32 in [0, 1] or None), :func:`load_cloud` its
     xyz.  Every other field is ignored.  Colours: PCL's packed ``rgb`` /
@@ -15,6 +15,7 @@ point_cloud_donkey_tpu/utils/io.py that serving reads).
 
 from __future__ import annotations
 
+import os
 import struct
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
@@ -232,15 +233,20 @@ def load_cloud(path: str) -> np.ndarray:
 
 def read_cloud(path: str) -> PointCloud:
     """xyz and, when the file has them, colours and normals of a `.pcd` or
-    `.ply` file (rows may be NaN)."""
+    `.ply` file (rows may be NaN); a `.off` mesh (ModelNet) is sampled on
+    the fly to PCD_OFF_POINTS points (default 2048) with the seed
+    PCD_OFF_SEED (default 0), centred and scaled to the unit sphere, as the
+    JAX package's ``load_cloud`` does (utils/mesh.py)."""
     if path.endswith(".pcd"):
         return load_pcd(path)
     if path.endswith(".ply"):
         return load_ply(path)
     if path.endswith(".off"):
-        raise NotImplementedError(
-            f"{path}: mesh sampling (.off) is not ported; convert the "
-            "meshes to PCD with the JAX package's cli/modelnet.py")
+        from .mesh import off_to_cloud
+        return off_to_cloud(path,
+                            n_points=int(os.environ.get("PCD_OFF_POINTS",
+                                                        "2048")),
+                            seed=int(os.environ.get("PCD_OFF_SEED", "0")))
     raise ValueError(f"unknown extension for {path}")
 
 

@@ -68,3 +68,28 @@ def bench_colors(clouds: np.ndarray) -> np.ndarray:
                     np.clip(d / 1.5, 0.0, 1.0)], axis=-1)
     rgb8 = (np.clip(rgb, 0.0, 1.0) * 255).astype(np.uint32)
     return rgb8.astype(np.float32) / np.float32(255.0)
+
+
+def write_box_off(path: str, size=(1.6, 1.0, 0.6), n: int = 4) -> None:
+    """Write a box of edge lengths `size`, centred at the origin, as an OFF
+    mesh: each face tessellated into n x n quads of two triangles (the
+    bench's box class is a box of such proportions)."""
+    verts, faces = [], []
+    grid = np.linspace(-0.5, 0.5, n + 1)
+    for axis in range(3):
+        u, v = [a for a in range(3) if a != axis]
+        for side in (-0.5, 0.5):
+            base = len(verts)
+            for gu in grid:
+                for gv in grid:
+                    p = np.zeros(3)
+                    p[axis], p[u], p[v] = side, gu, gv
+                    verts.append(p * np.asarray(size))
+            for i in range(n):
+                for j in range(n):
+                    a = base + i * (n + 1) + j
+                    faces += [(a, a + 1, a + n + 2), (a, a + n + 2, a + n + 1)]
+    with open(path, "w") as f:
+        f.write(f"OFF\n{len(verts)} {len(faces)} 0\n")
+        f.writelines(f"{x:.6f} {y:.6f} {z:.6f}\n" for x, y, z in verts)
+        f.writelines(f"3 {a} {b} {c}\n" for a, b, c in faces)

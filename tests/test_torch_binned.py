@@ -1,21 +1,18 @@
 """The port's sorted-axis windowed sweeps (ops/binned.py, K5/K6's plain
 twins through ops/kernels/lrf_moments.shot_lrf_windowed) against the JAX
-package's ops/binned.py and its windowed Pallas LRF run in interpret mode,
-on bench-geometry clouds made from numpy seeds."""
+package's ops/binned.py and its windowed Pallas LRF run in interpret mode
+(in a process of its own: torch_parity.pallas_interpret), on
+bench-geometry clouds made from numpy seeds."""
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from jax.experimental.pallas import tpu as pltpu
 
 import shapes
-from torch_parity import assert_frames_close, n, t
+from torch_parity import assert_frames_close, n, pallas_interpret, t
 
 from point_cloud_donkey_tpu.ops import binned as jb
-from point_cloud_donkey_tpu.ops.pallas.lrf_moments import (
-    lrf_moments, shot_lrf_pallas_windowed)
 from point_cloud_donkey_tpu_torch.ops import binned as tb
 from point_cloud_donkey_tpu_torch.ops.kernels import lrf_moments as tlrfm
 from point_cloud_donkey_tpu_torch.ops.normals import compute_normals_fast
@@ -125,18 +122,31 @@ def test_padding_does_not_change_the_windowed_normals():
     assert outs[0][2] == outs[1][2]
 
 
-def test_windowed_lrf_matches_pallas_interpret(clouds):
+_WINDOWED_CODE = """
+import jax
+import jax.numpy as jnp
+from point_cloud_donkey_tpu.ops.pallas.lrf_moments import (
+    lrf_moments, shot_lrf_pallas_windowed)
+jp, jm, jk = (jnp.asarray(a[k]) for k in ("jp", "jm", "jk"))
+out = {}
+out["f"], out["v"], out["x"] = shot_lrf_pallas_windowed(
+    jp, jm, jk, %r, int(a["win"]))
+_, _, out["c"] = jax.vmap(lambda p, m: lrf_moments(p, m, p, m, %r))(jp, jm)
+""" % (RADIUS, RADIUS)
+
+
+def test_windowed_lrf_matches_pallas_interpret(clouds, tmp_path):
     """K5/K6 twins through shot_lrf_windowed vs the JAX windowed Pallas
     LRF (interpret mode) at the calibrated window, both on the JAX sort:
     validity equal, >= 97% of frames within 2e-3, the flag agrees, and the
     in-radius counts within +-1 of the JAX dense Pallas moments."""
     pts, mask = clouds
     win = tb.required_window(t(pts), t(mask), RADIUS)
-    jp, jm, jk, _, _ = jb.sort_clouds_ex(jnp.asarray(pts), jnp.asarray(mask))
-    with pltpu.force_tpu_interpret_mode():
-        jf, jv, jx = shot_lrf_pallas_windowed(jp, jm, jk, RADIUS, win)
-        _, _, jc = jax.vmap(lambda p, m: lrf_moments(p, m, p, m, RADIUS))(
-            jp, jm)
+    jp, jm, jk, _, _ = (np.asarray(x) for x in jb.sort_clouds_ex(
+        jnp.asarray(pts), jnp.asarray(mask)))
+    ref = pallas_interpret(_WINDOWED_CODE, str(tmp_path), jp=jp, jm=jm,
+                           jk=jk, win=np.int64(win))
+    jf, jv, jx, jc = ref["f"], ref["v"], ref["x"], ref["c"]
     plan = tb.window_starts(t(jk), t(jm), t(jk), RADIUS, win)
     assert bool(plan.exact) and bool(jx)
     frames, valid = tlrfm.shot_lrf_windowed(t(jp), t(jm), plan.starts, win,

@@ -517,6 +517,49 @@ def test_chisq_grid_shapes_match_plain(cuda_device, q, c, dim):
     assert_topk_close(d, i, pd, pi)
 
 
+@pytest.mark.parametrize("signed", [False, True])
+@pytest.mark.parametrize("dim", K4_DIMS)
+def test_chisq_matrix_edge_cases_match_plain(cuda_device, dim, signed):
+    """K4m vs its twin at K4's edge cases: +inf exactly at the masked
+    codewords, distances rtol 1e-5 (terms with a + b <= 0 count 0), two
+    launches equal bit for bit, and the k <= 3 selections of its matrix
+    equal to K4's fused top-k bit for bit (the same sums)."""
+    a, b, m = (t(x).to(cuda_device) for x in k4_case(dim, signed=signed))
+    d = tchisq.chisq_matrix(a, b, m)
+    assert torch.equal(d.view(torch.int32),
+                       tchisq.chisq_matrix(a, b, m).view(torch.int32))
+    masked = (~m)[None, :].expand_as(d)
+    assert torch.equal(torch.isinf(d), masked)
+    pd = tchisq.chisq_matrix_plain(a, b, m)
+    torch.testing.assert_close(d[~masked], pd[~masked], rtol=1e-5,
+                               atol=1e-6)
+    for k in (1, 2, 3):
+        fd, fi = tchisq.chisq_topk(a, b, m, k)
+        kd, ki = tchisq.smallest_k(d, k)
+        assert torch.equal(fd, kd) and torch.equal(fi, ki)
+
+
+@pytest.mark.parametrize("q,c,dim", [(12000, 458, 352), (12000, 458, 176),
+                                     (2000, 2000, 352), (300, 458, 1344),
+                                     (0, 458, 352)])
+def test_chisq_matrix_grid_shapes_match_plain(cuda_device, q, c, dim):
+    """K4m at the serving batch (D = 352 and the partial front's 176), the
+    training self-kNN, CSHOT's width and Q = 0 against its twin, and
+    knn's k = 64 selection over it under the k-NN contract."""
+    from point_cloud_donkey_tpu_torch.ops.neighbors import knn
+    a, b, m = (t(x).to(cuda_device)
+               for x in k4_case(dim, q=max(q, 12), c=c, seed=5))
+    a = a[:q].contiguous()
+    d = tchisq.chisq_matrix(a, b, m)
+    assert d.shape == (q, c)
+    pd = tchisq.chisq_matrix_plain(a, b, m)
+    fin = torch.isfinite(pd)
+    torch.testing.assert_close(d[fin], pd[fin], rtol=1e-5, atol=1e-6)
+    kd, ki = knn(a, b, m, 64, "chisq")
+    pkd, pki = tchisq.smallest_k(pd, 64)
+    assert_topk_close(kd, ki, pkd, pki)
+
+
 def test_slice_matches_jax_reference(cuda_device):
     """IsmClassifier on the card vs the committed JAX-CPU scores; every
     kernel was launched."""

@@ -1,6 +1,7 @@
 """The port's mean-shift detection path against the JAX package on the CPU:
 ops/mean_shift.py on seeded votes, K7's plain twin (dense-grid SHOT)
-against the Pallas ``shot_descriptor_fused`` in interpret mode, the
+against the Pallas ``shot_descriptor_fused`` in interpret mode (in a
+process of its own: torch_parity.pallas_interpret), the
 IsmDetector slice against ``jax.vmap(detect_maxima_jit)``, and
 ``serve --maxima``."""
 
@@ -14,14 +15,12 @@ import torch
 
 import shapes
 from torch_fixtures import CODEBOOK, REFERENCE, jax_detect
-from torch_parity import assert_descriptors_close, n, t
+from torch_parity import assert_descriptors_close, n, pallas_interpret, t
 
 from point_cloud_donkey_tpu.ops import mean_shift as jms
 from point_cloud_donkey_tpu.ops.lrf import shot_lrf as j_shot_lrf
 from point_cloud_donkey_tpu.ops.normals import \
     compute_normals_fast as j_normals
-from point_cloud_donkey_tpu.ops.pallas.shot_fused import \
-    shot_descriptor_fused as j_fused
 from point_cloud_donkey_tpu.ops.voxel_grid import voxel_grid as j_voxel
 from point_cloud_donkey_tpu_torch import serve
 from point_cloud_donkey_tpu_torch.kernels import build
@@ -138,16 +137,26 @@ def grid():
     return (pts, mask) + tuple(np.asarray(x) for x in out)
 
 
-def test_shot_dense_matches_pallas_interpret(grid):
+_K7_CODE = """
+import jax.numpy as jnp
+from point_cloud_donkey_tpu.ops.pallas.shot_fused import shot_descriptor_fused
+out = {}
+out["d"], out["v"] = shot_descriptor_fused(
+    *(jnp.asarray(a[k]) for k in ("kp", "fr", "fv", "pts", "nrm", "mask")),
+    0.6, interpret=True)
+"""
+
+
+def test_shot_dense_matches_pallas_interpret(grid, tmp_path):
     """K7's twin through shot_descriptor_fused vs the Pallas dense-grid
     kernel: the descriptor contract (validity equal, cosine > 0.999,
     < 1e-4 of entries off by > 1e-3)."""
     pts, mask, nrm, kp, fr, fv = grid
     fv = fv.copy()
     fv[:, ::7] = False      # rows whose frame is invalid are not described
-    jd, jv = j_fused(jnp.asarray(kp), jnp.asarray(fr), jnp.asarray(fv),
-                     jnp.asarray(pts), jnp.asarray(nrm), jnp.asarray(mask),
-                     0.6, interpret=True)
+    ref = pallas_interpret(_K7_CODE, str(tmp_path), kp=kp, fr=fr, fv=fv,
+                           pts=pts, nrm=nrm, mask=mask)
+    jd, jv = ref["d"], ref["v"]
     td, tv = tshot.shot_descriptor_fused(t(kp), t(fr), t(fv), t(pts),
                                          t(nrm), t(mask), 0.6)
     assert td.shape == (2, 30, 352)

@@ -11,9 +11,11 @@ import numpy as np
 import pytest
 
 from bench_data import bench_clouds, bench_colors
-from torch_fixtures import (CODEBOOK, CODEBOOKS, DESCRIPTOR_REFERENCE,
-                            N_DETECT, N_REF, REFERENCE, build_codebook,
-                            build_descriptor_reference, build_reference)
+from torch_fixtures import (CODEBOOK, CODEBOOKS, CONFIG_REFERENCE, CONFIGS,
+                            DESCRIPTOR_REFERENCE, N_DETECT, N_REF, REFERENCE,
+                            THRESHOLD, build_codebook,
+                            build_descriptor_reference, build_reference,
+                            config_scores, threshold_detection)
 
 
 def test_fixtures_match_the_jax_package(tmp_path):
@@ -91,3 +93,31 @@ def test_descriptor_reference_matches_the_jax_package(tmp_path):
             assert old[k].shape == (N_REF, 5)
         assert old["detect_densities_short_shot"].shape == (N_DETECT, 5)
         assert old["detect_positions_short_shot"].shape == (N_DETECT, 5, 3)
+
+
+@pytest.mark.parametrize("name", sorted(CONFIGS))
+def test_config_reference_matches_the_jax_package(name):
+    """The committed scores of each configuration of CONFIGS (activation
+    strategies, partial SHOT, normals methods) come from today's JAX
+    package with the committed codebooks; the committed Threshold is the
+    generator's."""
+    with np.load(CONFIG_REFERENCE) as old:
+        assert sorted(old.files) == sorted(
+            ["threshold", "detect_densities_threshold",
+             "detect_positions_threshold"]
+            + ["scores_" + k for k in CONFIGS])
+        assert float(old["threshold"]) == np.float32(THRESHOLD)
+        assert old["scores_" + name].shape == (N_REF, 5)
+        np.testing.assert_allclose(config_scores(name), old["scores_" + name],
+                                   rtol=1e-5, atol=1e-5)
+
+
+def test_threshold_detection_reference_matches_the_jax_package():
+    dens, pos = threshold_detection()
+    with np.load(CONFIG_REFERENCE) as old:
+        assert old["detect_densities_threshold"].shape == (N_DETECT, 5)
+        assert old["detect_positions_threshold"].shape == (N_DETECT, 5, 3)
+        np.testing.assert_allclose(dens, old["detect_densities_threshold"],
+                                   rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(pos, old["detect_positions_threshold"],
+                                   rtol=1e-5, atol=1e-5)

@@ -1,8 +1,9 @@
 """The port's kernel modules (ops/kernels/) against the JAX Pallas kernels
 they replace, run as the JAX package's own tests run them on the CPU
-(interpret mode), and against the golden descriptors.  On the CPU every
-wrapper runs its plain PyTorch twin; tests/test_torch_cuda.py holds each
-CUDA kernel against that twin on the card."""
+(interpret mode, in one process of its own: torch_parity.pallas_interpret),
+and against the golden descriptors.  On the CPU every wrapper runs its
+plain PyTorch twin; tests/test_torch_cuda.py holds each CUDA kernel
+against that twin on the card."""
 
 import os
 
@@ -11,21 +12,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from jax.experimental.pallas import tpu as pltpu
 
 import shapes
 from torch_parity import (assert_descriptors_close, assert_frames_close,
-                          assert_topk_close, n, t)
+                          assert_topk_close, n, pallas_interpret, t)
 
 from point_cloud_donkey_tpu.ops.lrf import shot_lrf as j_shot_lrf
 from point_cloud_donkey_tpu.ops.normals import \
     compute_normals_fast as j_normals
-from point_cloud_donkey_tpu.ops.pallas.chisq import \
-    chi_square_distance_matrix_pallas
-from point_cloud_donkey_tpu.ops.pallas.lrf_moments import (lrf_moments,
-                                                           shot_lrf_pallas)
-from point_cloud_donkey_tpu.ops.pallas.shot_fused import \
-    shot_descriptor_fused_compact as j_compact
 from point_cloud_donkey_tpu.ops.shot import \
     shot_descriptor_dense as j_shot_dense
 from point_cloud_donkey_tpu.ops.voxel_grid import voxel_grid as j_voxel
@@ -70,17 +64,92 @@ def bench_clouds():
     return (pts, mask) + tuple(np.asarray(x) for x in out)
 
 
+def _ties_case():
+    """A centre of symmetry: coordinates on a 1/64 grid keep the centroid
+    shift exactly 0 and the offsets of each point pair exactly opposite."""
+    rng = np.random.default_rng(12)
+    half = rng.integers(-32, 33, size=(80, 3)).astype(np.float32) / 64
+    pts = np.concatenate([half, -half])
+    return (np.zeros((1, 3), np.float32), np.ones(1, bool), pts,
+            np.ones(len(pts), bool))
+
+
+def _chisq_case():
+    """Sparse non-negative descriptors (60% zeros) and a codebook with
+    ~10% of its codewords masked."""
+    rng = np.random.default_rng(8)
+    a = rng.random((70, 352)).astype(np.float32)
+    a[rng.random(a.shape) < 0.6] = 0.0
+    b = rng.random((150, 352)).astype(np.float32)
+    b[rng.random(b.shape) < 0.6] = 0.0
+    return a, b, rng.random(150) > 0.1
+
+
+_LRF_CODE = """
+import jax
+import jax.numpy as jnp
+from point_cloud_donkey_tpu.ops.pallas.lrf_moments import (lrf_moments,
+                                                           shot_lrf_pallas)
+g = lambda *keys: [jnp.asarray(a[k]) for k in keys]
+out = {}
+p, m = g("p", "m")
+out["cov"], out["w"], out["cnt"] = lrf_moments(
+    p[::9], jnp.ones(len(p[::9]), bool), p, m, 0.4, weighting="shot",
+    center="query")
+for z in (0, 1):
+    out["f%d" % z], out["v%d" % z] = shot_lrf_pallas(p, m, p, m, 0.3,
+                                                     z_only=bool(z))
+out["kf"], out["kv"] = jax.vmap(lambda q, qm, pp, mm: shot_lrf_pallas(
+    q, qm, pp, mm, 0.5))(*g("kp", "kmask", "pts", "mask"))
+out["tf"], out["tv"] = shot_lrf_pallas(*g("tq", "tqm", "tp", "tm"), 0.9)
+"""
+
+_SHOT_CHISQ_CODE = """
+import jax.numpy as jnp
+from point_cloud_donkey_tpu.ops.pallas.chisq import \\
+    chi_square_distance_matrix_pallas
+from point_cloud_donkey_tpu.ops.pallas.shot_fused import \\
+    shot_descriptor_fused_compact
+g = lambda *keys: [jnp.asarray(a[k]) for k in keys]
+out = {}
+res = shot_descriptor_fused_compact(
+    *g("kp", "fr", "fv", "kmask", "pts", "nrm", "mask"), 0.6,
+    int(a["tiles"]) + 2, interpret=True)
+for name, r in zip("dvkfcx", res):
+    out["c" + name] = r
+out["chisq"] = chi_square_distance_matrix_pallas(*g("ca", "cb"))
+"""
+
+
+@pytest.fixture(scope="module")
+def pallas_refs(cloud, bench_clouds, tmp_path_factory):
+    """Every interpret-mode reference of this file, in two processes of
+    their own: K1's moments and K1/K2's LRFs on `cloud`, the keypoint LRFs
+    on `bench_clouds` and the LRF at a centre of symmetry; the compact
+    SHOT (K3) on `bench_clouds` and K4's chi-square matrix."""
+    p, m = cloud
+    pts, mask, nrm, kp, kmask, fr, fv = bench_clouds
+    tq, tqm, tp, tm = _ties_case()
+    ca, cb, _ = _chisq_case()
+    tiles = int(np.ceil(kmask.sum(1) / tshot.TK).sum())
+    refs = pallas_interpret(
+        _LRF_CODE, str(tmp_path_factory.mktemp("k1k2")), p=p, m=m, pts=pts,
+        mask=mask, kp=kp, kmask=kmask, tq=tq, tqm=tqm, tp=tp, tm=tm)
+    refs.update(pallas_interpret(
+        _SHOT_CHISQ_CODE, str(tmp_path_factory.mktemp("k3k4")), pts=pts,
+        mask=mask, nrm=nrm, kp=kp, kmask=kmask, fr=fr, fv=fv,
+        tiles=np.int64(tiles), ca=ca, cb=cb))
+    return refs
+
+
 # --- K1 / K2: lrf_moments ---------------------------------------------------
 
-def test_moments_match_pallas_interpret(cloud):
+def test_moments_match_pallas_interpret(cloud, pallas_refs):
     """Moments contract: weight sums rtol 2e-4, counts within +-1,
     covariance atol 5e-4 (the JAX package's own bound)."""
     p, m = cloud
     kp, km = p[::9], np.ones(len(p[::9]), bool)
-    with pltpu.force_tpu_interpret_mode():
-        jcov, jw, jc = lrf_moments(jnp.asarray(kp), jnp.asarray(km),
-                                   jnp.asarray(p), jnp.asarray(m), 0.4,
-                                   weighting="shot", center="query")
+    jcov, jw, jc = (pallas_refs[k] for k in ("cov", "w", "cnt"))
     q_s, p_s = tlrfm.prep_shift(t(kp)[None], t(p)[None], t(m)[None])
     mom, tc = tlrfm.moments(q_s, p_s, t(m)[None], 0.4)
     tcov, tw = tlrfm.cov_from_moments(mom, q_s, t(km)[None])
@@ -90,42 +159,28 @@ def test_moments_match_pallas_interpret(cloud):
 
 
 @pytest.mark.parametrize("z_only", [False, True])
-def test_shot_lrf_matches_pallas_interpret(cloud, z_only):
+def test_shot_lrf_matches_pallas_interpret(cloud, z_only, pallas_refs):
     """Frame contract: valid flags equal, >= 97% of frames within 2e-3."""
     p, m = cloud
-    with pltpu.force_tpu_interpret_mode():
-        jf, jv = shot_lrf_pallas(jnp.asarray(p), jnp.asarray(m),
-                                 jnp.asarray(p), jnp.asarray(m), 0.3,
-                                 z_only=z_only)
+    jf, jv = pallas_refs[f"f{int(z_only)}"], pallas_refs[f"v{int(z_only)}"]
     res = t_shot_lrf(t(p), t(m), t(p), t(m), 0.3, z_only=z_only)
     assert_frames_close(res.frames, res.valid, jf, jv)
 
 
-def test_keypoint_lrfs_match_pallas_interpret(bench_clouds):
+def test_keypoint_lrfs_match_pallas_interpret(bench_clouds, pallas_refs):
     """LRFs at voxel keypoints of bench-geometry clouds (the K1/K2 call
     at Q=K of the slice), batched, invalid keypoints included."""
     pts, mask, _, kp, kmask, _, _ = bench_clouds
-    with pltpu.force_tpu_interpret_mode():
-        jf, jv = jax.vmap(lambda q, qm, p, m: shot_lrf_pallas(
-            q, qm, p, m, 0.5))(jnp.asarray(kp), jnp.asarray(kmask),
-                               jnp.asarray(pts), jnp.asarray(mask))
+    jf, jv = pallas_refs["kf"], pallas_refs["kv"]
     res = t_shot_lrf(t(kp), t(kmask), t(pts), t(mask), 0.5)
     assert_frames_close(res.frames, res.valid, jf, jv)
 
 
-def test_lrf_sign_ties_keep_the_eigh_sign():
+def test_lrf_sign_ties_keep_the_eigh_sign(pallas_refs):
     """At a centre of symmetry every sign vote ties, and a tie keeps the
-    closed-form EVD's sign, as in the Pallas kernel.  Coordinates on a
-    1/64 grid keep the centroid shift exactly 0 and the offsets of each
-    point pair exactly opposite."""
-    rng = np.random.default_rng(12)
-    half = rng.integers(-32, 33, size=(80, 3)).astype(np.float32) / 64
-    pts = np.concatenate([half, -half])
-    m = np.ones(len(pts), bool)
-    q, qm = np.zeros((1, 3), np.float32), np.ones(1, bool)
-    with pltpu.force_tpu_interpret_mode():
-        jf, jv = shot_lrf_pallas(jnp.asarray(q), jnp.asarray(qm),
-                                 jnp.asarray(pts), jnp.asarray(m), 0.9)
+    closed-form EVD's sign, as in the Pallas kernel (`_ties_case`)."""
+    q, qm, pts, m = _ties_case()
+    jf, jv = pallas_refs["tf"], pallas_refs["tv"]
     res = t_shot_lrf(t(q), t(qm), t(pts), t(m), 0.9)
     assert n(res.valid).all() and np.asarray(jv).all()
     np.testing.assert_allclose(n(res.frames), np.asarray(jf), atol=1e-5)
@@ -190,16 +245,13 @@ def test_shot_plain_matches_jax_dense(bench_clouds):
                              jr.valid)
 
 
-def test_shot_compact_matches_pallas_interpret(bench_clouds):
+def test_shot_compact_matches_pallas_interpret(bench_clouds, pallas_refs):
     """Tile-compacted SHOT vs the Pallas compact kernel: the same flat
     layout row for row (cloud ids, keypoints, frames), descriptors under
     the descriptor contract, and no rows past the batch's tiles."""
     pts, mask, nrm, kp, kmask, fr, fv = bench_clouds
     tiles = int(np.ceil(kmask.sum(1) / tshot.TK).sum())
-    jd, jv, jk, jf, jc, jx = j_compact(
-        jnp.asarray(kp), jnp.asarray(fr), jnp.asarray(fv),
-        jnp.asarray(kmask), jnp.asarray(pts), jnp.asarray(nrm),
-        jnp.asarray(mask), 0.6, tiles + 2, interpret=True)
+    jd, jv, jk, jf, jc, jx = (pallas_refs["c" + k] for k in "dvkfcx")
     assert bool(jx)
     rows = tiles * tshot.TK
     td, tv, tkf, tff, tc = tshot.shot_descriptor_fused_compact(
@@ -226,17 +278,11 @@ def test_compact_layout_handles_uneven_and_empty_clouds():
 # --- K4: chisq --------------------------------------------------------------
 
 @pytest.mark.parametrize("k", [1, 3])
-def test_chisq_topk_matches_pallas_interpret(k):
+def test_chisq_topk_matches_pallas_interpret(k, pallas_refs):
     """Chi-square contract vs the Pallas distance matrix + lax.top_k:
     distances rtol 1e-5, indices equal except at ties."""
-    rng = np.random.default_rng(8)
-    a = rng.random((70, 352)).astype(np.float32)
-    a[rng.random(a.shape) < 0.6] = 0.0
-    b = rng.random((150, 352)).astype(np.float32)
-    b[rng.random(b.shape) < 0.6] = 0.0
-    bmask = rng.random(150) > 0.1
-    with pltpu.force_tpu_interpret_mode():
-        d = chi_square_distance_matrix_pallas(jnp.asarray(a), jnp.asarray(b))
+    a, b, bmask = _chisq_case()
+    d = jnp.asarray(pallas_refs["chisq"])
     d = jnp.where(jnp.asarray(bmask)[None, :], d, jnp.inf)
     neg, ji = jax.lax.top_k(-d, k)
     td, ti = tchisq.chisq_topk(t(a), t(b), t(bmask), k)

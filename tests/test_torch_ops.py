@@ -218,12 +218,20 @@ def test_cast_votes_matches_jax(codebooks, flags):
 
 
 def test_cast_votes_rejects_unported_activation(codebooks):
+    """The training activation raises ValueError on an unknown activation
+    name, as the JAX ``training_activation`` does; serving treats such a
+    name as KNN (the JAX ``cast_votes``'s else branch)."""
     _, t_cb = codebooks
-    params = tcb.CodebookParams(activation_type="INN")
-    with pytest.raises(NotImplementedError):
-        tcb.cast_votes(t_cb, torch.zeros(2, 352), torch.zeros(2, 3),
-                       torch.eye(3).expand(2, 3, 3), torch.ones(2, dtype=bool),
-                       params, "chisq")
+    params = tcb.CodebookParams(activation_type="Nearest")
+    q = t_cb.codewords[:4].contiguous()
+    with pytest.raises(ValueError, match="Nearest"):
+        tcb.training_activation(q, q, params, "chisq")
+    args = (t_cb, q, torch.zeros(4, 3), torch.eye(3).expand(4, 3, 3),
+            torch.ones(4, dtype=bool))
+    got = tcb.cast_votes(*args, params, "chisq")
+    want = tcb.cast_votes(*args, tcb.CodebookParams(), "chisq")
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
 
 
 def test_codebook_is_a_module_of_buffers(codebooks):

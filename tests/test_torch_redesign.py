@@ -12,9 +12,9 @@ cloud; ragged D, C off the tiles, k in {1, 2, 3}, masked, all-zero and
 duplicated codewords; windows clamped at the cloud's end, an inexact
 plan, a query tail, W = N, W = 128 and overlapping windows; on the dense
 keypoint grid, rows that are not live (a tile of them between live ones),
-K not a multiple of 8 and a cloud past one staging chunk.  K2's (with
-K11's), K3's, K5's, K6's, K7's and K10's Pallas references run in a
-process of their own (torch_parity.pallas_interpret).
+K not a multiple of 8 and a cloud past one staging chunk.  Each kernel's
+Pallas references (K2's with K11's) run in a process of their own
+(torch_parity.pallas_interpret).
 K8's and K9's twins (the slot arrays, then their histograms) are held
 against the JAX dense CSHOT and SHORT_SHOT on the dense [B, K] grid, each
 in a process of its own too: dead rows at 1e9, all-dead tiles, masked
@@ -24,11 +24,9 @@ and phi and r bin edges, invalid frames, an empty cloud, ragged N, NaN and
 tests/test_torch_cuda.py holds the CUDA kernels against these twins on the
 same inputs."""
 
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from jax.experimental.pallas import tpu as pltpu
 
 from redesign_cases import (K1_CASES, K1_RADIUS, K2_CASES, K3_CASES,
                             K3_KEYS, K3_RADIUS, K4_DIMS, K5_CASES, K5_TILE,
@@ -41,8 +39,6 @@ from torch_parity import (assert_descriptors_close, assert_topk_close, n,
                           pallas_interpret, t)
 
 from point_cloud_donkey_tpu.ops.pallas import lrf_moments as jlrf
-from point_cloud_donkey_tpu.ops.pallas.chisq import \
-    chi_square_distance_matrix_pallas
 from point_cloud_donkey_tpu_torch.ops import color as tcolor
 from point_cloud_donkey_tpu_torch.ops import shot as tshot_ops
 from point_cloud_donkey_tpu_torch.ops import short_shot as tss
@@ -53,26 +49,41 @@ from point_cloud_donkey_tpu_torch.ops.kernels import shot_fused as tshot
 from point_cloud_donkey_tpu_torch.ops.kernels import shot_hist as tk8
 
 
-def _jax_moments(q, q_mask, p, mask, radius):
-    """`_moments_call` per cloud on the lanes the JAX package builds:
-    masked points and invalid queries parked at 1e9 -> (mom [B, Q, 10],
-    count [B, Q])."""
+_K1_CODE = """
+import jax.numpy as jnp
+import numpy as np
+from point_cloud_donkey_tpu.ops.pallas import lrf_moments as L
+out = {}
+for case in %r:
+    g = lambda key: a[case + "__" + key]
     moms, cnts = [], []
-    for qb, qm, pb, pm in zip(q, q_mask, p, mask):
+    for qb, qm, pb, pm in zip(g("q"), g("q_mask"), g("p"), g("mask")):
         qs = np.where(qm[:, None], qb, 1e9).astype(np.float32)
         ps = np.where(pm[:, None], pb, 1e9).astype(np.float32)
-        q_l = jlrf.to_lanes(jnp.asarray(qs), jlrf._pad_lanes(len(qs), jlrf.TQ))
-        p_l = jlrf.to_lanes(jnp.asarray(ps), jlrf._pad_lanes(len(ps), jlrf.TN))
-        with pltpu.force_tpu_interpret_mode():
-            mom = np.asarray(jlrf._moments_call(q_l, p_l,
-                                                jnp.float32(radius), "shot"))
+        q_l = L.to_lanes(jnp.asarray(qs), L._pad_lanes(len(qs), L.TQ))
+        p_l = L.to_lanes(jnp.asarray(ps), L._pad_lanes(len(ps), L.TN))
+        mom = np.asarray(L._moments_call(q_l, p_l, jnp.float32(%r), "shot"))
         moms.append(mom[:10, :len(qs)].T)
-        cnts.append(mom[jlrf.R_CNT, :len(qs)].astype(np.int32))
-    return np.stack(moms), np.stack(cnts)
+        cnts.append(mom[L.R_CNT, :len(qs)].astype(np.int32))
+    out[case + "__mom"], out[case + "__cnt"] = np.stack(moms), np.stack(cnts)
+""" % (K1_CASES, K1_RADIUS)
+
+
+@pytest.fixture(scope="module")
+def pallas_k1(tmp_path_factory):
+    """`_moments_call` per cloud at every K1 case on the lanes the JAX
+    package builds (masked points and invalid queries parked at 1e9):
+    mom [B, Q, 10] and count [B, Q] per case."""
+    arrays = {}
+    for case in K1_CASES:
+        for key, x in zip(("q", "q_mask", "p", "mask"), k1_case(case)):
+            arrays[f"{case}__{key}"] = x
+    return pallas_interpret(_K1_CODE, str(tmp_path_factory.mktemp("k1")),
+                            **arrays)
 
 
 @pytest.mark.parametrize("case", K1_CASES)
-def test_moments_twin_matches_pallas_at_edge_cases(case):
+def test_moments_twin_matches_pallas_at_edge_cases(case, pallas_k1):
     """K1's twin vs `_moments_call` on the valid queries: weight sums rtol
     2e-4, counts +-1, covariance atol 5e-4 (the moments contract).  Masked
     points reach the twin with their own coordinates (NaN, +-1e30, +-inf)
@@ -80,7 +91,7 @@ def test_moments_twin_matches_pallas_at_edge_cases(case):
     queries (at 1e9) get 0 from the twin; the JAX kernel's are garbage
     (they meet the parked points) and its callers drop them."""
     q, q_mask, p, mask = k1_case(case)
-    jmom, jcnt = _jax_moments(q, q_mask, p, mask, K1_RADIUS)
+    jmom, jcnt = pallas_k1[case + "__mom"], pallas_k1[case + "__cnt"]
     mom, cnt = tlrfm.moments(t(q), t(p), t(mask), K1_RADIUS)
     mom, cnt = n(mom), n(cnt)
     assert np.isfinite(mom).all()
@@ -337,19 +348,44 @@ def test_windowed_sign_votes_twin_matches_pallas_at_edge_cases(
         assert not got[1, 2 * K5_TILE:].any()
 
 
+_K4_CODE = """
+import jax.numpy as jnp
+import numpy as np
+from point_cloud_donkey_tpu.ops.pallas.chisq import \\
+    chi_square_distance_matrix_pallas
+out = {}
+for dim in %r:
+    for signed in (0, 1):
+        key = "%%d_%%d" %% (dim, signed)
+        out[key] = chi_square_distance_matrix_pallas(
+            jnp.asarray(a[key + "__a"]), jnp.asarray(a[key + "__b"]))
+""" % (K4_DIMS,)
+
+
+@pytest.fixture(scope="module")
+def pallas_k4(tmp_path_factory):
+    """`chi_square_distance_matrix_pallas` at every K4 case, unsigned and
+    signed: the [Q, C] matrix per case."""
+    arrays = {}
+    for dim in K4_DIMS:
+        for signed in (0, 1):
+            a, b, _ = k4_case(dim, signed=bool(signed))
+            arrays[f"{dim}_{signed}__a"], arrays[f"{dim}_{signed}__b"] = a, b
+    return pallas_interpret(_K4_CODE, str(tmp_path_factory.mktemp("k4")),
+                            **arrays)
+
+
 @pytest.mark.parametrize("signed", [False, True])
 @pytest.mark.parametrize("k", [1, 2, 3])
 @pytest.mark.parametrize("dim", K4_DIMS)
-def test_chisq_twin_matches_pallas_at_edge_cases(dim, k, signed):
+def test_chisq_twin_matches_pallas_at_edge_cases(dim, k, signed, pallas_k4):
     """K4's twin vs the Pallas chi-square matrix + the k smallest in
     (distance, index) order: distances rtol 1e-5, indices equal except at
     ties; the duplicated codeword's tie goes to the lower index, the
     all-zero pair is at distance 0, masked codewords never win; with
     signed values too (terms with a + b <= 0 count 0)."""
     a, b, b_mask = k4_case(dim, signed=signed)
-    with pltpu.force_tpu_interpret_mode():
-        d = np.asarray(chi_square_distance_matrix_pallas(jnp.asarray(a),
-                                                         jnp.asarray(b)))
+    d = pallas_k4[f"{dim}_{int(signed)}"]
     d = np.where(b_mask[None, :], d, np.inf)
     ji = np.argsort(d, axis=1, kind="stable")[:, :k]
     jd = np.take_along_axis(d, ji, 1)

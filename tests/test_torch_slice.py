@@ -112,19 +112,13 @@ def test_window_flag_trip_recomputes_dense_normals():
 
 
 def test_unported_configurations_raise():
-    """What the port still refuses: a descriptor it does not serve, the
-    normals methods other than 2, and a serving activation other than KNN
-    (Threshold needs K4's top-k widened past KMAX)."""
+    """What the port still refuses to serve: the descriptors it does not
+    compute (FPFH, and SHORT_CSHOT, which the JAX serving step refuses
+    too)."""
     cb = load_codebook(CODEBOOK)
-    for bad in ({"descriptor": "FPFH"}, {"normals_method": 1}):
-        with pytest.raises(NotImplementedError):
-            IsmClassifier(cb, PipelineConfig(**bad))
-    f = 3
-    with pytest.raises(NotImplementedError):
-        cast_votes(cb, torch.rand(f, 352), torch.zeros(f, 3),
-                   torch.eye(3).repeat(f, 1, 1),
-                   torch.ones(f, dtype=torch.bool),
-                   CodebookParams(activation_type="Threshold"), "chisq")
+    for bad in ("FPFH", "SHORT_CSHOT"):
+        with pytest.raises(NotImplementedError, match=bad):
+            IsmClassifier(cb, PipelineConfig(descriptor=bad))
 
 
 def test_serve_main_reports_predictions(tmp_path, capsys):
@@ -160,7 +154,7 @@ def test_port_imports_neither_jax_nor_triton():
     code = (
         "import importlib, pkgutil, sys\n"
         "sys.path.insert(0, 'tests')\n"
-        "import bench_data, shapes\n"
+        "import bench_data, shapes, torch_fixtures\n"
         "import point_cloud_donkey_tpu_torch as pkg\n"
         "mods = [m.name for m in pkgutil.walk_packages(pkg.__path__, "
         "pkg.__name__ + '.')]\n"
@@ -169,7 +163,8 @@ def test_port_imports_neither_jax_nor_triton():
         "new = ['ops.color', 'ops.short_shot', 'ops.kernels.shot_hist', "
         "'ops.kernels.histogram', 'train', 'models.ism', "
         "'models.detect_batch', 'models.features', 'models.keypoints', "
-        "'models.types', 'models.ranking', 'models.clustering']\n"
+        "'models.types', 'models.ranking', 'models.clustering', "
+        "'utils.mesh']\n"
         "assert all(pkg.__name__ + '.' + m in mods for m in new), mods\n"
         "bad = [m for m in ('jax', 'jaxlib', 'triton', "
         "'point_cloud_donkey_tpu') if m in sys.modules]\n"

@@ -73,12 +73,13 @@ def model_files(tmp_path_factory):
     return files
 
 
-def jax_train(files, descriptor):
-    """The JAX package's fused training route on the CPU."""
+def jax_train(files, descriptor, cfg=None):
+    """The JAX package's fused training route on the CPU (with the config
+    `cfg`, by default config(descriptor))."""
     old = os.environ.get("PCD_TRAIN_FUSED")
     os.environ["PCD_TRAIN_FUSED"] = "1"
     try:
-        ism = JaxIsm(JaxConfig.from_json(config(descriptor)))
+        ism = JaxIsm(JaxConfig.from_json(cfg or config(descriptor)))
         for path, cid in files:
             ism.add_training_model(path, cid, cid)
         ism.train()
@@ -90,9 +91,9 @@ def jax_train(files, descriptor):
     return ism
 
 
-def port_train(files, descriptor="SHOT", lrf_version=1):
-    ism = ImplicitShapeModel(IsmConfig.from_json(config(descriptor)), "cpu",
-                             lrf_version)
+def port_train(files, descriptor="SHOT", lrf_version=1, cfg=None):
+    ism = ImplicitShapeModel(IsmConfig.from_json(cfg or config(descriptor)),
+                             "cpu", lrf_version)
     for path, cid in files:
         ism.add_training_model(path, cid, cid)
     ism.train()
@@ -140,6 +141,85 @@ def assert_codebooks_match(got, want):
     assert (cos > 0.999).mean() >= 0.97, (cos <= 0.999).sum()
     np.testing.assert_allclose(got.class_sigma, np.asarray(want.class_sigma),
                                rtol=5e-2)
+
+
+def test_inn_training_matches_jax(model_files):
+    """Training under INN (the 1-NN of the refined queries, the
+    single-vote clean-up) vs the JAX fused route: the codebook contract."""
+    cfg = config()
+    cfg["ObjectConfig"]["Children"]["Codebook"]["Children"][
+        "ActivationStrategy"] = {"Type": "INN"}
+    want = jax_train(model_files, "SHOT", cfg).state.codebook
+    got = port_train(model_files, cfg=cfg).state.codebook
+    assert_codebooks_match(got, want)
+    assert (got.vote_mask.sum(1)[got.cw_mask] == 1).all()
+
+
+@pytest.fixture(scope="module")
+def model_features(model_files):
+    """The JAX-CPU features of the six models (the bench pipeline's dense
+    grid), compacted, with their AABBs: (JAX feature sets, port feature
+    sets, classes, JAX boxes, port boxes, descriptors, positions)."""
+    import jax
+    import jax.numpy as jnp
+    from torch_fixtures import jax_pipeline_config
+    from point_cloud_donkey_tpu.models.pipeline_jit import \
+        extract_features_jit
+    from point_cloud_donkey_tpu.models.types import FeatureSet as JaxSet
+    from point_cloud_donkey_tpu_torch.models.types import make_feature_set
+    from point_cloud_donkey_tpu_torch.utils.io import read_cloud
+    cfg = jax_pipeline_config()
+    step = jax.jit(lambda p, m: extract_features_jit(p, m, cfg))
+    jsets, tsets, jboxes, tboxes = [], [], [], []
+    for path, _ in model_files:
+        xyz = read_cloud(path).xyz
+        kp, fr, d, v = (np.asarray(x) for x in step(
+            jnp.asarray(xyz), jnp.ones(len(xyz), bool)))
+        fs = make_feature_set(d[v], kp[v], fr[v], np.ones(int(v.sum()), bool))
+        tsets.append(fs)
+        jsets.append(JaxSet(*fs))
+        mn, mx = xyz.min(0), xyz.max(0)
+        box = ((mn + (mx - mn) / 2).astype(np.float32),
+               (mx - mn).astype(np.float32),
+               np.array([1.0, 0.0, 0.0, 0.0], np.float32))
+        jboxes.append(jgeo.BoundingBox(*box))
+        tboxes.append(tgeo.BoundingBox(*box))
+    desc = np.concatenate([fs.descriptors for fs in tsets])
+    pos = np.concatenate([fs.positions for fs in tsets])
+    return (jsets, tsets, [c for _, c in model_files], jboxes, tboxes, desc,
+            pos)
+
+
+@pytest.mark.parametrize("activation", [
+    {"activation_type": "INN"},
+    {"activation_type": "Threshold", "threshold": 3.8},
+    {"activation_type": "KNN", "knn_k": 5},
+], ids=["INN", "Threshold", "KNN5"])
+def test_train_codebook_matches_jax(model_features, activation):
+    """train_codebook under INN, Threshold (the 64 nearest within the
+    threshold, -1 beyond it; K4m's matrix) and KNN K=5 (K4m's matrix) vs
+    the JAX train_codebook on the same features: the same vote structure,
+    the arrays within f32 round-off (class sigmas rtol 1e-4, sums over
+    other orders); Threshold and KNN K=5 give codewords several votes."""
+    jsets, tsets, classes, jboxes, tboxes, desc, pos = model_features
+    want = jcb.train_codebook(jsets, classes, classes, jboxes, desc, pos,
+                              jcb.CodebookParams(flann_exact=True,
+                                                 **activation), "chisq")
+    got = tcb.train_codebook(tsets, classes, classes, tboxes, desc, pos,
+                             tcb.CodebookParams(**activation), "chisq",
+                             torch.from_numpy(desc))
+    for name, w in want._asdict().items():
+        g, w = getattr(got, name), np.asarray(w)
+        assert g.shape == w.shape, name
+        if g.dtype.kind in "bi":
+            np.testing.assert_array_equal(g, w, err_msg=name)
+        else:
+            np.testing.assert_allclose(
+                g, w, rtol=1e-4 if name == "class_sigma" else 1e-5,
+                atol=1e-6, err_msg=name)
+    votes = got.vote_mask.sum(1)[got.cw_mask]
+    assert (votes == 1).all() if activation["activation_type"] == "INN" \
+        else votes.max() > 1
 
 
 # --- host halves of the codebook training -----------------------------------
@@ -366,10 +446,6 @@ def _set(cfg, path, value):
      "FeatureWeighting"),
     (("Children", "GlobalFeatures", "Type"), "ESF", "global features"),
     (("Children", "Features", "Type"), "FPFH", "FPFH"),
-    (("Children", "Codebook", "Children", "ActivationStrategy", "Type"),
-     "INN", "INN"),
-    (("Children", "Codebook", "Children", "ActivationStrategy", "Parameters",
-      "K"), 4, "K=4"),
 ])
 def test_unported_training_configs_raise(path, value, reason):
     """What the fused route cannot train is refused, with the reason,

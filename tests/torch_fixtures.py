@@ -25,7 +25,16 @@
       ``jax.vmap(detect_maxima_jit)`` densities and positions of the first
       N_DETECT clouds with the SHORT_SHOT codebook
       (``detect_densities_short_shot``, ``detect_positions_short_shot``).
-      The clouds are bench_reference.npz's.
+      The clouds are bench_reference.npz's;
+  point_cloud_donkey_tpu_torch/data/config_reference.npz:
+      the JAX-CPU ``classify_scores_batch`` scores of the same clouds under
+      each configuration of CONFIGS (``scores_<name>``: the activation
+      strategies KNN K=5, KNNRule, INN and Threshold, partial SHOT, the
+      normals methods 0, 1 and 3, and the CSHOT codebook under method 0),
+      the Threshold value (``threshold``), and the JAX-CPU
+      ``jax.vmap(detect_maxima_jit)`` densities and positions of the first
+      N_DETECT clouds under Threshold (``detect_densities_threshold``,
+      ``detect_positions_threshold``).
 
 The machine with the GPU has no JAX, so these files carry the reference
 across.  tests/test_torch_fixtures.py regenerates them and checks they
@@ -58,8 +67,28 @@ CODEBOOKS = {
     "SHORT_SHOT": os.path.join(DATA_DIR, "short_shot_codebook.ism"),
 }
 DESCRIPTOR_REFERENCE = os.path.join(DATA_DIR, "descriptor_reference.npz")
+CONFIG_REFERENCE = os.path.join(DATA_DIR, "config_reference.npz")
 N_REF = 16
 N_DETECT = 32   # bench.py's MS_BATCH
+# Threshold activation's distance: with the bench codebook the JAX run
+# keeps a median of 17 codewords a feature and caps ~5% of the features
+# at the 64 of TpuThresholdCapacity (build_config_reference prints both)
+THRESHOLD = 3.8
+# config_reference.npz's configurations: name -> (CodebookParams fields,
+# ConsistentNormalsMethod, descriptor); every other field is the bench's
+CONFIGS = {
+    "knn5": ({"knn_k": 5, "use_matching_weight": True}, 2, "SHOT"),
+    "knnrule": ({"activation_type": "KNNRule"}, 2, "SHOT"),
+    "inn": ({"activation_type": "INN"}, 2, "SHOT"),
+    "threshold": ({"activation_type": "Threshold", "threshold": THRESHOLD},
+                  2, "SHOT"),
+    "partial_front": ({"use_partial_shot": True,
+                       "partial_shot_type": "front"}, 2, "SHOT"),
+    "normals_m0": ({}, 0, "SHOT"),
+    "normals_m1": ({}, 1, "SHOT"),
+    "normals_m3": ({}, 3, "SHOT"),
+    "cshot_m0": ({}, 0, "CSHOT"),
+}
 
 
 def descriptor_config(descriptor: str) -> dict:
@@ -109,11 +138,13 @@ def _jax_codebook(codebook_path: str):
 
 def jax_scores(codebook_path: str, points: np.ndarray,
                mask: np.ndarray, normals_window: int = 0,
-               descriptor: str = "SHOT", rgb: np.ndarray = None
-               ) -> np.ndarray:
+               descriptor: str = "SHOT", rgb: np.ndarray = None,
+               params: dict = None, normals_method: int = 2) -> np.ndarray:
     """JAX-CPU classify_scores_batch scores [B, C] with the bench config
     (and a sorted-axis normals window when given; its exactness flag must
-    hold), for `descriptor` (CSHOT reads `rgb` [B, N, 3])."""
+    hold), for `descriptor` (CSHOT reads `rgb` [B, N, 3]), with the
+    CodebookParams fields `params` (default: KNN K=1) and the normals
+    method."""
     import jax
     import jax.numpy as jnp
     from point_cloud_donkey_tpu.models.codebook import CodebookParams
@@ -122,8 +153,8 @@ def jax_scores(codebook_path: str, points: np.ndarray,
 
     cb = _jax_codebook(codebook_path)
     cfg = jax_pipeline_config(descriptor)._replace(
-        normals_window=normals_window)
-    params = CodebookParams(knn_k=1)
+        normals_window=normals_window, normals_method=normals_method)
+    params = CodebookParams(**{"knn_k": 1, **(params or {})})
     step = jax.jit(lambda p, m, r: classify_scores_batch(p, m, cb, cfg,
                                                          params, r))
     scores, exact = step(jnp.asarray(points), jnp.asarray(mask),
@@ -142,17 +173,20 @@ def jax_window(points: np.ndarray, mask: np.ndarray) -> int:
 
 
 def jax_detect(codebook_path: str, points: np.ndarray, mask: np.ndarray,
-               descriptor: str = "SHOT"):
-    """JAX-CPU jax.vmap(detect_maxima_jit) with the bench config and
-    `descriptor`: (densities [B, C], positions [B, C, 3])."""
+               descriptor: str = "SHOT", params: dict = None,
+               normals_method: int = 2):
+    """JAX-CPU jax.vmap(detect_maxima_jit) with the bench config,
+    `descriptor`, the CodebookParams fields `params` (default: KNN K=1) and
+    the normals method: (densities [B, C], positions [B, C, 3])."""
     import jax
     import jax.numpy as jnp
     from point_cloud_donkey_tpu.models.codebook import CodebookParams
     from point_cloud_donkey_tpu.models.pipeline_jit import detect_maxima_jit
 
     cb = _jax_codebook(codebook_path)
-    cfg = jax_pipeline_config(descriptor)
-    params = CodebookParams(knn_k=1)
+    cfg = jax_pipeline_config(descriptor)._replace(
+        normals_method=normals_method)
+    params = CodebookParams(**{"knn_k": 1, **(params or {})})
     step = jax.jit(jax.vmap(lambda p, m: detect_maxima_jit(p, m, cb, cfg,
                                                            params)))
     dens, pos = step(jnp.asarray(points), jnp.asarray(mask))
@@ -203,6 +237,64 @@ def build_descriptor_reference(codebooks: dict, path: str) -> None:
                         detect_positions_short_shot=pos.astype(np.float32))
 
 
+def threshold_activity(codebook_path: str, points: np.ndarray,
+                       mask: np.ndarray) -> tuple:
+    """(median codewords kept a feature, share of the features capped at
+    TpuThresholdCapacity, share of the top-64 kept) under THRESHOLD, on
+    the JAX-CPU features of the clouds and the JAX chi-square matrix."""
+    import jax
+    import jax.numpy as jnp
+    from point_cloud_donkey_tpu.models.pipeline_jit import \
+        extract_features_jit
+    from point_cloud_donkey_tpu.ops.neighbors import \
+        chi_square_distance_matrix
+    cb = _jax_codebook(codebook_path)
+    cfg = jax_pipeline_config()
+    _, _, desc, valid = jax.jit(jax.vmap(
+        lambda p, m: extract_features_jit(p, m, cfg)))(jnp.asarray(points),
+                                                        jnp.asarray(mask))
+    desc = np.asarray(desc)[np.asarray(valid)]
+    d = np.asarray(chi_square_distance_matrix(jnp.asarray(desc),
+                                              cb.codewords))
+    within = (d < THRESHOLD).sum(1)
+    kept = np.minimum(within, 64)
+    return (float(np.median(kept)), float((within >= 64).mean()),
+            float(kept.sum() / (64 * len(kept))))
+
+
+def config_scores(name: str) -> np.ndarray:
+    """The JAX-CPU scores of the first N_REF bench clouds under CONFIGS[name]
+    (CSHOT with bench_colors)."""
+    params, method, descriptor = CONFIGS[name]
+    _, _, clouds, _ = bench_clouds(N_REF)
+    mask = np.ones(clouds.shape[:2], bool)
+    return jax_scores(
+        CODEBOOKS[descriptor], clouds, mask, descriptor=descriptor,
+        rgb=bench_colors(clouds) if descriptor == "CSHOT" else None,
+        params=params, normals_method=method).astype(np.float32)
+
+
+def threshold_detection():
+    """The JAX-CPU detection of the first N_DETECT bench clouds under
+    Threshold: (densities, positions)."""
+    _, _, clouds, _ = bench_clouds(max(N_REF, N_DETECT))
+    dens, pos = jax_detect(CODEBOOK, clouds[:N_DETECT],
+                           np.ones((N_DETECT, clouds.shape[1]), bool),
+                           params=CONFIGS["threshold"][0])
+    return dens.astype(np.float32), pos.astype(np.float32)
+
+
+def build_config_reference(path: str) -> None:
+    """config_reference.npz: config_scores of every configuration, the
+    Threshold value and threshold_detection."""
+    out = {"threshold": np.float32(THRESHOLD)}
+    for name in CONFIGS:
+        out["scores_" + name] = config_scores(name)
+    (out["detect_densities_threshold"],
+     out["detect_positions_threshold"]) = threshold_detection()
+    np.savez_compressed(path, **out)
+
+
 def main() -> None:
     import jax
     jax.config.update("jax_platforms", "cpu")
@@ -211,8 +303,15 @@ def main() -> None:
         build_codebook(path, descriptor)
     build_reference(CODEBOOK, REFERENCE)
     build_descriptor_reference(CODEBOOKS, DESCRIPTOR_REFERENCE)
-    print(f"wrote {', '.join(CODEBOOKS.values())} (+ d.npz), {REFERENCE} "
-          f"and {DESCRIPTOR_REFERENCE}")
+    build_config_reference(CONFIG_REFERENCE)
+    _, _, clouds, _ = bench_clouds(N_REF)
+    median, capped, share = threshold_activity(
+        CODEBOOK, clouds, np.ones(clouds.shape[:2], bool))
+    print(f"Threshold {THRESHOLD}: a median of {median:.0f} codewords kept "
+          f"a feature, {100 * capped:.1f}% of the features capped at 64, "
+          f"{100 * share:.1f}% of the 64 nearest kept")
+    print(f"wrote {', '.join(CODEBOOKS.values())} (+ d.npz), {REFERENCE}, "
+          f"{DESCRIPTOR_REFERENCE} and {CONFIG_REFERENCE}")
 
 
 if __name__ == "__main__":
