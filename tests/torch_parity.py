@@ -85,32 +85,44 @@ def assert_decisions_match(scores, ref):
     assert rms <= 0.05 * np.abs(ref).max(), rms
 
 
-# The interpret-mode references are compile-bound (XLA compiles their
-# programs; a second run in the same process takes a few percent of the
-# first) and, on a CPU shared with a full parallel test run, starve: with
-# the cores 8x oversubscribed the LRF v2 reference, 11-12 s alone, took
-# 91-93 s (once past 800 s), and 14 s at a scheduling priority 10 above
-# the others (tests/interpret_contention.py).  So the reference process
-# raises its priority where the system lets it.  A run past
-# INTERPRET_TIMEOUT (~8x the slowest reference alone, ~40 s) is killed and
-# run once more in a fresh process, which finds the first one's compiled
-# programs in the cache.
-INTERPRET_PRIORITY = 10
+# The interpret-mode references are compile-bound (a second run in the
+# same process takes a few percent of the first) and take their share of a
+# busy CPU: the LRF v2 reference, 10-14 s alone, took 27-39 s six at once
+# beside 12 single-threaded busy processes on 8 cores.  What cut full runs
+# was a hang: 3 of 36 such runs never ended, a kernel's io_callback thread
+# and the main thread each dispatching an eager JAX op (stacks at
+# interpret_pallas_call.get and lrf_moments.py:655); synchronous CPU
+# dispatch and one XLA device did not prevent it
+# (experiments/interpret_contention.py).  So the main thread waits for
+# every computation with effects (the kernels' callbacks) to finish before
+# it goes on: none of 72 such runs hung.  A run past INTERPRET_TIMEOUT
+# (~8x the slowest reference alone, ~40 s) is still killed and run once
+# more in a fresh process.
 INTERPRET_TIMEOUT = 300
 
 _INTERPRET = """
 import faulthandler
-import os
 import sys
 faulthandler.dump_traceback_later(float(sys.argv[4]), exit=False)
-try:
-    os.nice(-int(sys.argv[5]))
-except OSError:
-    pass
 import numpy as np
 import jax
 jax.config.update("jax_platforms", "cpu")
 from jax.experimental.pallas import tpu as pltpu
+import threading
+from jax._src import dispatch
+from jax._src.interpreters import pxla
+execute = pxla.ExecuteReplicated.__call__
+
+
+def execute_then_wait(self, *args):
+    out = execute(self, *args)
+    if (self.has_unordered_effects or self.ordered_effects) \\
+            and threading.current_thread() is threading.main_thread():
+        dispatch.runtime_tokens.block_until_ready()
+    return out
+
+
+pxla.ExecuteReplicated.__call__ = execute_then_wait
 a = dict(np.load(sys.argv[1]))
 with pltpu.force_tpu_interpret_mode():
     scope = {"a": a}
@@ -128,25 +140,20 @@ def pallas_interpret(code: str, workdir, **arrays) -> dict:
     runs kernel bodies through host callbacks that dispatch JAX work of
     their own; full parallel test runs in which more test processes used
     it stalled now and then, so every interpret-mode reference of the
-    port's tests runs here, out of the test process, at a raised
-    priority and sharing the calling test's compilation cache (see
-    INTERPRET_PRIORITY).  A run that outlasts INTERPRET_TIMEOUT is
-    killed and repeated once in a fresh process (the reference is
-    deterministic); the stacks it printed just before the limit
-    (faulthandler) go into a warning, to show where it hung."""
+    port's tests runs here, out of the test process, and its main thread
+    waits out each kernel's callbacks (see INTERPRET_TIMEOUT).  A run that
+    outlasts INTERPRET_TIMEOUT is killed and repeated once in a fresh
+    process (the reference is deterministic); the stacks it printed just
+    before the limit (faulthandler) go into a warning, to show where it
+    hung."""
     inp, outp = os.path.join(workdir, "in.npz"), os.path.join(workdir,
                                                              "out.npz")
     np.savez(inp, **arrays)
-    import jax   # the calling test's: its persistent compilation cache
     env = dict(os.environ, JAX_PLATFORMS="cpu",
                PYTHONPATH=os.pathsep.join(filter(None, [
                    REPO, os.environ.get("PYTHONPATH")])))
-    if jax.config.jax_compilation_cache_dir:
-        env.update(JAX_COMPILATION_CACHE_DIR=jax.config
-                   .jax_compilation_cache_dir,
-                   JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS="0")
     cmd = [sys.executable, "-c", _INTERPRET, inp, outp, code,
-           str(INTERPRET_TIMEOUT - 10), str(INTERPRET_PRIORITY)]
+           str(INTERPRET_TIMEOUT - 10)]
     try:
         res = subprocess.run(cmd, env=env, capture_output=True, text=True,
                              timeout=INTERPRET_TIMEOUT)
