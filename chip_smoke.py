@@ -115,7 +115,26 @@ Phases (each prints its results; any failure raises and exits nonzero):
      JAX-trained codebooks, each served on the bench batch against the
      committed references, and whether a second SHOT training gives the
      same codebook bit for bit (printed); training clouds/s on 24 clouds;
-     the train entry point on 8 PCD files, then serve on its model.
+     the train entry point on 8 PCD files, then serve on its model;
+  9b. the training configurations of tests/bench_data.TRAIN_CONFIGS
+     against data/train_reference.npz (the JAX package on the CPU): K4m
+     at the rankers' self-kNN (k = 11) and Lloyd's [F, 256] matrix, K4 at
+     k = 3, K1/K2/K7/K8/K9 at one keypoint a cloud with the cloud's radius
+     (the global descriptors) against their twins; the MVBBs, the SOR +
+     z cut-off keep masks and MLS positions, each ranker's keep mask and
+     k-means (KMeansCount 256, Hartigan) from JAX's seeds -- Lloyd through
+     K4m and through its twin -- and the SVM on JAX's descriptors; then
+     each configuration's training (files with normals on the staged
+     route, MVBB, SOR + voxel + z cut, MLS, normals method 3, the five
+     rankers, KMeansCount, KMeansHartigan, CSHOT_GLOBAL with the
+     auto-trained SVM, SHOT_GLOBAL, SHORT_SHOT_GLOBAL, the feature cache)
+     with its launches, run twice and compared bit for bit, held to the
+     JAX codeword count, boxes, global descriptors, SVM or decisions (the
+     two k-means trainings started from the features JAX's training
+     seeded at, and held to its codebook), with
+     its train_* ms per cloud and training clouds/s on 24 views; train.py
+     on configs/quickstart.ism and configs/default.ism as shipped (views
+     scaled to millimetres and to 0.3 m).
 Every step of phases 4-8 also prints its peak device memory, and phase 2
 the bits (sha256) of K1's, K2's, K3's and K6's outputs and of K7's
 in-radius counts and histograms (tests/port_fingerprint.py prints the
@@ -223,6 +242,30 @@ PATH_KERNELS = {
     "cshot_m0": ("lrf_moments", "sign_votes", "shot_hist", "chisq_topk"),
     "detect_threshold": ("lrf_moments", "sign_votes", "shot_dense",
                          "chisq_matrix"),
+    # phase 9b: the training configurations (the staged route with the
+    # files' normals and with normals method 3; MVBB; preprocessing; the
+    # rankers' self-kNN at k = 11 and Lloyd's [F, k] matrix through K4m;
+    # the global descriptors at one keypoint a cloud: K7, K8, K9), and
+    # train.py on the shipped configs (default.ism: CSHOT under l2)
+    **{"train_" + name: ("lrf_moments", "sign_votes", "shot_dense",
+                         "chisq_topk")
+       for name in ("normals", "mvbb", "sor", "mls", "normals_m3", "cache",
+                    "shot_global")},
+    **{"train_" + name: ("lrf_moments", "sign_votes", "shot_dense",
+                         "chisq_matrix", "chisq_topk")
+       for name in ("naive_bayes", "incremental", "knn_activation",
+                    "strangeness", "similarity", "kmeans_count")},
+    # Hartigan keeps k = 1 on the bench features, as the JAX package does:
+    # the activation of one codeword needs no search
+    "train_kmeans_hartigan": ("lrf_moments", "sign_votes", "shot_dense",
+                              "chisq_matrix"),
+    "train_cshot_global": ("lrf_moments", "sign_votes", "shot_dense",
+                           "shot_hist", "chisq_topk"),
+    "train_short_shot_global": ("lrf_moments", "sign_votes", "shot_dense",
+                                "histogram", "chisq_topk"),
+    "shipped_quickstart": ("lrf_moments", "sign_votes", "shot_dense",
+                           "chisq_topk"),
+    "shipped_default": ("lrf_moments", "sign_votes", "shot_hist"),
 }
 
 # Least time of a kernel call: the larger of its bytes (inputs read once,
@@ -1321,6 +1364,7 @@ def main():
     # -- 9. training on the card -------------------------------------------------
     phase(f"9. training: ImplicitShapeModel.train on the fused route ({card})")
     training(launches, card, data, pts, mask, rgb, labels, ref, dref)
+    training_configs(launches, card, data, pts, mask, labels)
 
     # -- results ----------------------------------------------------------------
     total = {k: sum(run[k] for run in launches.values()) for k in KERNELS}
@@ -1815,6 +1859,522 @@ def training(launches, card, data, pts, mask, rgb, labels, ref, dref):
             "serve of the trained model missed its own training clouds"
     finally:
         shutil.rmtree(tmp)
+
+
+def training_configs(launches, card, data, pts, mask, labels):
+    """Phase 9b: the training configurations of bench_data.TRAIN_CONFIGS
+    on the card, each held to data/train_reference.npz (the JAX package on
+    the CPU): first each new role of a kernel against its plain twin at the
+    slice's shapes, then the pieces each configuration changes, then each
+    configuration's whole training -- on the five bench training clouds
+    (the *_GLOBAL ones on the 24 coloured training_views, for the SVM),
+    with the launch counts set to 0 just before and read just after, run
+    twice and compared bit for bit, its train_* ms per cloud -- and its
+    training clouds/s on the 24 views; then train.py on
+    configs/quickstart.ism and configs/default.ism as shipped, on views
+    scaled to their units.  Agglomerative clustering is O(F^3) host Python
+    in both packages and is held on the CPU only, by the tests."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from bench_data import (BENCH_CONFIG, GLOBALS, RANKERS, TRAIN_CONFIGS,
+                            bench_clouds,
+                            bench_colors, feature_centre_distances,
+                            seeded_kmeans, split_seeds, train_config,
+                            training_views)
+    from point_cloud_donkey_tpu_torch import train as train_cli
+    from point_cloud_donkey_tpu_torch.kernels import build
+    from point_cloud_donkey_tpu_torch.models.clustering import (
+        kmeans, kmeans_hartigan)
+    from point_cloud_donkey_tpu_torch.models.codebook import (
+        Codebook, CodebookParams)
+    from point_cloud_donkey_tpu_torch.models.ism import ImplicitShapeModel
+    from point_cloud_donkey_tpu_torch.models.pipeline import (IsmClassifier,
+                                                              PipelineConfig)
+    from point_cloud_donkey_tpu_torch.models.ranking import (RankingParams,
+                                                             rank_features)
+    from point_cloud_donkey_tpu_torch.models.svm import SVMModel, train_svm
+    from point_cloud_donkey_tpu_torch.ops import preprocess as pp
+    from point_cloud_donkey_tpu_torch.ops.color import \
+        rgb_to_cielab_normalized
+    from point_cloud_donkey_tpu_torch.ops.eigh3 import eigh3x3
+    from point_cloud_donkey_tpu_torch.ops.geometry import (compute_mvbb_batch,
+                                                           quat_to_matrix_np)
+    from point_cloud_donkey_tpu_torch.ops.kernels import chisq as kchisq
+    from point_cloud_donkey_tpu_torch.ops.kernels import histogram as khist
+    from point_cloud_donkey_tpu_torch.ops.kernels import lrf_moments as klrf
+    from point_cloud_donkey_tpu_torch.ops.kernels import shot_fused as kshot
+    from point_cloud_donkey_tpu_torch.ops.kernels import shot_hist as ksh
+    from point_cloud_donkey_tpu_torch.ops.lrf import shot_lrf
+    from point_cloud_donkey_tpu_torch.ops.normals import compute_normals
+    from point_cloud_donkey_tpu_torch.utils.config import (ComponentConfig,
+                                                           IsmConfig)
+    from point_cloud_donkey_tpu_torch.utils.io import save_pcd
+
+    dev = pts.device
+    tref = np.load(os.path.join(data, "train_reference.npz"))
+    train_pts, train_cls, _, _ = bench_clouds(0)
+    views, view_labels = training_views()
+    with np.load(os.path.join(data, "bench_codebook.ismd.npz")) as z:
+        committed = dict(z)
+    feats, feat_cls, feat_cdist = feature_centre_distances(committed,
+                                                           train_pts)
+
+    def t(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+    # -- the kernels' new roles against their twins --------------------------
+    fd = t(feats)
+    ones = torch.ones(fd.shape[0], dtype=torch.bool, device=dev)
+    for what, a, b in (("ranker self-kNN", fd, fd),
+                       ("Lloyd [F, 256]", fd, t(tref["kmeans_seeds"]))):
+        m = torch.ones(b.shape[0], dtype=torch.bool, device=dev)
+        d = kchisq.chisq_matrix(a, b, m)
+        again = kchisq.chisq_matrix(a, b, m)
+        pd = kchisq.chisq_matrix_plain(a, b, m)
+        rel = float(((d - pd).abs() / pd.clamp(min=1e-6)).max())
+        assert torch.equal(d, again) and rel <= 1e-5, \
+            f"K4m {what}: rtol {rel:.2e}"
+        k = 11 if what.startswith("ranker") else 1
+        sd, si = kchisq.smallest_k(d, k)
+        psd, psi = kchisq.smallest_k(pd, k)
+        differ = si != psi
+        assert torch.allclose(sd, psd, rtol=1e-5) and torch.allclose(
+            sd[differ], psd[differ], rtol=1e-5), f"K4m {what}: selection"
+        ms = cuda_ms(lambda: kchisq.chisq_matrix(a, b, m), 20)
+        dev_ms = device_ms(lambda: kchisq.chisq_matrix(a, b, m),
+                           "chisq_kernel", 20)
+        pms = cuda_ms(lambda: kchisq.chisq_matrix_plain(a, b, m), 3)
+        ops = a.shape[0] * b.shape[0] * (a.shape[1] * CHISQ_TERM_OPS + 1)
+        b_ms, by = bound(nbytes(a, b, m, d), ops)
+        print(f"{'chisq_matrix':20s} {what} Q={a.shape[0]} C={b.shape[0]} "
+              f"D={a.shape[1]} (k={k}): kernel {ms:.4f} ms, device "
+              f"{fmt_ms(dev_ms)}, plain {pms:.3f} "
+              f"ms, bound {b_ms:.4f} ms by {by}; rtol {rel:.2e}, "
+              f"{int(differ.sum())} tied indices differ; two launches "
+              f"bit-equal ({card})")
+    fk, ik = kchisq.chisq_topk(fd, fd, ones, 3)
+    pk, pik = kchisq.chisq_topk_plain(fd, fd, ones, 3)
+    assert torch.allclose(fk, pk, rtol=1e-5) and \
+        torch.equal(ik[~torch.isclose(fk, pk)], pik[~torch.isclose(fk, pk)])
+    k4_ms = cuda_ms(lambda: kchisq.chisq_topk(fd, fd, ones, 3), 20)
+    k4_dev = device_ms(lambda: kchisq.chisq_topk(fd, fd, ones, 3),
+                       "chisq_kernel", 20)
+    k4_plain = cuda_ms(lambda: kchisq.chisq_topk_plain(fd, fd, ones, 3), 3)
+    b_ms, by = bound(nbytes(fd, fd, ones, fk, ik), fd.shape[0] ** 2 * (
+        fd.shape[1] * CHISQ_TERM_OPS + 1))
+    print(f"{'chisq_topk':20s} ranker self-kNN k=3 Q=C={fd.shape[0]}: "
+          f"{k4_ms:.4f} ms, device {fmt_ms(k4_dev)}, plain {k4_plain:.4f} "
+          f"ms, bound {b_ms:.4f} ms by {by}; equal to its twin within rtol "
+          f"1e-5 ({card})")
+
+    # one keypoint at each bench training cloud's centroid, radius = the
+    # cloud radius: K1 / K2 (LRF, ReferenceFrameRadius 1.0), K7, K8, K9
+    gpts = t(train_pts)
+    gmask = torch.ones(gpts.shape[:2], dtype=torch.bool, device=dev)
+    gnrm = compute_normals(gpts, gmask, 0.25, 2).normals.contiguous()
+    grgb = t(bench_colors(train_pts))
+    lab = rgb_to_cielab_normalized(grgb).contiguous()
+    for r in range(len(train_pts)):
+        c = train_pts[r].mean(axis=0).astype(np.float32)
+        radius = float(np.linalg.norm(train_pts[r] - c, axis=1).max())
+        kp = t(c[None, None])
+        kpm = torch.ones((1, 1), dtype=torch.bool, device=dev)
+        p, msk, nr = gpts[r:r + 1], gmask[r:r + 1], gnrm[r:r + 1]
+        # K1 and K2 as shot_lrf launches them: on the centroid-shifted
+        # cloud, the votes along the axes of the K1 covariance
+        q, ps = klrf.prep_shift(kp, p, msk)
+        mom, cnt = klrf.moments(q, ps, msk, 1.0)
+        pmom, pcnt = klrf.moments_plain(q, ps, msk, 1.0)
+        assert torch.equal(cnt, pcnt) and torch.allclose(
+            mom, pmom, rtol=2e-4, atol=5e-4), "K1 at the centroid"
+        cov, _ = klrf.cov_from_moments(mom, q, kpm)
+        _, vecs = eigh3x3(cov)
+        axes = torch.cat([vecs[..., :, 2], vecs[..., :, 0]], -1).contiguous()
+        v = klrf.sign_votes(q, ps, msk, axes, 1.0)
+        pv = klrf.sign_votes_plain(q, ps, msk, axes, 1.0)
+        verr = int((v - pv).abs().max())
+        assert verr <= 1, f"K2 at the centroid: votes off by {verr}"
+        lrf = shot_lrf(kp, kpm, p, msk, 1.0)
+        fr, live = lrf.frames.contiguous(), lrf.valid.contiguous()
+        h, n = kshot.shot_dense(kp, fr, live, p, nr, msk, radius)
+        ph, pn = kshot.shot_dense_plain(kp, fr, live, p, nr, msk, radius)
+        assert torch.equal(n, pn) and torch.allclose(h, ph, atol=1e-3), \
+            "K7 at the centroid"
+        kl = rgb_to_cielab_normalized(t(bench_colors(train_pts[r]).mean(
+            axis=0)[None, None])).contiguous()
+        h8, n8 = ksh.cshot_hist(kp, kl, fr, live, p, nr, lab[r:r + 1], msk,
+                                radius)
+        ph8, pn8 = ksh.cshot_hist_plain(kp, kl, fr, live, p, nr,
+                                        lab[r:r + 1], msk, radius)
+        assert torch.equal(n8, pn8) and torch.allclose(h8, ph8, atol=1e-3), \
+            "K8 at the centroid"
+        h9 = khist.short_shot_hist(kp, fr, live, p, msk, radius)
+        ph9 = khist.short_shot_hist_plain(kp, fr, live, p, msk, radius,
+                                          2, 2, 8)
+        assert torch.allclose(h9, ph9, atol=1e-3), "K9 at the centroid"
+        if r == 0:
+            # (name, kernel, launch, plain twin, bytes, operations)
+            inside = int(cnt.sum())
+            calls = (
+                ("K1", "MomentsBody",
+                 lambda: klrf.moments(q, ps, msk, 1.0),
+                 lambda: klrf.moments_plain(q, ps, msk, 1.0),
+                 nbytes(q, ps, msk, mom, cnt),
+                 inside * (GATE_OPS + MOMENT_BODY_OPS)),
+                ("K2", "VotesBody",
+                 lambda: klrf.sign_votes(q, ps, msk, axes, 1.0),
+                 lambda: klrf.sign_votes_plain(q, ps, msk, axes, 1.0),
+                 nbytes(q, ps, msk, axes, v),
+                 inside * (GATE_OPS + 2 * VOTE_BODY_OPS)),
+                ("K7", "DenseTiles",
+                 lambda: kshot.shot_dense(kp, fr, live, p, nr, msk, radius),
+                 lambda: kshot.shot_dense_plain(kp, fr, live, p, nr, msk,
+                                                radius),
+                 nbytes(kp, fr, live, p, nr, msk, h, n),
+                 int(n.sum()) * (GATE_OPS + SHOT_BODY_OPS)),
+                ("K8", "cshot_hist_kernel",
+                 lambda: ksh.cshot_hist(kp, kl, fr, live, p, nr,
+                                        lab[r:r + 1], msk, radius),
+                 lambda: ksh.cshot_hist_plain(kp, kl, fr, live, p, nr,
+                                              lab[r:r + 1], msk, radius),
+                 nbytes(kp, kl, fr, live, p, nr, lab[r:r + 1], msk, h8, n8),
+                 int(n8.sum()) * (GATE_OPS + CSHOT_BODY_OPS)),
+                ("K9", "short_shot_hist_kernel",
+                 lambda: khist.short_shot_hist(kp, fr, live, p, msk, radius),
+                 lambda: khist.short_shot_hist_plain(kp, fr, live, p, msk,
+                                                     radius, 2, 2, 8),
+                 nbytes(kp, fr, live, p, msk, h9),
+                 int(n.sum()) * (GATE_OPS + SHORT_SHOT_BODY_OPS)))
+            print(f"global descriptor at one keypoint, radius {radius:.3f} "
+                  f"(every point of the cloud in it: K7 count {int(n)} of "
+                  f"{p.shape[1]}; K1 / K2 at ReferenceFrameRadius 1.0, "
+                  f"{inside} points in it) ({card}):")
+            for name, kernel, fn, plain_fn, nb, ops in calls:
+                b_ms, by = bound(nb, ops)
+                print(f"  {name}: {cuda_ms(fn, 20):.4f} ms a launch, device "
+                      f"{fmt_ms(device_ms(fn, kernel, 20))}, plain twin "
+                      f"{cuda_ms(plain_fn, 3):.4f} ms, bound {b_ms:.6f} ms "
+                      f"by {by}", flush=True)
+        assert int(n) >= p.shape[1] - 1, "the global radius misses points"
+    print(f"K1, K2 (votes within +-1), K7, K8, K9 at one keypoint a cloud "
+          f"(radius = the cloud radius) equal to their twins on the "
+          f"{len(train_pts)} bench training clouds")
+
+    # -- the pieces each configuration changes, vs the JAX-CPU reference ----
+    pos, size, quat = (x.cpu().numpy() for x in compute_mvbb_batch(
+        gpts, gmask))
+    corner = np.array([[sx, sy, sz] for sx in (-.5, .5) for sy in (-.5, .5)
+                       for sz in (-.5, .5)], np.float32)
+
+    def corners(p_, s_, q_):
+        return (corner * s_) @ quat_to_matrix_np(q_) + p_
+
+    for r in range(len(train_pts)):
+        w = (tref["mvbb_position"][r], tref["mvbb_size"][r],
+             tref["mvbb_quat"][r])
+        ext = float(w[1].max())
+        assert np.allclose(np.sort(size[r]), np.sort(w[1]), rtol=1e-4)
+        assert np.abs(corners(pos[r], size[r], quat[r])
+                      - corners(*w)).max() <= 1e-4 * ext, f"MVBB {r}"
+    print(f"MVBB of the {len(train_pts)} bench training clouds: sizes within "
+          f"rtol 1e-4 and corners within 1e-4 x extent of the JAX-CPU boxes; "
+          f"quaternion max |delta| up to sign "
+          f"{float(np.minimum(np.abs(quat - tref['mvbb_quat']), np.abs(quat + tref['mvbb_quat'])).max()):.2e}")
+
+    sor = TRAIN_CONFIGS["sor"]
+    mls = TRAIN_CONFIGS["mls"]
+    flips, moved, close = 0, 0.0, []
+    for r in range(len(train_pts)):
+        p, m = gpts[r], gmask[r]
+        k = pp.statistical_outlier_removal(
+            p, m, sor["Parameters.OutlierRemovalMeanK"],
+            sor["Parameters.OutlierRemovalStddevMul"])
+        removed = 1 - float(k.float().mean())
+        k = pp.z_cutoff(p, k, sor["Parameters.CutoffDistanceZAxis"])
+        flips += int((k.cpu().numpy() != tref["sor_keep"][r]).sum())
+        sm = pp.mls_smooth(p, m, mls["Parameters.SmoothingRadius"])
+        err = (sm - t(tref["mls_xyz"][r])).abs().amax(1)
+        moved = max(moved, float(err.max()))
+        close.append(err <= 1e-5)
+        shift = float(((sm - p).norm(dim=1) > 1e-4).float().mean())
+        assert removed >= 0.01 and shift >= 0.01, \
+            f"a filter tests nothing: SOR removed {removed}, MLS moved {shift}"
+    # MLS: within 1e-5 but where the neighbourhood's PCA is ill-posed;
+    # there the fp32 moment identity of both packages is up to ~8e-5 off a
+    # float64 MLS (PERF.md), so 1e-4 bounds every point
+    share = float(torch.cat(close).float().mean())
+    assert flips <= 0.001 * train_pts.size // 3 and share >= 0.98 and \
+        moved <= 1e-4, f"preprocessing: {flips} keep flips, MLS max " \
+        f"|delta| {moved}, {100 * share:.2f}% within 1e-5"
+    print(f"SOR + z cut-off keep masks: {flips} points differ from the "
+          f"JAX-CPU masks; MLS positions within 1e-5 on {100 * share:.2f}%, "
+          f"max |delta| {moved:.2e}")
+
+    for name in RANKERS:
+        cfg = train_config(name)["ObjectConfig"]["Children"][
+            "FeatureWeighting"]
+        params = RankingParams.from_config(ComponentConfig.from_json(cfg))
+        keep = rank_features(feats, feat_cls, feat_cdist, params, dev)
+        diff = int((keep != tref["rank_" + name]).sum())
+        print(f"ranker {name}: keep mask of {keep.sum()} / {len(keep)} "
+              f"features, {diff} differ from the JAX-CPU mask")
+        assert diff == 0, f"{name}'s keep mask differs"
+
+    got = {}
+    for route, device in (("K4m", dev), ("plain twin", torch.device("cpu"))):
+        c, a = kmeans(feats, tref["kmeans_seeds"].shape[0], "chisq", 100,
+                      device=device, init_centers=tref["kmeans_seeds"])
+        got[route] = (c, a)
+        agree = float((a == tref["kmeans_assign"]).mean())
+        crel = float(np.abs(c - tref["kmeans_centers"]).max()
+                     / np.abs(tref["kmeans_centers"]).max())
+        print(f"KMeansCount 256 from JAX's seeds, Lloyd through {route}: "
+              f"assignments equal on {100 * agree:.2f}%, centres max "
+              f"|delta| / max {crel:.2e}")
+        assert agree == 1.0 and crel <= 1e-4, f"k-means ({route})"
+    max_k = TRAIN_CONFIGS["kmeans_hartigan"]["Children.Clustering"][
+        "Parameters"]["MaxK"]
+    seeds = np.split(tref["hartigan_seeds"], np.cumsum(np.arange(1, max_k)))
+    c, a = kmeans_hartigan(feats, max_k, "chisq", 100, dev, seeds)
+    assert c.shape == tref["hartigan_centers"].shape and \
+        np.array_equal(a, tref["hartigan_assign"]) and np.allclose(
+            c, tref["hartigan_centers"], rtol=1e-4, atol=1e-6), "Hartigan"
+    print(f"KMeansHartigan (MaxK {max_k}) from JAX's seeds: k = {len(c)} as "
+          f"JAX's, assignments equal, centres within rtol 1e-4")
+
+    ref_svm = SVMModel.from_arrays(_Prefixed(tref, "ref_"))
+    gdesc, gcls = tref["glob_cshot_global"], tref["glob_cls_cshot_global"]
+    svm = train_svm(gdesc, gcls, one_vs_all=False, auto_train=True)
+    same = all(np.allclose(x.sv, y.sv) and np.allclose(x.coeffs, y.coeffs)
+               and abs(x.b - y.b) < 1e-9 and x.gamma == y.gamma
+               for x, y in zip(svm.binaries, ref_svm.binaries))
+    assert same and len(svm.binaries) == len(ref_svm.binaries), "SVM"
+    print(f"SVM auto-trained on JAX's {len(gdesc)} CSHOT_GLOBAL descriptors: "
+          f"the reference's (C, gamma), support vectors and coefficients")
+
+    # -- each configuration's training ---------------------------------------
+    tmp = tempfile.mkdtemp(prefix="pcd_smoke_train9b_")
+    try:
+        def files(clouds, cls, prefix, colours=False, normals=None):
+            out = []
+            for i, (cloud, c) in enumerate(zip(clouds, cls)):
+                path = os.path.join(tmp, f"{prefix}{i}.pcd")
+                save_pcd(path, cloud, binary=True,
+                         rgb=bench_colors(cloud) if colours else None,
+                         normals=None if normals is None else normals[i])
+                out.append((path, int(c)))
+            return out
+
+        plain = files(train_pts, train_cls, "s")
+        gnrm_np = gnrm.cpu().numpy()
+        with_normals = files(train_pts, train_cls, "n", normals=gnrm_np)
+        coloured_views = files(views, view_labels, "v", colours=True)
+        plain_views = files(views, view_labels, "w")
+
+        def state_arrays(ism):
+            st = ism.state
+            out = {"cb_" + k: np.asarray(v)
+                   for k, v in st.codebook._asdict().items()}
+            out["dims"] = np.array([st.dims_map[k] for k in sorted(
+                st.dims_map)] + [st.variance_map[k] for k in sorted(
+                    st.variance_map)])
+            if st.global_descriptors is not None:
+                out["glob"] = st.global_descriptors
+            if st.svm is not None:
+                out.update(st.svm.to_arrays())
+            return out
+
+        def compare_codebook(cb, want, what):
+            """The training contract against a committed codebook."""
+            assert cb.codewords.shape == want["cb_codewords"].shape and \
+                np.array_equal(cb.vote_class, want["cb_vote_class"]), what
+            live = cb.cw_mask
+            x, y = cb.codewords[live], want["cb_codewords"][live]
+            cos = (x * y).sum(1) / np.maximum(np.linalg.norm(
+                x, axis=1) * np.linalg.norm(y, axis=1), 1e-30)
+            share = float((cos > 0.999).mean()) if live.any() else 1.0
+            srel = float(np.abs(cb.class_sigma / want["cb_class_sigma"]
+                                - 1).max())
+            print(f"{what} vs the committed JAX-trained codebook: cosine "
+                  f"> 0.999 on {100 * share:.2f}% of {int(live.sum())} "
+                  f"codewords, class sigma max relative delta {srel:.3e}")
+            assert share >= 0.97 and srel <= 5e-2, f"{what} differs"
+
+        def run(cfg, items, path):
+            ism = ImplicitShapeModel(IsmConfig.from_json(cfg), dev)
+            for p, c in items:
+                ism.add_training_model(p, c, c)
+            torch.cuda.synchronize()
+            build.reset_launch_counts()
+            t0 = time.perf_counter()
+            ism.train()
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            if path is not None:
+                got = build.launch_counts()
+                missing = [k for k in PATH_KERNELS[path] if got[k] == 0]
+                assert not missing, \
+                    f"kernels not launched by the {path} path: {missing}"
+                launches[path] = got
+            return ism, dt
+
+        def served(ism):
+            cb = Codebook.from_numpy(ism.state.codebook._asdict()).to(dev)
+            model = IsmClassifier(
+                cb, PipelineConfig.from_ism(ism.config, cb.num_classes,
+                                            keypoint_capacity=192),
+                CodebookParams.from_config(ism.config.child("Codebook")))
+            with torch.no_grad():
+                return model(pts, mask).cpu().numpy()
+
+        summary = {}
+        for name in ("normals",) + tuple(TRAIN_CONFIGS):
+            cfg = train_config(name) if name in TRAIN_CONFIGS \
+                else copy.deepcopy(BENCH_CONFIG)
+            if name == "cache":
+                cfg["ObjectConfig"]["Parameters"]["CacheFeaturesFolder"] = \
+                    os.path.join(tmp, "cache")
+            items = coloured_views if name in GLOBALS else \
+                with_normals if name == "normals" else plain
+            path = "train_" + name
+            what = TRAIN_CONFIGS.get(name, "the files carry normals")
+            phase(f"9b. training: {name} ({what}) ({card})")
+            # k-means from the features JAX's training seeded at
+            seeded = seeded_kmeans(split_seeds(
+                tref["train_seeds_" + name], tref["train_seed_ks_" + name])) \
+                if "train_seeds_" + name in tref.files \
+                else contextlib.nullcontext()
+            with seeded:
+                ism, dt = run(cfg, items, path)
+                twice, _ = run(cfg, items, None)
+            if name == "cache":
+                again = build.launch_counts()
+                print(f"cache: the second run read every file's features "
+                      f"from the cache; its launches {again}")
+                assert again["shot_dense"] == 0, "the cache was not read"
+            a, b = state_arrays(ism), state_arrays(twice)
+            differ = [k for k in a if not np.array_equal(a[k], b[k])]
+            assert not differ and sorted(a) == sorted(b), \
+                f"{name}: two trainings differ in {differ}"
+            count = ism.state.codebook.num_codewords
+            per = {k: round(v * 1e3 / len(items), 3)
+                   for k, v in ism.processing_times.items()}
+            print(f"{name}: {len(items)} clouds in {dt:.3f} s, {count} "
+                  f"codewords; two runs bit-equal; launches "
+                  f"{launches[path]}; train_* ms per cloud: {per}")
+            if "count_" + name in tref.files:
+                want = int(tref["count_" + name])
+                print(f"{name}: the JAX-CPU training has {want} codewords")
+                assert count == want, f"{name}: codeword count"
+            if "train_seeds_" + name in tref.files:
+                cb = ism.state.codebook
+                for field in ("cw_mask", "vote_mask", "vote_class",
+                              "vote_instance"):
+                    assert np.array_equal(getattr(cb, field),
+                                          tref[f"cb_{name}_{field}"]), \
+                        f"{name}: {field} differs from JAX's"
+                compare_codebook(cb, {
+                    "cb_" + k: tref[f"cb_{name}_{k}"]
+                    for k in ("codewords", "vote_class", "class_sigma")},
+                    f"{name} from JAX's seeds")
+            if name == "mvbb":
+                for r, box in enumerate(ism.boxes):
+                    assert np.allclose(np.sort(box.size),
+                                       np.sort(tref["mvbb_size"][r]),
+                                       rtol=1e-4), "MVBB in training"
+            if name == "normals":
+                fused, _ = run(cfg, plain, None)
+                fa = state_arrays(fused)
+                differ = [k for k in fa if not np.array_equal(fa[k], a[k])]
+                print(f"normals from the files (staged route) vs computed "
+                      f"(fused route), same values: fields that differ "
+                      f"{differ}")
+                compare_codebook(ism.state.codebook, committed,
+                                 "the staged route's codebook")
+            if name == "normals_m3":
+                check_decisions(served(ism), tref["scores_normals_m3"],
+                                labels, "JAX-CPU method-3 reference",
+                                require_accuracy=False)
+            if name in GLOBALS:
+                g, w = ism.state.global_descriptors, tref["glob_" + name]
+                assert g.shape == w.shape and np.array_equal(
+                    ism.state.global_classes, tref["glob_cls_" + name])
+                cos = (g * w).sum(1) / np.maximum(np.linalg.norm(
+                    g, axis=1) * np.linalg.norm(w, axis=1), 1e-30)
+                print(f"{name}: {len(g)} global descriptors, cosine to "
+                      f"JAX-CPU's min {cos.min():.6f}")
+                assert cos.min() > 0.999, f"{name}'s global descriptors"
+            if ism.state.svm is not None:
+                svm = ism.state.svm
+                got_p = [(round(x.gamma, 6), len(x.coeffs))
+                         for x in svm.binaries]
+                want_p = [(round(x.gamma, 6), len(x.coeffs))
+                          for x in ref_svm.binaries]
+                pred = np.array([svm.predict(d)[0] for d in
+                                 ism.state.global_descriptors])
+                print(f"SVM: (gamma, support vectors) {got_p}; JAX-CPU "
+                      f"{want_p}; predictions equal JAX's on "
+                      f"{int((pred == tref['svm_pred']).sum())}/{len(pred)}")
+                assert [g for g, _ in got_p] == [g for g, _ in want_p] and \
+                    np.array_equal(pred, tref["svm_pred"]), "SVM differs"
+            if name != "normals":
+                views_items = coloured_views if name in GLOBALS \
+                    else plain_views
+                run(cfg, views_items, None)        # warm
+                ism, dt = run(cfg, views_items, None)
+                summary[name] = round(len(views_items) / dt, 2)
+                per = {k: round(v * 1e3 / len(views_items), 3)
+                       for k, v in ism.processing_times.items()}
+                print(f"{name}: training throughput {summary[name]} "
+                      f"clouds/s over {len(views_items)} views ({card}); "
+                      f"train_* ms per cloud: {per}")
+        print(json.dumps({"training_clouds_per_s": summary}))
+
+        # -- the shipped configs, verbatim, on views at their units --------
+        for shipped, scale, colours in (("quickstart", 70.0, False),
+                                        ("default", 0.3, True)):
+            phase(f"9b. train.py on configs/{shipped}.ism as shipped ({card})")
+            items = files(views * np.float32(scale), view_labels,
+                          shipped[0], colours=colours)
+            flist = os.path.join(tmp, f"{shipped}.txt")
+            with open(flist, "w") as f:
+                f.write("\n".join(["# train"] + [f"{p} {c}"
+                                                 for p, c in items]) + "\n")
+            out = io.StringIO()
+            build.reset_launch_counts()
+            with contextlib.redirect_stdout(out):
+                rc = train_cli.main([
+                    "-t", os.path.join(HERE, "configs", f"{shipped}.ism"),
+                    "-f", flist, "-o", os.path.join(tmp, shipped),
+                    "--device", str(dev)])
+            print(out.getvalue().rstrip())
+            assert rc == 0, f"train.py on {shipped}.ism failed"
+            got = build.launch_counts()
+            missing = [k for k in PATH_KERNELS["shipped_" + shipped]
+                       if got[k] == 0]
+            assert not missing, f"{shipped}.ism: not launched {missing}"
+            launches["shipped_" + shipped] = got
+            with np.load(os.path.join(tmp, shipped + ".ismd.npz")) as z:
+                assert z["cb_cw_mask"].sum() > 0
+                if shipped == "default":
+                    assert "glob_desc" in z.files and "svm_mode" in z.files
+    finally:
+        shutil.rmtree(tmp)
+
+
+class _Prefixed:
+    """The arrays of an npz whose names start with a prefix, under their
+    names without it (SVMModel.from_arrays reads such a mapping)."""
+
+    def __init__(self, z, prefix):
+        self.z, self.prefix = z, prefix
+        self.files = [k[len(prefix):] for k in z.files if k.startswith(prefix)]
+
+    def __getitem__(self, key):
+        return self.z[self.prefix + key]
 
 
 def served_model(data, name, dev, **overrides):

@@ -24,7 +24,7 @@ from __future__ import annotations
 import math
 import os
 from dataclasses import dataclass
-from typing import Dict, List, Mapping, NamedTuple, Tuple
+from typing import Dict, List, Mapping, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -445,6 +445,7 @@ def train_codebook(
         params: CodebookParams,
         metric: str,
         descriptor_rows: torch.Tensor,          # [F, D] on the device
+        codeword_rows: Optional[torch.Tensor] = None,  # [C, D] on the device
         ) -> TrainedCodebook:
     """Codebook training (the JAX ``train_codebook``, codebook.cpp:64-365):
     one activation of every model's features (:func:`training_activation`),
@@ -454,9 +455,10 @@ def train_codebook(
     SHOT is a detection option; training ignores it, as the JAX package
     does.
     `descriptor_rows` are every model's descriptors, concatenated in model
-    order, as the extraction left them on the device. Under Clustering
-    None they are also the codewords, so the activation is their
-    self-kNN."""
+    order, as the extraction left them on the device; `codeword_rows` are
+    `codeword_data` on the device.  Without `codeword_rows` the
+    descriptors are also the codewords (Clustering None), and the
+    activation is their self-kNN."""
     num_models = len(features_per_model)
     assert num_models == len(class_per_model) == len(boxes_per_model)
     classes = sorted(set(class_per_model))
@@ -466,13 +468,17 @@ def train_codebook(
 
     # step 0: one activation over every model's features
     sizes = [fs.descriptors.shape[0] for fs in features_per_model]
-    assert tuple(descriptor_rows.shape) == codeword_data.shape == \
-        (sum(sizes), codeword_data.shape[1]), \
-        (tuple(descriptor_rows.shape), codeword_data.shape, sum(sizes))
+    if codeword_rows is None:
+        codeword_rows = descriptor_rows
+    assert tuple(descriptor_rows.shape) == (sum(sizes),
+                                            codeword_data.shape[1]) and \
+        tuple(codeword_rows.shape) == codeword_data.shape, \
+        (tuple(descriptor_rows.shape), tuple(codeword_rows.shape),
+         codeword_data.shape, sum(sizes))
     act_nonzero = [i for i, s in enumerate(sizes) if s]
     act_per_model: Dict[int, Tuple[np.ndarray, np.ndarray]] = {}
     if act_nonzero:
-        all_d, all_i = training_activation(descriptor_rows, descriptor_rows,
+        all_d, all_i = training_activation(descriptor_rows, codeword_rows,
                                            params, metric)
         off = 0
         for i in act_nonzero:

@@ -119,7 +119,15 @@ class PipelineConfig(NamedTuple):
     def from_ism(cls, config: IsmConfig, num_classes: int,
                  **overrides) -> "PipelineConfig":
         """From an ``.ism`` config, with the reference's defaults, as the
-        JAX serve CLI builds its JitPipelineConfig."""
+        JAX serve CLI builds its JitPipelineConfig.  A model that asks for
+        the global-feature verification (Voting.UseGlobalFeatures) is
+        refused: its classifier (JAX models/classifier.py) is ROADMAP A13,
+        and serving without it would give other decisions than the JAX
+        package's."""
+        if config.child("Voting").get("UseGlobalFeatures", False):
+            raise NotImplementedError(
+                "Voting.UseGlobalFeatures: the global-feature verification "
+                "(JAX models/classifier.py) is not ported (ROADMAP A13)")
         feat = config.child("Features")
         root = config.root
         return cls(

@@ -1,8 +1,10 @@
 """Quaternion helpers of the vote-casting tail (port of the
 ``matrix_to_quat`` / ``quat_multiply`` pair of
-point_cloud_donkey_tpu/ops/geometry.py), batched over leading dims, and the
+point_cloud_donkey_tpu/ops/geometry.py), batched over leading dims, the
 numpy forms that codebook training runs on the host
-(``matrix_to_quat_batch_np``, ``quat_multiply_np``, ``quat_to_matrix_np``).
+(``matrix_to_quat_batch_np``, ``quat_multiply_np``, ``quat_to_matrix_np``),
+``quat_rotate`` / ``quat_rotate_inv`` and the training boxes' MVBB
+(``compute_mvbb``, batched: :func:`compute_mvbb_batch`).
 """
 
 from __future__ import annotations
@@ -125,3 +127,111 @@ def quat_to_matrix_np(q: np.ndarray) -> np.ndarray:
         [2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)],
         [2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)],
     ], dtype=np.float32)
+
+
+def quat_rotate(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Rotate v [..., 3] by the quaternion q [..., 4] (q v q*,
+    Utils::quatRotate, utils.cpp:568-574)."""
+    w, qv = q[..., 0], q[..., 1:]
+    t = 2.0 * torch.linalg.cross(qv, v)
+    return v + w[..., None] * t + torch.linalg.cross(qv, t)
+
+
+def quat_rotate_inv(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """q* v q (Utils::quatRotateInv, utils.cpp:560-566)."""
+    conj = q * torch.tensor([1.0, -1.0, -1.0, -1.0], dtype=q.dtype,
+                            device=q.device)
+    return quat_rotate(conj, v)
+
+
+MVBB_ANGLES = 32
+# clouds a caller hands compute_mvbb_batch at once: its sweep holds
+# [B, 3 * MVBB_ANGLES, N] coordinates
+MVBB_CHUNK = 16
+
+
+def _eigh_host(cov: np.ndarray) -> np.ndarray:
+    """Eigenvectors (columns, ascending eigenvalues) of symmetric 3x3
+    matrices [B, 3, 3], float32, through LAPACK's ssyevd on the host (the
+    lower triangle of the symmetrised matrix): the routine and library
+    (scipy's) that the JAX package's CPU ``jnp.linalg.eigh`` calls, so
+    each eigenvector comes with JAX's sign.
+    The sign fixes the box's quaternion; torch's own LAPACK build picks
+    the other sign for ~15% of seeded matrices."""
+    from scipy.linalg import lapack
+    cov = np.asarray(cov, np.float32)
+    sym = ((cov + np.swapaxes(cov, 1, 2)) / np.float32(2)).astype(np.float32)
+    out = []
+    for m in sym:
+        _, vecs, info = lapack.ssyevd(m, compute_v=1, lower=1)
+        if info != 0:
+            raise np.linalg.LinAlgError(f"ssyevd failed (info {info})")
+        out.append(vecs)
+    return np.stack(out).astype(np.float32)
+
+
+def _candidate_rotations(base: np.ndarray, n_angles: int) -> np.ndarray:
+    """[B, 3 * n_angles, 3, 3] candidate frames (rows = axes): for each
+    principal axis k of `base` [B, 3, 3], the other two axes turned about it
+    by n_angles angles in [0, pi/2), in the JAX ``compute_mvbb``'s order and
+    float32 arithmetic."""
+    angles = (np.arange(n_angles, dtype=np.float32)
+              * np.float32(np.pi / 2 / n_angles)).astype(np.float32)
+    cos, sin = np.cos(angles), np.sin(angles)
+    out = []
+    for k in range(3):
+        i, j = (k + 1) % 3, (k + 2) % 3
+        ai, aj, ak = base[:, None, i], base[:, None, j], base[:, None, k]
+        rows = [None, None, None]
+        rows[k] = np.broadcast_to(ak, (base.shape[0], n_angles, 3))
+        rows[i] = cos[None, :, None] * ai + sin[None, :, None] * aj
+        rows[j] = -sin[None, :, None] * ai + cos[None, :, None] * aj
+        out.append(np.stack(rows, axis=2))
+    return np.concatenate(out, axis=1).astype(np.float32)
+
+
+def _extents(points: torch.Tensor, mask: torch.Tensor, rot: torch.Tensor):
+    """(min, max) [B, R, 3] of the masked points [B, N, 3] in each frame of
+    rot [B, R, 3, 3], one axis at a time."""
+    inf = torch.tensor(float("inf"), dtype=points.dtype, device=points.device)
+    m = mask[:, None, :]
+    lo, hi = [], []
+    for a in range(3):
+        r = rot[:, :, a, :]                                    # [B, R, 3]
+        c = (points[:, None, :, 0] * r[..., 0:1]
+             + points[:, None, :, 1] * r[..., 1:2]
+             + points[:, None, :, 2] * r[..., 2:3])            # [B, R, N]
+        lo.append(torch.where(m, c, inf).amin(-1))
+        hi.append(torch.where(m, c, -inf).amax(-1))
+    return torch.stack(lo, -1), torch.stack(hi, -1)
+
+
+def compute_mvbb_batch(points: torch.Tensor,   # [B, N, 3]
+                       mask: torch.Tensor):    # [B, N]
+    """Approximate minimum-volume boxes (the JAX ``compute_mvbb``, batched):
+    the PCA frame of each cloud (eigenvectors from ``_eigh_host``), then
+    3 x MVBB_ANGLES in-plane rotations about its axes, the smallest-volume
+    candidate kept (the first of equal volumes) -- one masked min / max
+    sweep over every candidate of every cloud on the device (callers pass
+    at most MVBB_CHUNK clouds).  Returns (position [B, 3],
+    the centre rotated back to the world by ``quat_rotate_inv``; size
+    [B, 3]; quat [B, 4], rotating world -> box)."""
+    m = mask.to(points.dtype)
+    c = (points * m[..., None]).sum(1) \
+        / torch.clamp(m.sum(1), min=1.0)[:, None]
+    centered = points - c[:, None, :]
+    cm = centered * m[..., None]
+    cov = torch.einsum("bni,bnj->bij", cm, centered) \
+        / torch.clamp(m.sum(1), min=1.0)[:, None, None]
+    base = np.swapaxes(_eigh_host(cov.cpu().numpy()), 1, 2)
+    cands = torch.from_numpy(_candidate_rotations(base, MVBB_ANGLES)).to(
+        points.device)
+    lo, hi = _extents(centered, mask, cands)
+    ext = hi - lo
+    vol = ext[..., 0] * ext[..., 1] * ext[..., 2]               # [B, R]
+    best = cands[torch.arange(vol.shape[0], device=vol.device),
+                 torch.argmin(vol, dim=1)]                      # [B, 3, 3]
+    lo, hi = _extents(points, mask, best[:, None])
+    size = (hi - lo)[:, 0]
+    quat = matrix_to_quat(best)
+    return quat_rotate_inv(quat, lo[:, 0] + size / 2.0), size, quat

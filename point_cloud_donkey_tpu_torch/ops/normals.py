@@ -1,13 +1,13 @@
 """Normals (port of ``compute_normals_fast``, ``pca_normals_at``,
 ``orient_towards_viewpoint``, ``orient_away_from_centroid``,
-``compute_normals_at`` and ``compute_normals`` of
+``compute_normals_at``, ``compute_normals`` and ``orient_emst`` of
 point_cloud_donkey_tpu/ops/normals.py), batched over B.
 
 ConsistentNormalsMethod 0 orients the PCA normal towards the viewpoint
 (the origin), 1 away from the cloud's masked centroid, 2 takes the inverted
 z axis of each point's SHOT LRF (PCA where it is invalid); any other method
-(3's EMST orientation is a host step of the training route) is the PCA
-normal as it comes, as in the JAX serving step.  The PCA runs on the
+(3's EMST orientation, :func:`orient_emst`, is a host step of the staged
+training route) is the PCA normal as it comes, as in the JAX serving step.  The PCA runs on the
 moment identity in full fp32 (ops/neighbors.radius_covariance), as the JAX
 package computes it in XLA."""
 
@@ -15,6 +15,9 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import heapq
+
+import numpy as np
 import torch
 
 from .eigh3 import eigh3x3
@@ -121,3 +124,49 @@ def compute_normals(points: torch.Tensor,  # [B, N, 3]
     """:func:`compute_normals_at` at every point of the clouds."""
     return compute_normals_at(points, mask, points, mask, radius, method,
                               lrf_version)
+
+
+def orient_emst(points: np.ndarray, normals: np.ndarray,
+                k: int = 10) -> np.ndarray:
+    """ConsistentNormalsMethod 3 (the JAX ``orient_emst``): Hoppe-style
+    orientation over a Euclidean MST of one cloud on the host -- Prim's
+    tree over the kNN graph with edge weight 1 - |n_i . n_j|, grown from
+    the highest point (oriented +z), each normal flipped to agree with its
+    parent's.  Components the graph does not reach keep their normals."""
+    pts = np.asarray(points)
+    nrm = np.asarray(normals).copy()
+    n = len(pts)
+    if n == 0:
+        return nrm
+    if n <= 4096:
+        d2 = ((pts[:, None, :] - pts[None, :, :]) ** 2).sum(-1)
+        idxs = np.argpartition(d2, min(k + 1, n - 1), axis=1)[:, :k + 1]
+    else:
+        idxs = np.empty((n, k + 1), np.int64)
+        for i0 in range(0, n, 1024):
+            dd = ((pts[i0:i0 + 1024, None, :] - pts[None, :, :]) ** 2).sum(-1)
+            idxs[i0:i0 + 1024] = np.argpartition(dd, k + 1, axis=1)[:, :k + 1]
+    root = int(np.argmax(pts[:, 2]))
+    if nrm[root, 2] < 0:
+        nrm[root] = -nrm[root]
+    visited = np.zeros(n, bool)
+    visited[root] = True
+    heap = []
+    for j in idxs[root]:
+        j = int(j)
+        if j != root:
+            heapq.heappush(heap, (1.0 - abs(float(nrm[root] @ nrm[j])),
+                                  root, j))
+    while heap:
+        _, par, cur = heapq.heappop(heap)
+        if visited[cur]:
+            continue
+        visited[cur] = True
+        if nrm[par] @ nrm[cur] < 0:
+            nrm[cur] = -nrm[cur]
+        for j in idxs[cur]:
+            j = int(j)
+            if not visited[j]:
+                heapq.heappush(heap, (1.0 - abs(float(nrm[cur] @ nrm[j])),
+                                      cur, j))
+    return nrm

@@ -251,13 +251,17 @@ def read_cloud(path: str) -> PointCloud:
 
 
 def save_pcd(path: str, xyz: np.ndarray, binary: bool = False,
-             rgb: Optional[np.ndarray] = None) -> None:
-    """Write xyz [N, 3] (and rgb [N, 3] in [0, 1], packed as PCL's rgb
-    float, each channel truncated to 8 bits as the JAX package writes it)
-    as a PCD file (DATA ascii, or binary)."""
+             rgb: Optional[np.ndarray] = None,
+             normals: Optional[np.ndarray] = None) -> None:
+    """Write xyz [N, 3] (and normals [N, 3] as normal_x/y/z, and rgb [N, 3]
+    in [0, 1], packed as PCL's rgb float, each channel truncated to 8 bits
+    as the JAX package writes it) as a PCD file (DATA ascii, or binary)."""
     xyz = np.asarray(xyz, dtype=np.float32).reshape(-1, 3)
     n = len(xyz)
     fields, cols = "x y z", [xyz]
+    if normals is not None:
+        fields += " normal_x normal_y normal_z"
+        cols.append(np.asarray(normals, np.float32).reshape(n, 3))
     if rgb is not None:
         rgb8 = (np.clip(np.asarray(rgb, np.float32).reshape(n, 3), 0, 1)
                 * 255).astype(np.uint32)

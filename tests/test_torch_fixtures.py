@@ -121,3 +121,56 @@ def test_threshold_detection_reference_matches_the_jax_package():
                                    rtol=1e-5, atol=1e-5)
         np.testing.assert_allclose(pos, old["detect_positions_threshold"],
                                    rtol=1e-5, atol=1e-5)
+
+
+def test_train_reference_matches_the_jax_package():
+    """The committed training reference holds what each training
+    configuration changes; its quick parts -- the MVBBs, the SOR + z
+    cut-off keep masks, the MLS positions and the k-means seeds -- are
+    today's JAX package's (the rest takes minutes: torch_fixtures.py)."""
+    import jax.numpy as jnp
+    from bench_data import GLOBALS, RANKERS, TRAIN_CONFIGS
+    from point_cloud_donkey_tpu.models.clustering import kmeans
+    from point_cloud_donkey_tpu.models.features import pad_cloud
+    from point_cloud_donkey_tpu.models.ism import _mvbb_host_batch
+    from point_cloud_donkey_tpu.ops import preprocess as pp
+    from torch_fixtures import CODEBOOK, KMEANS_TRAININGS, TRAIN_REFERENCE
+    from bench_data import feature_centre_distances
+
+    train = bench_clouds(0)[0]
+    with np.load(TRAIN_REFERENCE) as old:
+        for name in RANKERS:
+            assert old["rank_" + name].shape == (458,)
+        for name in GLOBALS:
+            assert old["glob_" + name].shape[0] == 24
+        assert {"count_" + k for k in TRAIN_CONFIGS if k != "cache"} \
+            <= set(old.files)
+        for name in KMEANS_TRAININGS:
+            ks = old["train_seed_ks_" + name]
+            assert old["train_seeds_" + name].shape == (ks.sum(),)
+            assert old[f"cb_{name}_cw_mask"].sum() == old["count_" + name]
+        boxes = _mvbb_host_batch(list(train))
+        for key in ("position", "size", "quat"):
+            np.testing.assert_allclose(
+                np.stack([getattr(b, key) for b in boxes]),
+                old["mvbb_" + key], rtol=1e-6, atol=1e-6, err_msg=key)
+        sor = TRAIN_CONFIGS["sor"]
+        for r, pts in enumerate(train):
+            p, m = (jnp.asarray(x) for x in pad_cloud(pts))
+            k = pp.z_cutoff(p, pp.statistical_outlier_removal(
+                p, m, sor["Parameters.OutlierRemovalMeanK"],
+                sor["Parameters.OutlierRemovalStddevMul"]),
+                sor["Parameters.CutoffDistanceZAxis"])
+            np.testing.assert_array_equal(np.asarray(k)[:len(pts)],
+                                          old["sor_keep"][r])
+            np.testing.assert_allclose(
+                np.asarray(pp.mls_smooth(p, m, TRAIN_CONFIGS["mls"][
+                    "Parameters.SmoothingRadius"]))[:len(pts)],
+                old["mls_xyz"][r], atol=1e-6)
+        with np.load(CODEBOOK + "d.npz") as z:
+            desc, _, _ = feature_centre_distances(dict(z), train)
+        np.testing.assert_array_equal(
+            kmeans(desc, 256, "chisq", iterations=0)[0], old["kmeans_seeds"])
+        np.testing.assert_array_equal(
+            kmeans(desc, 3, "chisq", iterations=0)[0],
+            old["hartigan_seeds"][3:6])

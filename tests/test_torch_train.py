@@ -3,7 +3,7 @@ codebook's training half, the train entry point) against the JAX package's
 training on the CPU with PCD_TRAIN_FUSED=1 -- the route the JAX package
 trains on accelerators -- on 6 models of 3 classes, drawn as
 tests/test_train_fused.py draws them; a saved model loads in the JAX
-package; what the fused route cannot train is refused.
+package; what the port cannot train is refused.
 
 The models have 1024 points, not test_train_fused.py's 512: at 512, 10
 points of the 6 clouds have fewer than 3 points within NormalRadius, so
@@ -30,8 +30,6 @@ from point_cloud_donkey_tpu.models.ism import \
     ImplicitShapeModel as JaxIsm
 from point_cloud_donkey_tpu.ops import geometry as jgeo
 from point_cloud_donkey_tpu.utils.config import IsmConfig as JaxConfig
-from point_cloud_donkey_tpu.utils.io import PointCloud as JaxCloud
-from point_cloud_donkey_tpu.utils.io import save_pcd as jax_save_pcd
 from point_cloud_donkey_tpu_torch import serve, train
 from point_cloud_donkey_tpu_torch.kernels import build
 from point_cloud_donkey_tpu_torch.models import codebook as tcb
@@ -401,8 +399,8 @@ def test_train_cli_then_serve(model_files, tmp_path, capsys):
 def test_boxed_models_crop_to_their_box(model_files):
     """A model added with its box is cropped to it and votes for the box's
     centre: the box of a model's whole cloud (its AABB) trains the same
-    codebook as the model added alone; a crop below 500 points, which the
-    JAX package skips, is refused."""
+    codebook as the model added alone; a crop below 500 points is skipped,
+    as the JAX package skips it."""
     from point_cloud_donkey_tpu_torch.ops.geometry import BoundingBox
     from point_cloud_donkey_tpu_torch.utils.io import read_cloud
     path, cid = model_files[0]
@@ -424,9 +422,13 @@ def test_boxed_models_crop_to_their_box(model_files):
         np.testing.assert_array_equal(getattr(books[1], name), want, name)
     tiny = box._replace(size=np.full(3, 0.05, np.float32))
     ism = ImplicitShapeModel(IsmConfig.from_json(config()), "cpu")
-    ism.add_training_models_with_boxes(path, [cid], [cid], [tiny])
-    with pytest.raises(NotImplementedError, match="box crop"):
-        ism.train()
+    ism.add_training_models_with_boxes(path, [cid, cid], [cid, cid],
+                                       [tiny, box])
+    ism.train()
+    assert len(ism.boxes) == 1
+    for name, want in books[0]._asdict().items():
+        np.testing.assert_array_equal(getattr(ism.state.codebook, name),
+                                      want, name)
 
 
 def _set(cfg, path, value):
@@ -437,19 +439,18 @@ def _set(cfg, path, value):
 
 
 @pytest.mark.parametrize("path,value,reason", [
-    (("Parameters", "BoundingBoxType"), "MVBB", "BoundingBoxType"),
-    (("Parameters", "UseSmoothing"), True, "preprocessing"),
-    (("Parameters", "UseSvmTraining"), True, "SVM"),
-    (("Parameters", "ConsistentNormalsMethod"), 3, "ConsistentNormalsMethod"),
-    (("Children", "Clustering", "Type"), "KMeansCount", "Clustering"),
-    (("Children", "FeatureWeighting", "Type"), "NaiveBayes",
-     "FeatureWeighting"),
     (("Children", "GlobalFeatures", "Type"), "ESF", "global features"),
+    (("Children", "GlobalFeatures", "Type"), "CVFH", "CVFH"),
     (("Children", "Features", "Type"), "FPFH", "FPFH"),
+    (("Children", "Keypoints"), {
+        "Type": "VoxelGridCulling",
+        "Parameters": {"LeafSize": 0.35, "DisableFilterInTraining": False,
+                       "FilterMethodGeometry": "Curvature"}}, "culling"),
+    (("Parameters", "UseDeviceMesh"), True, "UseDeviceMesh"),
 ])
 def test_unported_training_configs_raise(path, value, reason):
-    """What the fused route cannot train is refused, with the reason,
-    before any file is read."""
+    """What the port cannot train is refused, with the reason, before any
+    file is read."""
     cfg = config()
     _set(cfg, path, value)
     ism = ImplicitShapeModel(IsmConfig.from_json(cfg), "cpu")
@@ -458,15 +459,16 @@ def test_unported_training_configs_raise(path, value, reason):
         ism.train()
 
 
-def test_clouds_with_normals_are_refused(tmp_path):
-    """A model file that carries normals trains on the JAX package's
-    staged route, which is not ported."""
-    rng = np.random.default_rng(2)
-    pts = shapes.make_instance(rng, 0, n=N_POINTS).astype(np.float32)
-    path = str(tmp_path / "n.pcd")
-    jax_save_pcd(path, JaxCloud(xyz=pts, normals=np.tile(
-        np.array([[0.0, 0.0, 1.0]], np.float32), (len(pts), 1))))
-    ism = ImplicitShapeModel(IsmConfig.from_json(config()), "cpu")
+def test_scene_scale_filters_are_refused(tmp_path):
+    """A cloud above 32768 points with UseSmoothing needs the JAX package's
+    scene-scale tiles (ROADMAP A14): refused when it is read."""
+    rng = np.random.default_rng(5)
+    path = str(tmp_path / "scene.pcd")
+    save_pcd(path, rng.uniform(-5, 5, size=(33000, 3)).astype(np.float32),
+             binary=True)
+    cfg = config()
+    _set(cfg, ("Parameters", "UseSmoothing"), True)
+    ism = ImplicitShapeModel(IsmConfig.from_json(cfg), "cpu")
     ism.add_training_model(path, 0, 0)
-    with pytest.raises(NotImplementedError, match="normals provided"):
+    with pytest.raises(NotImplementedError, match="A14"):
         ism.train()

@@ -34,15 +34,33 @@
       the Threshold value (``threshold``), and the JAX-CPU
       ``jax.vmap(detect_maxima_jit)`` densities and positions of the first
       N_DETECT clouds under Threshold (``detect_densities_threshold``,
-      ``detect_positions_threshold``).
+      ``detect_positions_threshold``);
+  point_cloud_donkey_tpu_torch/data/train_reference.npz:
+      what each training configuration of bench_data.TRAIN_CONFIGS changes,
+      from the JAX package on the CPU (build_train_reference): the MVBBs of
+      the five bench training clouds, the SOR + z cut-off keep masks and
+      MLS positions of those clouds, each ranker's keep mask and the
+      KMeansCount / KMeansHartigan seeds and centres over the committed
+      bench codebook's features, the global descriptors of each *_GLOBAL
+      training on the coloured bench_data.training_views (CSHOT_GLOBAL's
+      with its auto-trained SVM's arrays and predictions), the codeword
+      count of each configuration's training (the fused route, dense
+      descriptors), the scores of the normals-method-3 codebook, and of
+      the KMeansCount and KMeansHartigan trainings the features that JAX's
+      k-means++ seeding picked (``train_seeds_<name>``, the indices of the
+      seeds of each k of ``train_seed_ks_<name>`` in turn) and the
+      codebook (``cb_<name>_<field>``).
 
 The machine with the GPU has no JAX, so these files carry the reference
 across.  tests/test_torch_fixtures.py regenerates them and checks they
 match the committed ones.  Rewrite them with:
 
     JAX_PLATFORMS=cpu python tests/torch_fixtures.py
+
+(``... torch_fixtures.py train`` rewrites train_reference.npz alone.)
 """
 
+import contextlib
 import copy
 import os
 import sys
@@ -68,6 +86,7 @@ CODEBOOKS = {
 }
 DESCRIPTOR_REFERENCE = os.path.join(DATA_DIR, "descriptor_reference.npz")
 CONFIG_REFERENCE = os.path.join(DATA_DIR, "config_reference.npz")
+TRAIN_REFERENCE = os.path.join(DATA_DIR, "train_reference.npz")
 N_REF = 16
 N_DETECT = 32   # bench.py's MS_BATCH
 # Threshold activation's distance: with the bench codebook the JAX run
@@ -295,15 +314,177 @@ def build_config_reference(path: str) -> None:
     np.savez_compressed(path, **out)
 
 
+def jax_train_config(name: str, files, rgb_files=None):
+    """The JAX package's training of bench_data.train_config(name) on the
+    files [(path, class)], on its fused route with dense descriptors (the
+    formulation the port computes)."""
+    from point_cloud_donkey_tpu.models.ism import ImplicitShapeModel
+    from point_cloud_donkey_tpu.utils.config import IsmConfig
+    from bench_data import train_config
+    old = {k: os.environ.get(k) for k in ("PCD_TRAIN_FUSED", "PCD_DENSE_DESC")}
+    os.environ.update(PCD_TRAIN_FUSED="1", PCD_DENSE_DESC="1")
+    try:
+        ism = ImplicitShapeModel(IsmConfig.from_json(train_config(name)))
+        for path, cid in (rgb_files or files):
+            ism.add_training_model(path, cid, cid)
+        ism.train()
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    return ism
+
+
+@contextlib.contextmanager
+def recorded_kmeans_seeds():
+    """While open, the JAX package's clustering.kmeans records in the dict
+    it yields, for each k it runs, the indices of the features that its
+    k-means++ seeding picks (the rows of ``kmeans(..., iterations=0)``):
+    bench_data.seeded_kmeans starts the port's k-means from the same
+    features."""
+    from point_cloud_donkey_tpu.models import clustering
+    real = clustering.kmeans
+    seeds = {}
+
+    def kmeans(descriptors, k, metric, iterations=100, seed=0):
+        x = np.asarray(descriptors)
+        rows = real(x, k, metric, iterations=0, seed=seed)[0]
+        seeds[len(rows)] = np.array(
+            [np.flatnonzero((x == r).all(1))[0] for r in rows], np.int32)
+        return real(descriptors, k, metric, iterations, seed)
+
+    clustering.kmeans = kmeans
+    try:
+        yield seeds
+    finally:
+        clustering.kmeans = real
+
+
+KMEANS_TRAININGS = ("kmeans_count", "kmeans_hartigan")
+# the codebook fields train_reference.npz holds of each k-means training
+KMEANS_FIELDS = ("codewords", "cw_mask", "vote_mask", "vote_class",
+                 "vote_instance", "class_sigma")
+
+
+def build_train_reference(path: str) -> None:
+    """train_reference.npz (module docstring)."""
+    import jax.numpy as jnp
+    from point_cloud_donkey_tpu.models.clustering import (ClusteringParams,
+                                                          kmeans,
+                                                          run_clustering)
+    from point_cloud_donkey_tpu.models.features import pad_cloud
+    from point_cloud_donkey_tpu.models.ism import _mvbb_host_batch
+    from point_cloud_donkey_tpu.models.ranking import (RankingParams,
+                                                       rank_features)
+    from point_cloud_donkey_tpu.ops import preprocess as pp
+    from point_cloud_donkey_tpu.utils.config import ComponentConfig
+    from point_cloud_donkey_tpu.utils.io import PointCloud, save_pcd
+    from bench_data import (GLOBALS, RANKERS, TRAIN_CONFIGS,
+                            feature_centre_distances, train_config,
+                            training_views)
+    out = {}
+    train, labels, _, _ = bench_clouds(0)
+    boxes = _mvbb_host_batch(list(train))
+    for key in ("position", "size", "quat"):
+        out["mvbb_" + key] = np.stack([getattr(b, key) for b in boxes])
+    sor = TRAIN_CONFIGS["sor"]
+    mls = TRAIN_CONFIGS["mls"]
+    keeps, moved = [], []
+    for pts in train:
+        p, m = pad_cloud(pts)
+        p, m = jnp.asarray(p), jnp.asarray(m)
+        k = pp.statistical_outlier_removal(
+            p, m, sor["Parameters.OutlierRemovalMeanK"],
+            sor["Parameters.OutlierRemovalStddevMul"])
+        keeps.append(np.asarray(pp.z_cutoff(
+            p, k, sor["Parameters.CutoffDistanceZAxis"]))[:len(pts)])
+        moved.append(np.asarray(pp.mls_smooth(
+            p, m, mls["Parameters.SmoothingRadius"]))[:len(pts)])
+    out["sor_keep"] = np.stack(keeps)
+    out["mls_xyz"] = np.stack(moved).astype(np.float32)
+
+    with np.load(CODEBOOK + "d.npz") as z:
+        desc, cls, cdist = feature_centre_distances(dict(z), train)
+    for name in RANKERS:
+        cfg = train_config(name)["ObjectConfig"]["Children"][
+            "FeatureWeighting"]
+        params = RankingParams.from_config(ComponentConfig.from_json(cfg),
+                                           flann_exact=True)
+        out["rank_" + name] = rank_features(desc, cls, cdist, params)
+    count = ClusteringParams.from_config(ComponentConfig.from_json(
+        TRAIN_CONFIGS["kmeans_count"]["Children.Clustering"])).cluster_count
+    out["kmeans_seeds"] = kmeans(desc, count, "chisq", iterations=0)[0]
+    out["kmeans_centers"], out["kmeans_assign"] = kmeans(desc, count,
+                                                         "chisq")
+    max_k = TRAIN_CONFIGS["kmeans_hartigan"]["Children.Clustering"][
+        "Parameters"]["MaxK"]
+    out["hartigan_seeds"] = np.concatenate(
+        [kmeans(desc, k, "chisq", iterations=0)[0]
+         for k in range(1, max_k + 1)])
+    out["hartigan_centers"], out["hartigan_assign"] = run_clustering(
+        desc, ClusteringParams(type="KMeansHartigan", max_k=max_k), "chisq")
+    views, view_labels = training_views()
+    with tempfile.TemporaryDirectory() as tmp:
+        files, view_files = [], []
+        for cid, pts in zip(labels, train):
+            p = os.path.join(tmp, f"t{cid}.pcd")
+            save_pcd(p, PointCloud(xyz=pts))
+            files.append((p, int(cid)))
+        for i, (pts, cid) in enumerate(zip(views, view_labels)):
+            p = os.path.join(tmp, f"v{i}.pcd")
+            save_pcd(p, PointCloud(xyz=pts, rgb=bench_colors(pts)))
+            view_files.append((p, int(cid)))
+        for name in TRAIN_CONFIGS:
+            if name == "cache":
+                continue
+            with recorded_kmeans_seeds() as seeds:
+                ism = jax_train_config(name, view_files if name in GLOBALS
+                                       else files)
+            if name in KMEANS_TRAININGS:
+                out["train_seed_ks_" + name] = np.array(sorted(seeds),
+                                                         np.int32)
+                out["train_seeds_" + name] = np.concatenate(
+                    [seeds[k] for k in sorted(seeds)])
+                cb = ism.state.codebook
+                for field in KMEANS_FIELDS:
+                    out[f"cb_{name}_{field}"] = np.asarray(getattr(cb, field))
+            out["count_" + name] = np.int32(
+                np.asarray(ism.state.codebook.cw_mask).sum())
+            if name in GLOBALS:
+                out["glob_" + name] = ism.state.global_descriptors
+                out["glob_cls_" + name] = ism.state.global_classes
+            if ism.state.svm is not None:
+                svm = ism.state.svm
+                out["svm_pred"] = np.array(
+                    [svm.predict(d)[0] for d in ism.state.global_descriptors],
+                    np.int32)
+                out.update({"ref_" + k: v for k, v in svm.to_arrays().items()})
+            if name == "normals_m3":
+                cb = os.path.join(tmp, "m3.ism")
+                ism.save(cb)
+                _, _, clouds, _ = bench_clouds(N_REF)
+                out["scores_normals_m3"] = jax_scores(
+                    cb, clouds, np.ones(clouds.shape[:2], bool),
+                    normals_method=3).astype(np.float32)
+    np.savez_compressed(path, **out)
+
+
 def main() -> None:
     import jax
     jax.config.update("jax_platforms", "cpu")
     os.makedirs(DATA_DIR, exist_ok=True)
+    if sys.argv[1:] == ["train"]:
+        build_train_reference(TRAIN_REFERENCE)
+        print(f"wrote {TRAIN_REFERENCE}")
+        return
     for descriptor, path in CODEBOOKS.items():
         build_codebook(path, descriptor)
     build_reference(CODEBOOK, REFERENCE)
     build_descriptor_reference(CODEBOOKS, DESCRIPTOR_REFERENCE)
     build_config_reference(CONFIG_REFERENCE)
+    build_train_reference(TRAIN_REFERENCE)
     _, _, clouds, _ = bench_clouds(N_REF)
     median, capped, share = threshold_activity(
         CODEBOOK, clouds, np.ones(clouds.shape[:2], bool))
@@ -311,7 +492,7 @@ def main() -> None:
           f"a feature, {100 * capped:.1f}% of the features capped at 64, "
           f"{100 * share:.1f}% of the 64 nearest kept")
     print(f"wrote {', '.join(CODEBOOKS.values())} (+ d.npz), {REFERENCE}, "
-          f"{DESCRIPTOR_REFERENCE} and {CONFIG_REFERENCE}")
+          f"{DESCRIPTOR_REFERENCE}, {CONFIG_REFERENCE} and {TRAIN_REFERENCE}")
 
 
 if __name__ == "__main__":
