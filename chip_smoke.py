@@ -134,7 +134,19 @@ Phases (each prints its results; any failure raises and exits nonzero):
      seeded at, and held to its codebook), with
      its train_* ms per cloud and training clouds/s on 24 views; train.py
      on configs/quickstart.ism and configs/default.ism as shipped (views
-     scaled to millimetres and to 0.3 m).
+     scaled to millimetres and to 0.3 m);
+ 10. detection through ImplicitShapeModel (load, detect_batch, detect)
+     against data/detect_reference.npz (the JAX package on the CPU): 10a
+     configs/default.ism as shipped on 16 coloured scenes of 4 bench
+     objects (8192 points, x0.3; CSHOT_GLOBAL + SVM verification), 10b
+     configs/quickstart.ism as shipped on 32 bench clouds (x70), 10c the
+     bench SHOT model with Hough3D, RANSAC and Merge on the scenes at unit
+     scale -- each with clouds/s, processing_times per cloud, launches and
+     peak memory, two runs and detect() of each cloud bit-equal to
+     detect_batch, the voting stage on the committed JAX votes to the
+     maxima contracts and the run end to end to the detection contract
+     (tests/bench_data.py); 10d eval_detection.py --device cuda trains a
+     SHORT_SHOT model and detects a scene.
 Every step of phases 4-8 also prints its peak device memory, and phase 2
 the bits (sha256) of K1's, K2's, K3's and K6's outputs and of K7's
 in-radius counts and histograms (tests/port_fingerprint.py prints the
@@ -266,6 +278,17 @@ PATH_KERNELS = {
     "shipped_quickstart": ("lrf_moments", "sign_votes", "shot_dense",
                            "chisq_topk"),
     "shipped_default": ("lrf_moments", "sign_votes", "shot_hist"),
+    # phase 10: detection through ImplicitShapeModel -- default.ism (CSHOT
+    # under l2: K8 at the keypoints and at each ROI's centroid for
+    # CSHOT_GLOBAL; no K4), quickstart.ism and the Hough3D detection (SHOT
+    # under chi-square: K7, K4), eval_detection's SHORT_SHOT model (K9)
+    "detect_default": ("lrf_moments", "sign_votes", "shot_hist"),
+    "detect_quickstart": ("lrf_moments", "sign_votes", "shot_dense",
+                          "chisq_topk"),
+    "detect_hough": ("lrf_moments", "sign_votes", "shot_dense",
+                     "chisq_topk"),
+    "eval_detection": ("lrf_moments", "sign_votes", "histogram",
+                       "chisq_topk"),
 }
 
 # Least time of a kernel call: the larger of its bytes (inputs read once,
@@ -1366,6 +1389,9 @@ def main():
     training(launches, card, data, pts, mask, rgb, labels, ref, dref)
     training_configs(launches, card, data, pts, mask, labels)
 
+    # -- 10. detection through ImplicitShapeModel ---------------------------
+    detection_ism(launches, card, data, dev)
+
     # -- results ----------------------------------------------------------------
     total = {k: sum(run[k] for run in launches.values()) for k in KERNELS}
     assert all(total.values()), f"kernels never launched: {total}"
@@ -1385,6 +1411,268 @@ def main():
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
+
+
+def detection_ism(launches, card, data, dev):
+    """Phase 10: detection through ImplicitShapeModel (load, detect_batch,
+    detect) on the card, for each detection of tests/bench_data (default,
+    quickstart, hough), against data/detect_reference.npz (the JAX package
+    on the CPU, dense descriptors): one counted detect_batch with clouds/s,
+    processing_times per cloud, launches and peak memory; a second run
+    and detect() of every cloud equal to it bit for bit; the voting stage
+    on the committed JAX votes to the maxima contracts
+    (bench_data.maxima_mismatches); the run's maxima end to end to the
+    detection contract (bench_data.firm_mismatches; quickstart: the best
+    class on every firm cloud).  Then 10d: eval_detection.py on the card,
+    training a SHORT_SHOT model and detecting a scene, as the JAX
+    package's tests/test_detection.py drives its CLI."""
+    import numpy as np
+    import torch
+
+    from bench_data import (DETECT_SCALES, GLOBAL_RTOL_CARD, HOUGH_VOTING,
+                            detect_inputs, firm_decision, firm_mismatches,
+                            firm_pairs, firm_rtol, maxima_mismatches,
+                            unpack_maxima, unpack_votes, with_voting)
+    from point_cloud_donkey_tpu_torch.kernels import build
+    from point_cloud_donkey_tpu_torch.models.codebook import CastVotes
+    from point_cloud_donkey_tpu_torch.models.ism import (
+        DETECT_STAGES, ImplicitShapeModel, _voting_params)
+    from point_cloud_donkey_tpu_torch.utils.config import IsmConfig
+
+    with np.load(os.path.join(data, "detect_reference.npz")) as z:
+        ref = dict(z)
+    what = {"default": "10a. configs/default.ism as shipped (CSHOT, MVBB, "
+                       "AverageRotation, CSHOT_GLOBAL + SVM verification)",
+            "quickstart": "10b. configs/quickstart.ism as shipped (SHOT, "
+                          "chi-square, single-object, max type None)",
+            "hough": "10c. the bench SHOT model: Hough3D with interpolation, "
+                     "RANSAC, Merge"}
+    for name in ("default", "quickstart", "hough"):
+        clouds, rgbs = detect_inputs(name)
+        scale = DETECT_SCALES[name]
+        phase(f"{what[name]}: detect_batch of {len(clouds)} clouds x "
+              f"{clouds.shape[1]} points, x{scale:g} ({card})")
+        if name == "hough":
+            path = os.path.join(data, "bench_codebook.ism")
+            ism = ImplicitShapeModel.load(path, device=dev)
+            with open(path) as f:
+                ism.config = IsmConfig.from_json(with_voting(json.load(f),
+                                                             HOUGH_VOTING))
+        else:
+            ism = ImplicitShapeModel.load(
+                os.path.join(data, f"{name}_model.ism"), device=dev)
+        clist = list(clouds)
+        rlist = None if rgbs is None else list(rgbs)
+        ism.detect_batch(clist[:2], None, None if rlist is None
+                         else rlist[:2])                      # warm-up
+        torch.cuda.synchronize()
+        before = dict(ism.processing_times)
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        build.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = ism.detect_batch(clist, None, rlist)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = build.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        launches["detect_" + name] = counts
+        per = {k: round((res[-1][1][k] - before.get(k, 0.0)) * 1e3
+                        / len(clist), 3) for k in DETECT_STAGES}
+        print(f"throughput: {len(clist) / dt:.2f} clouds/s (one detect_batch "
+              f"of {len(clist)}, host clock) ({card})")
+        print(f"processing_times ms per cloud: {per}")
+        print(f"launches: { {k: v for k, v in counts.items() if v} }")
+        print(f"peak device memory: {peak / 2**20:.1f} MiB "
+              f"({(peak - held) / 2**20:.1f} MiB above the "
+              f"{held / 2**20:.1f} MiB held before it) ({card})")
+        missing = [k for k in PATH_KERNELS["detect_" + name]
+                   if counts[k] == 0]
+        assert not missing, f"{name}: kernels not launched {missing}"
+        got = [m for m, _ in res]
+        again = ism.detect_batch(clist, None, rlist)
+        for i, (a, (b, _)) in enumerate(zip(got, again)):
+            assert maxima_bits(a) == maxima_bits(b), \
+                f"{name}: two runs differ on cloud {i}"
+        for i in range(len(clist)):
+            one = ism.detect(clist[i], None,
+                             None if rlist is None else rlist[i])[0]
+            assert maxima_bits(one) == maxima_bits(got[i]), \
+                f"{name}: detect of cloud {i} differs from detect_batch"
+        print(f"two runs equal bit for bit; detect() of each cloud equals "
+              f"its detect_batch row; {sum(map(len, got))} maxima")
+
+        pre = f"{name}_max_"
+        want = unpack_maxima({k[len(pre):]: v for k, v in ref.items()
+                              if k.startswith(pre)})
+        pre = f"{name}_vote_"
+        votes = [CastVotes(valid=np.ones(len(v["weight"]), bool), **{
+            k: a.astype(np.int64 if k in ("class_id", "instance_id")
+                        else np.float32) for k, a in v.items()})
+            for v in unpack_votes({k[len(pre):]: v for k, v in ref.items()
+                                   if k.startswith(pre)})]
+        vparams = _voting_params(ism.config.child("Voting"))
+        t0 = time.perf_counter()
+        ms_pre = ism._precompute_mean_shift_batch(votes, vparams)
+        stage = [ism._finish_detect(votes[i], clist[i], None,
+                                    None if rlist is None else rlist[i],
+                                    vparams, None, ms_pre[i])
+                 for i in range(len(votes))]
+        t_stage = time.perf_counter() - t0
+        bad = [(i, b) for i, (g, w) in enumerate(zip(stage, want))
+               for b in [maxima_mismatches(g, w, scale, GLOBAL_RTOL_CARD)]
+               if b]
+        pairs = [(m.glob_class_weight, float(r["glob_class_weight"]))
+                 for g, w in zip(stage, want) if len(g) == len(w)
+                 for m, r in zip(g, w) if r["glob_class_weight"] > 0]
+        if name == "default" and pairs:
+            print(f"global scores: max relative difference to JAX's "
+                  f"{max(abs(a - b) / b for a, b in pairs):.3e} over "
+                  f"{len(pairs)} maxima (rank order)")
+        print(f"voting stage on the committed JAX votes "
+              f"({sum(len(v.weight) for v in votes)} votes, "
+              f"{t_stage * 1e3 / len(votes):.2f} ms a cloud): "
+              f"{len(votes) - len(bad)}/{len(votes)} clouds meet the maxima "
+              f"contracts ({sum(map(len, want))} JAX maxima)")
+        assert not bad, f"{name}: voting stage vs the JAX maxima: {bad[:3]}"
+        full = sum(not maxima_mismatches(g, w, scale, GLOBAL_RTOL_CARD)
+                   for g, w in zip(got, want))
+        if name == "quickstart":
+            firm = [i for i, w in enumerate(want) if firm_decision(w)]
+            agree = [i for i in firm if got[i] and got[i][0].class_id
+                     == int(want[i][0]["class_id"])]
+            print(f"end to end: maxima[0].class_id equals JAX's on "
+                  f"{len(agree)}/{len(firm)} firm clouds (margin > 0.1); "
+                  f"{full}/{len(got)} clouds meet the maxima contracts too")
+            assert firm and len(agree) == len(firm), \
+                f"quickstart: decisions differ on {set(firm) - set(agree)}"
+        else:
+            bw = ism.config.child("Voting").get("Bandwidth", 0.1)
+            bad = [(i, b) for i, (g, w) in enumerate(zip(got, want))
+                   for b in [firm_mismatches(g, w, bw, firm_rtol(
+                       vparams.voting_type))] if b]
+            matched = [(float(g.weight), float(w["weight"]))
+                       for gs, ws in zip(got, want)
+                       for _, w, g in firm_pairs(gs, ws, bw) if g is not None]
+            dev_w = max((abs(a - b) / b for a, b in matched), default=0.0)
+            print(f"end to end: {len(matched)} firm JAX maxima matched (max "
+                  f"relative weight difference {dev_w:.3e}), "
+                  f"{len(got) - len(bad)}/{len(got)} clouds meet the "
+                  f"detection contract; {full}/{len(got)} clouds meet the "
+                  f"maxima contracts too")
+            assert not bad, f"{name}: end to end vs JAX: {bad[:3]}"
+            if name == "default":
+                glob = sum(m.glob_class_weight > 0 for ms_ in got
+                           for m in ms_)
+                print(f"global verification: {glob} maxima with an SVM "
+                      f"score")
+
+    phase(f"10d. eval_detection.py --device cuda: train a SHORT_SHOT model, "
+          f"detect a scene ({card})")
+    eval_detection_on_card(launches, str(dev))
+
+
+def maxima_bits(maxima):
+    """The bytes of every field of a maxima list, in order."""
+    import numpy as np
+    return b"".join(np.asarray(getattr(m, f)).tobytes() for m in maxima
+                    for f in ("class_id", "instance_id", "position", "weight",
+                              "instance_weight", "bb_size", "bb_quat",
+                              "num_votes", "glob_class_id",
+                              "glob_class_weight", "glob_instance_id",
+                              "glob_instance_weight"))
+
+
+def eval_detection_on_card(launches, device):
+    """eval_detection.main -t / -d --device `device` on the JAX package's
+    tests/test_detection.py data (box and torus, two isolated models
+    each, one scene of both): summary.txt and the per-cloud log."""
+    import numpy as np
+
+    import shapes
+    from point_cloud_donkey_tpu_torch import eval_detection
+    from point_cloud_donkey_tpu_torch.kernels import build
+    from point_cloud_donkey_tpu_torch.utils.io import save_pcd
+    rng = np.random.default_rng(0)
+    tmp = tempfile.mkdtemp(prefix="pcd_smoke_det_")
+    try:
+        config = {"ObjectConfig": {
+            "Children": {
+                "Clustering": {"Type": "None"},
+                "Codebook": {"Children": {"ActivationStrategy": {
+                    "Parameters": {"K": 1}, "Type": "KNN"}}},
+                "FeatureWeighting": {"Type": "Uniform"},
+                "Features": {"Parameters": {"Radius": 0.6,
+                                            "ReferenceFrameRadius": 0.5},
+                             "Type": "SHORT_SHOT"},
+                "GlobalFeatures": {"Type": "Dummy"},
+                "Keypoints": {"Parameters": {"LeafSize": 0.3},
+                              "Type": "VoxelGrid"},
+                "Voting": {"Parameters": {
+                    "Bandwidth": 0.6, "SingleObjectMode": False,
+                    "MinThreshold": -0.5, "MaxFilterType": "Merge",
+                    "MinVotesThreshold": 3}, "Type": "MeanShift"}},
+            "Parameters": {"DistanceType": "ChiSquared",
+                           "BoundingBoxType": "AABB",
+                           "DistanceThresholdDetection": 0.8}}}
+        cfg = os.path.join(tmp, "config.ism")
+        with open(cfg, "w") as f:
+            json.dump(config, f)
+        train = ["# train detection"]
+        for cid, name in [(1, "box"), (2, "torus")]:
+            for j in range(2):
+                p = os.path.join(tmp, f"train_{name}_{j}.pcd")
+                save_pcd(p, shapes.make_instance(rng, cid, n=900,
+                                                 rotate=False))
+                train.append(f"{p} {name}")
+        with open(os.path.join(tmp, "train.txt"), "w") as f:
+            f.write("\n".join(train) + "\n")
+        box = shapes.make_instance(rng, 1, n=900, rotate=False)
+        torus = shapes.make_instance(rng, 2, n=900, rotate=False) \
+            + [4.0, 0, 0]
+        scene = os.path.join(tmp, "scene.pcd")
+        save_pcd(scene, np.concatenate([box, torus]).astype(np.float32))
+        ann = os.path.join(tmp, "scene_ann.txt")
+        with open(ann, "w") as f:
+            for name, pts in (("box", box), ("torus", torus)):
+                c = pts.mean(0)
+                f.write(f"{name} (0.0) {c[0]} {c[1]} {c[2]}\n")
+        tlist = os.path.join(tmp, "test.txt")
+        with open(tlist, "w") as f:
+            f.write(f"# test detection\n{scene} {ann}\n")
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = eval_detection.main(["-t", cfg, "-f",
+                                      os.path.join(tmp, "train.txt"), "-o",
+                                      os.path.join(tmp, "model"),
+                                      "--device", device])
+        assert rc == 0, "eval_detection -t failed"
+        build.reset_launch_counts()
+        with contextlib.redirect_stdout(out):
+            rc = eval_detection.main(["-d", os.path.join(tmp, "model.ism"),
+                                      "-f", tlist, "-o",
+                                      os.path.join(tmp, "out"),
+                                      "--device", device])
+        assert rc == 0, "eval_detection -d failed"
+        counts = build.launch_counts()
+        launches["eval_detection"] = counts
+        missing = [k for k in PATH_KERNELS["eval_detection"]
+                   if counts[k] == 0]
+        assert not missing, f"eval_detection: kernels not launched {missing}"
+        with open(os.path.join(tmp, "out", "summary.txt")) as f:
+            summary = f.read()
+        print(summary.rstrip())
+        with open(os.path.join(tmp, "out", "scene.pcd.txt")) as f:
+            log = f.read().splitlines()
+        assert log[0].startswith("ISM3D detection log") and \
+            log[1].startswith("number, classID, weight") and len(log) >= 3
+        assert all(len(row.split(", ")) == 16 for row in log[2:])
+        recall = re.search(r"mean recall:\s+([0-9.]+)", summary)
+        assert recall and float(recall.group(1)) >= 0.5, "recall below 0.5"
+        print(f"launches of the detection: "
+              f"{ {k: v for k, v in counts.items() if v} }")
+    finally:
+        shutil.rmtree(tmp)
 
 
 def k4m_phase(desc, codebook, data, dev, record, card):

@@ -342,30 +342,67 @@ __device__ void bin_chunk(BinnedSmem& sm, const CellGrid& g,
 
 // K1's body: the (r - d)-weighted moments of the in-radius points and
 // their count, written to mom [B*Q, 10] and count [B*Q].
+//
+// A query's sums are exact, so they are the same bits whatever the lane
+// count, the tiling and the batch: a cloud alone and in a batch agree.
+// Each term (the fp32 product as the twin forms it) is scaled by a power
+// of two and rounded to a 64-bit integer; the lanes add integers.  The
+// scales are fixed by the query: |w| <= wmax (r, or 1 for K10's uniform
+// weights) and each coordinate of an in-radius point lies within E =
+// max|q| + 2r of 0, so a term of degree k in the coordinates is below
+// 2^ew 2^(k eq) (wmax <= 2^ew, E <= 2^eq); scaled by 2^(FIX_BITS - ew - k
+// eq) it is below 2^FIX_BITS, its rounding error below 2^-FIX_BITS of the
+// bound, and the sum of up to 2^24 terms stays inside 64 bits.
+constexpr int FIX_BITS = 38;
+
 struct MomentsBody {
   float* mom;
   int* count;
   float r;
+  float wmax;
+  int ew;   // wmax <= 2^ew (host: frexpf)
 
   struct Acc {
-    float s0, sx, sy, sz, xx, yy, zz, xy, xz, yz;
-    int cnt;
+    long long s0, sx, sy, sz, xx, yy, zz, xy, xz, yz;
+    int cnt, eq;
+    float f0, f1, f2;   // the scales of degree 0, 1, 2
   };
 
-  __device__ __forceinline__ void begin(Acc& a, size_t, bool, float, float,
-                                        float) const {
-    a.s0 = a.sx = a.sy = a.sz = 0.f;
-    a.xx = a.yy = a.zz = a.xy = a.xz = a.yz = 0.f;
+  __device__ __forceinline__ void begin(Acc& a, size_t, bool, float qx,
+                                        float qy, float qz) const {
+    a.s0 = a.sx = a.sy = a.sz = 0;
+    a.xx = a.yy = a.zz = a.xy = a.xz = a.yz = 0;
     a.cnt = 0;
+    const float e = fmaxf(fmaxf(fabsf(qx), fabsf(qy)), fabsf(qz)) + 2.f * r;
+    int eq = 0;
+    frexpf(e, &eq);
+    a.eq = eq = min(max(eq, -40), 40);   // NaN / inf queries sweep nothing
+    a.f0 = ldexpf(1.f, FIX_BITS - ew);
+    a.f1 = ldexpf(1.f, FIX_BITS - ew - eq);
+    a.f2 = ldexpf(1.f, FIX_BITS - ew - 2 * eq);
+  }
+  // one term of each degree into the sums
+  __device__ __forceinline__ void put(Acc& a, float w, float wx, float wy,
+                                      float wz, float xx, float yy, float zz,
+                                      float xy, float xz, float yz) const {
+    a.s0 += __float2ll_rn(w * a.f0);
+    a.sx += __float2ll_rn(wx * a.f1);
+    a.sy += __float2ll_rn(wy * a.f1);
+    a.sz += __float2ll_rn(wz * a.f1);
+    a.xx += __float2ll_rn(xx * a.f2);
+    a.yy += __float2ll_rn(yy * a.f2);
+    a.zz += __float2ll_rn(zz * a.f2);
+    a.xy += __float2ll_rn(xy * a.f2);
+    a.xz += __float2ll_rn(xz * a.f2);
+    a.yz += __float2ll_rn(yz * a.f2);
+    ++a.cnt;
   }
   __device__ __forceinline__ void add(Acc& a, const float4& pt, float, float,
                                       float, float d2) const {
     const float w = r - sqrt_approx(d2);
     const float wx = w * pt.x, wy = w * pt.y, wz = w * pt.z;
-    a.s0 += w; a.sx += wx; a.sy += wy; a.sz += wz;
-    a.xx += wx * pt.x; a.yy += wy * pt.y; a.zz += wz * pt.z;
-    a.xy += wx * pt.y; a.xz += wx * pt.z; a.yz += wy * pt.z;
-    ++a.cnt;
+    put(a, w, wx, wy, wz, wx * pt.x, wy * pt.y, wz * pt.z, wx * pt.y,
+        wx * pt.z, wy * pt.z);
   }
   __device__ __forceinline__ void reduce(Acc& a, int S) const {
     for (int o = S / 2; o > 0; o >>= 1) {
@@ -383,13 +420,30 @@ struct MomentsBody {
     }
   }
   __device__ __forceinline__ void write(const Acc& a, size_t o) const {
+    const double u0 = ldexp(1.0, ew - FIX_BITS);
+    const double u1 = ldexp(1.0, ew + a.eq - FIX_BITS);
+    const double u2 = ldexp(1.0, ew + 2 * a.eq - FIX_BITS);
     float* m = mom + o * 10;
-    m[0] = a.s0; m[1] = a.sx; m[2] = a.sy; m[3] = a.sz;
-    m[4] = a.xx; m[5] = a.yy; m[6] = a.zz; m[7] = a.xy; m[8] = a.xz;
-    m[9] = a.yz;
+    m[0] = (float)((double)a.s0 * u0);
+    m[1] = (float)((double)a.sx * u1);
+    m[2] = (float)((double)a.sy * u1);
+    m[3] = (float)((double)a.sz * u1);
+    m[4] = (float)((double)a.xx * u2);
+    m[5] = (float)((double)a.yy * u2);
+    m[6] = (float)((double)a.zz * u2);
+    m[7] = (float)((double)a.xy * u2);
+    m[8] = (float)((double)a.xz * u2);
+    m[9] = (float)((double)a.yz * u2);
     count[o] = a.cnt;
   }
 };
+
+// K1's / K5's / K10's body parameters (host): weights bounded by wmax
+MomentsBody moments_body(void* mom, void* count, float r, float wmax) {
+  int ew = 0;
+  frexpf(wmax, &ew);
+  return MomentsBody{(float*)mom, (int*)count, r, wmax, ew};
+}
 
 // K2's body: per query, the in-radius counts with (p - q) . axis >= 0 for
 // its x (axes[row, 0:3]) and z (axes[row, 3:6]) candidates, written to
@@ -492,21 +546,16 @@ struct MomentsV2Body : MomentsBody {
     float wh, wl, xh, xl, yh, yl, zh, zl;
     bf16_split2(w, x, wh, wl, xh, xl);
     bf16_split2(y, z, yh, yl, zh, zl);
-    float h0, l0, h1, l1;
-    a.s0 += wh + wl;   // the feature 1: hi 1, lo 0
-    a.sx += split_term(wh, wl, xh, xl);
-    a.sy += split_term(wh, wl, yh, yl);
-    a.sz += split_term(wh, wl, zh, zl);
+    float h0, l0, h1, l1, h2, l2, h3, l3, h4, l4, h5, l5;
     bf16_split2(x * x, y * y, h0, l0, h1, l1);
-    a.xx += split_term(wh, wl, h0, l0);
-    a.yy += split_term(wh, wl, h1, l1);
-    bf16_split2(z * z, x * y, h0, l0, h1, l1);
-    a.zz += split_term(wh, wl, h0, l0);
-    a.xy += split_term(wh, wl, h1, l1);
-    bf16_split2(x * z, y * z, h0, l0, h1, l1);
-    a.xz += split_term(wh, wl, h0, l0);
-    a.yz += split_term(wh, wl, h1, l1);
-    ++a.cnt;
+    bf16_split2(z * z, x * y, h2, l2, h3, l3);
+    bf16_split2(x * z, y * z, h4, l4, h5, l5);
+    put(a, wh + wl,   // the feature 1: hi 1, lo 0
+        split_term(wh, wl, xh, xl), split_term(wh, wl, yh, yl),
+        split_term(wh, wl, zh, zl), split_term(wh, wl, h0, l0),
+        split_term(wh, wl, h1, l1), split_term(wh, wl, h2, l2),
+        split_term(wh, wl, h3, l3), split_term(wh, wl, h4, l4),
+        split_term(wh, wl, h5, l5));
   }
 };
 
@@ -679,8 +728,10 @@ binned_sweep_kernel(const float* __restrict__ q, const float* __restrict__ p,
 
 // Launch a binned sweep: as few CTAs per cloud as fill one wave of two
 // CTAs per SM (each CTA builds its grid), at least 16 and at most QCAP
-// queries a CTA; lanes per query: the most that still fit a CTA's
-// threads.  starts, T and W: the window plan of a WINDOWED sweep.
+// queries a CTA; lanes per query: the most that fit half a CTA's
+// threads.  Every body's sums are exact (integer counts, fixed-point
+// moments), so neither choice changes a query's bits.  starts, T and W:
+// the window plan of a WINDOWED sweep.
 template <class Body, int GATE = EXACT_GATE, bool WINDOWED = false>
 int launch_binned(const void* q, const void* p, const void* mask, Body body,
                   int B, int Q, int N, float r, void* stream,
@@ -717,8 +768,8 @@ int launch_binned(const void* q, const void* p, const void* mask, Body body,
 PCD_EXPORT int pcd_lrf_moments(const void* q, const void* p, const void* mask,
                                void* mom, void* count, int B, int Q, int N,
                                float r, void* stream) {
-  return launch_binned(q, p, mask, MomentsBody{(float*)mom, (int*)count, r},
-                       B, Q, N, r, stream);
+  return launch_binned(q, p, mask, moments_body(mom, count, r, r), B, Q, N,
+                       r, stream);
 }
 
 // as pcd_lrf_moments over sorted points, each 256-query tile t of cloud b
@@ -730,8 +781,8 @@ PCD_EXPORT int pcd_lrf_moments_windowed(const void* q, const void* p,
                                         int N, int T, int W, float r,
                                         void* stream) {
   return launch_binned<MomentsBody, EXACT_GATE, true>(
-      q, p, mask, MomentsBody{(float*)mom, (int*)count, r}, B, Q, N, r,
-      stream, starts, T, W);
+      q, p, mask, moments_body(mom, count, r, r), B, Q, N, r, stream,
+      starts, T, W);
 }
 
 // as pcd_lrf_moments with the identity gate and bf16x3 moments; shot = 1
@@ -740,7 +791,7 @@ PCD_EXPORT int pcd_lrf_moments_v2(const void* q, const void* p,
                                   const void* mask, void* mom, void* count,
                                   int B, int Q, int N, float r, int shot,
                                   void* stream) {
-  const MomentsBody m{(float*)mom, (int*)count, r};
+  const MomentsBody m = moments_body(mom, count, r, shot ? r : 1.f);
   if (shot)
     return launch_binned<MomentsV2Body<true>, IDENTITY_GATE>(
         q, p, mask, MomentsV2Body<true>{m}, B, Q, N, r, stream);

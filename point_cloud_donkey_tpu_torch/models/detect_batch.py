@@ -18,7 +18,7 @@ without normals gets the same normals either way, so the route does not
 change its features.  The kept rows' descriptors stay on the device for
 the activation (:class:`FusedChunk`); the host reads one packed array per
 chunk to build the per-cloud feature sets.  Neither route trains keypoint
-culling or the other descriptors (:func:`train_unsupported`).
+culling or the other descriptors (:func:`extraction_unsupported`).
 """
 
 from __future__ import annotations
@@ -41,10 +41,11 @@ from .keypoints import KeypointParams, culling_disabled
 from .types import FeatureSet, make_feature_set
 
 
-def train_unsupported(fcfg: FeatureConfig, kp_params: KeypointParams
-                      ) -> Optional[str]:
-    """Why neither training route of the port can extract this
-    configuration's features, with the queue that ports it, or None."""
+def extraction_unsupported(fcfg: FeatureConfig, kp_params: KeypointParams,
+                           is_training: bool = True) -> Optional[str]:
+    """Why the port cannot extract this configuration's features in
+    training (or, with is_training False, at detection), with the queue
+    that ports it, or None."""
     if fcfg.type not in ("SHOT", "CSHOT", "SHORT_SHOT"):
         return f"descriptor {fcfg.type!r} (the port computes SHOT, CSHOT " \
                "and SHORT_SHOT; the descriptor zoo is ROADMAP A15)"
@@ -53,10 +54,12 @@ def train_unsupported(fcfg: FeatureConfig, kp_params: KeypointParams
                "the LRF variants are ROADMAP A15)"
     if kp_params.type not in ("VoxelGrid", "VoxelGridCulling"):
         return f"keypoint type {kp_params.type!r} (VoxelGrid only; the " \
-               "detectors are ROADMAP A13)"
-    if not culling_disabled(kp_params, is_training=True):
+               "keypoint detectors are ROADMAP A15)"
+    if not culling_disabled(kp_params, is_training):
         return "keypoint culling in training (DisableFilterInTraining " \
-               "false; the culling is ROADMAP A13)"
+               "false; the culling is ROADMAP A13)" if is_training else \
+               "VoxelGridCulling with culling at detection (the culling " \
+               "is ROADMAP A13)"
     if fcfg.type == "SHORT_SHOT" and (fcfg.use_min_radius
                                       or fcfg.short_shot_log_radius):
         return "SHORT_SHOT with a minimum or logarithmic radius (ROADMAP " \

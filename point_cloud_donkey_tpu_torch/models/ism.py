@@ -1,6 +1,5 @@
-"""Training and saving of an Implicit Shape Model (port of the training
-half of point_cloud_donkey_tpu/models/ism.py: ``preprocess_cloud``,
-``add_training_model``, ``train``, ``save``).
+"""The Implicit Shape Model orchestrator: training, detection and model
+files (port of point_cloud_donkey_tpu/models/ism.py).
 
 train() (implicit_shape_model.cpp:252-500), in MODEL_CHUNK-file slices:
   1. load each file (NaN rows dropped), preprocess it
@@ -24,6 +23,31 @@ What neither route trains raises NotImplementedError with the reason and
 the queue that ports it, before any cloud is read (keypoint culling in
 training, other descriptors and global descriptors, several devices) or
 when the cloud that needs it is read (scene-scale filters).
+
+detect_batch() (implicit_shape_model.cpp:583-712), for a list of clouds:
+  1. local features on the training extraction's route
+     (models/detect_batch.extract_local_features_batch), the descriptors
+     left on the device; then, per extraction chunk, one cast_votes over
+     the chunk's features (the codebook's activation and votes) and one
+     read of the votes;
+  2. the mean-shift maxima of every (cloud, class) group at once
+     (models/voting.class_mean_shift_batch);
+  3. per cloud (:meth:`ImplicitShapeModel._finish_detect`): the maxima
+     (models/voting.find_maxima), the global verification (the ROIs'
+     global descriptors through models/features.extract_global_features,
+     then models/classifier.py), the cross-class filter, the merge of the
+     global and local hypotheses, normalisation and selection.
+detect() is detect_batch() of one cloud; detect_file() reads and
+preprocesses a file first.  Stage wall times accumulate in
+``processing_times`` under the JAX package's keys (features: the whole
+extraction, normals and keypoints included, as on the JAX fused route;
+flann: the codebook's upload; voting: the vote casting; maxima: the rest).
+What the port does not detect raises NotImplementedError naming its queue
+(:func:`detect_unsupported`).
+
+load() reads the JAX package's pairing (`<model>.ism` + `<model>.ismd.npz`)
+and the reference's (`ObjectData` naming a boost `.ismd`,
+utils/boost_archive.py); save_reference() writes the latter.
 """
 
 from __future__ import annotations
@@ -43,18 +67,24 @@ from ..ops import preprocess as pp
 from ..ops.geometry import (MVBB_CHUNK, BoundingBox, compute_mvbb_batch,
                             quat_to_matrix_np)
 from ..ops.voxel_grid import voxel_grid
+from ..ops.neighbors import full_fp32
 from ..utils.config import ComponentConfig, IsmConfig
 from ..utils.io import PointCloud, read_cloud
+from .classifier import GlobalClassifier, merge_global_and_local
 from .clustering import ClusteringParams, run_clustering
-from .codebook import CodebookParams, TrainedCodebook, train_codebook
+from .codebook import (Codebook, CastVotes, CodebookParams, TrainedCodebook,
+                       cast_votes, train_codebook)
 from .detect_batch import (FusedChunk, extract_local_features_batch,
-                           train_unsupported)
+                           extraction_unsupported)
 from .features import (GLOBAL_DESCRIPTORS, FeatureConfig, bucket_groups,
                        extract_global_features, padded_chunk)
 from .keypoints import KeypointParams
 from .ranking import RankingParams, rank_features
 from .svm import SVMModel, train_svm
 from .types import FeatureSet
+from .voting import (VotingMaximum, VotingParams, class_mean_shift_batch,
+                     filter_maxima, find_maxima, get_search_dist,
+                     normalize_weights, select_maxima)
 
 # train() loads and extracts MODEL_CHUNK files at a time, so host memory
 # holds O(chunk) clouds
@@ -66,8 +96,60 @@ TRAIN_STAGES = ("train_load", "train_features", "train_global",
 # (implicit_shape_model.cpp:314-318)
 MIN_CROP_POINTS = 500
 # above this many points the JAX package runs the outlier filters and MLS
-# on its scene-scale tiles (JAX ops/tiled.py:37)
+# on its scene-scale tiles (JAX ops/tiled.py:37), and its features too
 SCENE_TILE_THRESHOLD = 32768
+# the processing_times keys of detection (implicit_shape_model.cpp:636-709)
+DETECT_STAGES = ("complete", "features", "keypoints", "normals", "flann",
+                 "voting", "maxima")
+
+
+def _voting_params(cfg: ComponentConfig) -> VotingParams:
+    """VotingParams of a config's ``Voting`` child."""
+    return VotingParams(
+        min_threshold=cfg.get("MinThreshold", 0.0),
+        min_votes_threshold=cfg.get("MinVotesThreshold", 1),
+        best_k=cfg.get("BestK", -1),
+        average_rotation=cfg.get("AverageRotation", False),
+        radius_type=cfg.get("BinOrBandwidthType", "Config"),
+        radius_factor=cfg.get("BinOrBandwidthFactor", 1.0),
+        max_filter_type=cfg.get("MaxFilterType", "None"),
+        single_object_max_type=cfg.get("SingleObjectMaxType", "Default"),
+        single_object_mode=cfg.get("SingleObjectMode", False),
+        voting_type=cfg.type or "MeanShift",
+        use_interpolation=cfg.get("UseInterpolation", True),
+        min_coord=tuple(cfg.params.get("MinCoord", [-5.0, -5.0, -5.0])),
+        rel_threshold=cfg.get("RelThreshold", 0.8),
+        bandwidth=cfg.get("Bandwidth", 0.2),
+        threshold=cfg.get("Threshold", 1e-3),
+        max_iter=cfg.get("MaxIter", 1000),
+        kernel=cfg.get("Kernel", "Gaussian"),
+        maxima_suppression=cfg.get("MaximaSuppression", "Average"),
+        use_global_features=cfg.get("UseGlobalFeatures", False),
+        global_feature_method=cfg.get("GlobalFeaturesStrategy", "KNN"),
+        k_global_features=cfg.get("GlobalFeaturesK", 1),
+        merge_function=cfg.get("GlobalFeatureInfluenceType", 3),
+        min_svm_score=cfg.get("GlobalParamMinSvmScore", 0.70),
+        rate_limit=cfg.get("GlobalParamRateLimit", 0.60),
+        weight_factor=cfg.get("GlobalParamWeightFactor", 1.5),
+        global_min_points=cfg.get("GlobalFeatureMinPoints", 500),
+        use_ransac=cfg.get("RansacVoteFiltering", False),
+        ransac_inlier_threshold=cfg.get("RansacInlierThreshold", 0.1),
+        ransac_inlier_threshold_type=cfg.get("RansacInlierThresholdType",
+                                             "Fixed"))
+
+
+def detect_unsupported(fcfg: FeatureConfig, gcfg: FeatureConfig,
+                       kp_params: KeypointParams, vparams: VotingParams
+                       ) -> Optional[str]:
+    """Why the port cannot detect with this configuration, with the queue
+    that ports it, or None."""
+    why = extraction_unsupported(fcfg, kp_params, is_training=False)
+    if why is None and vparams.use_global_features \
+            and gcfg.type not in GLOBAL_DESCRIPTORS:
+        why = f"global features {gcfg.type!r} (the port computes " \
+              f"{', '.join(GLOBAL_DESCRIPTORS)}; the whole-cloud globals " \
+              "are ROADMAP A15)"
+    return why
 
 
 def _mesh_requested(root: ComponentConfig) -> bool:
@@ -166,6 +248,9 @@ class ImplicitShapeModel:
         self.processing_times: Dict[str, float] = {}
         # the box of every trained model, in the order they were added
         self.boxes: List[BoundingBox] = []
+        self._codebook: Optional[Codebook] = None
+        self._gc_cache: Optional[GlobalClassifier] = None
+        self._voting_dump_idx = 0
 
     @property
     def root(self):
@@ -175,6 +260,30 @@ class ImplicitShapeModel:
     def metric(self) -> str:
         dist = self.root.get("DistanceType", "Euclidean")
         return "chisq" if dist == "ChiSquared" else "l2"
+
+    def connect(self, callback) -> None:
+        """Stage observers go with the live views of viz/, which the port
+        does not have."""
+        raise NotImplementedError(
+            "observers (connect): the live stage signals go with viz/ "
+            "(ROADMAP A13)")
+
+    def get_detection_threshold(self) -> Dict[int, float]:
+        """Per-class distance thresholds of detection evaluation
+        (implicit_shape_model.h:215-248): Fixed keeps the configured value,
+        ObjectRadius / BoundingBoxMedian scale it by the class's trained
+        dimensions."""
+        base = self.root.get("DistanceThresholdDetection", 0.05)
+        ttype = self.root.get("DistanceThresholdType", "Fixed")
+        out = {}
+        for cid, (radius, median) in self.state.dims_map.items():
+            v = base
+            if ttype == "ObjectRadius":
+                v *= radius
+            elif ttype == "BoundingBoxMedian":
+                v *= median
+            out[cid] = v
+        return out
 
     def add_training_model(self, filename: str, class_id: int,
                            instance_id: int) -> None:
@@ -192,7 +301,7 @@ class ImplicitShapeModel:
         """Raise NotImplementedError, with the reason and its queue, for
         what the port does not train."""
         reasons = []
-        why = train_unsupported(fcfg, kp_params)
+        why = extraction_unsupported(fcfg, kp_params)
         if why:
             reasons.append(why)
         if gcfg.type not in GLOBAL_DESCRIPTORS:
@@ -200,7 +309,7 @@ class ImplicitShapeModel:
                            f"computes {', '.join(GLOBAL_DESCRIPTORS)}; the "
                            "whole-cloud globals are ROADMAP A15)")
         elif gcfg.type != "Dummy":
-            why = train_unsupported(
+            why = extraction_unsupported(
                 dataclasses.replace(gcfg, type=gcfg.local_type),
                 KeypointParams())
             if why:
@@ -496,6 +605,350 @@ class ImplicitShapeModel:
         if st.svm is not None:
             arrays.update(st.svm.to_arrays())
         np.savez_compressed(path + "d.npz", **arrays)
+
+    def save_reference(self, path: str) -> None:
+        """Write the reference implementation's pairing: the `.ism` JSON
+        with an ObjectData key and the boost binary `.ismd` it names
+        (utils/json_object.cpp:50-95; utils/boost_archive.py)."""
+        from ..utils.boost_archive import state_to_ref_data, write_ismd
+        data_name = os.path.basename(path) + "d"
+        with open(path, "w") as f:
+            json.dump({"ObjectConfig": self.config.root.to_json(),
+                       "ObjectData": data_name}, f, indent=3, sort_keys=True)
+        write_ismd(os.path.join(os.path.dirname(path) or ".", data_name),
+                   state_to_ref_data(self.state, self.label_maps))
+
+    @classmethod
+    def load(cls, path: str, device="cuda",
+             lrf_version: int = 1) -> "ImplicitShapeModel":
+        """A trained model: `<path>` (the .ism JSON) with `<path>d.npz` (the
+        JAX package's and the port's save) or, without it, the boost
+        `.ismd` that the JSON's ObjectData names (default `<path>d`, the
+        reference's pairing, json_object.cpp:50-64)."""
+        ism = cls(IsmConfig.load(path), device, lrf_version)
+        data_path = path + "d.npz"
+        if not os.path.exists(data_path):
+            try:
+                with open(path) as f:
+                    cand = json.load(f).get("ObjectData")
+            except (OSError, ValueError):
+                cand = None
+            candidates = [os.path.join(os.path.dirname(path), cand)] \
+                if cand else []
+            candidates.append(path + "d")
+            for p in candidates:
+                if os.path.exists(p):
+                    from ..utils.boost_archive import (read_ismd,
+                                                       ref_data_to_state)
+                    ism.state, ism.label_maps = ref_data_to_state(
+                        read_ismd(p))
+                    return ism
+            raise FileNotFoundError(f"no trained data for {path}")
+        with np.load(data_path, allow_pickle=False) as z:
+            cb = TrainedCodebook(**{k[3:]: z[k] for k in z.files
+                                    if k.startswith("cb_")})
+            keys, vals, var = z["dims_keys"], z["dims_vals"], z["var_vals"]
+            state = TrainedState(
+                codebook=cb,
+                dims_map={int(k): (float(v[0]), float(v[1]))
+                          for k, v in zip(keys, vals)},
+                variance_map={int(k): (float(v[0]), float(v[1]))
+                              for k, v in zip(keys, var)})
+            if "inst2cls" in z.files:
+                state.instance_to_class = {int(a): int(b)
+                                           for a, b in z["inst2cls"]}
+            if "label_maps" in z.files:
+                ism.label_maps = json.loads(str(z["label_maps"]))
+            if "glob_desc" in z.files:
+                state.global_descriptors = z["glob_desc"]
+                state.global_classes = z["glob_cls"]
+                state.global_instances = z["glob_inst"]
+                state.global_radii = z["glob_rad"]
+            state.svm = SVMModel.from_arrays(z)
+        ism.state = state
+        return ism
+
+    # -- detection -----------------------------------------------------------
+    def detect_file(self, filename: str
+                    ) -> Tuple[List[VotingMaximum], Dict[str, float]]:
+        """Read a cloud file (NaN rows dropped), preprocess it and detect."""
+        cloud = preprocess_cloud(read_cloud(filename).remove_nan(),
+                                 self.root, self.device)
+        return self.detect(cloud.xyz,
+                           cloud.normals if cloud.has_normals() else None,
+                           cloud.rgb)
+
+    def detect(self, xyz: np.ndarray, normals: Optional[np.ndarray] = None,
+               rgb: Optional[np.ndarray] = None
+               ) -> Tuple[List[VotingMaximum], Dict[str, float]]:
+        """The maxima of one cloud and the stage times so far:
+        detect_batch of that cloud."""
+        return self.detect_batch([xyz], [normals], [rgb])[0]
+
+    def _device_codebook(self) -> Codebook:
+        """The codebook on the device, uploaded once (the analogue of the
+        reference's lazy FLANN index, timed as "flann")."""
+        if self._codebook is None:
+            t0 = time.perf_counter()
+            self._codebook = Codebook.from_numpy(
+                self.state.codebook._asdict()).to(self.device)
+            self.processing_times["flann"] = self.processing_times.get(
+                "flann", 0.0) + time.perf_counter() - t0
+        return self._codebook
+
+    def _check_detectable(self, clouds, fcfg, gcfg, kp_params,
+                          vparams) -> None:
+        why = detect_unsupported(fcfg, gcfg, kp_params, vparams)
+        big = [len(c) for c in clouds if len(c) > SCENE_TILE_THRESHOLD]
+        if big:
+            why = (why + "; " if why else "") + \
+                f"a cloud of {big[0]} points (> {SCENE_TILE_THRESHOLD}: " \
+                "scene-scale detection is ROADMAP A14)"
+        if why:
+            raise NotImplementedError("the port does not detect with this "
+                                      "config: " + why)
+
+    def detect_batch(self, clouds, normals_list=None, rgb_list=None
+                     ) -> List[Tuple[List[VotingMaximum], Dict[str, float]]]:
+        """The maxima of each cloud (module docstring), each with a copy of
+        the stage times after the batch."""
+        assert self.state is not None, "not trained or loaded"
+        n = len(clouds)
+        clouds = [np.asarray(c, np.float32) for c in clouds]
+        normals_list = list(normals_list) if normals_list else [None] * n
+        rgb_list = list(rgb_list) if rgb_list else [None] * n
+        if self.root.get("SetColorToZero", False):
+            rgb_list = [None] * n
+        fcfg = FeatureConfig.from_config(self.config.child("Features"))
+        gcfg = FeatureConfig.from_config(self.config.child("GlobalFeatures"))
+        kp_params = KeypointParams.from_config(self.config.child("Keypoints"))
+        vparams = _voting_params(self.config.child("Voting"))
+        cb_params = CodebookParams.from_config(self.config.child("Codebook"))
+        self._check_detectable(clouds, fcfg, gcfg, kp_params, vparams)
+        normal_radius = self.root.get("NormalRadius", 0.05)
+        cn_method = self.root.get("ConsistentNormalsMethod", 2)
+        times = self.processing_times
+        for k in DETECT_STAGES:
+            times.setdefault(k, 0.0)
+
+        t0 = time.perf_counter()
+        cb = self._device_codebook()
+        t_feat = time.perf_counter()
+        chunks: List[FusedChunk] = []
+        fss = extract_local_features_batch(
+            clouds, normals_list, rgb_list, fcfg, kp_params, normal_radius,
+            cn_method, self.device, self.lrf_version, chunks)
+        times["features"] += time.perf_counter() - t_feat
+
+        t_vote = time.perf_counter()
+        votes_list = self._cast_votes_batch(cb, fss, chunks, cb_params)
+        times["voting"] += time.perf_counter() - t_vote
+
+        t_max = time.perf_counter()
+        # single-object mode verifies the whole cloud once
+        # (voting.cpp:240-261)
+        gfs_list: List[Optional[FeatureSet]] = [None] * n
+        if vparams.use_global_features and vparams.single_object_mode:
+            gfs_list = extract_global_features(
+                clouds, normals_list, rgb_list, gcfg, normal_radius,
+                cn_method, self.device, self.lrf_version)
+        ms_pre = self._precompute_mean_shift_batch(votes_list, vparams)
+        maxima_list = [self._finish_detect(votes_list[i], clouds[i],
+                                           normals_list[i], rgb_list[i],
+                                           vparams, gfs_list[i], ms_pre[i])
+                       for i in range(n)]
+        times["maxima"] += time.perf_counter() - t_max
+        times["complete"] += time.perf_counter() - t0
+        return [(m, dict(times)) for m in maxima_list]
+
+    def _cast_votes_batch(self, cb: Codebook, fss: List[FeatureSet],
+                          chunks: List[FusedChunk],
+                          cb_params: CodebookParams) -> List[CastVotes]:
+        """The cast votes of each cloud, as numpy: per extraction chunk,
+        the kept descriptors (still on the device) with their keypoints
+        and frames go through one cast_votes, and the valid votes come
+        back in one read."""
+        out: List[Optional[CastVotes]] = [None] * len(fss)
+        empty = CastVotes(
+            position=np.zeros((0, 3), np.float32),
+            weight=np.zeros(0, np.float32), class_id=np.zeros(0, np.int64),
+            instance_id=np.zeros(0, np.int64),
+            keypoint=np.zeros((0, 3), np.float32),
+            keypoint_training=np.zeros((0, 3), np.float32),
+            bbox_size=np.zeros((0, 3), np.float32),
+            bbox_quat=np.zeros((0, 4), np.float32), valid=np.zeros(0, bool))
+        for e in chunks:
+            keep = torch.from_numpy(e.keep).to(e.desc.device)
+            desc = e.desc[keep]
+            counts = [fss[ci].descriptors.shape[0] for ci in e.chunk]
+            if not sum(counts):
+                for ci in e.chunk:
+                    out[ci] = empty
+                continue
+            pos = np.concatenate([fss[ci].positions for ci in e.chunk])
+            frames = np.concatenate([fss[ci].frames for ci in e.chunk])
+            with full_fp32():
+                v = cast_votes(
+                    cb, desc, torch.from_numpy(np.ascontiguousarray(
+                        pos, np.float32)).to(self.device),
+                    torch.from_numpy(np.ascontiguousarray(
+                        frames, np.float32)).to(self.device),
+                    torch.ones(desc.shape[0], dtype=torch.bool,
+                               device=self.device), cb_params, self.metric)
+            per_feature = v.position.shape[0] // max(desc.shape[0], 1)
+            ids = torch.repeat_interleave(
+                torch.arange(len(counts), device=self.device),
+                torch.tensor(counts, device=self.device) * per_feature)
+            keep_v = v.valid
+            host = {f: getattr(v, f)[keep_v].cpu().numpy()
+                    for f in CastVotes._fields if f != "valid"}
+            owner = ids[keep_v].cpu().numpy()
+            for r, ci in enumerate(e.chunk):
+                sel = owner == r
+                out[ci] = CastVotes(**{f: a[sel] for f, a in host.items()},
+                                    valid=np.ones(int(sel.sum()), bool))
+        return out  # type: ignore[return-value]
+
+    def _precompute_mean_shift_batch(self, votes_list, vparams: VotingParams
+                                     ) -> List[Optional[Dict[int, np.ndarray]]]:
+        """The per-class mean-shift maxima of every cloud in one batch
+        (class_mean_shift_batch over every (cloud, class) vote group); a
+        list of None when the config's maxima search is not a per-class
+        mean-shift."""
+        n = len(votes_list)
+        if vparams.voting_type != "MeanShift" or (
+                vparams.single_object_mode
+                and vparams.single_object_max_type not in ("None",
+                                                           "Default")):
+            return [None] * n
+        items, owners = [], []
+        for i, votes in enumerate(votes_list):
+            for class_id in sorted(set(votes.class_id.tolist())):
+                sel = votes.class_id == class_id
+                items.append((votes.position[sel], votes.weight[sel],
+                              get_search_dist(class_id, vparams,
+                                              self.state.dims_map)))
+                owners.append((i, class_id))
+        out: List[Optional[Dict[int, np.ndarray]]] = [{} for _ in range(n)]
+        for (i, cid), (m_pos, _) in zip(
+                owners, class_mean_shift_batch(items, vparams, self.device)):
+            out[i][cid] = m_pos
+        return out
+
+    def _finish_detect(self, votes: CastVotes, xyz: np.ndarray,
+                       normals: Optional[np.ndarray],
+                       rgb: Optional[np.ndarray], vparams: VotingParams,
+                       precomputed_gfs: Optional[FeatureSet] = None,
+                       ms_pre: Optional[Dict[int, np.ndarray]] = None
+                       ) -> List[VotingMaximum]:
+        """The maxima, the global verification (voting.cpp:218-295), the
+        filter, the merge of global and local hypotheses, normalisation
+        and selection of one cloud's cast votes."""
+        if self.root.get("EnableVotingAnalysis", False):
+            from ..utils.debug_utils import write_voting_space
+            out = self.root.get("VotingAnalysisOutputPath",
+                                "voting_analysis")
+            self._voting_dump_idx += 1
+            write_voting_space(
+                os.path.join(out, f"votes_{self._voting_dump_idx:04d}.npz"),
+                votes.position, votes.weight, votes.class_id)
+        maxima = find_maxima(votes, xyz, np.ones(len(xyz), bool), vparams,
+                             self.state.dims_map, self.device,
+                             ms_precomputed=ms_pre)
+
+        roi_centroid = np.zeros(3, np.float32)
+        if vparams.use_global_features:
+            gc = self._global_classifier(vparams)
+            gcfg = FeatureConfig.from_config(
+                self.config.child("GlobalFeatures"))
+            if not vparams.single_object_mode:
+                # per-maximum ROIs, their global descriptors in one batch
+                segs, seg_rgbs, oks = [], [], []
+                for m in maxima:
+                    seg = gc.segment_roi(xyz, normals, m)
+                    segs.append(seg)
+                    oks.append(len(seg[0]) > vparams.global_min_points)
+                    seg_rgbs.append(
+                        rgb[np.linalg.norm(xyz - m.position[None, :], axis=1)
+                            <= gc.average_radii.get(m.class_id, 0.0)]
+                        if (rgb is not None and oks[-1]) else None)
+                idxs = [i for i, ok in enumerate(oks) if ok]
+                rois = dict(zip(idxs, extract_global_features(
+                    [segs[i][0] for i in idxs], [segs[i][1] for i in idxs],
+                    [seg_rgbs[i] for i in idxs], gcfg,
+                    self.root.get("NormalRadius", 0.05),
+                    self.root.get("ConsistentNormalsMethod", 2),
+                    self.device, self.lrf_version))) if idxs else {}
+                for i, m in enumerate(maxima):
+                    if oks[i]:
+                        gc.classify(rois[i].descriptors, m, True)
+                        roi_centroid = segs[i][0].mean(axis=0).astype(
+                            np.float32)
+                    else:
+                        gc.classify(np.zeros((0, 1), np.float32), m, False)
+            else:
+                gfs = precomputed_gfs
+                probe = VotingMaximum()
+                if gfs.descriptors.shape[0]:
+                    gc.classify(gfs.descriptors, probe, True)
+                for m in maxima:
+                    m.glob_class_id = probe.glob_class_id
+                    m.glob_class_weight = probe.glob_class_weight
+                    m.glob_instance_id = probe.glob_instance_id
+                    m.glob_instance_weight = probe.glob_instance_weight
+                if not maxima and gfs.descriptors.shape[0]:
+                    box = self._mvbb([xyz], [None])[1][0]
+                    maxima.append(VotingMaximum(
+                        class_id=probe.glob_class_id,
+                        instance_id=probe.glob_instance_id,
+                        position=xyz.mean(axis=0).astype(np.float32),
+                        weight=probe.glob_class_weight,
+                        instance_weight=probe.glob_instance_weight,
+                        bb_size=np.asarray(box.size),
+                        bb_quat=np.asarray(box.quat),
+                        glob_class_id=probe.glob_class_id,
+                        glob_class_weight=probe.glob_class_weight,
+                        glob_instance_id=probe.glob_instance_id,
+                        glob_instance_weight=probe.glob_instance_weight))
+
+        if not vparams.single_object_mode:
+            maxima = filter_maxima(maxima, vparams, self.state.dims_map)
+        maxima = sorted(maxima, key=lambda m: -m.weight)
+        if vparams.use_global_features and maxima:
+            # merge function 5 takes the unnormalised weights
+            # (voting.cpp:275-281)
+            if vparams.merge_function != 5:
+                normalize_weights(maxima)
+            merge_global_and_local(maxima, vparams, roi_centroid)
+            maxima = sorted(maxima, key=lambda m: -m.weight)
+            maxima = [m for m in maxima if m.weight != 0]
+        normalize_weights(maxima)
+        return select_maxima(maxima, vparams)
+
+    def _global_classifier(self, vparams: VotingParams) -> GlobalClassifier:
+        """The verification classifier, built once: the ROI radius of a
+        class is the mean globalDescriptorRadius of its training global
+        features (global_classifier.cpp:55-67), else its median box edge."""
+        if self._gc_cache is None:
+            st = self.state
+            if st.global_radii is not None and len(st.global_radii):
+                gcls = np.asarray(st.global_classes)
+                grad = np.asarray(st.global_radii)
+                radii = {int(c): float(grad[gcls == c].mean())
+                         for c in np.unique(gcls)}
+            else:
+                radii = {cid: dims[1] for cid, dims in st.dims_map.items()}
+            method = vparams.global_feature_method
+            if method == "SVM" and st.svm is None:
+                method = "KNN"
+            self._gc_cache = GlobalClassifier(
+                descriptors=st.global_descriptors, classes=st.global_classes,
+                instances=st.global_instances, average_radii=radii,
+                metric=self.metric, method=method,
+                k=vparams.k_global_features,
+                single_object_mode=vparams.single_object_mode, svm=st.svm,
+                device=self.device)
+        return self._gc_cache
 
 
 def _crop_box(cloud: PointCloud, box: BoundingBox) -> PointCloud:

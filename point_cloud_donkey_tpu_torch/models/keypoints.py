@@ -1,6 +1,10 @@
 """Voxel-grid keypoint parameters (port of ``KeypointParams`` and
 ``culling_disabled`` of point_cloud_donkey_tpu/models/keypoints.py, for the
-VoxelGrid and VoxelGridCulling types; the culling itself is not ported)."""
+VoxelGrid and VoxelGridCulling types).  Ported: the parameters and the
+test of whether VoxelGridCulling culls; training and detection run
+VoxelGridCulling where it culls nothing.  Not ported: the culling itself
+(ROADMAP A13) and the keypoint detectors (ROADMAP A15); training and
+detection refuse them by name."""
 
 from __future__ import annotations
 

@@ -121,13 +121,17 @@ class PipelineConfig(NamedTuple):
         """From an ``.ism`` config, with the reference's defaults, as the
         JAX serve CLI builds its JitPipelineConfig.  A model that asks for
         the global-feature verification (Voting.UseGlobalFeatures) is
-        refused: its classifier (JAX models/classifier.py) is ROADMAP A13,
-        and serving without it would give other decisions than the JAX
-        package's."""
+        refused: this step serves no verification, as the JAX jitted step
+        serves none; ``ImplicitShapeModel.detect_batch`` (models/ism.py)
+        serves such models, as the JAX eval_classification's host flow
+        does."""
         if config.child("Voting").get("UseGlobalFeatures", False):
             raise NotImplementedError(
-                "Voting.UseGlobalFeatures: the global-feature verification "
-                "(JAX models/classifier.py) is not ported (ROADMAP A13)")
+                "Voting.UseGlobalFeatures: the classify and detect steps "
+                "serve no global-feature verification (as the JAX jitted "
+                "step); serve such a model with "
+                "models.ism.ImplicitShapeModel.load(...).detect_batch, as "
+                "the JAX eval_classification's host flow does")
         feat = config.child("Features")
         root = config.root
         return cls(

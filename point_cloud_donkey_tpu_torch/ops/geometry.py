@@ -3,8 +3,9 @@
 point_cloud_donkey_tpu/ops/geometry.py), batched over leading dims, the
 numpy forms that codebook training runs on the host
 (``matrix_to_quat_batch_np``, ``quat_multiply_np``, ``quat_to_matrix_np``),
-``quat_rotate`` / ``quat_rotate_inv`` and the training boxes' MVBB
-(``compute_mvbb``, batched: :func:`compute_mvbb_batch`).
+``quat_rotate`` / ``quat_rotate_inv``, the training boxes' MVBB
+(``compute_mvbb``, batched: :func:`compute_mvbb_batch`) and the weighted
+quaternion average of detection (:func:`quat_weighted_average`).
 """
 
 from __future__ import annotations
@@ -151,8 +152,8 @@ MVBB_CHUNK = 16
 
 
 def _eigh_host(cov: np.ndarray) -> np.ndarray:
-    """Eigenvectors (columns, ascending eigenvalues) of symmetric 3x3
-    matrices [B, 3, 3], float32, through LAPACK's ssyevd on the host (the
+    """Eigenvectors (columns, ascending eigenvalues) of symmetric n x n
+    matrices [B, n, n], float32, through LAPACK's ssyevd on the host (the
     lower triangle of the symmetrised matrix): the routine and library
     (scipy's) that the JAX package's CPU ``jnp.linalg.eigh`` calls, so
     each eigenvector comes with JAX's sign.
@@ -168,6 +169,20 @@ def _eigh_host(cov: np.ndarray) -> np.ndarray:
             raise np.linalg.LinAlgError(f"ssyevd failed (info {info})")
         out.append(vecs)
     return np.stack(out).astype(np.float32)
+
+
+def quat_weighted_average(quats: np.ndarray, weights: np.ndarray
+                          ) -> np.ndarray:
+    """Weighted average [4] of quaternions [M, 4] (Utils::quatWeightedAverage,
+    utils.cpp:617-665): the eigenvector of the largest eigenvalue of the
+    weighted scatter sum_m w_m q_m q_m^T, in float32, through
+    :func:`_eigh_host` (the routine of the JAX package's CPU eigh, so the
+    sign is JAX's wherever the top two eigenvalues are apart)."""
+    q = np.asarray(quats, np.float32)
+    w = np.asarray(weights, np.float32)
+    scatter = np.sum(w[:, None, None] * q[:, :, None] * q[:, None, :],
+                     axis=0, dtype=np.float32)
+    return _eigh_host(scatter[None])[0][:, -1]
 
 
 def _candidate_rotations(base: np.ndarray, n_angles: int) -> np.ndarray:

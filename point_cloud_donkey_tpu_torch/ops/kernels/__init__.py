@@ -50,3 +50,21 @@ def stream_of(t: torch.Tensor) -> int:
 def f32(x: float) -> float:
     """x rounded to float32, as the kernels receive it."""
     return float(torch.tensor(x, dtype=torch.float32))
+
+
+def masked_centroid(points: torch.Tensor,   # [B, N, 3]
+                    mask: torch.Tensor      # [B, N]
+                    ) -> torch.Tensor:
+    """Each cloud's centroid [B, 3] over its unmasked points, with the same
+    bits whatever the batch around the cloud, so detect() equals its row
+    of detect_batch().  The CPU's sum reduces each cloud in one order; a
+    CUDA sum splits the reduction by the batch's size, so on the card the
+    sum is the last row of a float64 cumulative sum along the points (one
+    thread a column, in point order), rounded to float32.  The count is
+    exact."""
+    m = mask.to(points.dtype)
+    count = torch.clamp(m.sum(1), min=1.0)[:, None]
+    if points.device.type != "cuda":
+        return (points * m[..., None]).sum(1) / count
+    total = torch.cumsum((points * m[..., None]).double(), dim=1)[:, -1]
+    return total.float() / count

@@ -32,7 +32,7 @@ import torch
 from ...kernels import build
 from ..eigh3 import eigh3x3
 from ..neighbors import full_fp32
-from . import check, f32, stream_of, uses_kernel
+from . import check, f32, masked_centroid, stream_of, uses_kernel
 
 MOMENT_ROWS = 10      # s0, s1 (x, y, z), s2 (xx, yy, zz, xy, xz, yz)
 TQW = 256             # queries per window-plan tile (ops/binned.py)
@@ -391,9 +391,7 @@ def prep_shift(queries: torch.Tensor, points: torch.Tensor,
                mask: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Shift queries and points by each cloud's masked centroid (the
     conditioning step of `_prep_lanes`): (q_s [B, Q, 3], p_s [B, N, 3])."""
-    m = mask.to(points.dtype)
-    shift = (points * m[..., None]).sum(1) \
-        / torch.clamp(m.sum(1), min=1.0)[:, None]
+    shift = masked_centroid(points, mask)
     return ((queries - shift[:, None, :]).contiguous(),
             (points - shift[:, None, :]).contiguous())
 

@@ -17,6 +17,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+from .kernels import masked_centroid
 from .kernels.chisq import (KMAX, chisq_matrix, chisq_matrix_plain,
                             chisq_topk, smallest_k)
 
@@ -78,9 +79,7 @@ def radius_covariance(queries: torch.Tensor,   # [B, Q, 3]
         raise ValueError(f"unknown weighting {weighting}")
     if center not in ("mean", "query"):
         raise ValueError(f"unknown center {center}")
-    m = mask.to(points.dtype)
-    shift = (points * m[..., None]).sum(-2) \
-        / torch.clamp(m.sum(-1), min=1.0)[..., None]                 # [B, 3]
+    shift = masked_centroid(points, mask)                          # [B, 3]
     points = points - shift[:, None, :]
     queries = queries - shift[:, None, :]
     b, nq, n = queries.shape[0], queries.shape[1], points.shape[1]

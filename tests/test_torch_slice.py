@@ -159,12 +159,14 @@ def test_port_imports_neither_jax_nor_triton():
         "mods = [m.name for m in pkgutil.walk_packages(pkg.__path__, "
         "pkg.__name__ + '.')]\n"
         "for m in mods: importlib.import_module(m)\n"
-        "assert len(mods) >= 31, mods\n"
+        "assert len(mods) >= 39, mods\n"
         "new = ['ops.color', 'ops.short_shot', 'ops.kernels.shot_hist', "
         "'ops.kernels.histogram', 'train', 'models.ism', "
         "'models.detect_batch', 'models.features', 'models.keypoints', "
         "'models.types', 'models.ranking', 'models.clustering', "
-        "'utils.mesh']\n"
+        "'utils.mesh', 'ops.hough', 'models.voting', 'models.classifier', "
+        "'models.metrics', 'utils.boost_archive', 'utils.debug_utils', "
+        "'eval_detection']\n"
         "assert all(pkg.__name__ + '.' + m in mods for m in new), mods\n"
         "bad = [m for m in ('jax', 'jaxlib', 'triton', "
         "'point_cloud_donkey_tpu') if m in sys.modules]\n"
@@ -179,6 +181,23 @@ def test_chip_smoke_imports_nothing_of_jax():
     """chip_smoke.py runs where there is no JAX: none of its imports names
     jax or the JAX package."""
     with open(os.path.join(REPO, "chip_smoke.py")) as f:
+        tree = ast.parse(f.read())
+    names = [a.name for node in ast.walk(tree) if isinstance(node, ast.Import)
+             for a in node.names]
+    names += [node.module for node in ast.walk(tree)
+              if isinstance(node, ast.ImportFrom) and node.module]
+    assert any(m.startswith("point_cloud_donkey_tpu_torch") for m in names)
+    bad = [m for m in names if m.split(".")[0] in
+           ("jax", "jaxlib", "point_cloud_donkey_tpu")]
+    assert not bad, bad
+
+
+@pytest.mark.parametrize("script", ["binned_timing.py", "detect_limits.py",
+                                    "mean_shift_timing.py"])
+def test_card_scripts_import_nothing_of_jax(script):
+    """The measurement scripts that run on the card beside chip_smoke.py
+    import nothing of jax or of the JAX package, only the port."""
+    with open(os.path.join(REPO, "tests", script)) as f:
         tree = ast.parse(f.read())
     names = [a.name for node in ast.walk(tree) if isinstance(node, ast.Import)
              for a in node.names]

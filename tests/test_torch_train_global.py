@@ -15,8 +15,10 @@ trained as shipped, against the JAX package's training on the CPU.
     verbatim, through the port's train entry point: the codebook
     contract; the model saved by the port loads in the JAX package, whose
     SVMModel predicts the port's classes from the saved global descriptors;
-  * serving a model that asks for the global-feature verification
-    (default.ism's Voting.UseGlobalFeatures) is refused by name.
+  * the classify and detect steps refuse by name a model that asks for
+    the global-feature verification (default.ism's
+    Voting.UseGlobalFeatures): ImplicitShapeModel.detect_batch serves it
+    (tests/test_torch_detect_ism.py).
 
 The JAX references run as tests/test_torch_train_staged.py runs them (the
 fused route, dense descriptors on the staged route)."""
@@ -151,8 +153,8 @@ def test_shipped_configs_train_as_shipped(tmp_path, name, scale):
 
 def test_global_verification_is_refused(tmp_path):
     """A model whose Voting asks for UseGlobalFeatures: the port's serving
-    config refuses it by name (its classifier is not ported), and so does
-    serve."""
+    config refuses it by name (the classify and detect steps serve no
+    verification, as the JAX jitted step), and so does serve."""
     cfg = IsmConfig.from_json(shipped("default"))
     with pytest.raises(NotImplementedError, match="UseGlobalFeatures"):
         PipelineConfig.from_ism(cfg, 3)

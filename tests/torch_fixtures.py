@@ -49,7 +49,23 @@
       the KMeansCount and KMeansHartigan trainings the features that JAX's
       k-means++ seeding picked (``train_seeds_<name>``, the indices of the
       seeds of each k of ``train_seed_ks_<name>`` in turn) and the
-      codebook (``cb_<name>_<field>``).
+      codebook (``cb_<name>_<field>``);
+  point_cloud_donkey_tpu_torch/data/default_model.ism and
+  quickstart_model.ism (+ .ismd.npz): configs/default.ism and
+  quickstart.ism as shipped, trained by the JAX package on the CPU
+  (build_detect_model: 10 coloured training views x0.3; the five bench
+  training clouds x70);
+  point_cloud_donkey_tpu_torch/data/detect_reference.npz:
+      the JAX-CPU ``detect_batch`` (dense descriptors) of each detection of
+      chip_smoke.py's phase 10 (tests/bench_data.detect_inputs: default,
+      quickstart, hough): the maxima (``<name>_max_<field>``,
+      bench_data.pack_maxima) and the valid cast votes they came from
+      (``<name>_vote_<field>``, bench_data.pack_votes);
+  point_cloud_donkey_tpu_torch/data/detect_limits_reference.npz:
+      the maxima of the default and hough detections on the scenes of
+      each bench_data.LIMIT_SEEDS seed (``s<seed>_<name>_max_<field>``)
+      and the default detection's votes (``s<seed>_default_vote_<field>``),
+      which tests/detect_limits.py reads the card's distance from.
 
 The machine with the GPU has no JAX, so these files carry the reference
 across.  tests/test_torch_fixtures.py regenerates them and checks they
@@ -57,7 +73,10 @@ match the committed ones.  Rewrite them with:
 
     JAX_PLATFORMS=cpu python tests/torch_fixtures.py
 
-(``... torch_fixtures.py train`` rewrites train_reference.npz alone.)
+(``... torch_fixtures.py train`` rewrites train_reference.npz alone,
+``... torch_fixtures.py detect`` the detection models and
+detect_reference.npz, ~2.5 min; ``... torch_fixtures.py limits``
+detect_limits_reference.npz from the committed models.)
 """
 
 import contextlib
@@ -87,6 +106,13 @@ CODEBOOKS = {
 DESCRIPTOR_REFERENCE = os.path.join(DATA_DIR, "descriptor_reference.npz")
 CONFIG_REFERENCE = os.path.join(DATA_DIR, "config_reference.npz")
 TRAIN_REFERENCE = os.path.join(DATA_DIR, "train_reference.npz")
+DETECT_REFERENCE = os.path.join(DATA_DIR, "detect_reference.npz")
+LIMITS_REFERENCE = os.path.join(DATA_DIR, "detect_limits_reference.npz")
+# the JAX-trained models of the shipped configs that phase 10 detects with
+DETECT_MODELS = {
+    "default": os.path.join(DATA_DIR, "default_model.ism"),
+    "quickstart": os.path.join(DATA_DIR, "quickstart_model.ism"),
+}
 N_REF = 16
 N_DETECT = 32   # bench.py's MS_BATCH
 # Threshold activation's distance: with the bench codebook the JAX run
@@ -471,6 +497,140 @@ def build_train_reference(path: str) -> None:
     np.savez_compressed(path, **out)
 
 
+@contextlib.contextmanager
+def dense_descriptors():
+    """While open, the JAX package trains on its fused route and computes
+    the SHOT family densely on the CPU (PCD_TRAIN_FUSED=1,
+    PCD_DENSE_DESC=1): the formulation the port computes, and the JAX
+    package's own on an accelerator."""
+    old = {k: os.environ.get(k) for k in ("PCD_TRAIN_FUSED", "PCD_DENSE_DESC")}
+    os.environ.update(PCD_TRAIN_FUSED="1", PCD_DENSE_DESC="1")
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def shipped_config(name: str) -> dict:
+    """configs/<name>.ism as shipped."""
+    import json
+    with open(os.path.join(os.path.dirname(_TESTS), "configs",
+                           f"{name}.ism")) as f:
+        return json.load(f)
+
+
+def build_detect_model(name: str, path: str, tmp: str) -> None:
+    """Train configs/<name>.ism as shipped with the JAX package on the CPU
+    and save it at `path`: default on bench_data.DEFAULT_VIEWS coloured
+    training views scaled by 0.3, quickstart on the five bench training
+    clouds scaled by 70."""
+    from bench_data import DEFAULT_VIEWS, DETECT_SCALES, training_views
+    from point_cloud_donkey_tpu.models.ism import ImplicitShapeModel
+    from point_cloud_donkey_tpu.utils.config import IsmConfig
+    from point_cloud_donkey_tpu.utils.io import PointCloud, save_pcd
+    scale = np.float32(DETECT_SCALES[name])
+    if name == "default":
+        clouds, labels = training_views(DEFAULT_VIEWS)
+    else:
+        clouds, labels, _, _ = bench_clouds(0)
+    with dense_descriptors():
+        ism = ImplicitShapeModel(IsmConfig.from_json(shipped_config(name)))
+        for i, (pts, cid) in enumerate(zip(clouds, labels)):
+            f = os.path.join(tmp, f"{name}{i}.pcd")
+            save_pcd(f, PointCloud(xyz=pts * scale, rgb=bench_colors(pts)
+                                   if name == "default" else None))
+            ism.add_training_model(f, int(cid), int(cid))
+        ism.train()
+    ism.save(path)
+
+
+def jax_detector(name: str):
+    """The JAX package's ImplicitShapeModel that phase 10 detects with for
+    `name`."""
+    from bench_data import HOUGH_VOTING, with_voting
+    from point_cloud_donkey_tpu.models.ism import ImplicitShapeModel
+    from point_cloud_donkey_tpu.utils.config import IsmConfig
+    if name == "hough":
+        ism = ImplicitShapeModel.load(CODEBOOK)
+        import json
+        with open(CODEBOOK) as f:
+            ism.config = IsmConfig.from_json(with_voting(json.load(f),
+                                                         HOUGH_VOTING))
+        return ism
+    return ImplicitShapeModel.load(DETECT_MODELS[name])
+
+
+def jax_detect_votes(ism, clouds, rgbs):
+    """(maxima lists, valid cast votes) of the JAX package's detect_batch on
+    the dense descriptors, the votes recorded on their way to the maxima."""
+    votes = []
+    real = type(ism)._precompute_mean_shift_batch
+
+    def record(self, votes_list, vparams):
+        votes.extend(votes_list)
+        return real(self, votes_list, vparams)
+
+    type(ism)._precompute_mean_shift_batch = record
+    try:
+        with dense_descriptors():
+            res = ism.detect_batch(list(clouds), None,
+                                   None if rgbs is None else list(rgbs))
+    finally:
+        type(ism)._precompute_mean_shift_batch = real
+    return [m for m, _ in res], votes
+
+
+def build_detect_reference(path: str) -> None:
+    """detect_reference.npz: for each phase-10 detection of
+    bench_data (default, quickstart, hough), the JAX-CPU maxima
+    (``<name>_max_<field>``, bench_data.pack_maxima) and cast votes
+    (``<name>_vote_<field>``, bench_data.pack_votes) of detect_batch; the
+    models of the shipped configs are trained first (DETECT_MODELS)."""
+    from bench_data import detect_inputs, pack_maxima, pack_votes
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, model in DETECT_MODELS.items():
+            build_detect_model(name, model, tmp)
+    for name in ("default", "quickstart", "hough"):
+        clouds, rgbs = detect_inputs(name)
+        maxima, votes = jax_detect_votes(jax_detector(name), clouds, rgbs)
+        for k, v in pack_maxima(maxima).items():
+            out[f"{name}_max_{k}"] = v
+        for k, v in pack_votes(votes).items():
+            out[f"{name}_vote_{k}"] = v
+        print(f"{name}: {sum(len(m) for m in maxima)} maxima, "
+              f"{len(out[name + '_vote_weight'])} votes")
+    np.savez_compressed(path, **out)
+
+
+def build_limits_reference(path: str) -> None:
+    """detect_limits_reference.npz: the JAX-CPU maxima of the default and
+    hough detections (the committed models) on the scenes of each
+    bench_data.LIMIT_SEEDS seed, ``s<seed>_<name>_max_*``, and the
+    default detection's cast votes, ``s<seed>_default_vote_*``."""
+    from bench_data import (LIMIT_SEEDS, detect_inputs, pack_maxima,
+                            pack_votes)
+    out = {}
+    for seed in LIMIT_SEEDS:
+        for name in ("default", "hough"):
+            clouds, rgbs = detect_inputs(name, seed)
+            maxima, votes = jax_detect_votes(jax_detector(name), clouds,
+                                             rgbs)
+            for k, v in pack_maxima(maxima).items():
+                out[f"s{seed}_{name}_max_{k}"] = v
+            if name == "default":   # the global stage reads its votes
+                for k, v in pack_votes(votes).items():
+                    out[f"s{seed}_{name}_vote_{k}"] = v
+            print(f"seed {seed}, {name}: {sum(len(m) for m in maxima)} "
+                  f"maxima, {sum(len(v.weight) for v in votes)} votes",
+                  flush=True)
+    np.savez_compressed(path, **out)
+
+
 def main() -> None:
     import jax
     jax.config.update("jax_platforms", "cpu")
@@ -479,12 +639,22 @@ def main() -> None:
         build_train_reference(TRAIN_REFERENCE)
         print(f"wrote {TRAIN_REFERENCE}")
         return
+    if sys.argv[1:] == ["detect"]:
+        build_detect_reference(DETECT_REFERENCE)
+        print(f"wrote {DETECT_REFERENCE}")
+        return
+    if sys.argv[1:] == ["limits"]:
+        build_limits_reference(LIMITS_REFERENCE)
+        print(f"wrote {LIMITS_REFERENCE}")
+        return
     for descriptor, path in CODEBOOKS.items():
         build_codebook(path, descriptor)
     build_reference(CODEBOOK, REFERENCE)
     build_descriptor_reference(CODEBOOKS, DESCRIPTOR_REFERENCE)
     build_config_reference(CONFIG_REFERENCE)
     build_train_reference(TRAIN_REFERENCE)
+    build_detect_reference(DETECT_REFERENCE)
+    build_limits_reference(LIMITS_REFERENCE)
     _, _, clouds, _ = bench_clouds(N_REF)
     median, capped, share = threshold_activity(
         CODEBOOK, clouds, np.ones(clouds.shape[:2], bool))
@@ -492,7 +662,8 @@ def main() -> None:
           f"a feature, {100 * capped:.1f}% of the features capped at 64, "
           f"{100 * share:.1f}% of the 64 nearest kept")
     print(f"wrote {', '.join(CODEBOOKS.values())} (+ d.npz), {REFERENCE}, "
-          f"{DESCRIPTOR_REFERENCE}, {CONFIG_REFERENCE} and {TRAIN_REFERENCE}")
+          f"{DESCRIPTOR_REFERENCE}, {CONFIG_REFERENCE}, {TRAIN_REFERENCE} and "
+          f"{DETECT_REFERENCE} (+ {', '.join(DETECT_MODELS.values())})")
 
 
 if __name__ == "__main__":
