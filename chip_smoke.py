@@ -146,7 +146,22 @@ Phases (each prints its results; any failure raises and exits nonzero):
      detect_batch, the voting stage on the committed JAX votes to the
      maxima contracts and the run end to end to the detection contract
      (tests/bench_data.py); 10d eval_detection.py --device cuda trains a
-     SHORT_SHOT model and detects a scene.
+     SHORT_SHOT model and detects a scene;
+ 11. scene scale and keypoint culling against data/scene_reference.npz
+     (tests/scene_fixtures.py: the JAX package on the CPU, with control
+     runs of the JAX package against itself): 11a configs/rgbd_kinect.ism
+     as shipped detecting two synthetic 640 x 480 Kinect frames
+     (tests/kinect_data.py), K1 / K2 and K8 against their twins on the
+     frame's window slabs and timed there, K4's time, the LRFs read
+     against the exact float64 LRF (tests/scene_timing.py times K5 / K6
+     fed the plan's starts); 11b default.ism with SOR, ROR and MLS on two
+     100k-point scenes, each filter point by point; 11c VoxelGridCulling
+     on a frame and on 16 bench clouds (tests/culling_check.py); 11d
+     detect_batch of [frame, small, frame,
+     small]; 11e training of rgbd_kinect.ism with a view above the scene
+     threshold; 11f Hough3D + RANSAC + Merge on a 100k-point scene -- each
+     with clouds/s, processing_times, launches and peak memory, and the
+     phase's wall time.
 Every step of phases 4-8 also prints its peak device memory, and phase 2
 the bits (sha256) of K1's, K2's, K3's and K6's outputs and of K7's
 in-radius counts and histograms (tests/port_fingerprint.py prints the
@@ -289,6 +304,19 @@ PATH_KERNELS = {
                      "chisq_topk"),
     "eval_detection": ("lrf_moments", "sign_votes", "histogram",
                        "chisq_topk"),
+    # phase 11: scene scale and culling -- rgbd_kinect.ism (method 0 PCA
+    # normals: K1 / K2 at the keypoint LRFs only; CSHOT under chi-square)
+    # on frames, with culling, beside small clouds and in training;
+    # default.ism with the filters (K1 / K2 for the method-2 normals too,
+    # l2: no K4); the bench SHOT model's culling and Hough3D
+    **{"scene_" + name: ("lrf_moments", "sign_votes", "shot_hist",
+                         "chisq_topk")
+       for name in ("kinect", "culling", "mixed", "train")},
+    "scene_filters": ("lrf_moments", "sign_votes", "shot_hist"),
+    **{"scene_" + name: ("lrf_moments", "sign_votes", "shot_dense",
+                         "chisq_topk")
+       for name in ("culling_curvature_auto", "culling_gaussian_threshold",
+                    "hough")},
 }
 
 # Least time of a kernel call: the larger of its bytes (inputs read once,
@@ -347,6 +375,37 @@ DENS_RTOL = 2e-3
 # vote whose validity differs between the card's features and the plain
 # twins' (3 on the H100, clouds 12, 15 and 22; PERF.md)
 MOVED_MAX = 3
+# phase 11: at NormalRadius 5 mm the frames' and views' normals rest on
+# a few noisy neighbours, and the JAX package does not agree with itself
+# when only its sums run in another order (scene_reference.npz's control
+# runs): the card's share of a frame's descriptors at cosine > 0.999 may
+# fall SPREAD_MARGIN below the control's, its share of entries off by more
+# than 1e-3 rise ENTRY_MARGIN above it; its trained codewords at cosine >
+# 0.999 may fall CODEBOOK_MARGIN below the control training's.  Each
+# margin lies between the card's reading and that of its descriptors or
+# codewords with 2% noise, which the phase checks it rejects (PERF.md
+# gives the readings)
+SPREAD_MARGIN = 0.02
+ENTRY_MARGIN = 0.015
+CODEBOOK_MARGIN = 0.01
+# scene_reference.npz keeps every DESC_STRIDE-th scene feature
+DESC_STRIDE = 100
+
+
+def descriptor_spread(x, y):
+    """(share of rows at cosine > 0.999, share of entries off by more than
+    1e-3, median cosine) of descriptors x against y."""
+    import numpy as np
+    cos = (x * y).sum(1) / np.maximum(np.linalg.norm(x, axis=1)
+                                      * np.linalg.norm(y, axis=1), 1e-30)
+    return (float((cos > 0.999).mean()), float((np.abs(x - y) > 1e-3).mean()),
+            float(np.median(cos)))
+
+
+def within_spread(reading, control):
+    """A descriptor_spread reading within the control's plus the margins."""
+    return reading[0] >= control[0] - SPREAD_MARGIN and \
+        reading[1] <= control[1] + ENTRY_MARGIN
 
 
 def phase(name):
@@ -1392,6 +1451,9 @@ def main():
     # -- 10. detection through ImplicitShapeModel ---------------------------
     detection_ism(launches, card, data, dev)
 
+    # -- 11. scene scale and keypoint culling ---------------------------------
+    scene_phase(launches, card, data, dev)
+
     # -- results ----------------------------------------------------------------
     total = {k: sum(run[k] for run in launches.values()) for k in KERNELS}
     assert all(total.values()), f"kernels never launched: {total}"
@@ -1570,6 +1632,873 @@ def detection_ism(launches, card, data, dev):
     phase(f"10d. eval_detection.py --device cuda: train a SHORT_SHOT model, "
           f"detect a scene ({card})")
     eval_detection_on_card(launches, str(dev))
+
+
+def timed_detect(ism, clouds, rgbs, key, launches, card):
+    """One counted detect_batch of `clouds` (host clock): prints clouds/s,
+    processing_times ms per cloud, launches and peak memory above what was
+    held; asserts the launches of PATH_KERNELS[key]; returns the maxima
+    lists."""
+    import torch
+    from point_cloud_donkey_tpu_torch.kernels import build
+    from point_cloud_donkey_tpu_torch.models.ism import DETECT_STAGES
+    torch.cuda.synchronize()
+    before = dict(ism.processing_times)
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    build.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = ism.detect_batch(list(clouds), None,
+                           None if rgbs is None else list(rgbs))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = build.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    launches[key] = counts
+    per = {k: round((res[-1][1][k] - before.get(k, 0.0)) * 1e3
+                    / len(clouds), 3) for k in DETECT_STAGES}
+    print(f"throughput: {len(clouds) / dt:.3f} clouds/s (one detect_batch "
+          f"of {len(clouds)}, {dt:.3f} s, host clock) ({card})")
+    print(f"processing_times ms per cloud: {per}")
+    print(f"launches: { {k: v for k, v in counts.items() if v} }")
+    print(f"peak device memory: {peak / 2**20:.1f} MiB "
+          f"({(peak - held) / 2**20:.1f} MiB above the "
+          f"{held / 2**20:.1f} MiB held before it) ({card})")
+    missing = [k for k in PATH_KERNELS[key] if counts[k] == 0]
+    assert not missing, f"{key}: kernels not launched {missing}"
+    return [m for m, _ in res]
+
+
+def scene_phase(launches, card, data, dev):
+    """Phase 11: scene scale (the tiled path of ops/tiled.py) and keypoint
+    culling on the card, against data/scene_reference.npz (the JAX package
+    on the CPU, dense descriptors; tests/scene_fixtures.py):
+      11a configs/rgbd_kinect.ism as shipped (the JAX-trained
+          data/kinect_model.ism) detecting two synthetic 640 x 480 Kinect
+          frames (tests/kinect_data.py): keypoints equal to JAX's, the
+          descriptors and the firm detections within the spread of the
+          JAX package against itself under another exact tiling (the
+          reference's control run; the card's descriptors with 2% noise
+          fall outside it), the LRFs read against their plain twins and
+          the exact float64 LRF, detect() = detect_batch bit for bit;
+          K1 / K2 and K8 against their twins on four of the frame's
+          slabs, their times at the frame's shapes and K4's, with bounds;
+      11b configs/default.ism's model with SOR, ROR and MLS on
+          (kinect_data.FILTER_PARAMS) on two ~100k-point scenes: each
+          filter's mask point by point against JAX's (a point decided
+          otherwise lies at the filter's rounding), the MLS positions,
+          the firm detections;
+      11c VoxelGridCulling: KPQ + ColorDistance on a frame (the tiled
+          culling, on JAX's normals): the same voxel keypoints, the
+          geometry scores within the JAX package's own spread under an
+          ulp move of the frame, each colour score JAX's but at a pair
+          of the radius gate's rounding, each culling its scores'
+          decisions and no more keypoints moved than that control moves
+          (tests/culling_check.py); Curvature + Auto, Gaussian +
+          Threshold on 16 bench clouds (the batched culling): the kept
+          voxel keypoints JAX's but within rtol 1e-4 of a threshold;
+      11d detect_batch of [frame, small, frame, small]: the order kept,
+          each row detect() of its cloud bit for bit;
+      11e ImplicitShapeModel.train of rgbd_kinect.ism on the views, one
+          above the scene threshold: the codebook against the committed
+          JAX-trained one, within the spread of a JAX control training
+          (its codewords with 2% noise fall outside it);
+      11f the bench SHOT model with Hough3D, RANSAC and Merge on one
+          ~100k-point scene at unit scale: the firm detections."""
+    import numpy as np
+    import torch
+
+    import kinect_data as kd
+    from bench_data import (FIRM_RTOL, FIRM_RTOL_HOUGH, HOUGH_VOTING,
+                            bench_clouds, bench_scenes, firm_mismatches,
+                            unpack_maxima, with_voting)
+    from point_cloud_donkey_tpu_torch.kernels import build
+    from point_cloud_donkey_tpu_torch.models import keypoints as tkp
+    from point_cloud_donkey_tpu_torch.models.detect_batch import \
+        extract_local_features_batch
+    from point_cloud_donkey_tpu_torch.models.features import FeatureConfig
+    from point_cloud_donkey_tpu_torch.models.ism import (ImplicitShapeModel,
+                                                         preprocess_cloud)
+    from point_cloud_donkey_tpu_torch.ops import tiled
+    from point_cloud_donkey_tpu_torch.utils.config import (ComponentConfig,
+                                                           IsmConfig)
+    from point_cloud_donkey_tpu_torch.utils.io import PointCloud, save_pcd
+
+    t_phase = time.perf_counter()
+    with np.load(os.path.join(data, "scene_reference.npz")) as z:
+        ref = dict(z)
+    frames = [kd.kinect_frame(s) for s in kd.FRAME_SEEDS]
+    hashes = [kd.frame_hash(f) for f in frames]
+    assert hashes == [str(h) for h in ref["frame_hash"]], \
+        f"the frames differ from the reference's: {hashes}"
+    ctx = SceneContext(launches, card, data, dev, ref, frames)
+    for step in (scene_frames, scene_filters, scene_culling, scene_mixed,
+                 scene_training, scene_hough):
+        step(ctx)
+    print(f"phase 11 wall time: {time.perf_counter() - t_phase:.1f} s "
+          f"({card})")
+
+
+@dataclasses.dataclass
+class SceneContext:
+    launches: dict
+    card: str
+    data: str
+    dev: object
+    ref: dict
+    frames: list
+
+    def ref_maxima(self, prefix):
+        from bench_data import unpack_maxima
+        pre = prefix + "max_"
+        return unpack_maxima({k[len(pre):]: v for k, v in self.ref.items()
+                              if k.startswith(pre)})
+
+    def model_json(self, name):
+        with open(os.path.join(self.data, name)) as f:
+            return json.load(f)
+
+    def path(self, name):
+        return os.path.join(self.data, name)
+
+
+def scene_frames(ctx):
+    """11a."""
+    import numpy as np
+    from scipy.spatial import cKDTree
+    import kinect_data as kd
+    from bench_data import FIRM_RTOL
+    from culling_check import coord_tol
+    from point_cloud_donkey_tpu_torch.models import keypoints as tkp
+    from point_cloud_donkey_tpu_torch.models.detect_batch import \
+        extract_local_features_batch
+    from point_cloud_donkey_tpu_torch.models.features import FeatureConfig
+    from point_cloud_donkey_tpu_torch.models.ism import ImplicitShapeModel
+    launches, card, dev, ref, frames = (ctx.launches, ctx.card, ctx.dev,
+                                        ctx.ref, ctx.frames)
+    kinect_path = ctx.path("kinect_model.ism")
+    phase(f"11a. configs/rgbd_kinect.ism as shipped (CSHOT r 0.05, LRF "
+          f"0.05, leaf 0.02, NormalRadius 0.005, method 0, chi-square "
+          f"1-NN): detect_batch of {len(frames)} Kinect frames, "
+          f"{kd.WIDTH} x {kd.HEIGHT}, "
+          f"{', '.join(str(len(f.xyz)) for f in frames)} points ({card})")
+    ism = ImplicitShapeModel.load(kinect_path, device=dev)
+    view = kd.training_views()[0][0]
+    ism.detect_batch([view.xyz], None, [view.rgb])              # warm-up
+    got = timed_detect(ism, [f.xyz for f in frames],
+                       [f.rgb for f in frames], "scene_kinect", launches,
+                       card)
+    for i, f in enumerate(frames):
+        one = ism.detect(f.xyz, None, f.rgb)[0]
+        assert maxima_bits(one) == maxima_bits(got[i]), \
+            f"11a: detect of frame {i} differs from detect_batch"
+    print("detect() of each frame equals its detect_batch row bit for bit")
+    fcfg = FeatureConfig.from_config(ism.config.child("Features"))
+    kpp = tkp.KeypointParams.from_config(ism.config.child("Keypoints"))
+    nr = ism.root.get("NormalRadius", 0.05)
+    cm = ism.root.get("ConsistentNormalsMethod", 2)
+    bw = ism.config.child("Voting").get("Bandwidth", 0.1)
+    for i, (s, f) in enumerate(zip(kd.FRAME_SEEDS, frames)):
+        pre = f"a_{s}_"
+        fs = extract_local_features_batch(
+            [f.xyz], [None], [f.rgb], fcfg, kpp, nr, cm, dev,
+            ism.lrf_version, is_training=False)[0]
+        # equal sets: the same count, each JAX keypoint's nearest within
+        # coord_tol (keys tied along the sort axis may come in another
+        # order; voxel means summed in another order differ by ulps)
+        want_kp = ref[pre + "kp"]
+        assert fs.positions.shape == want_kp.shape, \
+            f"11a frame {s}: {len(fs.positions)} keypoints, JAX " \
+            f"{len(want_kp)}"
+        dist, near_i = cKDTree(fs.positions).query(want_kp)
+        moved = int((dist > coord_tol(want_kp)).sum())
+        print(f"frame {s}: {len(fs.positions)} keypoints, {moved} off "
+              f"JAX's by more than {coord_tol(want_kp):.1e} m (largest "
+              f"{float(dist.max()):.2e} m)")
+        assert moved == 0, f"11a frame {s}: {moved} keypoints off JAX's"
+        rows = near_i[::DESC_STRIDE]
+        got_d = fs.descriptors[rows]
+        want_d = ref[pre + "desc"]
+        ctl = descriptor_spread(ref[pre + "ctl_desc"], want_d)
+        sound = descriptor_spread(got_d, want_d)
+        rng = np.random.default_rng(0)
+        noise2 = descriptor_spread(got_d * (1 + 0.02 * rng.standard_normal(
+            got_d.shape)).astype(np.float32), want_d)
+        frames_ok = float((np.abs(fs.frames[rows] - ref[pre + "frames"]).max(
+            axis=(1, 2)) < 2e-3).mean())
+        print(f"frame {s}, every {DESC_STRIDE}th feature ({len(rows)}) vs "
+              f"JAX's: cosine > 0.999 on {100 * sound[0]:.2f}%, "
+              f"{100 * sound[1]:.3f}% of entries off by > 1e-3, median "
+              f"cosine {sound[2]:.5f}, LRFs within 2e-3 "
+              f"{100 * frames_ok:.1f}%; the JAX control "
+              f"{100 * ctl[0]:.2f}%, {100 * ctl[1]:.3f}%, {ctl[2]:.5f}; the "
+              f"card's with 2% noise {100 * noise2[0]:.2f}%, "
+              f"{100 * noise2[1]:.3f}%, {noise2[2]:.5f}")
+        assert within_spread(sound, ctl), \
+            f"11a frame {s}: descriptors outside the reference's spread"
+        assert not within_spread(noise2, ctl), \
+            f"11a frame {s}: the spread check passes 2% noise"
+        if i == 0:
+            shares = lrf_witness(f, want_kp[::DESC_STRIDE],
+                                 ref[pre + "frames"], fcfg, kpp, dev)
+            assert shares["exact_kernel"] >= shares["exact_jax"], \
+                "11a: the card's LRFs are farther from the exact ones " \
+                "than JAX's"
+        bad, unstable = kd.stable_mismatches(
+            got[i], ctx.ref_maxima(pre)[0], ctx.ref_maxima(pre + "ctl_")[0], bw,
+            FIRM_RTOL)
+        print(f"frame {s}: {len(got[i])} maxima, firm JAX maxima the "
+              f"control also finds met ({unstable} the control misses)")
+        assert not bad, f"11a frame {s}: {bad[:3]}"
+    frame_kernel_times(frames[0], fcfg, kpp, nr, dev, card, ism)
+
+
+def scene_filters(ctx):
+    """11b."""
+    import numpy as np
+    import torch
+    import kinect_data as kd
+    from bench_data import FIRM_RTOL, bench_scenes, firm_mismatches
+    from point_cloud_donkey_tpu_torch.models.ism import (ImplicitShapeModel,
+                                                         preprocess_cloud)
+    from point_cloud_donkey_tpu_torch.utils.config import IsmConfig
+    from point_cloud_donkey_tpu_torch.utils.io import PointCloud
+    launches, card, dev, ref = ctx.launches, ctx.card, ctx.dev, ctx.ref
+    scenes, srgb, _ = bench_scenes(kd.FILTER_SCENES, scale=kd.FILTER_SCALE,
+                                   n=kd.FILTER_POINTS, seed=kd.FILTER_SEED)
+    phase(f"11b. configs/default.ism with {kd.FILTER_PARAMS} on "
+          f"{len(scenes)} scenes x {scenes.shape[1]} points "
+          f"(x{kd.FILTER_SCALE:g}) ({card})")
+    ism = ImplicitShapeModel.load(ctx.path("default_model.ism"), device=dev)
+    ism.config = IsmConfig.from_json(kd.with_params(
+        ctx.model_json("default_model.ism"), kd.FILTER_PARAMS))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pre_c = [preprocess_cloud(PointCloud(xyz=c, rgb=r), ism.root, dev)
+             for c, r in zip(scenes, srgb)]
+    torch.cuda.synchronize()
+    print(f"preprocessing (tiled SOR, ROR, MLS): "
+          f"{(time.perf_counter() - t0) * 1e3 / len(scenes):.1f} ms a "
+          f"scene; kept {[len(p.xyz) for p in pre_c]} (JAX "
+          f"{ref['b_size'].tolist()})")
+    for i, (c, p) in enumerate(zip(scenes, pre_c)):
+        filter_contract(c, p.xyz, ism.root, ref, i, dev)
+    got = timed_detect(ism, [p.xyz for p in pre_c], [p.rgb for p in pre_c],
+                       "scene_filters", launches, card)
+    bw = ism.config.child("Voting").get("Bandwidth", 0.1)
+    bad = [(i, b) for i, (g, w) in enumerate(zip(got, ctx.ref_maxima("b_")))
+           for b in [firm_mismatches(g, w, bw, FIRM_RTOL)] if b]
+    print(f"{sum(map(len, got))} maxima; {len(got) - len(bad)}/{len(got)} "
+          f"scenes meet the detection contract")
+    assert not bad, f"11b: {bad[:3]}"
+
+
+def filter_contract(xyz, kept_xyz, root, ref, i, dev):
+    """11b's per-point contract for scene i: the steps of preprocess_cloud's
+    scene branch again on the card (their output equal to `kept_xyz`, what
+    the path kept), each mask against JAX's (scene_reference.npz): a point
+    SOR decides otherwise lies within rtol 1e-4 of the SOR threshold on the
+    card; one ROR decides otherwise has an in-radius count that JAX's may
+    reach through pairs at the radius gate's rounding band or SOR's other
+    decisions within the radius; MLS positions of the points both keep,
+    with no point kept by one side only within the smoothing radius,
+    within rtol 1e-3, atol 1e-4 of JAX's (tests/test_tiled.py's MLS
+    contract) but where a neighbour lies at the smoothing radius's
+    rounding band."""
+    import numpy as np
+    import torch
+    from point_cloud_donkey_tpu_torch.models.features import pad_cloud
+    from point_cloud_donkey_tpu_torch.ops import tiled
+    from point_cloud_donkey_tpu_torch.ops.neighbors import full_fp32
+    eps = float(np.finfo(np.float32).eps)
+    axis = tiled.sort_key_axis(xyz)
+    xyz = xyz[np.argsort(xyz[:, axis], kind="stable")]
+    n = len(xyz)
+    pts_h, mask_h = pad_cloud(xyz)
+    key = pts_h[:, axis]
+    pts = torch.from_numpy(pts_h).to(dev)
+    mask = torch.from_numpy(mask_h).to(dev)
+    with full_fp32():
+        plan = tiled.plan_tiles(key, mask_h, key, 0.0, tiled.NORMALS_CHUNK,
+                                min_window=4096)
+        mean_d = tiled.tiled_knn_mean_distances(
+            pts, mask, plan, root.get("OutlierRemovalMeanK", 20))
+        thresh = tiled.sor_threshold(mean_d, mask, root.get(
+            "OutlierRemovalStddevMul", 2.0))
+        sor = mask & (mean_d <= thresh)
+        r = root.get("OutlierRemovalRadius", 0.005)
+        ror = tiled.tiled_radius_outlier_removal(
+            pts, sor, tiled.plan_tiles(key, mask_h, key, r,
+                                       tiled.NORMALS_CHUNK), r,
+            root.get("OutlierRemovalMinNeighbors", 10))
+        rs = root.get("SmoothingRadius", 0.01)
+        mls = tiled.tiled_mls_smooth(pts, ror, tiled.plan_tiles(
+            key, mask_h, key, rs, tiled.NORMALS_CHUNK), rs)
+    keep = ror[:n].cpu().numpy()
+    assert np.array_equal(mls[:n].cpu().numpy()[keep], kept_xyz), \
+        f"11b scene {i}: the steps differ from preprocess_cloud"
+    sor_j = np.unpackbits(ref[f"b_{i}_sor"])[:n].astype(bool)
+    ror_j = np.unpackbits(ref[f"b_{i}_ror"])[:n].astype(bool)
+    sor_c = sor[:n].cpu().numpy()
+    t = float(thresh)
+    md = mean_d[:n].cpu().numpy()
+    sor_diff = np.nonzero(sor_c != sor_j)[0]
+    sor_bad = [int(j) for j in sor_diff
+               if abs(md[j] - t) > 1e-4 * t]
+    # ROR: each differing point's in-radius count against the minimum,
+    # with the pairs that can go either way
+    ror_diff = np.nonzero((ror[:n].cpu().numpy() != ror_j) & sor_c & sor_j)[0]
+    r2 = float(np.float32(r * r))
+    flip = torch.from_numpy(sor_c != sor_j).to(dev)
+    p = pts[:n]
+    p2 = (p * p).sum(-1)
+    ror_bad = []
+    for j in ror_diff.tolist():
+        d2 = tiled.sqdist(p[j][None, None], p[None])[0, 0]
+        band = (d2 - r2).abs() <= 8 * eps * (p2[j] + p2)
+        inside = (d2 <= r2) & sor[:n]
+        slack = int((band | ((d2 <= r2) & flip)).sum())
+        count = int(inside.sum()) - 1
+        need = root.get("OutlierRemovalMinNeighbors", 10)
+        if not (count - need < slack if count >= need
+                else need - count <= slack):
+            ror_bad.append(j)
+    # MLS: the points both keep, but those whose smoothing radius holds a
+    # point one side keeps only (their neighbourhoods differ)
+    one_side = torch.from_numpy(np.nonzero(keep != ror_j)[0]).to(dev)
+    both = keep & ror_j
+    if len(one_side):
+        d2 = tiled.sqdist(p[None], p[one_side][None])[0]
+        both &= ~(d2 <= (rs * (1 + 1e-3)) ** 2).any(1).cpu().numpy()
+    got = mls[:n].cpu().numpy()[both]
+    want = np.zeros((n, 3), np.float32)
+    want[ror_j] = ref[f"b_{i}_xyz"]
+    want = want[both]
+    err = (np.abs(got - want) - 1e-3 * np.abs(want)).max(1)
+    # a point off the MLS contract must have a neighbour at the smoothing
+    # radius's rounding band: one side may count it, the other not
+    rs2 = float(np.float32(rs * rs))
+    ror_k = ror[:n]
+    mls_bad = []
+    for j in np.nonzero(both)[0][err > 1e-4].tolist():
+        d2 = tiled.sqdist(p[j][None, None], p[None])[0, 0]
+        band = ((d2 - rs2).abs() <= 8 * eps * (p2[j] + p2)) & ror_k
+        if not bool(band.any()):
+            mls_bad.append(j)
+    print(f"scene {i}: SOR kept {int(sor_c.sum())} (JAX {int(sor_j.sum())}), "
+          f"{len(sor_diff)} decided otherwise, each within rtol 1e-4 of the "
+          f"threshold {t:.6g} but {len(sor_bad)}; ROR kept "
+          f"{int(keep.sum())} (JAX {int(ror_j.sum())}), {len(ror_diff)} "
+          f"decided otherwise, each at a pair of the gate's rounding or "
+          f"SOR's other decisions but {len(ror_bad)}; MLS of the "
+          f"{int(both.sum())} both keep with the same neighbours: largest "
+          f"|d| - 1e-3 |p| {float(err.max(initial=0.0)):.2e} m, "
+          f"{int((err > 1e-4).sum())} over atol 1e-4, each with a neighbour "
+          f"at the smoothing radius's rounding but {len(mls_bad)}")
+    assert not sor_bad, f"11b scene {i}: SOR decides {sor_bad[:5]} otherwise"
+    assert not ror_bad, f"11b scene {i}: ROR decides {ror_bad[:5]} otherwise"
+    assert not mls_bad, f"11b scene {i}: MLS positions {mls_bad[:5]}"
+
+
+def scene_culling(ctx):
+    """11c."""
+    import numpy as np
+    import torch
+    import culling_check as cc
+    import kinect_data as kd
+    from bench_data import bench_clouds
+    from point_cloud_donkey_tpu_torch.models import keypoints as tkp
+    from point_cloud_donkey_tpu_torch.models.detect_batch import \
+        extract_local_features_batch
+    from point_cloud_donkey_tpu_torch.models.features import FeatureConfig
+    from point_cloud_donkey_tpu_torch.models.ism import ImplicitShapeModel
+    from point_cloud_donkey_tpu_torch.ops import tiled
+    from point_cloud_donkey_tpu_torch.utils.config import (ComponentConfig,
+                                                           IsmConfig)
+    launches, card, dev, ref = ctx.launches, ctx.card, ctx.dev, ctx.ref
+    kinect_path = ctx.path("kinect_model.ism")
+    f = ctx.frames[0]
+    axis = tiled.sort_key_axis(f.xyz)
+    order = np.argsort(f.xyz[:, axis], kind="stable")
+    xyz_s, rgb_s = f.xyz[order], f.rgb[order]
+    nrm = ref["c_normals"]
+    params = tkp.KeypointParams.from_config(ComponentConfig.from_json(
+        kd.KINECT_CULLING))
+    phase(f"11c. VoxelGridCulling on a frame (KPQ + ColorDistance, CutOff "
+          f"0.5, RequireCombinedList, refined), the tiled culling on JAX's "
+          f"normals ({card})")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = tkp.detect_keypoints(xyz_s, nrm, rgb_s, params, dev)[0]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    print(f"culling: {len(got)} keypoints kept (JAX {len(ref['c_kp'])}), "
+          f"{dt * 1e3:.1f} ms ({card})")
+    # the same voxel keypoints, then the scores, then the decisions
+    kp, kn, kr = tkp.voxel_keypoints(xyz_s, nrm, rgb_s, params.leaf_size,
+                                     dev)
+    assert kp.shape == ref["c_voxel"].shape and np.abs(
+        kp - ref["c_voxel"]).max() <= cc.coord_tol(kp), \
+        "11c: the voxel keypoints differ from JAX's"
+    geo, col = tkp.cloud_culling_scores(kp, kn, kr, xyz_s, nrm, rgb_s,
+                                        params, dev)
+    want = (ref["c_geo"], ref["c_col"])
+    ctl = (ref["c_ctl_geo"], ref["c_ctl_col"])
+    rng = np.random.default_rng(0)
+    spreads = {name: cc.score_spread(g, want[0]) for name, g in (
+        ("card", geo), ("control", ctl[0]),
+        ("card with 0.1% noise", (geo * (1 + 1e-3 * rng.standard_normal(
+            len(geo)))).astype(np.float32)))}
+    print("geometry (KPQ) scores vs JAX's -- share off by rtol > 1e-4, "
+          "share off by rtol > 1e-2, largest: " + "; ".join(
+              f"{k} {100 * a:.2f}%, {100 * b:.2f}%, {c:.4f}"
+              for k, (a, b, c) in spreads.items()))
+    assert cc.within_score_spread(spreads["card"], spreads["control"]), \
+        "11c: the geometry scores outside the JAX control's spread"
+    assert not cc.within_score_spread(spreads["card with 0.1% noise"],
+                                      spreads["control"]), \
+        "11c: the score spread check passes 0.1% noise"
+    stats = colour_pair_stats(kp, kr, xyz_s, rgb_s, params, dev)
+    assert np.array_equal((stats[:, 1] / np.maximum(stats[:, 0], 1)).astype(
+        np.float32), col), "11c: the tiled colour counts differ from the " \
+        "brute-force ones"
+    explained = cc.colour_explained(stats, want[1])
+    print(f"colour scores: {int((col != want[1]).sum())} differ from JAX's "
+          f"(the JAX control: {int((ctl[1] != want[1]).sum())}), each at "
+          f"a pair of the radius gate's rounding band ({int(stats[:, 3].sum())}"
+          f" such pairs) or of the colour threshold's rtol {cc.RTOL:g} "
+          f"({int(stats[:, 2].sum())}); unexplained: "
+          f"{int((~explained).sum())}")
+    assert explained.all(), \
+        f"11c: colour scores {np.nonzero(~explained)[0][:10]} unexplained"
+    cc.check_culled(kp, want, (geo, col), ref["c_kp"], got, params,
+                    "11c frame", control=(ctl, ref["c_ctl_kp"]))
+    kism = ImplicitShapeModel.load(kinect_path, device=dev)
+    kism.config = IsmConfig.from_json(kd.with_child(
+        ctx.model_json("kinect_model.ism"), "Keypoints", kd.KINECT_CULLING))
+    got = timed_detect(kism, [f.xyz], [f.rgb], "scene_culling", launches,
+                       card)
+    assert got[0] and all(np.isfinite(m.weight) for m in got[0])
+    _, _, bclouds, _ = bench_clouds(kd.CULL_CLOUDS)
+    bench_path = ctx.path("bench_codebook.ism")
+    for name, node in kd.BENCH_CULLING.items():
+        phase(f"11c. {name} on {kd.CULL_CLOUDS} bench clouds, the batched "
+              f"culling ({card})")
+        bism = ImplicitShapeModel.load(bench_path, device=dev)
+        bism.config = IsmConfig.from_json(kd.with_child(
+            ctx.model_json("bench_codebook.ism"), "Keypoints", node))
+        timed_detect(bism, list(bclouds), None, "scene_culling_" + name,
+                     launches, card)
+        bp = tkp.KeypointParams.from_config(ComponentConfig.from_json(node))
+        fss = extract_local_features_batch(
+            list(bclouds), [None] * len(bclouds), [None] * len(bclouds),
+            FeatureConfig.from_config(bism.config.child("Features")), bp,
+            bism.root.get("NormalRadius", 0.05),
+            bism.root.get("ConsistentNormalsMethod", 2), dev,
+            bism.lrf_version, is_training=False)
+        pos = np.split(ref[f"c_{name}_pos"],
+                       np.cumsum(ref[f"c_{name}_count"])[:-1])
+        geos = np.split(ref[f"c_{name}_geo"],
+                        np.cumsum(ref[f"c_{name}_geo_count"])[:-1])
+        near_all = 0
+        for i, (c, fs, w, g) in enumerate(zip(bclouds, fss, pos, geos)):
+            vk = tkp.voxel_keypoints(c, None, None, bp.leaf_size, dev)[0]
+            assert len(vk) == len(g), f"11c {name} cloud {i}: voxel count"
+            near_all += cc.check_culled_features(
+                vk, (g, np.zeros_like(g)), w, fs.positions, bp,
+                f"11c {name} cloud {i}")
+        print(f"{name}: {sum(len(fs.positions) for fs in fss)} features "
+              f"(JAX {len(ref[f'c_{name}_pos'])}), the same voxel "
+              f"keypoints kept; {near_all} voxel keypoints within rtol "
+              f"{cc.RTOL:g} of a threshold")
+
+
+def colour_pair_stats(kp, kp_rgb, xyz, rgb, params, dev):
+    """[K, 5] int per voxel keypoint, over every point of the cloud on the
+    card (culling_check.colour_explained): in-radius points (the radius
+    gate as ops/tiled.sqdist computes it), those whose colour distance
+    exceeds the threshold, those whose distance lies within rtol 1e-4 of
+    it, the points whose squared distance lies within the gate's rounding
+    band (8 float32 ulps of |q|^2 + |p|^2 from the squared radius: the
+    matmul identity's rounding on either side), and those of them whose
+    colour distance exceeds the threshold."""
+    import numpy as np
+    import torch
+    from point_cloud_donkey_tpu_torch.ops import tiled
+    from point_cloud_donkey_tpu_torch.ops.color import (
+        color_distance, rgb_to_cielab_normalized)
+    eps = float(np.finfo(np.float32).eps)
+    p = torch.from_numpy(np.ascontiguousarray(xyz, np.float32)).to(dev)
+    lab = rgb_to_cielab_normalized(torch.from_numpy(np.ascontiguousarray(
+        rgb, np.float32)).to(dev))
+    q_all = torch.from_numpy(np.ascontiguousarray(kp, np.float32)).to(dev)
+    q_lab = rgb_to_cielab_normalized(torch.from_numpy(np.ascontiguousarray(
+        kp_rgb, np.float32)).to(dev))
+    r2 = float(np.float32(params.leaf_size ** 2))
+    mx = float(params.max_similar_color_distance)
+    p2 = (p * p).sum(-1)
+    out = np.zeros((len(kp), 5), np.int64)
+    for k0 in range(0, len(kp), 256):
+        q = q_all[k0:k0 + 256]
+        d2 = tiled.sqdist(q[None], p[None])[0]
+        inside = d2 <= r2
+        gate = (d2 - r2).abs() <= 8 * eps * ((q * q).sum(-1)[:, None]
+                                            + p2[None])
+        qi, pi = torch.nonzero(inside | gate, as_tuple=True)
+        dist = color_distance(q_lab[k0:k0 + 256][qi], lab[pi])
+        far = dist > mx
+        st = torch.zeros((len(q), 5), dtype=torch.int64, device=dev)
+        st[:, 0] = inside.sum(1)
+        st[:, 1].index_add_(0, qi, (far & inside[qi, pi]).long())
+        near = (dist - mx).abs() <= 1e-4 * mx
+        st[:, 2].index_add_(0, qi, (near & inside[qi, pi]).long())
+        st[:, 3] = gate.sum(1)
+        st[:, 4].index_add_(0, qi, (gate[qi, pi] & far).long())
+        out[k0:k0 + 256] = st.cpu().numpy()
+    return out
+
+
+def scene_mixed(ctx):
+    """11d."""
+    import kinect_data as kd
+    from point_cloud_donkey_tpu_torch.models.ism import ImplicitShapeModel
+    launches, card, dev, frames = ctx.launches, ctx.card, ctx.dev, \
+        ctx.frames
+    kinect_path = ctx.path("kinect_model.ism")
+    views = [v for v, _ in kd.training_views()]
+    small = [views[0], views[4]]
+    mixed = [frames[0], small[0], frames[1], small[1]]
+    phase(f"11d. detect_batch of [frame, small, frame, small] "
+          f"({', '.join(str(len(c.xyz)) for c in mixed)} points) ({card})")
+    ism = ImplicitShapeModel.load(kinect_path, device=dev)
+    got = timed_detect(ism, [c.xyz for c in mixed], [c.rgb for c in mixed],
+                       "scene_mixed", launches, card)
+    for i, c in enumerate(mixed):
+        one = ism.detect(c.xyz, None, c.rgb)[0]
+        assert maxima_bits(one) == maxima_bits(got[i]), \
+            f"11d: row {i} differs from detect() of its cloud"
+    print("the order kept; each row equals detect() of its cloud bit for "
+          "bit")
+
+
+def scene_training(ctx):
+    """11e."""
+    import numpy as np
+    import torch
+    import kinect_data as kd
+    from point_cloud_donkey_tpu_torch.kernels import build
+    from point_cloud_donkey_tpu_torch.models.ism import ImplicitShapeModel
+    from point_cloud_donkey_tpu_torch.utils.config import IsmConfig
+    from point_cloud_donkey_tpu_torch.utils.io import save_pcd
+    launches, card, dev, ref, data = (ctx.launches, ctx.card, ctx.dev,
+                                      ctx.ref, ctx.data)
+    tviews = kd.training_views()
+    phase(f"11e. ImplicitShapeModel.train of configs/rgbd_kinect.ism on "
+          f"{len(tviews)} views ({', '.join(str(len(v.xyz)) for v, _ in tviews)}"
+          f" points: the last above the scene threshold) ({card})")
+    tmp = tempfile.mkdtemp(prefix="pcd_smoke_scene_")
+    try:
+        with open(os.path.join(HERE, "configs", "rgbd_kinect.ism")) as fh:
+            tism = ImplicitShapeModel(IsmConfig.from_json(json.load(fh)),
+                                      dev)
+        for i, (v, cid) in enumerate(tviews):
+            p = os.path.join(tmp, f"view{i}.pcd")
+            save_pcd(p, v.xyz, rgb=v.rgb)
+            tism.add_training_model(p, cid, cid)
+        torch.cuda.synchronize()
+        build.reset_launch_counts()
+        t0 = time.perf_counter()
+        tism.train()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches["scene_train"] = build.launch_counts()
+    finally:
+        shutil.rmtree(tmp)
+    print(f"training: {len(tviews) / dt:.3f} clouds/s ({dt:.3f} s, host "
+          f"clock); train_* ms per cloud "
+          f"{ {k: round(v * 1e3 / len(tviews), 3) for k, v in tism.processing_times.items()} }; "
+          f"launches "
+          f"{ {k: v for k, v in launches['scene_train'].items() if v} }")
+    missing = [k for k in PATH_KERNELS["scene_train"]
+               if launches["scene_train"][k] == 0]
+    assert not missing, f"11e: kernels not launched {missing}"
+    with np.load(os.path.join(data, "kinect_model.ismd.npz")) as z:
+        want = dict(z)
+    cb = tism.state.codebook
+    assert cb.codewords.shape == want["cb_codewords"].shape and \
+        np.array_equal(cb.vote_class, want["cb_vote_class"]), \
+        f"11e: codebook {cb.codewords.shape} vs {want['cb_codewords'].shape}"
+    a, b = cb.codewords, want["cb_codewords"]
+
+    def share(x):
+        cos = (x * b).sum(1) / np.maximum(np.linalg.norm(x, axis=1)
+                                          * np.linalg.norm(b, axis=1), 1e-30)
+        return float((cos > 0.999).mean())
+    rng = np.random.default_rng(0)
+    got, noise2 = share(a), share((a * (1 + 0.02 * rng.standard_normal(
+        a.shape))).astype(np.float32))
+    ctl = float((ref["e_ctl_cos"] > 0.999).mean())
+    print(f"codebook vs the committed JAX-trained one: {len(a)} codewords, "
+          f"cosine > 0.999 on {100 * got:.2f}% (the JAX control, each view's "
+          f"points reversed and moved an ulp: {100 * ctl:.2f}%; the card's "
+          f"codewords with 2% noise: {100 * noise2:.2f}%)")
+    assert got >= ctl - CODEBOOK_MARGIN, "11e: codebook outside the spread"
+    assert noise2 < ctl - CODEBOOK_MARGIN, \
+        "11e: the codebook check passes 2% noise"
+
+
+def scene_hough(ctx):
+    """11f."""
+    import kinect_data as kd
+    from bench_data import (FIRM_RTOL_HOUGH, HOUGH_VOTING, bench_scenes,
+                            firm_mismatches, with_voting)
+    from point_cloud_donkey_tpu_torch.models.ism import ImplicitShapeModel
+    from point_cloud_donkey_tpu_torch.utils.config import IsmConfig
+    launches, card, dev, ref = ctx.launches, ctx.card, ctx.dev, ctx.ref
+    bench_path = ctx.path("bench_codebook.ism")
+    hs, _, _ = bench_scenes(1, scale=1.0, n=kd.FILTER_POINTS,
+                            seed=kd.FILTER_SEED)
+    phase(f"11f. the bench SHOT model, Hough3D + RANSAC + Merge, on one "
+          f"scene of {hs.shape[1]} points ({card})")
+    hism = ImplicitShapeModel.load(bench_path, device=dev)
+    hism.config = IsmConfig.from_json(with_voting(
+        ctx.model_json("bench_codebook.ism"), HOUGH_VOTING))
+    got = timed_detect(hism, [hs[0]], None, "scene_hough", launches, card)
+    bw = hism.config.child("Voting").get("Bandwidth", 0.1)
+    bad = firm_mismatches(got[0], ctx.ref_maxima("f_")[0], bw, FIRM_RTOL_HOUGH)
+    print(f"{len(got[0])} maxima; detection contract "
+          f"{'met' if not bad else bad}")
+    assert not bad, f"11f: {bad[:3]}"
+
+
+def twin_slabs(n_chunks, count=4):
+    """`count` chunk indices spread over a plan's chunks."""
+    import numpy as np
+    return sorted(set(np.linspace(0, n_chunks - 1, count).round()
+                      .astype(int).tolist()))
+
+
+def frame_twin_k1k2(q_s, p_s, pms, qms, r, what, dev):
+    """K1 and K2 against their plain twins on the card, on the same slabs,
+    at phase 2's tolerances: weight sums rtol 2e-4, counts +-1,
+    covariance atol 5e-4, sign votes +-1 (the votes along the slabs' own
+    LRF axes).  Prints the errors."""
+    import torch
+    from point_cloud_donkey_tpu_torch.ops.eigh3 import eigh3x3
+    from point_cloud_donkey_tpu_torch.ops.kernels import lrf_moments as klrf
+    mom, cnt = klrf.moments(q_s, p_s, pms, r)
+    pmom, pcnt = klrf.moments_plain(q_s, p_s, pms, r)
+    rel = float(((mom[..., 0] - pmom[..., 0]).abs()
+                 / pmom[..., 0].abs().clamp(min=1e-6)).max())
+    dc = int((cnt - pcnt).abs().max())
+    cov, _ = klrf.cov_from_moments(mom, q_s, qms)
+    pcov, _ = klrf.cov_from_moments(pmom, q_s, qms)
+    cerr = float((cov - pcov).abs().max())
+    _, vecs = eigh3x3(pcov)
+    axes = torch.cat([vecs[..., :, 2], vecs[..., :, 0]], -1).contiguous()
+    verr = int((klrf.sign_votes(q_s, p_s, pms, axes, r)
+                - klrf.sign_votes_plain(q_s, p_s, pms, axes, r)).abs().max())
+    print(f"{what}: K1 vs its twin on {q_s.shape[0]} of the frame's slabs "
+          f"of {p_s.shape[1]}: weight sums rtol {rel:.2e}, counts +-{dc}, "
+          f"covariance {cerr:.2e}; K2 votes +-{verr}")
+    assert rel <= 2e-4 and dc <= 1 and cerr <= 5e-4, \
+        f"{what}: K1 vs its twin (rtol {rel}, counts {dc}, cov {cerr})"
+    assert verr <= 1, f"{what}: K2 votes off by {verr}"
+    return mom, cnt
+
+
+def frame_kernel_times(frame, fcfg, kpp, normal_radius, dev, card, ism):
+    """The frame's kernels on the slabs of ops/tiled.py: K1 / K2 at the
+    normals (Q = N, NormalRadius) and keypoint LRFs (Q = K,
+    ReferenceFrameRadius), K8 on the descriptor slabs -- each against its
+    plain twin on four of the slabs (phase 2's tolerances), then timed
+    over all of them with CUDA events -- and K4 against the codebook,
+    each beside its in-radius pairs and bound.  tests/scene_timing.py
+    times K5 / K6 fed the plan's starts on the same frame."""
+    import numpy as np
+    import torch
+    from point_cloud_donkey_tpu_torch.models import keypoints as tkp
+    from point_cloud_donkey_tpu_torch.models.features import pad_cloud
+    from point_cloud_donkey_tpu_torch.ops import tiled
+    from point_cloud_donkey_tpu_torch.ops.kernels import chisq as kchisq
+    from point_cloud_donkey_tpu_torch.ops.kernels import lrf_moments as klrf
+    from point_cloud_donkey_tpu_torch.ops.kernels import shot_hist as ksh
+    from point_cloud_donkey_tpu_torch.ops.color import \
+        rgb_to_cielab_normalized
+    from point_cloud_donkey_tpu_torch.ops.lrf import shot_lrf
+    from point_cloud_donkey_tpu_torch.ops.shot import normalize_descriptors
+    phase(f"11a. the frame's kernels on its slabs: K1 / K2, K8 vs their "
+          f"twins and timed, K4 ({card})")
+    axis = tiled.sort_key_axis(frame.xyz)
+    order = np.argsort(frame.xyz[:, axis], kind="stable")
+    xyz, rgb = frame.xyz[order], frame.rgb[order]
+    pts_h, mask_h = pad_cloud(xyz)
+    pts = torch.from_numpy(pts_h).to(dev)
+    mask = torch.from_numpy(mask_h).to(dev)
+    kp_h, _, krgb = tkp.voxel_keypoints(xyz, None, rgb, kpp.leaf_size, dev)
+    kord = np.argsort(kp_h[:, axis], kind="stable")
+    kp = torch.from_numpy(kp_h[kord]).to(dev)
+    krgb = torch.from_numpy(np.ascontiguousarray(krgb[kord])).to(dev)
+    key = pts_h[:, axis]
+    cases = (("normals", pts, mask, normal_radius, tiled.NORMALS_CHUNK,
+              1024),
+             ("keypoint LRFs", kp, torch.ones(len(kp), dtype=torch.bool,
+                                             device=dev),
+              fcfg.ref_frame_radius, tiled.KEYPOINT_CHUNK, 4096))
+    for what, q, qm, r, chunk, minw in cases:
+        qm_h = qm.cpu().numpy()
+        plan = tiled.plan_tiles(np.where(qm_h, q[:, axis].cpu().numpy(),
+                                         1e9), qm_h, key, r, chunk, minw)
+        qs = tiled.chunk_queries(q, plan, 1e9)
+        qms = tiled.chunk_queries(qm, plan, False)
+        ps, pms = tiled.window_slabs(pts, plan), tiled.window_slabs(mask,
+                                                                    plan)
+        q_s, p_s = klrf.prep_shift(qs, ps, pms)
+        sel = torch.tensor(twin_slabs(plan.n_chunks), device=dev)
+        frame_twin_k1k2(q_s[sel], p_s[sel], pms[sel], qms[sel], r, what,
+                        dev)
+        k1 = cuda_ms(lambda: klrf.moments(q_s, p_s, pms, r), 5)
+        mom, cnt = klrf.moments(q_s, p_s, pms, r)
+        pairs = int(cnt[qms].sum())
+        axes = torch.zeros((*q_s.shape[:2], 6), device=dev)
+        axes[..., 0] = 1.0
+        axes[..., 5] = 1.0
+        k2 = cuda_ms(lambda: klrf.sign_votes(q_s, p_s, pms, axes, r), 5)
+        b1 = bound(nbytes(q_s, p_s, pms, mom, cnt),
+                   pairs * (GATE_OPS + MOMENT_BODY_OPS))
+        b2 = bound(nbytes(q_s, p_s, pms, axes), pairs * (GATE_OPS
+                                                         + 2 * VOTE_BODY_OPS))
+        print(f"{what} (Q = {int(qm.sum())}, N = {int(mask.sum())}, r "
+              f"{r:g}, {pairs} in-radius pairs): K1 on {plan.n_chunks} "
+              f"slabs of {plan.window} {k1:.3f} ms (bound {b1[0]:.4f} ms, "
+              f"{b1[1]}), K2 {k2:.3f} ms (bound {b2[0]:.4f}) ({card})")
+    # K8 on the descriptor slabs, K4 against the codebook
+    plan = tiled.plan_tiles(
+        kp[:, axis].cpu().numpy(), np.ones(len(kp), bool), key,
+        max(fcfg.radius, fcfg.ref_frame_radius), tiled.KEYPOINT_CHUNK, 4096)
+    rgb_h = np.zeros((len(pts_h), 3), np.float32)
+    rgb_h[:len(xyz)] = rgb
+    lab_pts = rgb_to_cielab_normalized(torch.from_numpy(rgb_h).to(dev))
+    nrm_pts = torch.nn.functional.normalize(torch.randn(
+        pts.shape, device=dev, generator=torch.Generator(dev).manual_seed(
+            0)), dim=-1)
+
+    def k8_args(sel):
+        kq = tiled.chunk_queries(kp, plan, 1e9)[sel]
+        kqm = tiled.chunk_queries(torch.ones(len(kp), dtype=torch.bool,
+                                             device=dev), plan, False)[sel]
+        klab = tiled.chunk_queries(rgb_to_cielab_normalized(krgb), plan,
+                                   0.0)[sel]
+        ps = tiled.window_slabs(pts, plan, sel)
+        pms = tiled.window_slabs(mask, plan, sel)
+        lrf = shot_lrf(kq, kqm, ps, pms, fcfg.ref_frame_radius)
+        return tuple(x.contiguous() for x in (
+            kq, klab, lrf.frames, lrf.valid & kqm, ps,
+            tiled.window_slabs(nrm_pts, plan, sel), tiled.window_slabs(
+                lab_pts, plan, sel), pms))
+
+    args = k8_args(torch.tensor(twin_slabs(plan.n_chunks), device=dev))
+    h, c = ksh.cshot_hist(*args, fcfg.radius)
+    ph, pc = ksh.cshot_hist_plain(*args, fcfg.radius)
+    assert torch.equal(c, pc), "K8 on the frame: counts differ from its twin"
+    cos, off = contract(normalize_descriptors(h, c, args[3]),
+                        normalize_descriptors(ph, pc, args[3]),
+                        "K8 on the frame")
+    print(f"K8 vs its twin on {args[0].shape[0]} of the frame's slabs: "
+          f"counts equal, cosine min {cos:.7f}, {off:.2e} of entries off "
+          f"by > 1e-3")
+    sl = tiled.slab_groups(plan.n_chunks, plan.window, 40)[0]
+    args = k8_args(torch.arange(sl[0], sl[1], device=dev))
+    k8 = cuda_ms(lambda: ksh.cshot_hist(*args, fcfg.radius), 5)
+    hist, count = ksh.cshot_hist(*args, fcfg.radius)
+    p8 = int(count.sum())
+    b8 = bound(nbytes(*args, hist), p8 * (GATE_OPS + CSHOT_BODY_OPS))
+    print(f"K8 on {sl[1] - sl[0]} slabs of {plan.window} "
+          f"({int(args[3].sum())} keypoints, {p8} in-radius pairs): "
+          f"{k8:.3f} ms (bound {b8[0]:.4f} ms, {b8[1]}) ({card})")
+    cb = ism._device_codebook()
+    desc = torch.rand((len(kp), cb.codewords.shape[1]), device=dev)
+    desc = desc / desc.norm(dim=1, keepdim=True)
+    k4 = cuda_ms(lambda: kchisq.chisq_topk(desc, cb.codewords, cb.cw_mask,
+                                           1), 5)
+    ops = len(kp) * int(cb.cw_mask.sum()) * cb.codewords.shape[1] \
+        * CHISQ_TERM_OPS
+    b4 = bound(nbytes(desc, cb.codewords), ops)
+    print(f"K4 at the frame's Q = {len(kp)} against C = "
+          f"{int(cb.cw_mask.sum())}, D = {cb.codewords.shape[1]}: "
+          f"{k4:.3f} ms (bound {b4[0]:.4f} ms, {b4[1]}) ({card})")
+
+
+def lrf_witness(frame, wk, want, fcfg, kpp, dev):
+    """The frame's LRF disagreement with JAX read at its source: at JAX's
+    keypoints `wk` (every DESC_STRIDE-th scene feature), on the slab the
+    scene path gives each, the LRF of K1 / K2 and of their plain twins on
+    the card, and the exact LRF in float64 on the host, each against JAX's
+    frames `want` and against each other (frames within 2e-3).  Returns
+    the shares."""
+    import numpy as np
+    import torch
+    from scipy.spatial import cKDTree
+    from point_cloud_donkey_tpu_torch.models import keypoints as tkp
+    from point_cloud_donkey_tpu_torch.models.features import pad_cloud
+    from point_cloud_donkey_tpu_torch.ops import tiled
+    from point_cloud_donkey_tpu_torch.ops.kernels import lrf_moments as klrf
+    from point_cloud_donkey_tpu_torch.ops.lrf import shot_lrf
+    axis = tiled.sort_key_axis(frame.xyz)
+    xyz = frame.xyz[np.argsort(frame.xyz[:, axis], kind="stable")]
+    pts_h, mask_h = pad_cloud(xyz)
+    pts = torch.from_numpy(pts_h).to(dev)
+    mask = torch.from_numpy(mask_h).to(dev)
+    r = fcfg.ref_frame_radius
+    vk = tkp.voxel_keypoints(xyz, None, None, kpp.leaf_size, dev)[0]
+    vk = vk[np.argsort(vk[:, axis], kind="stable")]
+    plan = tiled.plan_tiles(vk[:, axis], np.ones(len(vk), bool),
+                            pts_h[:, axis], max(fcfg.radius, r),
+                            tiled.KEYPOINT_CHUNK, 4096)
+    dist, idx = cKDTree(vk).query(wk)
+    assert dist.max() == 0.0, "the witness keypoints are not voxel keypoints"
+    sel = torch.from_numpy(idx // plan.chunk).to(dev)
+    ps = tiled.window_slabs(pts, plan, sel)
+    pms = tiled.window_slabs(mask, plan, sel)
+    q = torch.from_numpy(wk).to(dev)[:, None, :].contiguous()
+    qm = torch.ones(q.shape[:2], dtype=torch.bool, device=dev)
+    kernel = shot_lrf(q, qm, ps, pms, r).frames[:, 0].cpu().numpy()
+    q_s, p_s = klrf.prep_shift(q, ps, pms)
+    mom, cnt = klrf.moments_plain(q_s, p_s, pms, r)
+    v1, v3, axes, s0 = klrf._evd_axes(mom, q_s, qm, False)
+    votes = klrf.sign_votes_plain(q_s, p_s, pms, axes, r)
+    plain = klrf._frames(v1, v3, votes, cnt, s0, qm, 5, False)[0][
+        :, 0].cpu().numpy()
+    exact = np.zeros((len(wk), 3, 3))
+    for i, nb in enumerate(cKDTree(xyz).query_ball_point(wk, r * 1.01)):
+        d = xyz[nb].astype(np.float64) - wk[i].astype(np.float64)
+        dn = np.sqrt((d ** 2).sum(1))
+        d, dn = d[dn <= r], dn[dn <= r]
+        w = r - dn
+        vecs = np.linalg.eigh((w[:, None, None] * d[:, :, None]
+                               * d[:, None, :]).sum(0) / w.sum())[1]
+        x, z = vecs[:, 2], vecs[:, 0]
+        x = -x if ((d @ x) >= 0).sum() < len(d) - ((d @ x) >= 0).sum() else x
+        z = -z if ((d @ z) >= 0).sum() < len(d) - ((d @ z) >= 0).sum() else z
+        exact[i] = np.stack([x, np.cross(z, x), z])
+
+    def agree(a, b):
+        return float((np.abs(a - b).max(axis=(1, 2)) < 2e-3).mean())
+    shares = {"kernel_jax": agree(kernel, want),
+              "plain_jax": agree(plain, want),
+              "kernel_plain": agree(kernel, plain),
+              "exact_jax": agree(exact, want),
+              "exact_kernel": agree(exact, kernel),
+              "exact_plain": agree(exact, plain)}
+    print(f"LRF witness at {len(wk)} of JAX's keypoints on their slabs "
+          f"(frames within 2e-3): K1 / K2 vs JAX "
+          f"{100 * shares['kernel_jax']:.1f}%, their plain twins on the card "
+          f"vs JAX {100 * shares['plain_jax']:.1f}%, K1 / K2 vs the twins "
+          f"{100 * shares['kernel_plain']:.1f}%; the exact float64 LRF vs "
+          f"JAX {100 * shares['exact_jax']:.1f}%, vs K1 / K2 "
+          f"{100 * shares['exact_kernel']:.1f}%, vs the twins "
+          f"{100 * shares['exact_plain']:.1f}%")
+    return shares
 
 
 def maxima_bits(maxima):

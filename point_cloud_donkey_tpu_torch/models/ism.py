@@ -20,14 +20,17 @@ descriptors (models/svm.py).  Stage wall times go to
 ``processing_times`` under the JAX package's ``train_*`` keys.
 
 What neither route trains raises NotImplementedError with the reason and
-the queue that ports it, before any cloud is read (keypoint culling in
-training, other descriptors and global descriptors, several devices) or
-when the cloud that needs it is read (scene-scale filters).
+the queue that ports it, before any cloud is read (keypoint detectors,
+other descriptors and global descriptors, several devices).  A cloud
+above ops.tiled.SCENE_TILE_THRESHOLD points takes the scene routes of the
+filters and the features (ops/tiled.py), decided per cloud.
 
 detect_batch() (implicit_shape_model.cpp:583-712), for a list of clouds:
-  1. local features on the training extraction's route
-     (models/detect_batch.extract_local_features_batch), the descriptors
-     left on the device; then, per extraction chunk, one cast_votes over
+  1. local features on the batched extraction's route
+     (models/detect_batch.extract_local_features_batch: the clouds up to
+     the threshold in chunks, each scene on its scene route, culled
+     where VoxelGridCulling culls), the descriptors left on the device;
+     then, per extraction chunk, one cast_votes over
      the chunk's features (the codebook's activation and votes) and one
      read of the votes;
   2. the mean-shift maxima of every (cloud, class) group at once
@@ -64,6 +67,7 @@ import numpy as np
 import torch
 
 from ..ops import preprocess as pp
+from ..ops import tiled
 from ..ops.geometry import (MVBB_CHUNK, BoundingBox, compute_mvbb_batch,
                             quat_to_matrix_np)
 from ..ops.voxel_grid import voxel_grid
@@ -77,7 +81,7 @@ from .codebook import (Codebook, CastVotes, CodebookParams, TrainedCodebook,
 from .detect_batch import (FusedChunk, extract_local_features_batch,
                            extraction_unsupported)
 from .features import (GLOBAL_DESCRIPTORS, FeatureConfig, bucket_groups,
-                       extract_global_features, padded_chunk)
+                       extract_global_features, pad_cloud, padded_chunk)
 from .keypoints import KeypointParams
 from .ranking import RankingParams, rank_features
 from .svm import SVMModel, train_svm
@@ -95,9 +99,6 @@ TRAIN_STAGES = ("train_load", "train_features", "train_global",
 # a crop of a box-annotated scene below this many points is skipped
 # (implicit_shape_model.cpp:314-318)
 MIN_CROP_POINTS = 500
-# above this many points the JAX package runs the outlier filters and MLS
-# on its scene-scale tiles (JAX ops/tiled.py:37), and its features too
-SCENE_TILE_THRESHOLD = 32768
 # the processing_times keys of detection (implicit_shape_model.cpp:636-709)
 DETECT_STAGES = ("complete", "features", "keypoints", "normals", "flann",
                  "voting", "maxima")
@@ -163,8 +164,12 @@ def preprocess_cloud(cloud: PointCloud, root: ComponentConfig,
     device: statistical, then radius outlier removal, MLS smoothing and the
     z cut-off (ops/preprocess.py), then the voxel filter -- the voxel
     means of the kept points with their normals and colours
-    (ops/voxel_grid).  Clouds above SCENE_TILE_THRESHOLD points with an
-    outlier filter or MLS are refused: the JAX package tiles them."""
+    (ops/voxel_grid).  A cloud above tiled.SCENE_TILE_THRESHOLD points with
+    an outlier filter or MLS is sorted along its longest axis once (its
+    normals and colours alongside) and filtered on the windows of
+    ops/tiled.py, as the JAX package does: SOR's kNN within a window of at
+    least 4096 points (the JAX approximation), ROR and MLS at their
+    radii."""
     use_sor = root.get("UseStatisticalOutlierRemoval", False)
     use_ror = root.get("UseRadiusOutlierRemoval", False)
     use_mls = root.get("UseSmoothing", False)
@@ -172,25 +177,53 @@ def preprocess_cloud(cloud: PointCloud, root: ComponentConfig,
     z_cut = root.get("CutoffDistanceZAxis", 0.0)
     if not (use_sor or use_ror or use_mls or use_voxel or z_cut > 0):
         return cloud
-    if len(cloud.xyz) > SCENE_TILE_THRESHOLD and (use_sor or use_ror
-                                                  or use_mls):
-        raise NotImplementedError(
-            f"outlier removal or MLS on a cloud of {len(cloud.xyz)} points "
-            f"(> {SCENE_TILE_THRESHOLD}): the scene-scale tiled filters "
-            "are ROADMAP A14")
-    pts = torch.from_numpy(np.ascontiguousarray(cloud.xyz, np.float32)).to(
-        device)
-    mask = torch.ones(len(cloud.xyz), dtype=torch.bool, device=device)
-    if use_sor:
-        mask = pp.statistical_outlier_removal(
-            pts, mask, root.get("OutlierRemovalMeanK", 20),
-            root.get("OutlierRemovalStddevMul", 2.0))
-    if use_ror:
-        mask = pp.radius_outlier_removal(
-            pts, mask, root.get("OutlierRemovalRadius", 0.005),
-            root.get("OutlierRemovalMinNeighbors", 10))
-    if use_mls:
-        pts = pp.mls_smooth(pts, mask, root.get("SmoothingRadius", 0.01))
+    n_real = len(cloud.xyz)
+    if n_real > tiled.SCENE_TILE_THRESHOLD and (use_sor or use_ror
+                                                or use_mls):
+        axis = tiled.sort_key_axis(cloud.xyz)
+        order = np.argsort(cloud.xyz[:, axis], kind="stable")
+        cloud = PointCloud(
+            xyz=cloud.xyz[order],
+            normals=None if cloud.normals is None else cloud.normals[order],
+            rgb=None if cloud.rgb is None else cloud.rgb[order])
+        pts_h, mask_h = pad_cloud(cloud.xyz)
+        key = pts_h[:, axis]
+        pts = torch.from_numpy(pts_h).to(device)
+        mask = torch.from_numpy(mask_h).to(device)
+        with full_fp32():
+            if use_sor:
+                plan = tiled.plan_tiles(key, mask_h, key, 0.0,
+                                        tiled.NORMALS_CHUNK, min_window=4096)
+                mask = tiled.tiled_statistical_outlier_removal(
+                    pts, mask, plan, root.get("OutlierRemovalMeanK", 20),
+                    root.get("OutlierRemovalStddevMul", 2.0))
+            if use_ror:
+                r = root.get("OutlierRemovalRadius", 0.005)
+                plan = tiled.plan_tiles(key, mask_h, key, r,
+                                        tiled.NORMALS_CHUNK)
+                mask = tiled.tiled_radius_outlier_removal(
+                    pts, mask, plan, r,
+                    root.get("OutlierRemovalMinNeighbors", 10))
+            if use_mls:
+                r = root.get("SmoothingRadius", 0.01)
+                plan = tiled.plan_tiles(key, mask_h, key, r,
+                                        tiled.NORMALS_CHUNK)
+                pts = tiled.tiled_mls_smooth(pts, mask, plan, r)
+        pts, mask = pts[:n_real], mask[:n_real]
+    else:
+        pts = torch.from_numpy(np.ascontiguousarray(cloud.xyz, np.float32)
+                               ).to(device)
+        mask = torch.ones(n_real, dtype=torch.bool, device=device)
+        if use_sor:
+            mask = pp.statistical_outlier_removal(
+                pts, mask, root.get("OutlierRemovalMeanK", 20),
+                root.get("OutlierRemovalStddevMul", 2.0))
+        if use_ror:
+            mask = pp.radius_outlier_removal(
+                pts, mask, root.get("OutlierRemovalRadius", 0.005),
+                root.get("OutlierRemovalMinNeighbors", 10))
+        if use_mls:
+            pts = pp.mls_smooth(pts, mask, root.get("SmoothingRadius", 0.01))
     if z_cut > 0:
         mask = pp.z_cutoff(pts, mask, z_cut)
     keep = mask.cpu().numpy()
@@ -206,7 +239,8 @@ def preprocess_cloud(cloud: PointCloud, root: ComponentConfig,
     res = voxel_grid(torch.from_numpy(out.xyz).to(device),
                      torch.ones(len(out.xyz), dtype=torch.bool,
                                 device=device),
-                     root.get("VoxelLeafSize", 0.0015), features=extra)
+                     root.get("VoxelLeafSize", 0.0015), features=extra,
+                     exact_division=True)
     got = res.centroids[res.mask].cpu().numpy().astype(np.float32)
     off = 3
     nrm = rgb = None
@@ -696,14 +730,8 @@ class ImplicitShapeModel:
                 "flann", 0.0) + time.perf_counter() - t0
         return self._codebook
 
-    def _check_detectable(self, clouds, fcfg, gcfg, kp_params,
-                          vparams) -> None:
+    def _check_detectable(self, fcfg, gcfg, kp_params, vparams) -> None:
         why = detect_unsupported(fcfg, gcfg, kp_params, vparams)
-        big = [len(c) for c in clouds if len(c) > SCENE_TILE_THRESHOLD]
-        if big:
-            why = (why + "; " if why else "") + \
-                f"a cloud of {big[0]} points (> {SCENE_TILE_THRESHOLD}: " \
-                "scene-scale detection is ROADMAP A14)"
         if why:
             raise NotImplementedError("the port does not detect with this "
                                       "config: " + why)
@@ -724,7 +752,7 @@ class ImplicitShapeModel:
         kp_params = KeypointParams.from_config(self.config.child("Keypoints"))
         vparams = _voting_params(self.config.child("Voting"))
         cb_params = CodebookParams.from_config(self.config.child("Codebook"))
-        self._check_detectable(clouds, fcfg, gcfg, kp_params, vparams)
+        self._check_detectable(fcfg, gcfg, kp_params, vparams)
         normal_radius = self.root.get("NormalRadius", 0.05)
         cn_method = self.root.get("ConsistentNormalsMethod", 2)
         times = self.processing_times
@@ -737,7 +765,8 @@ class ImplicitShapeModel:
         chunks: List[FusedChunk] = []
         fss = extract_local_features_batch(
             clouds, normals_list, rgb_list, fcfg, kp_params, normal_radius,
-            cn_method, self.device, self.lrf_version, chunks)
+            cn_method, self.device, self.lrf_version, chunks,
+            is_training=False)
         times["features"] += time.perf_counter() - t_feat
 
         t_vote = time.perf_counter()

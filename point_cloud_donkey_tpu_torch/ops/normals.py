@@ -13,7 +13,7 @@ package computes it in XLA."""
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import heapq
 
@@ -93,18 +93,23 @@ def compute_normals_at(queries: torch.Tensor,  # [B, Q, 3]
                        mask: torch.Tensor,     # [B, N]
                        radius: float,
                        method: int = 2,
-                       lrf_version: int = 1) -> NormalsResult:
+                       lrf_version: int = 1,
+                       centroid: Optional[torch.Tensor] = None  # [B, 3]
+                       ) -> NormalsResult:
     """The normal pipeline of ConsistentNormalsMethod `method` at the query
-    positions (module docstring); method 1's centroid is each cloud's
-    masked centroid of `points`.  Curvature, eigenvalues and validity (>= 3
-    in-radius neighbours) come from the PCA."""
+    positions (module docstring); method 1's centroid is `centroid` when
+    given (the whole cloud's, when `points` are window slabs of it,
+    ops/tiled.py), else each cloud's masked centroid of `points`.
+    Curvature, eigenvalues and validity (>= 3 in-radius neighbours) come
+    from the PCA."""
     pca = pca_normals_at(queries, q_mask, points, mask, radius)
     if method == 0:
         normals = orient_towards_viewpoint(queries, pca.normals)
     elif method == 1:
-        m = mask.to(points.dtype)
-        centroid = (points * m[..., None]).sum(-2) \
-            / torch.clamp(m.sum(-1), min=1.0)[..., None]
+        if centroid is None:
+            m = mask.to(points.dtype)
+            centroid = (points * m[..., None]).sum(-2) \
+                / torch.clamp(m.sum(-1), min=1.0)[..., None]
         normals = orient_away_from_centroid(queries, pca.normals, centroid)
     elif method == 2:
         lrf = shot_lrf(queries, q_mask, points, mask, radius,

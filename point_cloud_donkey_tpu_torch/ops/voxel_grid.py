@@ -10,12 +10,22 @@ key can overflow.  Voxel ids at or past `capacity` are dropped, not
 clipped.  Each voxel's sum runs over its points in sorted order, the same
 on every run and device.  Valid rows come first in the output; the tile-compacted SHOT
 stage relies on it.
+
+p / leaf is computed as the JAX route being mirrored computes it, since a
+point on a voxel edge changes voxel with the last bit: the JAX programs
+that close over the leaf as a constant (the batched feature and detection
+programs) multiply by its float32 reciprocal, because XLA folds the
+division; its per-cloud keypoint program, which takes the leaf at run
+time, and its eager preprocessing filter divide (``exact_division``).  A
+CUDA tensor divided by a Python float is multiplied by the reciprocal, so
+the exact division divides by a device tensor.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 
@@ -28,8 +38,8 @@ def voxel_grid(points: torch.Tensor,   # [N, 3] or [B, N, 3]
                mask: torch.Tensor,     # [N] or [B, N]
                leaf_size: float,
                capacity: Optional[int] = None,
-               features: Optional[torch.Tensor] = None  # [(B,) N, F]
-               ) -> VoxelGridResult:
+               features: Optional[torch.Tensor] = None,  # [(B,) N, F]
+               exact_division: bool = False) -> VoxelGridResult:
     """Per-voxel means of [points, features] (features ride through the
     same sorts and the same fixed-order sums as the coordinates)."""
     single = points.dim() == 2
@@ -39,10 +49,21 @@ def voxel_grid(points: torch.Tensor,   # [N, 3] or [B, N, 3]
     b, n, _ = points.shape
     cap = capacity or n
 
+    if exact_division:
+        step = torch.tensor(leaf_size, dtype=points.dtype,
+                            device=points.device)
+
+        def cell(x):
+            return torch.floor(x / step)
+    else:
+        inv = float(np.float32(1.0) / np.float32(leaf_size))
+
+        def cell(x):
+            return torch.floor(x * inv)
     big = torch.full_like(points, float("inf"))
-    mn = torch.floor(torch.amin(torch.where(mask[..., None], points, big),
-                                dim=1) / leaf_size)                  # [B, 3]
-    ijk = (torch.floor(points / leaf_size) - mn[:, None, :])
+    mn = cell(torch.amin(torch.where(mask[..., None], points, big),
+                         dim=1))                                     # [B, 3]
+    ijk = cell(points) - mn[:, None, :]
     # invalid points (and empty clouds) sort to the end; a non-finite point
     # is invalid, so the valid points form one sorted prefix
     max_c = torch.iinfo(torch.int32).max

@@ -18,7 +18,9 @@ package on the CPU:
     bit, two runs equal, no kernel launched for CPU tensors, the
     voting-space dump;
   * ``save_reference`` -> ``load`` against the JAX package, both ways;
-  * each refusal, naming its queue;
+  * a scene above the (patched) scene threshold and VoxelGridCulling
+    detect as the JAX package does; each remaining refusal names its
+    queue;
   * ``eval_detection`` end to end as the JAX package's
     tests/test_detection.py drives its CLI, with summary.txt and the
     per-cloud log in the JAX CLI's format.
@@ -273,11 +275,6 @@ def test_save_reference_round_trip(tmp_path):
 
 
 REFUSALS = {
-    "scene_scale": ({}, "A14"),
-    "culling": ({"Children": {"Keypoints": {
-        "Type": "VoxelGridCulling",
-        "Parameters": {"LeafSize": 0.35,
-                       "FilterMethodGeometry": "Curvature"}}}}, "A13"),
     "detector_keypoints": ({"Children": {"Keypoints": {
         "Type": "ISS3D", "Parameters": {}}}}, "A15"),
     "descriptor": ({"Children": {"Features": {
@@ -303,12 +300,79 @@ def test_unsupported_detection_is_refused(case):
             base["Type"] = node["Type"]
         base.setdefault("Parameters", {}).update(node.get("Parameters", {}))
     ism.config = IsmConfig.from_json(cfg)
-    n = 40000 if case == "scene_scale" else 600
-    cloud = np.random.default_rng(0).uniform(-1, 1, (n, 3)).astype(
+    cloud = np.random.default_rng(0).uniform(-1, 1, (600, 3)).astype(
         np.float32)
     build.reset_launch_counts()
     with pytest.raises(NotImplementedError, match=queue):
         ism.detect_batch([cloud])
+
+
+def _bench_detector(cfg):
+    """(port, JAX) ImplicitShapeModels of the bench SHOT model under the
+    config `cfg`."""
+    from point_cloud_donkey_tpu.utils.config import IsmConfig as JaxConfig
+    jax_ism = JaxIsm.load(CODEBOOK)
+    jax_ism.config = JaxConfig.from_json(cfg)
+    ism = ImplicitShapeModel.load(CODEBOOK, device="cpu")
+    ism.config = IsmConfig.from_json(cfg)
+    return ism, jax_ism
+
+
+def test_scene_scale_detection_matches_jax(monkeypatch):
+    """A scene above the scene threshold (patched to 512 in both packages,
+    the chunks to 64) detects on the scene route: the firm detections of
+    the JAX package's scene route (bench_data.firm_mismatches), detect()
+    equal to detect_batch bit for bit."""
+    from bench_data import bench_scenes
+    from point_cloud_donkey_tpu.ops import tiled as jt
+    from point_cloud_donkey_tpu_torch.ops import tiled as tt
+    for mod in (jt, tt):
+        monkeypatch.setattr(mod, "SCENE_TILE_THRESHOLD", 512)
+        monkeypatch.setattr(mod, "NORMALS_CHUNK", 64)
+        monkeypatch.setattr(mod, "KEYPOINT_CHUNK", 64)
+    clouds, _, _ = bench_scenes(1, n=512, seed=13)
+    with open(CODEBOOK) as f:
+        cfg = with_voting(json.load(f), SCENE_VOTING)
+    ism, jax_ism = _bench_detector(cfg)
+    with dense_descriptors():
+        want = jax_ism.detect(clouds[0])[0]
+    got = ism.detect_batch([clouds[0]])[0][0]
+    bandwidth = ism.config.child("Voting").get("Bandwidth", 0.1)
+    assert want and not firm_mismatches(got, want, bandwidth), \
+        firm_mismatches(got, want, bandwidth)
+    assert_bit_equal(ism.detect(clouds[0])[0], got)
+
+
+def test_culling_detection_matches_jax():
+    """VoxelGridCulling (Curvature, CutOff 0.5, RequireCombinedList with
+    ColorDistance, refined positions) at detection, on the batched
+    route of both packages, on a coloured 8192-point scene (phase 10's
+    hough scenes' density: sparser objects leave ill-posed normals that
+    move descriptors): the firm detections of the JAX package's."""
+    from bench_data import bench_scenes
+    clouds, rgbs, _ = bench_scenes(1, n=2048, seed=12)
+    with open(CODEBOOK) as f:
+        cfg = with_voting(json.load(f), SCENE_VOTING)
+    cfg["ObjectConfig"]["Children"]["Keypoints"] = {
+        "Type": "VoxelGridCulling",
+        "Parameters": {"LeafSize": 0.35, "FilterMethodGeometry": "Curvature",
+                       "FilterTypeGeometry": "CutOff",
+                       "FilterMethodColor": "ColorDistance",
+                       "FilterTypeColor": "CutOff",
+                       "MaxSimilarColorDistance": 0.05,
+                       "FilterCutoffRatio": 0.5,
+                       "CombineFilters": "RequireCombinedList",
+                       "RefineKeypointPosition": True}}
+    ism, jax_ism = _bench_detector(cfg)
+    with dense_descriptors():
+        want = [m for m, _ in jax_ism.detect_batch(list(clouds), None,
+                                                   list(rgbs))]
+    got = [m for m, _ in ism.detect_batch(list(clouds), None, list(rgbs))]
+    bandwidth = ism.config.child("Voting").get("Bandwidth", 0.1)
+    for g, w in zip(got, want):
+        assert w and not firm_mismatches(g, w, bandwidth), \
+            firm_mismatches(g, w, bandwidth)
+    assert_bit_equal(ism.detect(clouds[0], None, rgbs[0])[0], got[0])
 
 
 def _detection_files(tmp_path, rng):

@@ -2,7 +2,10 @@
 what the JAX package produces today: regenerate them with
 tests/torch_fixtures.py and compare.  The machine with the GPU has no JAX,
 so a stale fixture would hold the port against a reference that no longer
-exists."""
+exists.  The codebooks are trained again in full; the per-cloud scores and
+detections are recomputed for the first SAMPLE clouds (each cloud's row
+is independent of the others) and compared with those committed rows;
+``python tests/torch_fixtures.py`` recomputes every row."""
 
 import json
 
@@ -16,6 +19,9 @@ from torch_fixtures import (CODEBOOK, CODEBOOKS, CONFIG_REFERENCE, CONFIGS,
                             THRESHOLD, build_codebook,
                             build_descriptor_reference, build_reference,
                             config_scores, threshold_detection)
+
+# the clouds whose committed scores and detections are recomputed
+SAMPLE = 4
 
 
 def test_fixtures_match_the_jax_package(tmp_path):
@@ -31,14 +37,14 @@ def test_fixtures_match_the_jax_package(tmp_path):
         assert old["cb_codewords"].shape == (458, 352)
 
     ref = str(tmp_path / "bench_reference.npz")
-    build_reference(cb, ref)
+    build_reference(cb, ref, count=SAMPLE)
     with np.load(ref) as fresh, np.load(REFERENCE) as old:
         np.testing.assert_array_equal(fresh["points"], old["points"])
         np.testing.assert_array_equal(fresh["labels"], old["labels"])
         # float round-off between two CPU runs of the same programs
         for k in ("scores", "scores_windowed", "detect_densities",
                   "detect_positions"):
-            np.testing.assert_allclose(fresh[k], old[k], rtol=1e-5,
+            np.testing.assert_allclose(fresh[k], old[k][:SAMPLE], rtol=1e-5,
                                        atol=1e-5, err_msg=k)
         assert int(fresh["normals_window"]) == int(old["normals_window"])
         assert 0 < int(old["normals_window"]) < 2048
@@ -73,7 +79,7 @@ def test_descriptor_reference_matches_the_jax_package(tmp_path):
     JAX package with the committed codebooks; the committed colours are
     bench_colors of bench_reference.npz's clouds."""
     ref = str(tmp_path / "descriptor_reference.npz")
-    build_descriptor_reference(CODEBOOKS, ref)
+    build_descriptor_reference(CODEBOOKS, ref, count=SAMPLE)
     with np.load(ref) as fresh, np.load(DESCRIPTOR_REFERENCE) as old, \
             np.load(REFERENCE) as base:
         np.testing.assert_array_equal(fresh["rgb8"], old["rgb8"])
@@ -86,7 +92,7 @@ def test_descriptor_reference_matches_the_jax_package(tmp_path):
         for k in ("scores_cshot", "scores_short_shot",
                   "scores_cshot_windowed", "detect_densities_short_shot",
                   "detect_positions_short_shot"):
-            np.testing.assert_allclose(fresh[k], old[k], rtol=1e-5,
+            np.testing.assert_allclose(fresh[k], old[k][:SAMPLE], rtol=1e-5,
                                        atol=1e-5, err_msg=k)
         for k in ("scores_cshot", "scores_short_shot",
                   "scores_cshot_windowed"):
@@ -108,19 +114,22 @@ def test_config_reference_matches_the_jax_package(name):
             + ["scores_" + k for k in CONFIGS])
         assert float(old["threshold"]) == np.float32(THRESHOLD)
         assert old["scores_" + name].shape == (N_REF, 5)
-        np.testing.assert_allclose(config_scores(name), old["scores_" + name],
+        np.testing.assert_allclose(config_scores(name, SAMPLE),
+                                   old["scores_" + name][:SAMPLE],
                                    rtol=1e-5, atol=1e-5)
 
 
 def test_threshold_detection_reference_matches_the_jax_package():
-    dens, pos = threshold_detection()
+    dens, pos = threshold_detection(SAMPLE)
     with np.load(CONFIG_REFERENCE) as old:
         assert old["detect_densities_threshold"].shape == (N_DETECT, 5)
         assert old["detect_positions_threshold"].shape == (N_DETECT, 5, 3)
-        np.testing.assert_allclose(dens, old["detect_densities_threshold"],
-                                   rtol=1e-5, atol=1e-5)
-        np.testing.assert_allclose(pos, old["detect_positions_threshold"],
-                                   rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(
+            dens, old["detect_densities_threshold"][:SAMPLE], rtol=1e-5,
+            atol=1e-5)
+        np.testing.assert_allclose(
+            pos, old["detect_positions_threshold"][:SAMPLE], rtol=1e-5,
+            atol=1e-5)
 
 
 def test_train_reference_matches_the_jax_package():
@@ -174,3 +183,44 @@ def test_train_reference_matches_the_jax_package():
         np.testing.assert_array_equal(
             kmeans(desc, 3, "chisq", iterations=0)[0],
             old["hartigan_seeds"][3:6])
+
+
+def test_kinect_model_is_the_shipped_config():
+    """data/kinect_model.ism carries configs/rgbd_kinect.ism as shipped
+    (tests/scene_fixtures.py trains it with the JAX package); it loads in
+    the JAX package and in the port with the same codebook."""
+    from point_cloud_donkey_tpu.models.ism import ImplicitShapeModel as JIsm
+    from point_cloud_donkey_tpu_torch.models.ism import ImplicitShapeModel
+    from point_cloud_donkey_tpu_torch.utils.config import IsmConfig
+    from scene_fixtures import KINECT_MODEL
+    from torch_fixtures import shipped_config
+    assert IsmConfig.load(KINECT_MODEL).to_json() == \
+        IsmConfig.from_json(shipped_config("rgbd_kinect")).to_json()
+    got = ImplicitShapeModel.load(KINECT_MODEL, device="cpu").state.codebook
+    want = JIsm.load(KINECT_MODEL).state.codebook
+    np.testing.assert_array_equal(got.codewords, np.asarray(want.codewords))
+    assert got.codewords.shape[1] == 1344
+
+
+def test_scene_reference_frames_are_kinect_data():
+    """data/scene_reference.npz was taken on tests/kinect_data.py's frames
+    (their hashes) and holds every part phase 11 reads."""
+    import kinect_data as kd
+    from scene_fixtures import SCENE_REFERENCE
+    with np.load(SCENE_REFERENCE) as z:
+        assert [str(h) for h in z["frame_hash"]] == \
+            [kd.frame_hash(kd.kinect_frame(s)) for s in kd.FRAME_SEEDS]
+        for s in kd.FRAME_SEEDS:
+            for k in ("kp", "desc", "frames", "ctl_desc", "ctl_frames",
+                      "max_count", "ctl_max_count"):
+                assert f"a_{s}_{k}" in z.files, k
+        for k in ("b_size", "b_max_count", "c_normals", "c_geo", "c_kp",
+                  "c_ctl_geo", "c_ctl_col", "c_ctl_kp", "e_ctl_cos",
+                  "f_max_count"):
+            assert k in z.files, k
+        for i in range(kd.FILTER_SCENES):
+            for k in ("sor", "ror", "xyz"):
+                assert f"b_{i}_{k}" in z.files, k
+            assert len(z[f"b_{i}_xyz"]) == z["b_size"][i]
+        for name in kd.BENCH_CULLING:
+            assert z[f"c_{name}_count"].shape == (kd.CULL_CLOUDS,)

@@ -1,6 +1,6 @@
 """The port's kernel modules (ops/kernels/) against the JAX Pallas kernels
 they replace, run as the JAX package's own tests run them on the CPU
-(interpret mode, in one process of its own: torch_parity.pallas_interpret),
+(interpret mode, in processes of their own: torch_parity.StartedReference),
 and against the golden descriptors.  On the CPU every wrapper runs its
 plain PyTorch twin; tests/test_torch_cuda.py holds each CUDA kernel
 against that twin on the card."""
@@ -15,7 +15,7 @@ import torch
 
 import shapes
 from torch_parity import (assert_descriptors_close, assert_frames_close,
-                          assert_topk_close, n, pallas_interpret, t)
+                          StartedReference, assert_topk_close, n, t)
 
 from point_cloud_donkey_tpu.ops.lrf import shot_lrf as j_shot_lrf
 from point_cloud_donkey_tpu.ops.normals import \
@@ -124,7 +124,7 @@ out["chisq"] = chi_square_distance_matrix_pallas(*g("ca", "cb"))
 @pytest.fixture(scope="module")
 def pallas_refs(cloud, bench_clouds, tmp_path_factory):
     """Every interpret-mode reference of this file, in two processes of
-    their own: K1's moments and K1/K2's LRFs on `cloud`, the keypoint LRFs
+    their own that run at once: K1's moments and K1/K2's LRFs on `cloud`, the keypoint LRFs
     on `bench_clouds` and the LRF at a centre of symmetry; the compact
     SHOT (K3) on `bench_clouds` and K4's chi-square matrix."""
     p, m = cloud
@@ -132,14 +132,14 @@ def pallas_refs(cloud, bench_clouds, tmp_path_factory):
     tq, tqm, tp, tm = _ties_case()
     ca, cb, _ = _chisq_case()
     tiles = int(np.ceil(kmask.sum(1) / tshot.TK).sum())
-    refs = pallas_interpret(
+    lrf = StartedReference(
         _LRF_CODE, str(tmp_path_factory.mktemp("k1k2")), p=p, m=m, pts=pts,
         mask=mask, kp=kp, kmask=kmask, tq=tq, tqm=tqm, tp=tp, tm=tm)
-    refs.update(pallas_interpret(
+    shot = StartedReference(
         _SHOT_CHISQ_CODE, str(tmp_path_factory.mktemp("k3k4")), pts=pts,
         mask=mask, nrm=nrm, kp=kp, kmask=kmask, fr=fr, fv=fv,
-        tiles=np.int64(tiles), ca=ca, cb=cb))
-    return refs
+        tiles=np.int64(tiles), ca=ca, cb=cb)
+    return {**lrf.result(), **shot.result()}
 
 
 # --- K1 / K2: lrf_moments ---------------------------------------------------

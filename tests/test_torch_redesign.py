@@ -14,7 +14,7 @@ plan, a query tail, W = N, W = 128 and overlapping windows; on the dense
 keypoint grid, rows that are not live (a tile of them between live ones),
 K not a multiple of 8 and a cloud past one staging chunk.  Each kernel's
 Pallas references (K2's with K11's) run in a process of their own
-(torch_parity.pallas_interpret).
+(torch_parity.StartedReference, queued at the module's start).
 K8's and K9's twins (the slot arrays, then their histograms) are held
 against the JAX dense CSHOT and SHORT_SHOT on the dense [B, K] grid, each
 in a process of its own too: dead rows at 1e9, all-dead tiles, masked
@@ -36,7 +36,7 @@ from redesign_cases import (K1_CASES, K1_RADIUS, K2_CASES, K3_CASES,
                             k5_case, k5_windows_exact, k6_case, k7_case,
                             k8_case, k9_bins, k9_case)
 from torch_parity import (assert_descriptors_close, assert_topk_close, n,
-                          pallas_interpret, t)
+                          StartedReference, t)
 
 from point_cloud_donkey_tpu.ops.pallas import lrf_moments as jlrf
 from point_cloud_donkey_tpu_torch.ops import color as tcolor
@@ -69,6 +69,14 @@ for case in %r:
 """ % (K1_CASES, K1_RADIUS)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def references(pallas_k1, pallas_k10, pallas_k5, pallas_k6, pallas_k4,
+               pallas_k2, pallas_k3, pallas_k7, jax_k8, jax_k9):
+    """Every interpret-mode reference of the module, queued at its start
+    (torch_parity.StartedReference: a few run at once, each test waits
+    for its own)."""
+
+
 @pytest.fixture(scope="module")
 def pallas_k1(tmp_path_factory):
     """`_moments_call` per cloud at every K1 case on the lanes the JAX
@@ -78,7 +86,7 @@ def pallas_k1(tmp_path_factory):
     for case in K1_CASES:
         for key, x in zip(("q", "q_mask", "p", "mask"), k1_case(case)):
             arrays[f"{case}__{key}"] = x
-    return pallas_interpret(_K1_CODE, str(tmp_path_factory.mktemp("k1")),
+    return StartedReference(_K1_CODE, str(tmp_path_factory.mktemp("k1")),
                             **arrays)
 
 
@@ -149,7 +157,7 @@ def pallas_k10(tmp_path_factory):
         q, q_mask, p, mask = k1_case(case)
         arrays[case + "__ql"] = _lanes(q, q_mask, jlrf.TQ)
         arrays[case + "__pl"] = _lanes(p, mask, jlrf.TN)
-    return pallas_interpret(_K10_CODE, str(tmp_path_factory.mktemp("k10")),
+    return StartedReference(_K10_CODE, str(tmp_path_factory.mktemp("k10")),
                             **arrays)
 
 
@@ -243,7 +251,7 @@ def pallas_k5(tmp_path_factory):
         arrays[case + "__qt"], arrays[case + "__pw"] = _k5_lanes(
             pts, mask, starts, window)
         arrays[case + "__w"] = np.array(window)
-    return pallas_interpret(_K5_CODE, str(tmp_path_factory.mktemp("k5")),
+    return StartedReference(_K5_CODE, str(tmp_path_factory.mktemp("k5")),
                             **arrays)
 
 
@@ -316,7 +324,7 @@ def pallas_k6(tmp_path_factory):
         ax[:, :6, :pts.shape[1]] = axes.transpose(0, 2, 1)
         arrays.update({case + "__qt": qt, case + "__pw": pw,
                        case + "__ax": ax, case + "__w": np.array(window)})
-    return pallas_interpret(_K6_CODE, str(tmp_path_factory.mktemp("k6")),
+    return StartedReference(_K6_CODE, str(tmp_path_factory.mktemp("k6")),
                             **arrays)
 
 
@@ -371,7 +379,7 @@ def pallas_k4(tmp_path_factory):
         for signed in (0, 1):
             a, b, _ = k4_case(dim, signed=bool(signed))
             arrays[f"{dim}_{signed}__a"], arrays[f"{dim}_{signed}__b"] = a, b
-    return pallas_interpret(_K4_CODE, str(tmp_path_factory.mktemp("k4")),
+    return StartedReference(_K4_CODE, str(tmp_path_factory.mktemp("k4")),
                             **arrays)
 
 
@@ -450,7 +458,7 @@ def pallas_k2(tmp_path_factory):
         for key, x in zip(("q", "q_mask", "p", "mask", "axes"),
                           k2_case(case)):
             arrays[f"{case}__{key}"] = x
-    return pallas_interpret(_K2_CODE, str(tmp_path_factory.mktemp("k2")),
+    return StartedReference(_K2_CODE, str(tmp_path_factory.mktemp("k2")),
                             **arrays)
 
 
@@ -538,7 +546,7 @@ def pallas_k3(tmp_path_factory):
     `_shot_fused_call_windowed`."""
     arrays = {f"{case}__{key}": x for case in K3_CASES
               for key, x in zip(K3_KEYS, k3_case(case))}
-    return pallas_interpret(_K3_CODE, str(tmp_path_factory.mktemp("k3")),
+    return StartedReference(_K3_CODE, str(tmp_path_factory.mktemp("k3")),
                             **arrays)
 
 
@@ -610,7 +618,7 @@ def pallas_k7(tmp_path_factory):
     multiple of 8)."""
     arrays = {f"{case}__{key}": x for case in K7_CASES
               for key, x in zip(K7_KEYS, k7_case(case))}
-    return pallas_interpret(_K7_CODE, str(tmp_path_factory.mktemp("k7")),
+    return StartedReference(_K7_CODE, str(tmp_path_factory.mktemp("k7")),
                             **arrays)
 
 
@@ -703,7 +711,7 @@ def jax_k8(tmp_path_factory):
         x["points"], x["mask"], x["normals"] = _jax_input(
             x["points"], x["mask"], x["normals"])
         arrays.update({f"{case}__{key}": v for key, v in x.items()})
-    return pallas_interpret(_K8_CODE, str(tmp_path_factory.mktemp("k8")),
+    return StartedReference(_K8_CODE, str(tmp_path_factory.mktemp("k8")),
                             **arrays)
 
 
@@ -780,7 +788,7 @@ def jax_k9(tmp_path_factory):
         x = dict(zip(K9_KEYS, k9_case(case)))
         x["points"], x["mask"], _ = _jax_input(x["points"], x["mask"])
         arrays.update({f"{case}__{key}": v for key, v in x.items()})
-    return pallas_interpret(_K9_CODE, str(tmp_path_factory.mktemp("k9")),
+    return StartedReference(_K9_CODE, str(tmp_path_factory.mktemp("k9")),
                             **arrays)
 
 

@@ -150,24 +150,28 @@ def test_serve_main_reports_predictions(tmp_path, capsys):
 def test_port_imports_neither_jax_nor_triton():
     """Every port module, and the numpy-only test helpers that
     chip_smoke.py reads, import nothing of jax, triton or the JAX
-    package."""
+    package; the scene constants live in ops/tiled.py alone."""
     code = (
         "import importlib, pkgutil, sys\n"
         "sys.path.insert(0, 'tests')\n"
-        "import bench_data, shapes, torch_fixtures\n"
+        "import bench_data, kinect_data, shapes, torch_fixtures\n"
         "import point_cloud_donkey_tpu_torch as pkg\n"
         "mods = [m.name for m in pkgutil.walk_packages(pkg.__path__, "
         "pkg.__name__ + '.')]\n"
         "for m in mods: importlib.import_module(m)\n"
-        "assert len(mods) >= 39, mods\n"
+        "assert len(mods) >= 41, mods\n"
         "new = ['ops.color', 'ops.short_shot', 'ops.kernels.shot_hist', "
         "'ops.kernels.histogram', 'train', 'models.ism', "
         "'models.detect_batch', 'models.features', 'models.keypoints', "
         "'models.types', 'models.ranking', 'models.clustering', "
         "'utils.mesh', 'ops.hough', 'models.voting', 'models.classifier', "
         "'models.metrics', 'utils.boost_archive', 'utils.debug_utils', "
-        "'eval_detection']\n"
+        "'eval_detection', 'ops.tiled', 'ops.curvature']\n"
         "assert all(pkg.__name__ + '.' + m in mods for m in new), mods\n"
+        "from point_cloud_donkey_tpu_torch.ops import tiled\n"
+        "owners = [m for m in mods if any(hasattr(sys.modules[m], c) for c "
+        "in ('SCENE_TILE_THRESHOLD', 'NORMALS_CHUNK', 'KEYPOINT_CHUNK'))]\n"
+        "assert owners == [tiled.__name__], owners\n"
         "bad = [m for m in ('jax', 'jaxlib', 'triton', "
         "'point_cloud_donkey_tpu') if m in sys.modules]\n"
         "assert not bad, bad\n")

@@ -443,9 +443,7 @@ def _set(cfg, path, value):
     (("Children", "GlobalFeatures", "Type"), "CVFH", "CVFH"),
     (("Children", "Features", "Type"), "FPFH", "FPFH"),
     (("Children", "Keypoints"), {
-        "Type": "VoxelGridCulling",
-        "Parameters": {"LeafSize": 0.35, "DisableFilterInTraining": False,
-                       "FilterMethodGeometry": "Curvature"}}, "culling"),
+        "Type": "ISS3D", "Parameters": {"SalientRadius": 0.3}}, "ISS3D"),
     (("Parameters", "UseDeviceMesh"), True, "UseDeviceMesh"),
 ])
 def test_unported_training_configs_raise(path, value, reason):
@@ -456,19 +454,4 @@ def test_unported_training_configs_raise(path, value, reason):
     ism = ImplicitShapeModel(IsmConfig.from_json(cfg), "cpu")
     ism.add_training_model("no_such_file.pcd", 0, 0)
     with pytest.raises(NotImplementedError, match=reason):
-        ism.train()
-
-
-def test_scene_scale_filters_are_refused(tmp_path):
-    """A cloud above 32768 points with UseSmoothing needs the JAX package's
-    scene-scale tiles (ROADMAP A14): refused when it is read."""
-    rng = np.random.default_rng(5)
-    path = str(tmp_path / "scene.pcd")
-    save_pcd(path, rng.uniform(-5, 5, size=(33000, 3)).astype(np.float32),
-             binary=True)
-    cfg = config()
-    _set(cfg, ("Parameters", "UseSmoothing"), True)
-    ism = ImplicitShapeModel(IsmConfig.from_json(cfg), "cpu")
-    ism.add_training_model(path, 0, 0)
-    with pytest.raises(NotImplementedError, match="A14"):
         ism.train()

@@ -6,7 +6,8 @@ models of 3 classes (tests/test_torch_train.py's draw, 1024 points).
 
 The JAX references run its fused route (PCD_TRAIN_FUSED=1) where it can
 and its staged route with the dense descriptors (PCD_DENSE_DESC=1) where
-it cannot: the formulation the port computes.  Each training is held to
+it cannot: the formulation the port computes; all of them start at once
+in worker processes (tests/jax_jobs.py).  Each training is held to
 tests/test_torch_train.py's codebook contract (the same codewords and vote
 structure, >= 97% of the codewords at cosine > 0.999, class sigmas within
 rtol 5e-2) and the per-class dimensions."""
@@ -17,11 +18,10 @@ import numpy as np
 import pytest
 
 import shapes
+from jax_jobs import JaxPool
 from test_torch_train import CLASSES, N_MODELS, N_POINTS, \
     assert_codebooks_match, config
 
-from point_cloud_donkey_tpu.models.ism import ImplicitShapeModel as JaxIsm
-from point_cloud_donkey_tpu.utils.config import IsmConfig as JaxConfig
 from point_cloud_donkey_tpu.utils.io import PointCloud as JaxCloud
 from point_cloud_donkey_tpu.utils.io import save_pcd as jax_save_pcd
 from point_cloud_donkey_tpu_torch.models import features as tfeat
@@ -30,8 +30,11 @@ from point_cloud_donkey_tpu_torch.utils.config import IsmConfig
 
 
 def jax_train(files, cfg):
-    """The JAX package's training of `cfg` on the CPU: the fused route
-    where it applies, dense descriptors on the staged route."""
+    """The JAX package's training of `cfg` on the CPU in this process: the
+    fused route where it applies, dense descriptors on the staged route."""
+    from point_cloud_donkey_tpu.models.ism import \
+        ImplicitShapeModel as JaxIsm
+    from point_cloud_donkey_tpu.utils.config import IsmConfig as JaxConfig
     keys = ("PCD_TRAIN_FUSED", "PCD_DENSE_DESC")
     old = {k: os.environ.get(k) for k in keys}
     os.environ.update({k: "1" for k in keys})
@@ -130,10 +133,40 @@ CONFIGS = {
 }
 
 
+KMEANS = {
+    "count": {"Type": "KMeansCount", "Parameters": {"ClusterCount": 40}},
+    "hartigan": {"Type": "KMeansHartigan", "Parameters": {"MaxK": 6}},
+}
+
+
+def kmeans_config(name):
+    cfg = with_child("Clustering", KMEANS[name])
+    return with_child("Codebook", {"Children": {"ActivationStrategy": {
+        "Type": "KNN", "Parameters": {"K": 2}}}}, cfg)
+
+
+@pytest.fixture(scope="module")
+def jax_refs(files, normal_files):
+    """Every JAX reference training of this module -- the JAX package's
+    fused route where it applies, its staged route with dense descriptors
+    where it does not (PCD_TRAIN_FUSED=1, PCD_DENSE_DESC=1) -- started at
+    once in worker processes (tests/jax_jobs.py); the k-means trainings
+    record the features JAX's k-means++ seeding picks."""
+    pool = JaxPool(5)
+    jobs = {name: pool.train(files, CONFIGS[name]())
+            for name in sorted(CONFIGS)}
+    jobs["normals"] = pool.train(normal_files, config())
+    for name in sorted(KMEANS):
+        jobs["kmeans_" + name] = pool.train(files, kmeans_config(name),
+                                            record_seeds=True)
+    yield jobs
+    pool.close()
+
+
 @pytest.mark.parametrize("name", sorted(CONFIGS))
-def test_training_configs_match_jax(files, name):
+def test_training_configs_match_jax(files, jax_refs, name):
     cfg = CONFIGS[name]()
-    want = jax_train(files, cfg)
+    want, _ = jax_refs[name].result()
     got = port_train(files, cfg)
     assert_trainings_match(got, want)
     if name == "mvbb":
@@ -145,12 +178,12 @@ def test_training_configs_match_jax(files, name):
 
 
 def test_files_with_normals_train_on_the_staged_route(files, normal_files,
-                                                      monkeypatch):
+                                                      jax_refs, monkeypatch):
     """Files that carry normals train with those normals (JAX: its staged
     route), and give the codebook the fused route computes from the same
     normals."""
     cfg = config()
-    want = jax_train(normal_files, cfg)
+    want, _ = jax_refs["normals"].result()
     calls = []
     real = tfeat.compute_cloud_normals
     monkeypatch.setattr("point_cloud_donkey_tpu_torch.models.detect_batch."
@@ -178,28 +211,17 @@ def test_kmeans_training_clusters_the_features(files):
     assert cb.vote_mask.sum() % 2 == 0 and cb.vote_mask.sum(1).max() > 2
 
 
-KMEANS = {
-    "count": {"Type": "KMeansCount", "Parameters": {"ClusterCount": 40}},
-    "hartigan": {"Type": "KMeansHartigan", "Parameters": {"MaxK": 6}},
-}
-
-
 @pytest.mark.parametrize("name", sorted(KMEANS))
-def test_kmeans_training_from_jax_seeds_matches_jax(files, name):
+def test_kmeans_training_from_jax_seeds_matches_jax(files, jax_refs, name):
     """KMeansCount and KMeansHartigan, the port's k-means started from the
     features that JAX's k-means++ seeding picks in its training: the same
     codebook over the centres -- the codeword count (Hartigan's k), the
     vote structure of the activation at K=2, the centres at cosine > 0.999
     -- as JAX's training."""
     from bench_data import seeded_kmeans
-    from torch_fixtures import recorded_kmeans_seeds
-    cfg = with_child("Clustering", KMEANS[name])
-    cfg = with_child("Codebook", {"Children": {"ActivationStrategy": {
-        "Type": "KNN", "Parameters": {"K": 2}}}}, cfg)
-    with recorded_kmeans_seeds() as seeds:
-        want = jax_train(files, cfg)
+    want, seeds = jax_refs["kmeans_" + name].result()
     with seeded_kmeans(seeds):
-        got = port_train(files, cfg)
+        got = port_train(files, kmeans_config(name))
     assert_trainings_match(got, want)
     count = got.state.codebook.num_codewords
     assert count == 40 if name == "count" else count > 1   # Hartigan's k

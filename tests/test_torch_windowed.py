@@ -22,7 +22,7 @@ from redesign_cases import (K3W_CASES, K3W_KEYS, K3W_PARK, K3W_RADIUS,
                             k3w_case)
 from torch_fixtures import CODEBOOK, REFERENCE, jax_window
 from torch_parity import (assert_decisions_match, assert_descriptors_close,
-                          n, pallas_interpret, t)
+                          InterpretRun, n, t)
 
 from point_cloud_donkey_tpu.ops import binned as jbinned
 from point_cloud_donkey_tpu_torch.kernels import build
@@ -64,18 +64,33 @@ for case in %r:
 """ % (K3W_CASES, K3W_KEYS, K3W_RADIUS)
 
 
-@pytest.fixture(scope="module")
-def pallas_k3w(tmp_path_factory):
-    """`shot_descriptor_fused_windowed(..., interpret=True)` at every K3w
-    case, and the in-radius counts of its `_shot_fused_call_windowed`."""
+@pytest.fixture(scope="module", autouse=True)
+def interpret_runs(tmp_path_factory):
+    """This module's two interpret-mode references, started at once in the
+    background (torch_parity.InterpretRun): the K3w edge cases and the
+    windowed classify step of test_windowed_descriptor_classifier_matches_
+    jax (with the window the port calibrates on its clouds)."""
     arrays = {}
     for case in K3W_CASES:
         *inputs, window = k3w_case(case)
         arrays.update({f"{case}__{key}": x
                        for key, x in zip(K3W_KEYS, inputs)})
         arrays[f"{case}__window"] = np.int32(window)
-    return pallas_interpret(_K3W_CODE, str(tmp_path_factory.mktemp("k3w")),
-                            **arrays)
+    k3w = InterpretRun(_K3W_CODE, str(tmp_path_factory.mktemp("k3w")),
+                       **arrays)
+    pts, mask, _ = _bench_batch(2)
+    window = _classify_window(pts, mask)
+    classify = InterpretRun(
+        _CLASSIFY_CODE, str(tmp_path_factory.mktemp("classify")),
+        points=pts, mask=mask, windows=np.array([window, 128], np.int32))
+    return {"k3w": k3w, "classify": classify}
+
+
+@pytest.fixture(scope="module")
+def pallas_k3w(interpret_runs):
+    """`shot_descriptor_fused_windowed(..., interpret=True)` at every K3w
+    case, and the in-radius counts of its `_shot_fused_call_windowed`."""
+    return interpret_runs["k3w"].result()
 
 
 def _plan(kp_keys, keys, window):
@@ -255,7 +270,16 @@ def _model(**overrides):
                          CodebookParams.from_config(config.child("Codebook")))
 
 
-def test_windowed_descriptor_classifier_matches_jax(tmp_path):
+def _classify_window(pts, mask):
+    """The descriptor window the port calibrates on the clouds' voxel
+    keypoints."""
+    kres = voxel_grid(t(pts), t(mask), 0.35, capacity=192)
+    return tbinned.required_window(t(pts), t(mask), 0.6, tile_q=8,
+                                   q_points=kres.centroids[..., :3],
+                                   q_mask=kres.mask)
+
+
+def test_windowed_descriptor_classifier_matches_jax(interpret_runs):
     """IsmClassifier with descriptor_window vs the JAX
     ``classify_scores_batch(fused_descriptor=True, descriptor_window=W)``
     with its interpret-mode kernel, on two bench clouds (one padded) at
@@ -266,13 +290,8 @@ def test_windowed_descriptor_classifier_matches_jax(tmp_path):
     over the whole sorted cloud (dense_recomputes 1) and gives the scores
     of the exact window to rtol 1e-5 (K7 and K3w sum in other batches)."""
     pts, mask, ref = _bench_batch(2)
-    kres = voxel_grid(t(pts), t(mask), 0.35, capacity=192)
-    window = tbinned.required_window(t(pts), t(mask), 0.6, tile_q=8,
-                                     q_points=kres.centroids[..., :3],
-                                     q_mask=kres.mask)
-    jax_out = pallas_interpret(
-        _CLASSIFY_CODE, str(tmp_path), points=pts, mask=mask,
-        windows=np.array([window, 128], np.int32))
+    window = _classify_window(pts, mask)
+    jax_out = interpret_runs["classify"].result()
     assert bool(jax_out[f"exact_{window}"]) and not bool(jax_out["exact_128"])
     model = _model(descriptor_window=window)
     seen = []

@@ -238,15 +238,20 @@ def jax_detect(codebook_path: str, points: np.ndarray, mask: np.ndarray,
     return np.asarray(dens), np.asarray(pos)
 
 
-def build_reference(codebook_path: str, path: str) -> None:
+def build_reference(codebook_path: str, path: str,
+                    count: int = None) -> None:
+    """bench_reference.npz; with `count`, the scores and detections of the
+    first `count` clouds only (the window still calibrated on all N_REF),
+    which the fixture test compares with the committed rows."""
     _, _, clouds, labels = bench_clouds(max(N_REF, N_DETECT))
     mask = np.ones(clouds.shape[:2], bool)
     ref, ref_mask = clouds[:N_REF], mask[:N_REF]
-    scores = jax_scores(codebook_path, ref, ref_mask)
     window = jax_window(ref, ref_mask)
-    scores_w = jax_scores(codebook_path, ref, ref_mask, window)
-    dens, pos = jax_detect(codebook_path, clouds[:N_DETECT],
-                           mask[:N_DETECT])
+    n_ref, n_det = (N_REF, N_DETECT) if count is None else (count, count)
+    scores = jax_scores(codebook_path, ref[:n_ref], ref_mask[:n_ref])
+    scores_w = jax_scores(codebook_path, ref[:n_ref], ref_mask[:n_ref],
+                          window)
+    dens, pos = jax_detect(codebook_path, clouds[:n_det], mask[:n_det])
     np.savez_compressed(path, points=ref,
                         labels=labels[:N_REF].astype(np.int32),
                         scores=scores.astype(np.float32),
@@ -256,24 +261,29 @@ def build_reference(codebook_path: str, path: str) -> None:
                         detect_positions=pos.astype(np.float32))
 
 
-def build_descriptor_reference(codebooks: dict, path: str) -> None:
+def build_descriptor_reference(codebooks: dict, path: str,
+                               count: int = None) -> None:
     """The first N_REF bench clouds' colours and their JAX-CPU scores with
     the CSHOT and SHORT_SHOT codebooks (`codebooks`: descriptor -> path),
     CSHOT also with the calibrated normals window, and the SHORT_SHOT
-    detection of the first N_DETECT clouds."""
+    detection of the first N_DETECT clouds; with `count`, the scores and
+    detections of the first `count` clouds (the colours and the window
+    of all N_REF)."""
     _, _, clouds, _ = bench_clouds(max(N_REF, N_DETECT))
     mask = np.ones(clouds.shape[:2], bool)
     ref, ref_mask = clouds[:N_REF], mask[:N_REF]
     rgb = bench_colors(ref)
-    cshot = jax_scores(codebooks["CSHOT"], ref, ref_mask, descriptor="CSHOT",
-                       rgb=rgb)
-    cshot_w = jax_scores(codebooks["CSHOT"], ref, ref_mask,
-                         jax_window(ref, ref_mask), descriptor="CSHOT",
-                         rgb=rgb)
-    short = jax_scores(codebooks["SHORT_SHOT"], ref, ref_mask,
+    window = jax_window(ref, ref_mask)
+    n = N_REF if count is None else count
+    n_det = N_DETECT if count is None else count
+    cshot = jax_scores(codebooks["CSHOT"], ref[:n], ref_mask[:n],
+                       descriptor="CSHOT", rgb=rgb[:n])
+    cshot_w = jax_scores(codebooks["CSHOT"], ref[:n], ref_mask[:n], window,
+                         descriptor="CSHOT", rgb=rgb[:n])
+    short = jax_scores(codebooks["SHORT_SHOT"], ref[:n], ref_mask[:n],
                        descriptor="SHORT_SHOT")
-    dens, pos = jax_detect(codebooks["SHORT_SHOT"], clouds[:N_DETECT],
-                           mask[:N_DETECT], "SHORT_SHOT")
+    dens, pos = jax_detect(codebooks["SHORT_SHOT"], clouds[:n_det],
+                           mask[:n_det], "SHORT_SHOT")
     np.savez_compressed(path, rgb8=np.round(rgb * 255).astype(np.uint8),
                         scores_cshot=cshot.astype(np.float32),
                         scores_short_shot=short.astype(np.float32),
@@ -307,11 +317,12 @@ def threshold_activity(codebook_path: str, points: np.ndarray,
             float(kept.sum() / (64 * len(kept))))
 
 
-def config_scores(name: str) -> np.ndarray:
-    """The JAX-CPU scores of the first N_REF bench clouds under CONFIGS[name]
-    (CSHOT with bench_colors)."""
+def config_scores(name: str, count: int = N_REF) -> np.ndarray:
+    """The JAX-CPU scores of the first `count` (N_REF) bench clouds under
+    CONFIGS[name] (CSHOT with bench_colors)."""
     params, method, descriptor = CONFIGS[name]
     _, _, clouds, _ = bench_clouds(N_REF)
+    clouds = clouds[:count]
     mask = np.ones(clouds.shape[:2], bool)
     return jax_scores(
         CODEBOOKS[descriptor], clouds, mask, descriptor=descriptor,
@@ -319,12 +330,12 @@ def config_scores(name: str) -> np.ndarray:
         params=params, normals_method=method).astype(np.float32)
 
 
-def threshold_detection():
-    """The JAX-CPU detection of the first N_DETECT bench clouds under
-    Threshold: (densities, positions)."""
+def threshold_detection(count: int = N_DETECT):
+    """The JAX-CPU detection of the first `count` (N_DETECT) bench clouds
+    under Threshold: (densities, positions)."""
     _, _, clouds, _ = bench_clouds(max(N_REF, N_DETECT))
-    dens, pos = jax_detect(CODEBOOK, clouds[:N_DETECT],
-                           np.ones((N_DETECT, clouds.shape[1]), bool),
+    dens, pos = jax_detect(CODEBOOK, clouds[:count],
+                           np.ones((count, clouds.shape[1]), bool),
                            params=CONFIGS["threshold"][0])
     return dens.astype(np.float32), pos.astype(np.float32)
 

@@ -14,6 +14,7 @@ can settle either way.
 import os
 import subprocess
 import sys
+import time
 import warnings
 
 import numpy as np
@@ -132,6 +133,103 @@ faulthandler.cancel_dump_traceback_later()
 """
 
 
+class InterpretRun:
+    """:func:`pallas_interpret` started now in the background;
+    :meth:`result` waits for it (a test module can start its slow
+    references at once, so they overlap)."""
+
+    def __init__(self, code: str, workdir, **arrays):
+        self._inp = os.path.join(workdir, "in.npz")
+        self._outp = os.path.join(workdir, "out.npz")
+        np.savez(self._inp, **arrays)
+        self._env = dict(os.environ, JAX_PLATFORMS="cpu",
+                         PYTHONPATH=os.pathsep.join(filter(None, [
+                             REPO, os.environ.get("PYTHONPATH")])))
+        self._cmd = [sys.executable, "-c", _INTERPRET, self._inp,
+                     self._outp, code, str(INTERPRET_TIMEOUT - 10)]
+        self._start = time.monotonic()
+        # the output goes to a file: a pipe nobody reads before result()
+        # would fill and stall the run
+        self._log = open(os.path.join(workdir, "stderr.txt"), "w+")
+        self._proc = subprocess.Popen(self._cmd, env=self._env,
+                                      stdout=subprocess.DEVNULL,
+                                      stderr=self._log)
+        self._out = None
+
+    def result(self) -> dict:
+        if self._out is not None:
+            return self._out
+        left = INTERPRET_TIMEOUT - (time.monotonic() - self._start)
+        try:
+            code = self._proc.wait(timeout=max(left, 1.0))
+            self._log.seek(0)
+            err = self._log.read()
+        except subprocess.TimeoutExpired:
+            self._proc.kill()
+            self._proc.wait()
+            self._log.seek(0)
+            err = self._log.read()
+            warnings.warn(f"an interpret-mode reference ran past "
+                          f"{INTERPRET_TIMEOUT} s and was rerun in a fresh "
+                          f"process; its stacks:\n{(err or '')[-6000:]}")
+            res = subprocess.run(self._cmd, env=self._env,
+                                 capture_output=True, text=True,
+                                 timeout=INTERPRET_TIMEOUT)
+            code, err = res.returncode, res.stderr
+        self._log.close()
+        assert code == 0, err[-3000:]
+        with np.load(self._outp) as z:
+            self._out = {k: z[k] for k in z.files}
+        return self._out
+
+
+class StartedReference:
+    """An interpret-mode reference queued now and read like the dict
+    :func:`pallas_interpret` returns; reading waits for it.  At most
+    MAX_STARTED run at once, so a module can queue all of its references
+    at its start and they overlap without crowding the CPU."""
+
+    MAX_STARTED = 4
+    _queue: list = []
+    _running: list = []
+
+    def __init__(self, code: str, workdir, **arrays):
+        self._args = (code, workdir, arrays)
+        self._run = None
+        StartedReference._queue.append(self)
+        StartedReference._fill()
+
+    @classmethod
+    def _fill(cls):
+        cls._running = [r for r in cls._running
+                        if r._run._proc.poll() is None]
+        while cls._queue and len(cls._running) < cls.MAX_STARTED:
+            ref = cls._queue.pop(0)
+            ref._start()
+            cls._running.append(ref)
+
+    def _start(self):
+        code, workdir, arrays = self._args
+        self._run = InterpretRun(code, workdir, **arrays)
+
+    def result(self) -> dict:
+        if self._run is None:
+            StartedReference._queue.remove(self)
+            self._start()
+        out = self._run.result()
+        StartedReference._fill()
+        return out
+
+    def __getitem__(self, key):
+        return self.result()[key]
+
+    def __contains__(self, key):
+        return key in self.result()
+
+    def keys(self):
+        return self.result().keys()
+
+
 def pallas_interpret(code: str, workdir, **arrays) -> dict:
     """Run `code` -- Python that sets `out`, a dict of arrays, from the
     numpy arrays in the dict `a` (= `arrays`) -- in a process of its own,
@@ -146,29 +244,7 @@ def pallas_interpret(code: str, workdir, **arrays) -> dict:
     process (the reference is deterministic); the stacks it printed just
     before the limit (faulthandler) go into a warning, to show where it
     hung."""
-    inp, outp = os.path.join(workdir, "in.npz"), os.path.join(workdir,
-                                                             "out.npz")
-    np.savez(inp, **arrays)
-    env = dict(os.environ, JAX_PLATFORMS="cpu",
-               PYTHONPATH=os.pathsep.join(filter(None, [
-                   REPO, os.environ.get("PYTHONPATH")])))
-    cmd = [sys.executable, "-c", _INTERPRET, inp, outp, code,
-           str(INTERPRET_TIMEOUT - 10)]
-    try:
-        res = subprocess.run(cmd, env=env, capture_output=True, text=True,
-                             timeout=INTERPRET_TIMEOUT)
-    except subprocess.TimeoutExpired as stalled:
-        err = stalled.stderr or ""
-        if isinstance(err, bytes):
-            err = err.decode(errors="replace")
-        warnings.warn(f"an interpret-mode reference ran past "
-                      f"{INTERPRET_TIMEOUT} s and was rerun in a fresh "
-                      f"process; its stacks:\n{err[-6000:]}")
-        res = subprocess.run(cmd, env=env, capture_output=True, text=True,
-                             timeout=INTERPRET_TIMEOUT)
-    assert res.returncode == 0, res.stderr[-3000:]
-    with np.load(outp) as z:
-        return {k: z[k] for k in z.files}
+    return InterpretRun(code, workdir, **arrays).result()
 
 
 @pytest.fixture
