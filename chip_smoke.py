@@ -161,7 +161,22 @@ Phases (each prints its results; any failure raises and exits nonzero):
      small]; 11e training of rgbd_kinect.ism with a view above the scene
      threshold; 11f Hough3D + RANSAC + Merge on a 100k-point scene -- each
      with clouds/s, processing_times, launches and peak memory, and the
-     phase's wall time.
+     phase's wall time; 11a also runs a frame's detect_batch with every
+     plain twin on the card, each K1 / K2 / K8 / K4 call held to its
+     twin on the same inputs at phase 2's tolerances, which bf16
+     descriptors and bf16 codewords fail;
+ 12. the descriptor zoo and the keypoint detectors against
+     data/zoo_reference.npz (tests/zoo_fixtures.py; configurations in
+     tests/zoo_data.py, contracts in tests/detector_check.py): 12a
+     quickstart.ism with Harris3D + FPFH, 12b default.ism with ISS3D +
+     SHORT_CSHOT (SHORT_CSHOT_GLOBAL + SVM verification, chi-square), 12c
+     quickstart.ism with SIFT3D + SHORT_SHOT (UseMinRadius, log radius;
+     K9's new modes against its twin first) -- each trained and detecting
+     through ImplicitShapeModel, every training cloud's keypoints and
+     features against JAX's, the maxima end to end; 12d Harris3D / ISS3D
+     + FPFH on a 1e5-point scene (the tiled detectors, FPFH's doubled
+     window; peak memory); 12e eval_classification.py -t / -d on the card
+     (the JAX CLI's labels).
 Every step of phases 4-8 also prints its peak device memory, and phase 2
 the bits (sha256) of K1's, K2's, K3's and K6's outputs and of K7's
 in-radius counts and histograms (tests/port_fingerprint.py prints the
@@ -317,6 +332,21 @@ PATH_KERNELS = {
                          "chisq_topk")
        for name in ("culling_curvature_auto", "culling_gaussian_threshold",
                     "hough")},
+    # phase 12: the zoo -- Harris3D + FPFH (method-2 normals: K1 / K2; K4
+    # at D = 33), ISS3D + SHORT_CSHOT (no normals: K1 / K2 at the keypoint
+    # LRFs; K4 at D = 512), SIFT3D + SHORT_SHOT (K9's new modes), training
+    # (the activation's K4) and detection; the scene's features (K1 / K2);
+    # eval_classification on 12a's config
+    **{pre + name: ("lrf_moments", "sign_votes", "chisq_topk")
+       for pre in ("zoo_", "zoo_train_")
+       for name in ("harris_fpfh", "iss_short_cshot")},
+    "zoo_sift_short_shot": ("lrf_moments", "sign_votes", "histogram",
+                            "chisq_topk"),
+    "zoo_train_sift_short_shot": ("lrf_moments", "sign_votes", "histogram",
+                                  "chisq_topk"),
+    "zoo_scene_harris_fpfh": ("lrf_moments", "sign_votes"),
+    "zoo_scene_iss_fpfh": ("lrf_moments", "sign_votes"),
+    "zoo_eval": ("lrf_moments", "sign_votes", "chisq_topk"),
 }
 
 # Least time of a kernel call: the larger of its bytes (inputs read once,
@@ -1454,6 +1484,9 @@ def main():
     # -- 11. scene scale and keypoint culling ---------------------------------
     scene_phase(launches, card, data, dev)
 
+    # -- 12. the descriptor zoo and the keypoint detectors -------------------
+    zoo_phase(launches, card, data, dev)
+
     # -- results ----------------------------------------------------------------
     total = {k: sum(run[k] for run in launches.values()) for k in KERNELS}
     assert all(total.values()), f"kernels never launched: {total}"
@@ -1851,6 +1884,7 @@ def scene_frames(ctx):
               f"control also finds met ({unstable} the control misses)")
         assert not bad, f"11a frame {s}: {bad[:3]}"
     frame_kernel_times(frames[0], fcfg, kpp, nr, dev, card, ism)
+    frame_twin_route(frames[0], dev, card, ism)
 
 
 def scene_filters(ctx):
@@ -2269,6 +2303,118 @@ def scene_hough(ctx):
     print(f"{len(got[0])} maxima; detection contract "
           f"{'met' if not bad else bad}")
     assert not bad, f"11f: {bad[:3]}"
+
+
+@contextlib.contextmanager
+def shadowed_kernels(calls):
+    """While open, every K1, K2, K8 and K4 call runs its plain twin on the
+    card, which the caller's route goes on with, and also launches the
+    kernel on the same inputs; `calls[name]` collects (kernel output, twin
+    output, inputs) of each call."""
+    from point_cloud_donkey_tpu_torch.ops import neighbors as tnb
+    from point_cloud_donkey_tpu_torch.ops import shot as tshot
+    from point_cloud_donkey_tpu_torch.ops.kernels import chisq as kchisq
+    from point_cloud_donkey_tpu_torch.ops.kernels import lrf_moments as klrf
+    from point_cloud_donkey_tpu_torch.ops.kernels import shot_hist as ksh
+    sites = [(klrf, "moments", klrf.moments, klrf.moments_plain, "K1"),
+             (klrf, "sign_votes", klrf.sign_votes, klrf.sign_votes_plain,
+              "K2"),
+             (tshot, "cshot_hist", ksh.cshot_hist, ksh.cshot_hist_plain,
+              "K8"),
+             (tnb, "chisq_topk", kchisq.chisq_topk, kchisq.chisq_topk_plain,
+              "K4")]
+
+    def shadow(kernel, twin, name):
+        def call(*args):
+            got = kernel(*args)
+            want = twin(*args)
+            calls.setdefault(name, []).append((got, want, args))
+            return want
+        return call
+
+    for mod, attr, kernel, twin, name in sites:
+        setattr(mod, attr, shadow(kernel, twin, name))
+    try:
+        yield
+    finally:
+        for mod, attr, kernel, _, _ in sites:
+            setattr(mod, attr, kernel)
+
+
+def frame_twin_route(frame, dev, card, ism):
+    """11a's precision check: detect_batch of the frame (the tiled route)
+    with every plain twin on the card, each K1, K2, K8 and K4 call also
+    launched on the same inputs and held to phase 2's tolerances: K1's weight sums within rtol 2e-4
+    and counts within +-1, K2's votes within +-1, K8's in-radius counts
+    equal and its descriptors under the descriptor contract, K4's
+    distances within rtol 1e-5 and its indices equal but at ties.  Then
+    the same checks must fail on K8's descriptors rounded to bf16 and on
+    K4 against the codewords rounded to bf16: the faults 11a's spread
+    checks cannot see."""
+    import torch
+    from point_cloud_donkey_tpu_torch.ops.kernels import chisq as kchisq
+    from point_cloud_donkey_tpu_torch.ops.shot import normalize_descriptors
+    phase(f"11a. the frame's route with the plain twins on the card, each "
+          f"kernel call held to its twin on the same inputs ({card})")
+    calls = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad(), shadowed_kernels(calls):
+        ism.detect_batch([frame.xyz], None, [frame.rgb])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    assert all(calls.get(k) for k in ("K1", "K2", "K8", "K4")), \
+        f"11a twins: calls {sorted(calls)}"
+    rel, dcount = 0.0, 0
+    for (mom, cnt), (pmom, pcnt), _ in calls["K1"]:
+        w = pmom[..., 0].abs() > 1e-6
+        rel = max(rel, float(((mom[..., 0] - pmom[..., 0]).abs()[w]
+                              / pmom[..., 0].abs()[w]).max()))
+        dcount = max(dcount, int((cnt - pcnt).abs().max()))
+    dv = max(int((v - pv).abs().max()) for v, pv, _ in calls["K2"])
+    got, want = [], []
+    for (h, c), (ph, pc), args in calls["K8"]:
+        assert torch.equal(c, pc), "11a twins: K8 counts differ"
+        live = args[3]
+        a = normalize_descriptors(h, c, live)
+        b = normalize_descriptors(ph, pc, live)
+        assert torch.equal(a.valid, b.valid), "11a twins: K8 validity"
+        got.append((a.descriptors[a.valid], b.descriptors[b.valid]))
+    dk = torch.cat([a for a, _ in got])
+    dp = torch.cat([b for _, b in got])
+    ok = torch.ones(len(dk), dtype=torch.bool, device=dev)
+    cos, off = contract((dk, ok), (dp, ok), "11a twins: K8")
+    bcos, boff = contract_reading((dk.to(torch.bfloat16).float(), ok),
+                                  (dp, ok))
+    k4, bk4 = 0.0, 0.0
+    for (d, i), (pd, pi), (a, b, b_mask, k) in calls["K4"]:
+        k4 = max(k4, k4_rel(d, pd))
+        differ = i != pi
+        assert torch.allclose(d[differ], pd[differ], rtol=1e-5), \
+            "11a twins: K4 indices differ away from ties"
+        bd, _ = kchisq.chisq_topk(a, b.to(torch.bfloat16).float(), b_mask, k)
+        bk4 = max(bk4, k4_rel(bd, pd))
+    print(f"{len(frame.xyz)} points in {dt:.2f} s: "
+          f"K1 x{len(calls['K1'])} weight sums rtol {rel:.2e}, counts "
+          f"+-{dcount}; K2 x{len(calls['K2'])} votes +-{dv}; K8 "
+          f"x{len(calls['K8'])} ({len(dk)} descriptors) cosine min "
+          f"{cos:.7f}, {off:.2e} of entries off by > 1e-3 (bf16: "
+          f"{bcos:.7f}, {boff:.2e}); K4 x{len(calls['K4'])} rtol {k4:.2e} "
+          f"(bf16 codewords: {bk4:.2e}) ({card})")
+    assert rel <= 2e-4 and dcount <= 1 and dv <= 1 and k4 <= 1e-5, \
+        "11a twins: a kernel off its twin"
+    assert not (bcos > 0.999 and boff < 1e-4), \
+        "11a twins: the descriptor contract passes bf16 descriptors"
+    assert bk4 > 1e-5, "11a twins: K4's tolerance passes bf16 codewords"
+
+
+def k4_rel(d, pd):
+    """The largest relative difference of finite distances."""
+    import torch
+    fin = torch.isfinite(pd)
+    return float(((d[fin] - pd[fin]).abs()
+                  / pd[fin].abs().clamp(min=1e-30)).max()) if fin.any() \
+        else 0.0
 
 
 def twin_slabs(n_chunks, count=4):
@@ -3642,11 +3788,20 @@ def contract(got, want, what):
     by more than 1e-3 on the valid rows; returns (min cosine, share
     off)."""
     assert bool((got[1] == want[1]).all()), f"{what}: validity differs"
+    cos, off = contract_reading(got, want)
+    assert cos > 0.999 and off < 1e-4, f"{what}: cosine {cos}, {off} off"
+    return cos, off
+
+
+def contract_reading(got, want):
+    """(min cosine, share of entries off by more than 1e-3) of two
+    (descriptors, valid) pairs on the rows valid in both."""
     both = got[1] & want[1]
     a, b = got[0][both], want[0][both]
+    if not len(a):
+        return 1.0, 0.0
     cos = float((a * b).sum(-1).min())
     off = float(((a - b).abs() > 1e-3).float().mean())
-    assert cos > 0.999 and off < 1e-4, f"{what}: cosine {cos}, {off} off"
     return cos, off
 
 
@@ -3973,6 +4128,449 @@ def serve_files(serve, model_path, clouds, labels, extra, colours=None):
     assert rc == 0 and len(preds) == len(clouds), \
         f"serve did not report {len(clouds)} predictions"
     return text
+
+
+# -- phase 12: the descriptor zoo and the keypoint detectors ------------------
+
+def zoo_phase(launches, card, data, dev):
+    """Phase 12: the gathered-neighbour descriptors (FPFH, SHORT_CSHOT,
+    SHORT_SHOT's minimum and log radius) and the Harris3D / ISS3D / SIFT3D
+    detectors through ImplicitShapeModel on the card, against
+    data/zoo_reference.npz (the JAX package on the CPU,
+    tests/zoo_fixtures.py; configurations and inputs: tests/zoo_data.py):
+      12a quickstart.ism with Harris3D + FPFH (x70): training on the five
+          bench training clouds, detect_batch of the 32 bench clouds;
+      12b default.ism with ISS3D + SHORT_CSHOT, SHORT_CSHOT_GLOBAL + SVM
+          verification, chi-square (x0.3): training on 10 coloured views,
+          detect_batch of 10a's 16 coloured scenes; 12a-12c also hold K4
+          and K4m to their twins at D = 33, 512 and 32;
+      12c K9's minimum-radius and log-radius modes against its twin at
+          phase 2's tolerances on the bench batch, then quickstart.ism with
+          SIFT3D + SHORT_SHOT (UseMinRadius, log radius; x70) as 12a;
+      12d Harris3D / ISS3D + FPFH on a 1e5-point scene: the tiled
+          detectors and FPFH's doubled window (features, peak memory);
+      12e eval_classification.py -t / -d --device cuda on a file list of
+          the bench clouds (12a's config): every file's label JAX's.
+    Training: the detector's keypoints on every training cloud against
+    JAX's under tests/detector_check.py's contract, the features at the
+    keypoints both found within the training contract (>= 97% of the
+    descriptors at cosine > 0.999), and where the keypoints are JAX's on
+    every cloud the codebook under the training contract; detection: the
+    maxima end to end (10a's detection contract for default.ism, 10b's
+    firm decisions for quickstart.ism).  Each step prints its clouds/s,
+    stage times, launches and peak memory."""
+    import numpy as np
+
+    import zoo_data as zd
+    t_phase = time.perf_counter()
+    with np.load(os.path.join(data, "zoo_reference.npz")) as z:
+        ref = dict(z)
+    what = {"harris_fpfh": "12a. quickstart.ism with Harris3D + FPFH",
+            "iss_short_cshot": "12b. default.ism with ISS3D + SHORT_CSHOT "
+                               "(+ SHORT_CSHOT_GLOBAL, SVM, chi-square)",
+            "sift_short_shot": "12c. quickstart.ism with SIFT3D + SHORT_SHOT "
+                               "(UseMinRadius, log radius)"}
+    for name in zd.DETECTIONS:
+        if name == "sift_short_shot":
+            k9_modes(card, dev)
+        zoo_detection(launches, card, dev, ref, name, what[name])
+    for name in zd.SCENE_CONFIGS:
+        zoo_scene(launches, card, dev, ref, name)
+    zoo_eval(launches, card, ref)
+    print(f"phase 12 wall time: {time.perf_counter() - t_phase:.1f} s "
+          f"({card})")
+
+
+# a zoo reference's per-cloud arrays of the feature contract
+FEATURE_KEYS = ("kp_keep", "kp_pos", "feat_pos", "feat_desc")
+
+
+def zoo_setup(name, dev):
+    """(ism config, FeatureConfig, KeypointParams, NormalRadius, method)
+    of a zoo configuration."""
+    import zoo_data as zd
+    from point_cloud_donkey_tpu_torch.models.features import FeatureConfig
+    from point_cloud_donkey_tpu_torch.models.keypoints import KeypointParams
+    from point_cloud_donkey_tpu_torch.utils.config import IsmConfig
+    cfg = IsmConfig.from_json(zd.zoo_config(name))
+    return (cfg, FeatureConfig.from_config(cfg.child("Features")),
+            KeypointParams.from_config(cfg.child("Keypoints")),
+            cfg.root.get("NormalRadius", 0.05),
+            cfg.root.get("ConsistentNormalsMethod", 2))
+
+
+def cloud_normals(xyz, nr, method, dev):
+    """The normals the batched extraction hands a detector on one cloud
+    (ops/normals.compute_normals over the cloud padded to its bucket)."""
+    import torch
+    from point_cloud_donkey_tpu_torch.models.features import pad_cloud
+    from point_cloud_donkey_tpu_torch.ops.neighbors import full_fp32
+    from point_cloud_donkey_tpu_torch.ops.normals import compute_normals
+    pts, mask = pad_cloud(xyz)
+    with full_fp32():
+        nrm = compute_normals(torch.from_numpy(pts)[None].to(dev),
+                              torch.from_numpy(mask)[None].to(dev), nr,
+                              method).normals
+    return nrm[0, :len(xyz)].cpu().numpy()
+
+
+def detector_contract(xyz, normals, kpp, want_keep, want_pos, dev,
+                      jax_intensity=None, what="", jax_normals=None):
+    """The port's detector on one cloud against JAX's flags and positions
+    (tests/detector_check.py); returns (port keypoints, JAX keypoints,
+    decisions that differ, the port's flags and positions)."""
+    import numpy as np
+    import torch
+    import detector_check as dc
+    from point_cloud_donkey_tpu_torch.models import keypoints as tkp
+    from point_cloud_donkey_tpu_torch.ops.normals import pca_normals_at
+    keep, pos = tkp.detector_mask(xyz, normals, kpp, dev)
+    diff = int((keep != want_keep).sum())
+    bad = []
+    if kpp.type == "ISS3D":
+        if diff:
+            near = dc.iss_near(dc.iss_terms(xyz, kpp, dev), kpp)
+            bad = dc.unexplained(keep, want_keep, near)
+    else:
+        radius = float(kpp.radius)
+        p = torch.from_numpy(xyz).to(dev)
+        m = torch.ones(len(xyz), dtype=torch.bool, device=dev)
+        nres = pca_normals_at(p[None], m[None], p[None], m[None], radius)
+        if kpp.type == "Harris3D":
+            nrm = normals if normals is not None else \
+                nres.normals[0].cpu().numpy()
+            terms = dc.harris_terms(xyz, nrm, radius,
+                                    float(kpp.harris_threshold), dev)
+            spread = None if jax_normals is None else dc.harris_spread(
+                xyz, nrm, jax_normals, radius, dev)
+            bad = dc.unexplained(keep, want_keep, dc.harris_near(
+                terms, radius, float(kpp.harris_threshold), spread))
+            jax_pos = np.zeros_like(pos)
+            jax_pos[want_keep] = want_pos
+            moved = dc.harris_positions_unexplained(
+                pos, jax_pos, keep & want_keep, terms, radius, spread)
+            for j in list(bad[:3]) + list(moved[:3]):
+                print(f"{what}: point {j}: kept {keep[j]} (JAX "
+                      f"{want_keep[j]}), r {terms['r'][j]:.6g}, max "
+                      f"{terms['nmax'][j]:.6g}, terms {terms['scale'][j]:.6g}"
+                      f", spread {0.0 if spread is None else spread['r'][j]:.3g}"
+                      f", position off {np.linalg.norm(pos[j] - jax_pos[j]):.3g}"
+                      f", cond {terms['cond'][j]:.3g}")
+            bad = np.concatenate([bad, moved])
+        elif diff:
+            inten = torch.where(nres.valid[0], nres.curvature[0],
+                                torch.zeros_like(nres.curvature[0]))
+            spread = dc.sift_spread(inten.cpu().numpy(), jax_intensity)
+            terms = dc.sift_terms(xyz, inten, radius, dev)
+            bad = dc.unexplained(keep, want_keep, dc.sift_near(terms,
+                                                               spread))
+    assert len(bad) == 0, f"{what}: {len(bad)} keypoint decisions off " \
+        f"JAX's away from a tie, e.g. {list(bad[:5])}"
+    return int(keep.sum()), int(want_keep.sum()), diff, keep, pos
+
+
+def features_contract(pos, keep, fs, ref, pre, what):
+    """The features at the keypoints both sides keep, paired through the
+    keypoint (tests/detector_check.feature_pairs): a feature on one side
+    only where the keypoint did not move fails, and >= 97% of the pairs
+    lie at cosine > 0.999; returns (pairs, share, min cosine)."""
+    import detector_check as dc
+    cos, unexplained = dc.feature_pairs(
+        pos, keep, fs.positions, fs.descriptors, ref[pre + "kp_keep"],
+        ref[pre + "kp_pos"], ref[pre + "feat_pos"], ref[pre + "feat_desc"])
+    share = float((cos > 0.999).mean()) if len(cos) else 1.0
+    assert unexplained == 0, f"{what}: {unexplained} features on one side " \
+        "only at keypoints that did not move"
+    assert share >= 0.97, f"{what}: {100 * share:.2f}% of the features " \
+        "at cosine > 0.999"
+    return len(cos), share, float(cos.min()) if len(cos) else 1.0
+
+
+def zoo_detection(launches, card, dev, ref, name, what):
+    """One of 12a-12c (zoo_phase)."""
+    import numpy as np
+    import torch
+    import zoo_data as zd
+    from bench_data import (firm_decision, firm_mismatches, firm_rtol,
+                            unpack_maxima)
+    from point_cloud_donkey_tpu_torch.kernels import build
+    from point_cloud_donkey_tpu_torch.models.detect_batch import \
+        extract_local_features_batch
+    from point_cloud_donkey_tpu_torch.models.ism import (ImplicitShapeModel,
+                                                         _voting_params)
+    from point_cloud_donkey_tpu_torch.utils.io import save_pcd
+    cfg, fcfg, kpp, nr, cm = zoo_setup(name, dev)
+    clouds, labels, rgbs = zd.training_set(name)
+    phase(f"{what}: training on {len(clouds)} clouds x {clouds.shape[1]} "
+          f"points, x{zd.scale_of(name):g} ({card})")
+    pre = name + "_"
+    tmp = tempfile.mkdtemp(prefix="pcd_zoo_")
+    try:
+        ism = ImplicitShapeModel(cfg, dev)
+        for i, (pts, cid) in enumerate(zip(clouds, labels)):
+            f = os.path.join(tmp, f"m{i}.pcd")
+            save_pcd(f, pts, rgb=None if rgbs is None else rgbs[i])
+            ism.add_training_model(f, int(cid), int(cid))
+        torch.cuda.synchronize()
+        build.reset_launch_counts()
+        t0 = time.perf_counter()
+        ism.train()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = build.launch_counts()
+        launches["zoo_train_" + name] = counts
+    finally:
+        shutil.rmtree(tmp)
+    print(f"training: {len(clouds) / dt:.2f} clouds/s ({dt:.3f} s, host "
+          f"clock), launches { {k: v for k, v in counts.items() if v} } "
+          f"({card})")
+    missing = [k for k in PATH_KERNELS["zoo_train_" + name]
+               if counts[k] == 0]
+    assert not missing, f"{name} training: kernels not launched {missing}"
+
+    same_kp = True
+    fss = extract_local_features_batch(
+        list(clouds), [None] * len(clouds),
+        [None] * len(clouds) if rgbs is None else list(rgbs), fcfg, kpp, nr,
+        cm, dev)
+    for i, xyz in enumerate(clouds):
+        nrm = cloud_normals(xyz, nr, cm, dev) if fcfg.needs_normals() \
+            else None
+        got_n, want_n, diff, keep, pos = detector_contract(
+            xyz, nrm, kpp, ref[pre + f"kp_keep{i}"], ref[pre + f"kp_pos{i}"],
+            dev, ref.get(pre + f"intensity{i}"), f"{name} cloud {i}",
+            ref.get(pre + f"normals{i}"))
+        same_kp &= diff == 0
+        pairs, share, cmin = features_contract(
+            pos, keep, fss[i], {pre + k: ref[pre + k + str(i)]
+                                for k in FEATURE_KEYS},
+            pre, f"{name} cloud {i}")
+        print(f"cloud {i}: {got_n} keypoints (JAX {want_n}, {diff} "
+              f"decisions differ, each at a tie); {len(fss[i].positions)} "
+              f"features, {pairs} paired with JAX's, {100 * share:.2f}% at "
+              f"cosine > 0.999 (min {cmin:.5f})")
+    cb = ism.state.codebook
+    if same_kp:
+        want = {k[len(pre) + 3:]: ref[k] for k in ref
+                if k.startswith(pre + "cb_")}
+        assert cb.codewords.shape == want["codewords"].shape, \
+            f"{name}: codebook {cb.codewords.shape}, JAX " \
+            f"{want['codewords'].shape}"
+        for k in ("cw_mask", "vote_mask", "vote_class"):
+            assert np.array_equal(getattr(cb, k), want[k]), f"{name}: {k}"
+        a, b = cb.codewords, want["codewords"]
+        cos = (a * b).sum(1) / np.maximum(np.linalg.norm(a, axis=1)
+                                          * np.linalg.norm(b, axis=1), 1e-30)
+        share = float((cos > 0.999).mean())
+        print(f"codebook: {len(a)} codewords as JAX's, {100 * share:.2f}% "
+              f"at cosine > 0.999")
+        assert share >= 0.97, f"{name}: codebook {share}"
+    else:
+        print(f"codebook: {len(cb.codewords)} codewords (JAX "
+              f"{len(ref[pre + 'cb_codewords'])}); a keypoint at a tie "
+              f"moved, so the codebooks are not compared row by row")
+
+    dclouds, drgbs = zd.detection_set(name)
+    if cfg.root.get("DistanceType", "Euclidean") == "ChiSquared":
+        k4_at_width(cb, extract_local_features_batch(
+            list(dclouds[:4]), [None] * 4,
+            [None] * 4 if drgbs is None else list(drgbs[:4]), fcfg, kpp, nr,
+            cm, dev, is_training=False), dev, card, name)
+    phase(f"{what}: detect_batch of {len(dclouds)} clouds x "
+          f"{dclouds.shape[1]} points ({card})")
+    ism.detect_batch(list(dclouds[:2]), None,
+                     None if drgbs is None else list(drgbs[:2]))  # warm-up
+    got = timed_detect(ism, dclouds, drgbs, "zoo_" + name, launches, card)
+    want = unpack_maxima({k[len(pre) + 4:]: v for k, v in ref.items()
+                          if k.startswith(pre + "max_")})
+    want = want[:len(got)]
+    if zd.ZOO[name]["base"] == "quickstart":
+        firm = [i for i, w in enumerate(want) if firm_decision(w)]
+        agree = [i for i in firm if got[i] and got[i][0].class_id
+                 == int(want[i][0]["class_id"])]
+        print(f"end to end: maxima[0].class_id equals JAX's on "
+              f"{len(agree)}/{len(firm)} firm clouds (margin > 0.1)")
+        assert firm and len(agree) == len(firm), \
+            f"{name}: decisions differ on {set(firm) - set(agree)}"
+    else:
+        vparams = _voting_params(ism.config.child("Voting"))
+        bw = ism.config.child("Voting").get("Bandwidth", 0.1)
+        bad = [(i, b) for i, (g, w) in enumerate(zip(got, want))
+               for b in [firm_mismatches(g, w, bw, firm_rtol(
+                   vparams.voting_type))] if b]
+        glob = sum(m.glob_class_weight > 0 for ms_ in got for m in ms_)
+        print(f"end to end: {len(got) - len(bad)}/{len(got)} clouds meet "
+              f"the detection contract; {sum(map(len, got))} maxima "
+              f"({sum(map(len, want))} JAX's), {glob} with an SVM score")
+        assert not bad, f"{name}: end to end vs JAX: {bad[:3]}"
+
+
+def k4_at_width(cb, fss, dev, card, what):
+    """K4 (k = 1) and K4m against their twins on the card at a zoo
+    descriptor's width (FPFH's D = 33, not a multiple of 4; SHORT_CSHOT's
+    512): four detection clouds' features against the trained codewords,
+    phase 2's tolerances (distances within rtol 1e-5, indices equal but at
+    ties; K4m's matrix within rtol 1e-5)."""
+    import numpy as np
+    import torch
+    from point_cloud_donkey_tpu_torch.ops.kernels import chisq as kchisq
+    a = torch.from_numpy(np.concatenate([f.descriptors for f in fss])).to(dev)
+    b = torch.from_numpy(np.asarray(cb.codewords, np.float32)).to(dev)
+    m = torch.from_numpy(np.asarray(cb.cw_mask)).to(dev)
+    d, i = kchisq.chisq_topk(a, b, m, 1)
+    pd, pi = kchisq.chisq_topk_plain(a, b, m, 1)
+    rel = float(((d - pd).abs() / pd.abs().clamp(min=1e-6)).max())
+    differ = i != pi
+    mat = kchisq.chisq_matrix(a, b, m)
+    pmat = kchisq.chisq_matrix_plain(a, b, m)
+    fin = torch.isfinite(pmat)
+    mrel = float(((mat - pmat).abs()[fin] / pmat.abs()[fin].clamp(min=1e-6)
+                  ).max())
+    print(f"{what}: K4 and K4m at D = {a.shape[1]} ({a.shape[0]} features x "
+          f"{b.shape[0]} codewords, values up to {float(a.max()):.3g}): K4 "
+          f"rtol {rel:.2e}, {int(differ.sum())} tied indices differ; K4m "
+          f"rtol {mrel:.2e} ({card})")
+    assert rel <= 1e-5 and torch.allclose(d[differ], pd[differ], rtol=1e-5), \
+        f"{what}: K4 off its twin at D = {a.shape[1]}"
+    assert mrel <= 1e-5 and torch.equal(fin, torch.isfinite(mat)), \
+        f"{what}: K4m off its twin at D = {a.shape[1]}"
+
+
+def k9_modes(card, dev):
+    """12c's kernel check: K9 with a minimum radius, with the log radius
+    and both, against its twin at phase 2's tolerances (the descriptor
+    contract) on the bench batch's SHORT_SHOT step shapes, timed beside
+    the linear mode."""
+    import torch
+    from bench_data import KEYPOINT_CAPACITY, bench_clouds
+    from point_cloud_donkey_tpu_torch.ops.kernels import histogram as khist
+    from point_cloud_donkey_tpu_torch.ops.lrf import shot_lrf
+    from point_cloud_donkey_tpu_torch.ops.voxel_grid import voxel_grid
+    phase(f"12c. K9's minimum and log radius vs its plain twin on the card "
+          f"({card})")
+    _, _, clouds, _ = bench_clouds(BATCH)
+    pts = torch.from_numpy(clouds).to(dev)
+    mask = torch.ones(pts.shape[:2], dtype=torch.bool, device=dev)
+    with torch.no_grad():
+        k = voxel_grid(pts, mask, 0.35, capacity=KEYPOINT_CAPACITY)
+        kp = torch.where(k.mask[..., None], k.centroids[..., :3],
+                         torch.full_like(k.centroids[..., :3], 1e9)
+                         ).contiguous()
+        lrf = shot_lrf(kp, k.mask, pts, mask, 0.5)
+        args = (kp, lrf.frames.contiguous(), lrf.valid.contiguous(), pts,
+                mask, 0.6, 2, 2, 8)
+        live = args[2]
+
+        def unit(x):
+            norm = torch.linalg.norm(x, dim=-1, keepdim=True)
+            d = x / norm.clamp(min=1e-30)
+            return d, live & (norm[..., 0] > 0) & torch.isfinite(d).all(-1)
+
+        base_ms = cuda_ms(lambda: khist.short_shot_hist(*args), 20)
+        for mr, lr in ((0.06, False), (0.0, True), (0.06, True)):
+            h = khist.short_shot_hist(*args, mr, lr)
+            assert torch.equal(h, khist.short_shot_hist(*args, mr, lr)), \
+                "two K9 launches differ"
+            ph = khist.short_shot_hist_plain(*args, mr, lr)
+            cos, off = contract(unit(h), unit(ph), f"K9 min {mr} log {lr}")
+            ms = cuda_ms(lambda: khist.short_shot_hist(*args, mr, lr), 20)
+            plain_ms = cuda_ms(lambda: khist.short_shot_hist_plain(
+                *args, mr, lr), 2)
+            print(f"{'histogram':20s} min radius {mr}, log radius {lr}: "
+                  f"B={pts.shape[0]} K={kp.shape[1]} N={pts.shape[1]}, "
+                  f"{ms:.4f} ms (linear mode {base_ms:.4f} ms), twin "
+                  f"{plain_ms:.3f} ms; cosine min {cos:.7f}, {off:.2e} of "
+                  f"entries off by > 1e-3, two launches bit-equal ({card})")
+
+
+def zoo_scene(launches, card, dev, ref, name):
+    """12d (zoo_phase)."""
+    import torch
+    import zoo_data as zd
+    from point_cloud_donkey_tpu_torch.kernels import build
+    from point_cloud_donkey_tpu_torch.models.detect_batch import \
+        extract_local_features_batch
+    from point_cloud_donkey_tpu_torch.ops import tiled
+    cfg, fcfg, kpp, nr, cm = zoo_setup(name, dev)
+    xyz = zd.scene()
+    phase(f"12d. {kpp.type} + FPFH (r {fcfg.radius}, the tiled route's "
+          f"window at twice max(r, LRF r)) on a scene of {len(xyz)} points "
+          f"({card})")
+    assert len(xyz) > tiled.SCENE_TILE_THRESHOLD
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    build.reset_launch_counts()
+    t0 = time.perf_counter()
+    times = {}
+    fs = extract_local_features_batch([xyz], [None], [None], fcfg, kpp, nr,
+                                      cm, dev, is_training=False,
+                                      times=times)[0]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = build.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    launches["zoo_" + name] = counts
+    print(f"features of the scene: {dt:.3f} s (normals "
+          f"{times.get('normals', 0.0):.3f} s, keypoints "
+          f"{times.get('keypoints', 0.0):.3f} s), {len(fs.positions)} "
+          f"features; launches { {k: v for k, v in counts.items() if v} }; "
+          f"peak device memory {peak / 2**20:.1f} MiB ({(peak - held) / 2**20:.1f} "
+          f"MiB above the {held / 2**20:.1f} MiB held) ({card})")
+    missing = [k for k in PATH_KERNELS["zoo_" + name] if counts[k] == 0]
+    assert not missing, f"{name}: kernels not launched {missing}"
+    pre = name + "_"
+    nrm = None
+    if kpp.type == "Harris3D":
+        from point_cloud_donkey_tpu_torch.models.features import scene_normals
+        nrm = scene_normals(xyz, None, nr, cm, dev)
+    got_n, want_n, diff, keep, pos = detector_contract(
+        xyz, nrm, kpp, ref[pre + "kp_keep"], ref[pre + "kp_pos"], dev,
+        what=name, jax_normals=ref.get(pre + "normals"))
+    pairs, share, cmin = features_contract(pos, keep, fs, ref, pre, name)
+    print(f"{got_n} keypoints (JAX {want_n}, {diff} decisions differ, each "
+          f"at a tie); {pairs} features paired with JAX's, "
+          f"{100 * share:.2f}% at cosine > 0.999 (min {cmin:.5f})")
+
+
+def zoo_eval(launches, card, ref):
+    """12e (zoo_phase)."""
+    import numpy as np
+    import zoo_data as zd
+    from point_cloud_donkey_tpu_torch import eval_classification
+    from point_cloud_donkey_tpu_torch.kernels import build
+    phase(f"12e. eval_classification.py -t / -d --device cuda, "
+          f"quickstart.ism with Harris3D + FPFH ({card})")
+    tmp = tempfile.mkdtemp(prefix="pcd_eval_")
+    try:
+        cfg = os.path.join(tmp, "eval.ism")
+        with open(cfg, "w") as f:
+            json.dump(zd.zoo_config("harris_fpfh"), f)
+        train, test = zd.eval_lists(tmp)
+        model = os.path.join(tmp, "model")
+        out = os.path.join(tmp, "out")
+        build.reset_launch_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc_t = eval_classification.main(
+                ["-t", cfg, "-f", train, "-o", model, "--device", "cuda"])
+            rc_d = eval_classification.main(
+                ["-d", model + ".ism", "-f", test, "-o", out,
+                 "--device", "cuda"])
+        dt = time.perf_counter() - t0
+        launches["zoo_eval"] = build.launch_counts()
+        got = zd.summary_labels(os.path.join(out, "summary.txt"))
+    finally:
+        shutil.rmtree(tmp)
+    want = ref["eval_labels"]
+    print(f"rc {rc_t}, {rc_d}; {dt:.2f} s; labels {got[:, 1].tolist()} "
+          f"(JAX CLI {want[:, 1].tolist()}, ground truth "
+          f"{want[:, 0].tolist()})")
+    assert rc_t == 0 and rc_d == 0 and np.array_equal(got, want), \
+        "12e: eval_classification's labels differ from the JAX CLI's"
+    missing = [k for k in PATH_KERNELS["zoo_eval"]
+               if launches["zoo_eval"][k] == 0]
+    assert not missing, f"12e: kernels not launched {missing}"
 
 
 if __name__ == "__main__":

@@ -13,7 +13,11 @@
 // per-axis linear interpolation into one secondary bin each (cyclic in
 // phi), as ops/short_shot.py `_short_shot_slots` computes them, float
 // operation for float operation: four (bin, weight) slots of the
-// r_bins x e_bins x a_bins = D <= 256 grid.  The raw histogram is written
+// r_bins x e_bins x a_bins = D <= 256 grid.  With a minimum radius
+// (min_r > 0) a pair with r < min_r adds nothing; with the log radius the
+// radial coordinate is (r_bins - 1) (ln max(r, 1e-30) - ln_rmin) / ln_span
+// + 1 (features_short_shot.cpp:125-160; ln_rmin and ln_span computed in
+// double on the host and rounded to float, as the JAX package does).  The raw histogram is written
 // out once; rows that are not live come out zero.  The wrapper normalises.
 //
 // What bounds it on the H100: arithmetic on the in-radius pairs (~16% of a
@@ -64,7 +68,9 @@ short_shot_hist_kernel(const float* __restrict__ kp,
                        const float* __restrict__ points,
                        const unsigned char* __restrict__ mask,
                        float* __restrict__ hist, int K, int N, int tiles,
-                       float rad, int r_bins, int e_bins, int a_bins) {
+                       float rad, int r_bins, int e_bins, int a_bins,
+                       float min_r, int log_r, float ln_rmin,
+                       float ln_span) {
   __shared__ pairs::Staged<CH, 3> st;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int D = r_bins * e_bins * a_bins;
@@ -101,11 +107,16 @@ short_shot_hist_kernel(const float* __restrict__ kp,
         const float r = sqrtf(x_l * x_l + y_l * y_l + z_l * z_l);
         // torch.clamp keeps NaN: comparisons, not fminf / fmaxf
         const float rc = r < 1e-30f ? 1e-30f : r;
+        // the minimum radius gate (a NaN r fails it, as in the twin)
+        const bool use = !(min_r > 0.f) || r >= min_r;
         float c = z_l / rc;
         c = c < -1.0f ? -1.0f : (c > 1.0f ? 1.0f : c);
         const float theta = acosf(c) * RAD2DEG;
         const float phi = atan2f(y_l, x_l) * RAD2DEG;
-        const float raw_r = (r_r * r) / rad;
+        const float raw_r =
+            log_r ? ((float)(r_bins - 1) * (logf(rc) - ln_rmin)) / ln_span +
+                        1.0f
+                  : (r_r * r) / rad;
         const float raw_t = (r_e * theta) / 180.0f;
         const float raw_p = (r_a * (phi + 180.0f)) / 360.0f;
         const int bin_r = clamp_bin((int)raw_r, r_bins);
@@ -121,17 +132,17 @@ short_shot_hist_kernel(const float* __restrict__ kp,
         bin_p2 = bin_p2 < 0 ? a_bins - 1 : (bin_p2 >= a_bins ? 0 : bin_p2);
         const int re = r_bins * e_bins;
         const int lin = bin_r + bin_t * r_bins + bin_p * re;
-        w[0] = w_r + w_t + w_p;
+        w[0] = use ? w_r + w_t + w_p : 0.f;
         bin[0] = lin;
-        if (bin_p2 != bin_p && a_bins > 1) {
+        if (use && bin_p2 != bin_p && a_bins > 1) {
           w[1] = w_r + w_t + (1.0f - w_p);
           bin[1] = bin_r + bin_t * r_bins + bin_p2 * re;
         }
-        if (bin_t2 != bin_t && e_bins > 1) {
+        if (use && bin_t2 != bin_t && e_bins > 1) {
           w[2] = w_r + (1.0f - w_t) + w_p;
           bin[2] = bin_r + bin_t2 * r_bins + bin_p * re;
         }
-        if (bin_r2 != bin_r && r_bins > 1) {
+        if (use && bin_r2 != bin_r && r_bins > 1) {
           w[3] = (1.0f - w_r) + w_t + w_p;
           bin[3] = bin_r2 + bin_t * r_bins + bin_p * re;
         }
@@ -171,11 +182,12 @@ template <int NQ>
 int launch(const void* kp, const void* frames, const void* live,
            const void* points, const void* mask, void* hist, int B, int K,
            int N, int tiles, float r, int r_bins, int e_bins, int a_bins,
+           float min_r, int log_r, float ln_rmin, float ln_span,
            void* stream) {
   short_shot_hist_kernel<NQ><<<B * tiles, THREADS, 0, (cudaStream_t)stream>>>(
       (const float*)kp, (const float*)frames, (const unsigned char*)live,
       (const float*)points, (const unsigned char*)mask, (float*)hist, K, N,
-      tiles, r, r_bins, e_bins, a_bins);
+      tiles, r, r_bins, e_bins, a_bins, min_r, log_r, ln_rmin, ln_span);
   return pcd_last_error();
 }
 
@@ -183,14 +195,17 @@ int launch(const void* kp, const void* frames, const void* live,
 
 // kp [B*K, 3], frames [B*K, 9] (rows x, y, z axes), live [B*K] u8 (rows to
 // describe), points [B, N, 3] f32, mask [B, N] u8; 1 <= r_bins * e_bins *
-// a_bins = D <= 256 -> hist [B*K, D] f32 (raw; bin_r + bin_theta * r_bins +
-// bin_phi * r_bins * e_bins); every element is written.  Returns
+// a_bins = D <= 256; min_r (0: none), log_r (0 / 1) with ln_rmin and
+// ln_span -> hist [B*K, D] f32 (raw; bin_r + bin_theta * r_bins + bin_phi *
+// r_bins * e_bins); every element is written.  Returns
 // cudaErrorInvalidValue for D outside [1, 256].
 PCD_EXPORT int pcd_short_shot_hist(const void* kp, const void* frames,
                                    const void* live, const void* points,
                                    const void* mask, void* hist, int B, int K,
                                    int N, float r, int r_bins, int e_bins,
-                                   int a_bins, void* stream) {
+                                   int a_bins, float min_r, int log_r,
+                                   float ln_rmin, float ln_span,
+                                   void* stream) {
   const int D = r_bins * e_bins * a_bins;
   if (r_bins < 1 || e_bins < 1 || a_bins < 1 || D > 32 * MAX_NQ)
     return (int)cudaErrorInvalidValue;
@@ -198,20 +213,28 @@ PCD_EXPORT int pcd_short_shot_hist(const void* kp, const void* frames,
   if (B == 0 || tiles == 0) return pcd_last_error();
   switch ((D + 31) / 32) {
     case 1: return launch<1>(kp, frames, live, points, mask, hist, B, K, N,
-                             tiles, r, r_bins, e_bins, a_bins, stream);
+                             tiles, r, r_bins, e_bins, a_bins, min_r, log_r,
+                             ln_rmin, ln_span, stream);
     case 2: return launch<2>(kp, frames, live, points, mask, hist, B, K, N,
-                             tiles, r, r_bins, e_bins, a_bins, stream);
+                             tiles, r, r_bins, e_bins, a_bins, min_r, log_r,
+                             ln_rmin, ln_span, stream);
     case 3: return launch<3>(kp, frames, live, points, mask, hist, B, K, N,
-                             tiles, r, r_bins, e_bins, a_bins, stream);
+                             tiles, r, r_bins, e_bins, a_bins, min_r, log_r,
+                             ln_rmin, ln_span, stream);
     case 4: return launch<4>(kp, frames, live, points, mask, hist, B, K, N,
-                             tiles, r, r_bins, e_bins, a_bins, stream);
+                             tiles, r, r_bins, e_bins, a_bins, min_r, log_r,
+                             ln_rmin, ln_span, stream);
     case 5: return launch<5>(kp, frames, live, points, mask, hist, B, K, N,
-                             tiles, r, r_bins, e_bins, a_bins, stream);
+                             tiles, r, r_bins, e_bins, a_bins, min_r, log_r,
+                             ln_rmin, ln_span, stream);
     case 6: return launch<6>(kp, frames, live, points, mask, hist, B, K, N,
-                             tiles, r, r_bins, e_bins, a_bins, stream);
+                             tiles, r, r_bins, e_bins, a_bins, min_r, log_r,
+                             ln_rmin, ln_span, stream);
     case 7: return launch<7>(kp, frames, live, points, mask, hist, B, K, N,
-                             tiles, r, r_bins, e_bins, a_bins, stream);
+                             tiles, r, r_bins, e_bins, a_bins, min_r, log_r,
+                             ln_rmin, ln_span, stream);
     default: return launch<8>(kp, frames, live, points, mask, hist, B, K, N,
-                              tiles, r, r_bins, e_bins, a_bins, stream);
+                              tiles, r, r_bins, e_bins, a_bins, min_r, log_r,
+                             ln_rmin, ln_span, stream);
   }
 }

@@ -63,7 +63,8 @@ _SIGNATURES = {
                                 _F, _I, _P],
     "pcd_shot_dense": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
     "pcd_cshot_hist": [_P] * 10 + [_I, _I, _I, _F, _P],
-    "pcd_short_shot_hist": [_P] * 6 + [_I, _I, _I, _F, _I, _I, _I, _P],
+    "pcd_short_shot_hist": [_P] * 6 + [_I, _I, _I, _F, _I, _I, _I, _F, _I,
+                                          _F, _F, _P],
     "pcd_lrf_moments_v2": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
     "pcd_sign_votes_v2": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
     "pcd_shot_windowed": [_P] * 9 + [_I, _I, _I, _I, _F, _P],

@@ -11,7 +11,8 @@ the device in one go, models/keypoints.culling_scores, then the
 thresholds and the refinement row by row on the host,
 models/keypoints.apply_culling_host) -> SHOT LRFs at the keypoints -> the
 descriptor of every keypoint on the dense [B, K] grid (SHOT through K7,
-CSHOT through K8, SHORT_SHOT through K9).  The normals are computed on the
+CSHOT through K8, SHORT_SHOT through K9, FPFH and SHORT_CSHOT over
+neighbour gathers).  The normals are computed on the
 device (ops/normals.compute_normals; method 2: the full SHOT LRF of every
 point, PCA where it is invalid; methods 0 and 1: the oriented PCA normal)
 -- the JAX fused route -- unless a cloud of the chunk carries its own
@@ -24,8 +25,12 @@ points takes the scene route of one cloud
 (models/features.extract_local_features_scene), decided per cloud; the
 order of the clouds is kept.  The kept rows' descriptors stay on the
 device for the activation (:class:`FusedChunk`); the host reads one packed
-array per chunk to build the per-cloud feature sets.  Keypoint detectors,
-the other descriptors and LRFs are refused (:func:`extraction_unsupported`).
+array per chunk to build the per-cloud feature sets.  With a keypoint
+detector (Harris3D, ISS3D, SIFT3D: the JAX per-cloud route) each cloud's
+keypoints come from models/keypoints.detector_mask over the chunk's
+normals, and the chunk's descriptors are computed on them.  The
+descriptors and LRFs the port does not compute are refused
+(:func:`extraction_unsupported`).
 """
 
 from __future__ import annotations
@@ -39,35 +44,40 @@ from ..ops import tiled
 from ..ops.neighbors import full_fp32
 from ..ops.normals import compute_normals
 from ..ops.voxel_grid import voxel_grid
-from .features import (FeatureConfig, bucket_groups, chunk_width,
-                       compute_cloud_normals, extract_local_features_scene,
-                       local_descriptors, padded_chunk)
-from .keypoints import (KeypointParams, apply_culling_host,
+from .features import (DESCRIPTORS, FeatureConfig, bucket_groups,
+                       chunk_width, compute_cloud_normals,
+                       extract_local_features_scene, local_descriptors,
+                       padded_chunk)
+from .keypoints import (DETECTORS, KeypointParams, apply_culling_host,
                         check_culling_methods, culling_disabled,
-                        culling_needs_normals, culling_scores)
+                        culling_needs_normals, culling_scores,
+                        detector_mask)
 from .types import FeatureSet, make_feature_set
 
 
-def extraction_unsupported(fcfg: FeatureConfig, kp_params: KeypointParams,
-                           is_training: bool = True) -> Optional[str]:
-    """Why the port cannot extract this configuration's features in
-    training (or, with is_training False, at detection), with the queue
-    that ports it, or None.  VoxelGridCulling culls in both; a filter
-    method the reference lacks raises ValueError when the chunk is
+# the descriptors still to port, each with its ROADMAP queue item
+UNPORTED_DESCRIPTORS = {
+    **{t: "A15.4" for t in ("BSHOT", "PFH", "SpinImage", "3DSC", "USC",
+                            "USC_GLOBAL", "RSD", "RoPS", "COSPAIR", "RIFT",
+                            "ESF_LOCAL", "NARF", "SHORT_SHOT_PCL", "GASD",
+                            "ESF", "VFH", "GRSD", "CVFH", "OURCVFH")},
+    "CGF": "A15.5",
+}
+
+
+def extraction_unsupported(fcfg: FeatureConfig) -> Optional[str]:
+    """Why the port cannot extract this descriptor's features, with the
+    queue that ports it, or None.  A keypoint type or culling filter the
+    reference lacks raises ValueError when keypoints are detected or
     scored, as in the JAX package."""
-    if fcfg.type not in ("SHOT", "CSHOT", "SHORT_SHOT"):
-        return f"descriptor {fcfg.type!r} (the port computes SHOT, CSHOT " \
-               "and SHORT_SHOT; the descriptor zoo is ROADMAP A15)"
+    if fcfg.type not in DESCRIPTORS:
+        queue = UNPORTED_DESCRIPTORS.get(fcfg.type)
+        where = f"ROADMAP {queue}" if queue else "not a local descriptor"
+        return f"descriptor {fcfg.type!r} (the port computes " \
+               f"{', '.join(DESCRIPTORS)}; {where})"
     if fcfg.ref_frame_type != "SHOT":
         return f"ReferenceFrameType {fcfg.ref_frame_type!r} (SHOT only; " \
-               "the LRF variants are ROADMAP A15)"
-    if kp_params.type not in ("VoxelGrid", "VoxelGridCulling"):
-        return f"keypoint type {kp_params.type!r} (VoxelGrid only; the " \
-               "keypoint detectors are ROADMAP A15)"
-    if fcfg.type == "SHORT_SHOT" and (fcfg.use_min_radius
-                                      or fcfg.short_shot_log_radius):
-        return "SHORT_SHOT with a minimum or logarithmic radius (ROADMAP " \
-               "A15)"
+               "the LRF variants SHOTNA, BOARD and FLARE are ROADMAP A15.6)"
     return None
 
 
@@ -162,7 +172,9 @@ def extract_chunk(pts: torch.Tensor,    # [B, n, 3], padding parked at 1e9
                   normal_radius: float, n_method: int, lrf_version: int = 1,
                   normals: Optional[torch.Tensor] = None,  # [B, n, 3]
                   kp_params: Optional[KeypointParams] = None,
-                  is_training: bool = True
+                  is_training: bool = True,
+                  keypoints: Optional[Tuple[torch.Tensor,
+                                            torch.Tensor]] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                              torch.Tensor]:
     """One chunk of the batched extraction (`_fused_extract_dense_program`,
@@ -170,9 +182,12 @@ def extract_chunk(pts: torch.Tensor,    # [B, n, 3], padding parked at 1e9
     (descriptors [B, K, D], keypoints [B, K, 3], frames [B, K, 3, 3], keep
     [B, K]).  Keypoints are the voxel centroids, valid first in voxel-key
     order (culled: the kept ones in that order); rows not kept carry a zero
-    descriptor and keypoint and the identity frame."""
-    cull = kp_params is not None and not culling_disabled(kp_params,
-                                                          is_training)
+    descriptor and keypoint and the identity frame.  With `keypoints` (kp
+    [B, K, 3] with the padding at 1e9, live [B, K]: a detector's) the
+    voxel grid and the culling are skipped and the keypoints' colours are
+    zero: the JAX per-cloud route gives a detector's keypoints none."""
+    cull = keypoints is None and kp_params is not None \
+        and not culling_disabled(kp_params, is_training)
     want_normals = fcfg.needs_normals() or (
         cull and culling_needs_normals(kp_params, is_training))
     with full_fp32():
@@ -182,15 +197,21 @@ def extract_chunk(pts: torch.Tensor,    # [B, n, 3], padding parked at 1e9
             nrm = torch.where(mask[..., None], nrm, torch.zeros_like(nrm))
         else:
             nrm = torch.zeros_like(pts)
-        feats = ([nrm] if cull and want_normals else []) \
-            + ([rgb] if rgb is not None else [])
-        res = voxel_grid(pts, mask, leaf, capacity=k_cap,
-                         features=torch.cat(feats, -1) if feats else None)
-        kpm = res.mask
-        xyz = res.centroids[..., :3]
-        kp = torch.where(kpm[..., None], xyz, torch.full_like(xyz, 1e9))
-        off = 6 if cull and want_normals else 3
-        kp_rgb = res.centroids[..., off:off + 3] if rgb is not None else None
+        if keypoints is not None:
+            kp, kpm = keypoints
+            kp_rgb = torch.zeros_like(kp) if rgb is not None else None
+        else:
+            feats = ([nrm] if cull and want_normals else []) \
+                + ([rgb] if rgb is not None else [])
+            res = voxel_grid(pts, mask, leaf, capacity=k_cap,
+                             features=torch.cat(feats, -1) if feats
+                             else None)
+            kpm = res.mask
+            xyz = res.centroids[..., :3]
+            kp = torch.where(kpm[..., None], xyz, torch.full_like(xyz, 1e9))
+            off = 6 if cull and want_normals else 3
+            kp_rgb = res.centroids[..., off:off + 3] if rgb is not None \
+                else None
         if cull:
             kp, kpm, kp_rgb = _cull_chunk(
                 kp, kpm, res.centroids[..., 3:6] if want_normals else None,
@@ -205,6 +226,28 @@ def extract_chunk(pts: torch.Tensor,    # [B, n, 3], padding parked at 1e9
         frames = torch.where(keep[..., None, None], frames, eye)
         kp = torch.where(keep[..., None], kp, torch.zeros_like(kp))
     return desc, kp, frames, keep
+
+
+def detector_rows(clouds: Sequence[np.ndarray], chunk: List[int],
+                  nrm: Optional[torch.Tensor], kp_params: KeypointParams,
+                  device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A detector's keypoints of each cloud of a chunk (on the chunk's
+    normals [b, n, 3] where it has them), as a padded grid: (kp [b, K, 3]
+    with the padding at 1e9, live [b, K]), K a multiple of 64."""
+    nrm_h = None if nrm is None else nrm.cpu().numpy()
+    rows = []
+    for r, ci in enumerate(chunk):
+        keep, pos = detector_mask(
+            clouds[ci], None if nrm_h is None else nrm_h[r, :len(clouds[ci])],
+            kp_params, device)
+        rows.append(pos[keep])
+    cap = max(64, -(-max(len(k) for k in rows) // 64) * 64)
+    kp = np.full((len(rows), cap, 3), 1e9, np.float32)
+    live = np.zeros((len(rows), cap), bool)
+    for r, k in enumerate(rows):
+        kp[r, :len(k)] = k
+        live[r, :len(k)] = True
+    return torch.from_numpy(kp).to(device), torch.from_numpy(live).to(device)
 
 
 def extract_local_features_batch(
@@ -254,9 +297,10 @@ def extract_local_features_batch(
         return out  # type: ignore[return-value]
     sub = [clouds[i] for i in small]
     chunks = bucket_groups(sub, chunk_width(len(sub)))
+    detector = kp_params.type in DETECTORS
     caps: Dict[int, int] = {}
     for n, chunk in chunks:
-        caps[n] = max(caps.get(n, 64), -(-max(
+        caps[n] = 64 if detector else max(caps.get(n, 64), -(-max(
             host_voxel_count(sub[i], kp_params.leaf_size)
             for i in chunk) // 64) * 64)
     want_rgb = fcfg.needs_rgb() or col_cull
@@ -274,12 +318,21 @@ def extract_local_features_batch(
             nrm = compute_cloud_normals(
                 clouds, normals_list, glob, pts, mask, normal_radius,
                 consistent_normals_method, lrf_version)
+        keypoints = None
+        if detector:
+            if fcfg.needs_normals() and nrm is None:
+                with full_fp32():
+                    nrm = compute_normals(pts, mask, float(normal_radius),
+                                          int(consistent_normals_method),
+                                          lrf_version).normals
+                nrm = torch.where(mask[..., None], nrm, torch.zeros_like(nrm))
+            keypoints = detector_rows(clouds, glob, nrm, kp_params, device)
         desc, kp, frames, keep = extract_chunk(
             pts, mask,
             None if rgb_b is None else torch.from_numpy(rgb_b).to(device),
             caps[n], fcfg, float(kp_params.leaf_size), float(normal_radius),
             int(consistent_normals_method), lrf_version, nrm, kp_params,
-            is_training)
+            is_training, keypoints)
         unpack_chunk(desc, kp, frames, keep, clouds, glob, out,
                      device_cache)
     return out  # type: ignore[return-value]

@@ -3,7 +3,8 @@ chunk helpers and normals, and the global features (port of
 ``FeatureConfig``, ``bucket_size``, ``pad_cloud``,
 ``compute_cloud_normals`` and ``extract_global_features`` of
 point_cloud_donkey_tpu/models/features.py, for the descriptors the port
-computes: SHOT, CSHOT and SHORT_SHOT, and their *_GLOBAL forms).
+computes: SHOT, CSHOT, SHORT_SHOT, SHORT_CSHOT and FPFH, and the *_GLOBAL
+forms of all but FPFH).
 
 :func:`compute_cloud_normals` gives the normals of the JAX staged route
 (normals provided by the cloud files, ConsistentNormalsMethod 3's EMST
@@ -13,9 +14,14 @@ orientation on the host) to the training extraction
 A global descriptor (:func:`extract_global_features`) is the local
 descriptor at the cloud's centroid with the cloud's radius, so every point
 of the cloud is a neighbour; its LRF is taken at the centroid with
-ReferenceFrameRadius, and CSHOT_GLOBAL's keypoint colour is the cloud's
-mean colour.  The descriptor kernels take one radius a launch, so each
-cloud is one launch of K7, K8 or K9 (with its K1 / K2 LRF).
+ReferenceFrameRadius, and a colour descriptor's keypoint colour is the
+cloud's mean colour.  The descriptor kernels take one radius a launch, so
+each cloud is one launch of K7, K8 or K9 (with its K1 / K2 LRF).
+
+FPFH and SHORT_CSHOT read fixed-capacity neighbour gathers
+(ops/neighbors.gather_radius_neighbors) of min(TpuNeighborCapacity, N)
+neighbours, N the padded cloud (a global descriptor: all of them), FPFH
+at most 128 (the JAX `_descriptor_fn`).
 
 Scene scale (above ``ops.tiled.SCENE_TILE_THRESHOLD`` points, read at call
 time): :func:`scene_normals` and :func:`extract_local_features_scene` (the
@@ -25,8 +31,9 @@ windows of ops/tiled.py: the normals in NORMALS_CHUNK queries, the voxel
 grid (and its culling, models/keypoints.py) on the sorted cloud, so the
 keypoints' float sums are the JAX package's, then the keypoints sorted
 along the same axis in KEYPOINT_CHUNK chunks, planned at max(Radius,
-ReferenceFrameRadius) with a window of at least 4096 points: each group
-of chunks is one batch of K1 / K2 (the LRFs) and K7 / K8 / K9 (the
+ReferenceFrameRadius) with a window of at least 4096 points -- twice that
+radius for FPFH, whose neighbours' own neighbourhoods take part: each
+group of chunks is one batch of K1 / K2 (the LRFs) and K7 / K8 / K9 (the
 descriptor) over the chunks' window slabs.  A scene's global descriptor
 takes its normals from the same tiled route; its one centroid keypoint
 stays dense.
@@ -42,18 +49,23 @@ import numpy as np
 import torch
 
 from ..ops import tiled
+from ..ops.fpfh import fpfh_descriptor
 from ..ops.lrf import shot_lrf
-from ..ops.neighbors import full_fp32
+from ..ops.neighbors import full_fp32, gather_radius_neighbors
 from ..ops.normals import compute_normals, orient_emst
 from ..ops.kernels.shot_fused import shot_descriptor_fused
 from ..ops.shot import cshot_descriptor_dense
-from ..ops.short_shot import resolve_bins, short_shot_descriptor_dense
+from ..ops.short_shot import (resolve_bins, resolve_color_bins,
+                               short_cshot_descriptor,
+                               short_shot_descriptor_dense)
 from ..utils.config import ComponentConfig
 from .types import FeatureSet, make_feature_set
 
-DESCRIPTORS = ("SHOT", "CSHOT", "SHORT_SHOT")
+DESCRIPTORS = ("SHOT", "CSHOT", "SHORT_SHOT", "SHORT_CSHOT", "FPFH")
 GLOBAL_DESCRIPTORS = ("Dummy", "SHOT_GLOBAL", "CSHOT_GLOBAL",
-                      "SHORT_SHOT_GLOBAL")
+                      "SHORT_SHOT_GLOBAL", "SHORT_CSHOT_GLOBAL")
+# FPFH's neighbourhoods gather at most this many points
+FPFH_CAPACITY = 128
 
 
 def bucket_size(n: int, minimum: int = 256) -> int:
@@ -69,8 +81,8 @@ def bucket_size(n: int, minimum: int = 256) -> int:
 
 @dataclass(frozen=True)
 class FeatureConfig:
-    """The ``Features`` component of an .ism config (the SHOT, CSHOT and
-    SHORT_SHOT fields of the JAX FeatureConfig)."""
+    """The ``Features`` component of an .ism config (the fields of the JAX
+    FeatureConfig that the port's descriptors read)."""
     type: str = "SHOT"
     radius: float = 0.1
     ref_frame_radius: float = 0.2
@@ -84,6 +96,11 @@ class FeatureConfig:
     short_shot_log_radius: bool = False
     short_shot_min_radius: float = 0.0
     use_min_radius: bool = False
+    # SHORT_CSHOT (features_short_cshot.cpp:23-34)
+    short_color_shot_dims: int = 32
+    short_color_hist_size: int = 15
+    # the gathers' capacity (TpuNeighborCapacity, not in the reference)
+    neighbor_capacity: int = 2048
 
     @classmethod
     def from_config(cls, cfg: ComponentConfig) -> "FeatureConfig":
@@ -100,6 +117,9 @@ class FeatureConfig:
             short_shot_log_radius=cfg.get("ShortShotLogRadius", False),
             short_shot_min_radius=cfg.get("ShortShotMinRadius", 0.0),
             use_min_radius=cfg.get("UseMinRadius", False),
+            short_color_shot_dims=cfg.get("ShortColorShotDims", 32),
+            short_color_hist_size=cfg.get("ShortColorShotHistSize", 15),
+            neighbor_capacity=cfg.get("TpuNeighborCapacity", 2048),
         )
 
     @property
@@ -110,10 +130,27 @@ class FeatureConfig:
             else self.type
 
     def needs_normals(self) -> bool:
-        return self.local_type not in ("SHORT_SHOT", "Dummy")
+        return self.local_type not in ("SHORT_SHOT", "SHORT_CSHOT", "Dummy")
 
     def needs_rgb(self) -> bool:
-        return self.local_type == "CSHOT"
+        return self.local_type in ("CSHOT", "SHORT_CSHOT")
+
+    def min_radius(self) -> float:
+        """SHORT_*'s minimum radius: Radius * ShortShotMinRadius with
+        UseMinRadius, else a tenth of Radius with the log radius, else 0
+        (the JAX `_descriptor_fn`; a *_GLOBAL type scales the configured
+        Radius, not the cloud's)."""
+        if not self.local_type.startswith("SHORT_"):
+            return 0.0
+        if self.use_min_radius:
+            return self.radius * self.short_shot_min_radius
+        if self.short_shot_log_radius:
+            return self.radius * 0.1
+        return 0.0
+
+    def color_bins(self) -> Tuple[int, int, int, int]:
+        """(dims, r_bins, e_bins, a_bins) of SHORT_CSHOT's colour grid."""
+        return resolve_color_bins(self.short_color_shot_dims)
 
     def short_shot_bins(self) -> Tuple[int, int, int, int]:
         """(dims, r_bins, e_bins, a_bins) of the SHORT_SHOT grid."""
@@ -128,6 +165,11 @@ class FeatureConfig:
             return 1344
         if self.local_type == "SHORT_SHOT":
             return self.short_shot_bins()[0]
+        if self.local_type == "SHORT_CSHOT":
+            return self.short_shot_bins()[0] \
+                + self.color_bins()[0] * self.short_color_hist_size
+        if self.type == "FPFH":
+            return 33
         raise NotImplementedError(
             f"descriptor {self.type!r}: the port computes "
             f"{', '.join(DESCRIPTORS + GLOBAL_DESCRIPTORS)}")
@@ -214,16 +256,33 @@ def compute_cloud_normals(clouds: Sequence[np.ndarray],
 
 
 def local_descriptors(fcfg: FeatureConfig, kp, kpm, kp_rgb, pts, nrm, rgb,
-                      mask, radius: float, lrf_version: int = 1):
+                      mask, radius: float, lrf_version: int = 1,
+                      capacity: Optional[int] = None):
     """(descriptors [B, K, D], valid [B, K], frames [B, K, 3, 3]) of the
     keypoint rows `kp` [B, K, 3] (live where `kpm`) against their clouds
     [B, N]: the SHOT LRF at ReferenceFrameRadius (K1 / K2), then the
-    descriptor of `fcfg`'s local type at `radius` (K7, K8, K9).  valid
-    also requires a finite descriptor."""
+    descriptor of `fcfg`'s local type at `radius` (K7, K8, K9; FPFH and
+    SHORT_CSHOT over gathers of min(`capacity`, N) neighbours, `capacity`
+    TpuNeighborCapacity unless given).  valid also requires a finite
+    descriptor; FPFH's does not require a valid frame (the JAX package
+    keeps its rows whatever their LRF)."""
     lrf = shot_lrf(kp, kpm, pts, mask, fcfg.ref_frame_radius,
                    lrf_version=lrf_version)
     base = fcfg.local_type
-    if base == "SHOT":
+    cap = min(fcfg.neighbor_capacity if capacity is None else capacity,
+              pts.shape[1])
+    if base == "FPFH":
+        desc, valid = fpfh_descriptor(kp, kpm, pts, nrm, mask, radius,
+                                      capacity=min(cap, FPFH_CAPACITY))
+    elif base == "SHORT_CSHOT":
+        _, rb, eb, ab = fcfg.short_shot_bins()
+        _, crb, ceb, cab = fcfg.color_bins()
+        nbr = gather_radius_neighbors(kp, pts, mask, radius, cap)
+        desc, valid = short_cshot_descriptor(
+            kp, kp_rgb, lrf.frames, lrf.valid, pts, rgb, nbr, radius, rb, eb,
+            ab, crb, ceb, cab, fcfg.short_color_hist_size, fcfg.min_radius(),
+            fcfg.short_shot_log_radius)
+    elif base == "SHOT":
         desc, valid = shot_descriptor_fused(kp, lrf.frames, lrf.valid, pts,
                                             nrm, mask, radius)
     elif base == "CSHOT":
@@ -232,9 +291,9 @@ def local_descriptors(fcfg: FeatureConfig, kp, kpm, kp_rgb, pts, nrm, rgb,
                                              radius)
     else:
         _, rb, eb, ab = fcfg.short_shot_bins()
-        desc, valid = short_shot_descriptor_dense(kp, lrf.frames, lrf.valid,
-                                                  pts, mask, radius, rb, eb,
-                                                  ab)
+        desc, valid = short_shot_descriptor_dense(
+            kp, lrf.frames, lrf.valid, pts, mask, radius, rb, eb, ab,
+            fcfg.min_radius(), fcfg.short_shot_log_radius)
     return desc, valid & torch.isfinite(desc).all(-1), lrf.frames
 
 
@@ -325,9 +384,10 @@ def extract_local_features_scene(
     kp_pad[:len(kp)] = kp
     kp_mask = np.zeros(k_bucket, bool)
     kp_mask[:len(kp)] = True
+    margin = 2.0 if fcfg.type == "FPFH" else 1.0
     plan = tiled.plan_tiles(kp_pad[:, axis], kp_mask, pts[:, axis],
-                            max(fcfg.radius, fcfg.ref_frame_radius), chunk,
-                            min_window=4096)
+                            margin * max(fcfg.radius, fcfg.ref_frame_radius),
+                            chunk, min_window=4096)
 
     def dev(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
@@ -394,7 +454,7 @@ def extract_global_features(
         raise NotImplementedError(
             f"global features {gcfg.type!r}: the port computes "
             f"{', '.join(GLOBAL_DESCRIPTORS)}; the whole-cloud ones wait on "
-            "the descriptor zoo (ROADMAP A15)")
+            "the descriptor zoo (ROADMAP A15.4)")
     if gcfg.needs_rgb() and any(r is None for r in rgb_list):
         raise ValueError(f"{gcfg.type} needs RGB data but a cloud has none")
     out: List[Optional[FeatureSet]] = [None] * len(clouds)
@@ -434,7 +494,7 @@ def extract_global_features(
                                          device=device), kp_rgb,
                     pts[r:r + 1], nrm[r:r + 1],
                     None if rgb is None else rgb[r:r + 1], mask[r:r + 1],
-                    radius, lrf_version)
+                    radius, lrf_version, capacity=n)
                 out[ci] = make_feature_set(
                     desc[0].cpu().numpy(), centroid[None],
                     frame[0].cpu().numpy(), valid[0].cpu().numpy(),

@@ -20,8 +20,8 @@ descriptors (models/svm.py).  Stage wall times go to
 ``processing_times`` under the JAX package's ``train_*`` keys.
 
 What neither route trains raises NotImplementedError with the reason and
-the queue that ports it, before any cloud is read (keypoint detectors,
-other descriptors and global descriptors, several devices).  A cloud
+the queue that ports it, before any cloud is read (the descriptors, LRFs
+and whole-cloud global descriptors still to port, several devices).  A cloud
 above ops.tiled.SCENE_TILE_THRESHOLD points takes the scene routes of the
 filters and the features (ops/tiled.py), decided per cloud.
 
@@ -140,16 +140,15 @@ def _voting_params(cfg: ComponentConfig) -> VotingParams:
 
 
 def detect_unsupported(fcfg: FeatureConfig, gcfg: FeatureConfig,
-                       kp_params: KeypointParams, vparams: VotingParams
-                       ) -> Optional[str]:
+                       vparams: VotingParams) -> Optional[str]:
     """Why the port cannot detect with this configuration, with the queue
     that ports it, or None."""
-    why = extraction_unsupported(fcfg, kp_params, is_training=False)
+    why = extraction_unsupported(fcfg)
     if why is None and vparams.use_global_features \
             and gcfg.type not in GLOBAL_DESCRIPTORS:
         why = f"global features {gcfg.type!r} (the port computes " \
               f"{', '.join(GLOBAL_DESCRIPTORS)}; the whole-cloud globals " \
-              "are ROADMAP A15)"
+              "are ROADMAP A15.4)"
     return why
 
 
@@ -330,22 +329,21 @@ class ImplicitShapeModel:
         for cid, iid, box in zip(class_ids, instance_ids, boxes):
             self._training.append((filename, int(cid), int(iid), box))
 
-    def _check_trainable(self, fcfg: FeatureConfig, gcfg: FeatureConfig,
-                         kp_params: KeypointParams) -> None:
+    def _check_trainable(self, fcfg: FeatureConfig,
+                         gcfg: FeatureConfig) -> None:
         """Raise NotImplementedError, with the reason and its queue, for
         what the port does not train."""
         reasons = []
-        why = extraction_unsupported(fcfg, kp_params)
+        why = extraction_unsupported(fcfg)
         if why:
             reasons.append(why)
         if gcfg.type not in GLOBAL_DESCRIPTORS:
             reasons.append(f"global features {gcfg.type!r} (the port "
                            f"computes {', '.join(GLOBAL_DESCRIPTORS)}; the "
-                           "whole-cloud globals are ROADMAP A15)")
+                           "whole-cloud globals are ROADMAP A15.4)")
         elif gcfg.type != "Dummy":
             why = extraction_unsupported(
-                dataclasses.replace(gcfg, type=gcfg.local_type),
-                KeypointParams())
+                dataclasses.replace(gcfg, type=gcfg.local_type))
             if why:
                 reasons.append(f"global features {gcfg.type!r}: {why}")
         if _mesh_requested(self.root):
@@ -432,7 +430,7 @@ class ImplicitShapeModel:
         cn_method = self.root.get("ConsistentNormalsMethod", 2)
         bb_type = self.root.get("BoundingBoxType", "MVBB")
         cb_params = CodebookParams.from_config(self.config.child("Codebook"))
-        self._check_trainable(fcfg, gcfg, kp_params)
+        self._check_trainable(fcfg, gcfg)
         set_color_to_zero = self.root.get("SetColorToZero", False)
 
         features_per_model: List[FeatureSet] = []
@@ -730,8 +728,8 @@ class ImplicitShapeModel:
                 "flann", 0.0) + time.perf_counter() - t0
         return self._codebook
 
-    def _check_detectable(self, fcfg, gcfg, kp_params, vparams) -> None:
-        why = detect_unsupported(fcfg, gcfg, kp_params, vparams)
+    def _check_detectable(self, fcfg, gcfg, vparams) -> None:
+        why = detect_unsupported(fcfg, gcfg, vparams)
         if why:
             raise NotImplementedError("the port does not detect with this "
                                       "config: " + why)
@@ -752,7 +750,7 @@ class ImplicitShapeModel:
         kp_params = KeypointParams.from_config(self.config.child("Keypoints"))
         vparams = _voting_params(self.config.child("Voting"))
         cb_params = CodebookParams.from_config(self.config.child("Codebook"))
-        self._check_detectable(fcfg, gcfg, kp_params, vparams)
+        self._check_detectable(fcfg, gcfg, vparams)
         normal_radius = self.root.get("NormalRadius", 0.05)
         cn_method = self.root.get("ConsistentNormalsMethod", 2)
         times = self.processing_times

@@ -1,6 +1,5 @@
-"""Voxel-grid keypoints and VoxelGridCulling (port of
-point_cloud_donkey_tpu/models/keypoints.py for the VoxelGrid and
-VoxelGridCulling types).
+"""Keypoints: the voxel grid, VoxelGridCulling and the Harris3D / ISS3D /
+SIFT3D detectors (port of point_cloud_donkey_tpu/models/keypoints.py).
 
 Reference: keypoints/keypoints_voxel_grid.cpp (grid centroids) and
 keypoints/keypoints_voxel_grid_culling.cpp (grid + keypoint-quality
@@ -28,9 +27,17 @@ The scores are batched torch functions on the device (:func:`culling_scores`,
 one call a chunk of clouds; :func:`tiled_culling_scores` for a scene, on the
 windows of ops/tiled.py); the thresholds and the refinement run on the
 host over each cloud's compact keypoints (:func:`apply_culling_host`), so
-the batched and the per-cloud routes decide alike.  The keypoint
-detectors (Harris3D, ISS3D, SIFT3D) are parsed only: training and
-detection refuse them by name (ROADMAP A15).
+the batched and the per-cloud routes decide alike.
+
+The detectors (:func:`detector_mask`, the JAX `_detector_keypoints`)
+run per cloud on the device (ops/keypoint_detectors.py): Harris3D on the
+cloud's normals where it has them, else on the PCA normals at its support
+radius (ops/normals.pca_normals_at), SIFT3D on the PCA curvature at that
+radius (0 where fewer than 3 points support it).  A cloud above
+ops.tiled.SCENE_TILE_THRESHOLD points takes the tiled route
+(:func:`tiled_detector_mask`): the cloud sorted along its longest
+axis, the same responses from windowed passes (ops/tiled.py), SIFT3D's
+plans shrinking the query chunk as its coarse octaves' windows grow.
 """
 
 from __future__ import annotations
@@ -44,12 +51,17 @@ import torch
 from ..ops import tiled
 from ..ops.color import color_distance, rgb_to_cielab_normalized
 from ..ops.curvature import principal_curvatures
-from ..ops.eigh3 import eigvals3x3
-from ..ops.neighbors import radius_covariance
+from ..ops import keypoint_detectors as kd
+from ..ops.eigh3 import eigh3x3, eigvals3x3
+from ..ops.neighbors import full_fp32, radius_covariance
+from ..ops.normals import pca_normals_at
 from ..ops.voxel_grid import voxel_grid
 from ..utils.config import ComponentConfig
 
 FLT_MIN = np.float32(np.finfo(np.float32).tiny)
+# the keypoint detectors (PCL wrappers) beside VoxelGrid(Culling)
+DETECTORS = ("Harris3D", "ISS3D", "SIFT3D")
+KEYPOINT_TYPES = ("VoxelGrid", "VoxelGridCulling") + DETECTORS
 
 
 @dataclass
@@ -67,11 +79,11 @@ class KeypointParams:
     disable_filter_in_training: bool = True
     combine_filters: str = "RequireCombinedList"
     refine_position: bool = False
-    # Harris3D (keypoints_harris3d.cpp:7-11), parsed only (ROADMAP A15)
+    # Harris3D (keypoints_harris3d.cpp:7-11)
     harris_threshold: float = 1e-4
     harris_nonmax: bool = True
     harris_refine: bool = True
-    # ISS3D (keypoints_iss3d.cpp:7-13), parsed only
+    # ISS3D (keypoints_iss3d.cpp:7-13)
     iss_salient_radius: float = 0.1
     iss_nonmax_radius: float = 0.05
     iss_gamma21: float = 0.975
@@ -113,11 +125,11 @@ class KeypointParams:
 
 def culling_disabled(params: KeypointParams, is_training: bool) -> bool:
     """True when VoxelGridCulling behaves as a plain VoxelGrid
-    (culling.cpp:76-87): plain type, culling disabled in training, or both
-    filter methods None."""
+    (culling.cpp:76-87): another type, culling disabled in training, or
+    both filter methods None."""
     geo = params.filter_method_geometry.lower()
     col = params.filter_method_color.lower()
-    return (params.type == "VoxelGrid"
+    return (params.type != "VoxelGridCulling"
             or (is_training and params.disable_filter_in_training)
             or (geo == "none" and col == "none"))
 
@@ -518,11 +530,13 @@ def detect_keypoints(points: np.ndarray,             # [N, 3]
                      is_training: bool = False):
     """(keypoints [K, 3], voxel-averaged colours [K, 3] or None) of one
     cloud: the voxel grid's centroids (the normals and colours averaged
-    alongside), culled when VoxelGridCulling culls."""
-    if params.type not in ("VoxelGrid", "VoxelGridCulling"):
-        raise NotImplementedError(
-            f"keypoint type {params.type!r} (VoxelGrid only; the keypoint "
-            "detectors are ROADMAP A15)")
+    alongside), culled when VoxelGridCulling culls; a detector's
+    keypoints (:func:`detector_mask`) with no colours."""
+    if params.type in DETECTORS:
+        keep, pos = detector_mask(points, normals, params, device)
+        return pos[keep], None
+    if params.type not in KEYPOINT_TYPES:
+        raise ValueError(f"unsupported keypoint type {params.type!r}")
     kp, kp_normals, kp_rgb = voxel_keypoints(points, normals, rgb,
                                              params.leaf_size, device)
     if culling_disabled(params, is_training):
@@ -540,3 +554,187 @@ def detect_keypoints(points: np.ndarray,             # [N, 3]
         return kp, kp_rgb
     return apply_culling_host(kp, kp_rgb, geo_s, col_s, params,
                               return_colors=True)
+
+
+def _provided(normals: Optional[np.ndarray], n: int) -> bool:
+    return normals is not None and len(normals) == n
+
+
+def detector_mask(points: np.ndarray,             # [N, 3]
+                  normals: Optional[np.ndarray],  # [N, 3] or None
+                  params: KeypointParams, device: torch.device):
+    """(keypoint flags [N], positions [N, 3]) of a Harris3D, ISS3D or
+    SIFT3D detector over one cloud, in the cloud's order (Harris3D's
+    positions refined where it refines): the dense programs up to
+    tiled.SCENE_TILE_THRESHOLD points, the tiled route above."""
+    n = len(points)
+    if n > tiled.SCENE_TILE_THRESHOLD:
+        return tiled_detector_mask(points, normals, params, device)
+    pts = torch.from_numpy(np.ascontiguousarray(points, np.float32)).to(
+        device)
+    mask = torch.ones(n, dtype=torch.bool, device=device)
+    with full_fp32():
+        if params.type == "ISS3D":
+            res = kd.iss3d(pts, mask, float(params.iss_salient_radius),
+                           float(params.iss_nonmax_radius),
+                           float(params.iss_gamma21),
+                           float(params.iss_gamma32),
+                           int(params.iss_min_neighbors))
+        else:
+            radius = float(params.radius)
+            nres = pca_normals_at(pts[None], mask[None], pts[None],
+                                  mask[None], radius)
+            if params.type == "Harris3D":
+                nrm = torch.from_numpy(np.asarray(normals, np.float32)).to(
+                    device) if _provided(normals, n) else nres.normals[0]
+                res = kd.harris3d(pts, nrm, mask, radius,
+                                  float(params.harris_threshold),
+                                  bool(params.harris_nonmax),
+                                  bool(params.harris_refine))
+            else:
+                # a plane needs 3 points: below that the curvature is 0
+                intensity = torch.where(nres.valid[0], nres.curvature[0],
+                                        torch.zeros_like(nres.curvature[0]))
+                res = kd.sift3d(pts, intensity, mask, radius)
+    return res.is_keypoint.cpu().numpy(), res.positions.cpu().numpy()
+
+
+def tiled_detector_mask(points: np.ndarray, normals: Optional[np.ndarray],
+                        params: KeypointParams, device: torch.device):
+    """Harris3D / ISS3D / SIFT3D at scene scale (the JAX
+    `_tiled_detector_keypoints`): the dense responses from windowed passes
+    over the cloud sorted along its longest axis, in NORMALS_CHUNK query
+    chunks; (flags [N], positions [N, 3]) in the cloud's order."""
+    axis = tiled.sort_key_axis(points)
+    order = np.argsort(points[:, axis], kind="stable")
+    pts_s_h = np.ascontiguousarray(points[order], dtype=np.float32)
+    n = len(pts_s_h)
+    chunk = tiled.NORMALS_CHUNK
+    nq = max(1, -(-n // chunk)) * chunk
+    q_pad_h = np.full((nq, 3), 1e9, np.float32)
+    q_pad_h[:n] = pts_s_h
+    q_valid_h = np.zeros(nq, bool)
+    q_valid_h[:n] = True
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    q_pad, pts_s, q_valid = dev(q_pad_h), dev(pts_s_h), dev(q_valid_h)
+    p_mask = torch.ones(n, dtype=torch.bool, device=device)
+
+    def plan(radius):
+        return tiled.plan_tiles(q_pad_h[:, axis], q_valid_h, pts_s_h[:, axis],
+                                radius, chunk)
+
+    def unsort(keep, pos=None):
+        keep_full = np.zeros(n, bool)
+        keep_full[order] = keep.cpu().numpy()[:n]
+        if pos is None:
+            return keep_full, np.asarray(points, np.float32)
+        pos_full = np.empty((n, 3), np.float32)
+        pos_full[order] = pos.cpu().numpy()[:n]
+        return keep_full, pos_full
+
+    with full_fp32():
+        if params.type == "SIFT3D":
+            return unsort(_tiled_sift3d(q_pad_h, q_valid_h, q_pad, q_valid,
+                                        pts_s_h, pts_s, p_mask, axis,
+                                        float(params.radius)))
+        if params.type == "Harris3D":
+            radius = float(params.radius)
+            pl = plan(radius)
+            if _provided(normals, n):
+                nrm_s = dev(np.asarray(normals, np.float32)[order])
+            else:
+                # the PCA normals (Harris reads n n^T: the sign is moot)
+                mom = tiled.tiled_radius_moments(q_pad, pts_s, p_mask, pl,
+                                                 radius)
+                nrm_s = eigh3x3(mom.cov)[1][:n, :, 0]
+            nn = kd.outer9(nrm_s)
+            nntp = torch.einsum("jab,jb->ja", nn.reshape(n, 3, 3), pts_s)
+            _, sums = tiled.tiled_payload_moments(
+                q_pad, pts_s, torch.cat([nn, nntp], 1), p_mask, pl, radius)
+            sums = sums[:n]
+            C = sums[:, :9].reshape(n, 3, 3)
+            r = kd.harris_response(C)
+            keep = r > float(params.harris_threshold)
+            if params.harris_nonmax:
+                _, nmax = tiled.tiled_neighbor_max(q_pad, pts_s, r, p_mask,
+                                                   pl, radius)
+                keep = keep & (r >= nmax[:n])
+            pos = kd.harris_refine(C, sums[:, 9:12], pts_s, radius) \
+                if params.harris_refine else pts_s
+            return unsort(keep, pos)
+        # ISS3D: the support counts, the density-weighted scatter, the
+        # saliency's non-max suppression
+        sal_r = float(params.iss_salient_radius)
+        pl = plan(sal_r)
+        ones = torch.ones((n, 1), dtype=torch.float32, device=device)
+        cnt, _ = tiled.tiled_payload_moments(q_pad, pts_s, ones, p_mask, pl,
+                                             sal_r)
+        wj = 1.0 / torch.clamp(cnt[:n].to(torch.float32), min=1.0)
+        payload = torch.cat([wj[:, None], wj[:, None] * pts_s,
+                             wj[:, None] * kd.outer9(pts_s)], 1)
+        _, sums = tiled.tiled_payload_moments(q_pad, pts_s, payload, p_mask,
+                                              pl, sal_r)
+        sums = sums[:n]
+        S = kd.iss_scatter(pts_s, torch.clamp(sums[:, 0], min=1e-12),
+                           sums[:, 1:4], sums[:, 4:13].reshape(n, 3, 3))
+        ok, e3 = kd.iss_saliency(S, float(params.iss_gamma21),
+                                 float(params.iss_gamma32))
+        saliency = torch.where(ok, e3, torch.full_like(e3, float("-inf")))
+        nm_r = float(params.iss_nonmax_radius)
+        n_nm, nmax = tiled.tiled_neighbor_max(q_pad, pts_s, saliency, p_mask,
+                                              plan(nm_r), nm_r)
+        keep = ok & (saliency >= nmax[:n]) \
+            & (n_nm[:n] >= int(params.iss_min_neighbors))
+        return unsort(keep)
+
+
+def _tiled_sift3d(q_pad_h, q_valid_h, q_pad, q_valid, pts_s_h, pts_s,
+                  p_mask, axis: int, min_scale: float, n_octaves: int = 4,
+                  scales_per_octave: int = 3, min_contrast: float = 0.0):
+    """ops/keypoint_detectors.sift3d in windowed passes (the JAX
+    `_tiled_sift3d`): the curvature field, per octave the tiled Gaussian
+    smoothing at each sigma, the DoG differences and the tiled extremum
+    test of each interior layer.  Coarse octaves' windows are wide, so
+    each plan halves the query chunk (down to 64) until chunk * window <=
+    2^24.  Keep flags [Q] in the sorted order."""
+    n = len(pts_s_h)
+
+    def plan(radius):
+        chunk = tiled.NORMALS_CHUNK
+        pl = tiled.plan_tiles(q_pad_h[:, axis], q_valid_h, pts_s_h[:, axis],
+                              radius, chunk)
+        while chunk > 64 and chunk * pl.window > (1 << 24):
+            chunk //= 2
+        if chunk != tiled.NORMALS_CHUNK:
+            pl = tiled.plan_tiles(q_pad_h[:, axis], q_valid_h,
+                                  pts_s_h[:, axis], radius, chunk)
+        return pl
+
+    # the intensity: the PCA curvature at the support radius, 0 where
+    # fewer than 3 points support it (as the dense route)
+    mom = tiled.tiled_radius_moments(q_pad, pts_s, p_mask, plan(min_scale),
+                                     min_scale)
+    vals = eigvals3x3(mom.cov)
+    total = vals.sum(1)
+    curv = torch.where((total > 0) & (mom.count >= 3),
+                       vals[:, 0] / torch.clamp(total, min=1e-30),
+                       torch.zeros_like(total))
+    intensity = curv[:n].contiguous()
+    keep = torch.zeros_like(q_valid)
+    for o in range(n_octaves):
+        sigmas = kd.sift_sigmas(min_scale, o, scales_per_octave)
+        smoothed = [tiled.tiled_gaussian_smooth(q_pad, pts_s, intensity,
+                                                p_mask, plan(3.0 * s), s)
+                    for s in sigmas]
+        dogs = [smoothed[i + 1] - smoothed[i] for i in range(len(sigmas) - 1)]
+        for li in range(1, len(dogs) - 1):
+            sig = sigmas[li]
+            layers = torch.stack([d[:n] for d in dogs[li - 1:li + 2]], 1)
+            any_nb, lo, hi = tiled.tiled_sift_extrema(
+                q_pad, pts_s, layers.contiguous(), p_mask, plan(sig), sig)
+            keep = keep | kd.sift_keep(dogs, li, any_nb, lo, hi, q_valid,
+                                       min_contrast)
+    return keep

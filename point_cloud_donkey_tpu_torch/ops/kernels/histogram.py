@@ -11,7 +11,9 @@ and frames, and no [B * K, N * 4] slot array exists.
 `short_shot_slot_arrays`, one chunk of clouds at a time, through
 :func:`histogram_plain` -- compute the same raw histograms; rows that are
 not live come out zero.  Bin grids of up to MAX_BINS = 256 bins (every
-SHORT_SHOT `AUTO_BINS` size); a larger one is refused.
+SHORT_SHOT `AUTO_BINS` size); a larger one is refused.  A minimum radius
+(pairs with r < min_radius add nothing) and the log radius (the JAX
+`_short_shot_core`'s `log_radius`) enter both.
 
 :func:`histogram_plain` is the function of the TPU kernel itself:
 H[r, b] = sum_c w[r, c] [idx[r, c] = b], an index outside [0, L) adding
@@ -60,7 +62,8 @@ def _check(kp, frames, live, points, mask, r_bins, e_bins, a_bins):
 
 
 def short_shot_hist_plain(kp, frames, live, points, mask, radius, r_bins,
-                          e_bins, a_bins) -> torch.Tensor:
+                          e_bins, a_bins, min_radius=0.0,
+                          log_radius=False) -> torch.Tensor:
     """Plain twin of K9: raw histograms [B, K, D] from the slot arrays of
     each chunk of clouds; rows that are not live stay zero."""
     # ops/short_shot.py imports this module for short_shot_hist
@@ -72,7 +75,8 @@ def short_shot_hist_plain(kp, frames, live, points, mask, radius, r_bins,
     for b0, b1 in cloud_chunks(b, k, points.shape[1]):
         idx, w = short_shot_slot_arrays(kp[b0:b1], frames[b0:b1],
                                         points[b0:b1], mask[b0:b1], radius,
-                                        r_bins, e_bins, a_bins)
+                                        r_bins, e_bins, a_bins, min_radius,
+                                        log_radius)
         hist[b0:b1] = histogram_plain(idx, w, dims).reshape(b1 - b0, k, dims)
     return torch.where(live[..., None], hist, torch.zeros_like(hist))
 
@@ -83,14 +87,19 @@ def short_shot_hist(kp: torch.Tensor,      # [B, K, 3] keypoints
                     points: torch.Tensor,  # [B, N, 3]
                     mask: torch.Tensor,    # [B, N] bool
                     radius: float, r_bins: int = 2, e_bins: int = 2,
-                    a_bins: int = 8) -> torch.Tensor:
+                    a_bins: int = 8, min_radius: float = 0.0,
+                    log_radius: bool = False) -> torch.Tensor:
     """K9: raw SHORT_SHOT histograms [B, K, r_bins * e_bins * a_bins] of
     every live row of the dense keypoint grid, each against the points of
     its cloud."""
+    # ops/short_shot.py imports this module for short_shot_hist
+    from ..short_shot import log_radius_params
     _check(kp, frames, live, points, mask, r_bins, e_bins, a_bins)
     if not uses_kernel(kp, frames, live, points, mask):
         return short_shot_hist_plain(kp, frames, live, points, mask, radius,
-                                     r_bins, e_bins, a_bins)
+                                     r_bins, e_bins, a_bins, min_radius,
+                                     log_radius)
+    ln_rmin, ln_span = log_radius_params(radius, min_radius)
     b, k = live.shape
     hist = torch.empty((b, k, r_bins * e_bins * a_bins), dtype=torch.float32,
                        device=kp.device)
@@ -100,7 +109,8 @@ def short_shot_hist(kp: torch.Tensor,      # [B, K, 3] keypoints
                 kp.data_ptr(), frames.data_ptr(), live.data_ptr(),
                 points.data_ptr(), mask.data_ptr(), hist.data_ptr(), b, k,
                 points.shape[1], f32(radius), r_bins, e_bins, a_bins,
-                stream_of(kp))
+                f32(min_radius), int(log_radius), f32(ln_rmin),
+                f32(ln_span), stream_of(kp))
         build.check(err, "histogram")
         build.count_launch("histogram")
     return hist

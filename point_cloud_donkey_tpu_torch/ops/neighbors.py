@@ -1,6 +1,14 @@
 """Neighbourhood primitives (port of the ``pairwise_sqdist``,
-``radius_covariance``, ``chi_square_distance_matrix``,
-``descriptor_distance`` and ``knn`` of point_cloud_donkey_tpu/ops/neighbors.py).
+``radius_covariance``, ``gather_radius_neighbors``,
+``chi_square_distance_matrix``, ``descriptor_distance`` and ``knn`` of
+point_cloud_donkey_tpu/ops/neighbors.py).
+
+``gather_radius_neighbors`` gives each query its `capacity` nearest
+in-radius neighbours in a fixed-size block, as ``jax.lax.top_k`` orders
+them: ascending squared distance (the matmul identity), the lower index
+first among equal distances -- one int64 key a pair, the distance's bits
+above the index (``torch.topk`` on the floats orders ties arbitrarily,
+which would move the capacity cut and FPFH's nearest slot).
 
 ``knn`` is exact for both metrics, as the JAX package is on CPU and GPU
 backends: "l2" is squared L2 through the matmul identity in full fp32,
@@ -116,6 +124,85 @@ def radius_covariance(queries: torch.Tensor,   # [B, Q, 3]
     cov = cov / s0_safe[..., None, None]
     mean = s1 / s0_safe[..., None] + shift[:, None, :]
     return RadiusMoments(count=count, wsum=s0, mean=mean, cov=cov)
+
+
+class NeighborBlock(NamedTuple):
+    """Fixed-capacity neighbour gather."""
+    idx: torch.Tensor    # [..., Q, M] neighbour indices (0 where invalid)
+    dist: torch.Tensor   # [..., Q, M] euclidean distances (inf where invalid)
+    valid: torch.Tensor  # [..., Q, M] bool
+
+
+def gather_radius_neighbors(queries: torch.Tensor,  # [Q, 3] / [B, Q, 3]
+                            points: torch.Tensor,   # [N, 3] / [B, N, 3]
+                            mask: torch.Tensor,     # [N] / [B, N]
+                            radius: float, capacity: int,
+                            exclude_zero_dist: bool = False
+                            ) -> NeighborBlock:
+    """Up to min(capacity, N) nearest in-radius unmasked neighbours of each
+    query, ascending (PCL radiusSearch's order), the farthest dropped past
+    the capacity: the pre-gate and the order on the matmul identity (full
+    fp32), then the exact distances of the gathered block gated again,
+    and with `exclude_zero_dist` pairs at squared distance <= 1e-15
+    dropped (features_short_shot.cpp:127)."""
+    single = points.dim() == 2
+    if single:
+        queries, points, mask = queries[None], points[None], mask[None]
+    b, nq, n = queries.shape[0], queries.shape[1], points.shape[1]
+    cap = min(capacity, n)
+    r2 = float(torch.tensor(radius * radius, dtype=torch.float32))
+    p2 = torch.sum(points * points, dim=-1)[:, None, :]
+    idx = torch.empty((b, nq, cap), dtype=torch.int64, device=points.device)
+    valid = torch.empty((b, nq, cap), dtype=torch.bool, device=points.device)
+    # one int64 key a pair: the bits of d2 (>= 0, so ordered as the
+    # floats) above the point's index, unique, so the order is JAX's
+    col = torch.arange(n, device=points.device)
+    inf_key = torch.tensor(float("inf")).view(torch.int32).item()
+    step = max(1, _PAIR_BUDGET // max(b * n, 1))
+    with full_fp32():
+        for q0 in range(0, nq, step):
+            qc = queries[:, q0:q0 + step]
+            q2 = torch.sum(qc * qc, dim=-1)[..., None]
+            d2 = torch.clamp(q2 + p2 - 2.0 * (qc @ points.transpose(1, 2)),
+                             min=0.0)
+            d2 = torch.where((d2 <= r2) & mask[:, None, :], d2,
+                             torch.full_like(d2, float("inf")))
+            key = (d2.view(torch.int32).to(torch.int64) << 32) | col
+            del d2
+            if 2 * cap < n:
+                top = torch.topk(key, cap, dim=-1, largest=False,
+                                 sorted=True).values
+            else:
+                top = torch.sort(key, dim=-1).values[..., :cap]
+            del key
+            idx[:, q0:q0 + step] = top & 0xFFFFFFFF
+            valid[:, q0:q0 + step] = (top >> 32) != inf_key
+            del top
+    nb = gather_rows(points, idx)
+    dx = nb[..., 0] - queries[..., None, 0]
+    dy = nb[..., 1] - queries[..., None, 1]
+    dz = nb[..., 2] - queries[..., None, 2]
+    d2e = dx * dx + dy * dy + dz * dz
+    valid = valid & (d2e <= r2)
+    if exclude_zero_dist:
+        valid = valid & (d2e > 1e-15)
+    dist = torch.where(valid, torch.sqrt(d2e),
+                       torch.full_like(d2e, float("inf")))
+    idx = torch.where(valid, idx, torch.zeros_like(idx))
+    if single:
+        return NeighborBlock(idx[0], dist[0], valid[0])
+    return NeighborBlock(idx, dist, valid)
+
+
+def gather_rows(x: torch.Tensor,    # [B, N, ...]
+                idx: torch.Tensor   # [B, ...] indices into N
+                ) -> torch.Tensor:
+    """x[b, idx[b, ...]] of every cloud b: [B, *idx.shape[1:], ...]."""
+    b = x.shape[0]
+    xf = x.reshape(b, x.shape[1], -1)
+    out = torch.gather(xf, 1, idx.reshape(b, -1, 1).expand(-1, -1,
+                                                            xf.shape[2]))
+    return out.reshape(tuple(idx.shape) + tuple(x.shape[2:]))
 
 
 def descriptor_distance(a: torch.Tensor, b: torch.Tensor,

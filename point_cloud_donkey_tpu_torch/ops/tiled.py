@@ -28,10 +28,10 @@ sides only the summation order differs: a slab shifts its points by the
 slab's centroid before the moments, as the JAX slab does.
 
 The constants below are read at call time (``tiled.SCENE_TILE_THRESHOLD``),
-so one monkeypatch moves every route of the port.  The detector stages of
-the JAX module (gather_radius_neighbors, payload moments, neighbour max,
-gaussian smoothing, SIFT extrema) serve Harris3D / ISS3D / SIFT3D and FPFH,
-which the port does not compute (ROADMAP A15).
+so one monkeypatch moves every route of the port.  The detector stages
+(payload moments, neighbour max, Gaussian smoothing, SIFT extrema) serve
+Harris3D / ISS3D / SIFT3D at scene scale (models/keypoints.py), the
+gather the gathered-neighbour descriptors of a slab.
 """
 
 from __future__ import annotations
@@ -45,7 +45,8 @@ from .curvature import CurvatureResult, principal_curvatures
 from .color import color_distance
 from .eigh3 import eigh3x3
 from .kernels import masked_centroid
-from .neighbors import RadiusMoments, full_fp32, radius_covariance
+from .neighbors import (NeighborBlock, RadiusMoments, full_fp32,
+                        gather_radius_neighbors, radius_covariance)
 from .normals import NormalsResult, compute_normals_at
 
 # clouds above this size take the tiled scene path (features, filters,
@@ -435,3 +436,158 @@ def tiled_color_counts(queries: torch.Tensor, query_lab: torch.Tensor,
 
     return map_chunks(inner, (queries, query_lab), (1e9, 0.0),
                       (points, points_lab, mask), plan, row_bytes=28)
+
+
+# ---------------------------------------------------------------------------
+# keypoint detectors and gathered neighbours (models/keypoints.py and the
+# gathered descriptors at scene scale)
+# ---------------------------------------------------------------------------
+
+def tiled_gather_radius_neighbors(queries: torch.Tensor,  # [Q, 3] sorted
+                                  points: torch.Tensor,   # [N, 3] sorted
+                                  mask: torch.Tensor,     # [N]
+                                  plan: TilePlan, radius: float,
+                                  capacity: int,
+                                  exclude_zero_dist: bool = False
+                                  ) -> NeighborBlock:
+    """Windowed ops.neighbors.gather_radius_neighbors, the capacity
+    min(capacity, window) as in a slab; indices into the sorted cloud."""
+    starts = torch.as_tensor(plan.starts, device=points.device)
+    chunk_of = torch.arange(plan.n_chunks, device=points.device)
+
+    def inner(qs, ps):
+        q, ci = qs
+        p, pm = ps
+        nb = gather_radius_neighbors(q, p, pm, radius, capacity,
+                                     exclude_zero_dist)
+        # window-local indices back to the sorted cloud's
+        base = starts[ci[:, 0]][:, None, None]
+        return (torch.where(nb.valid, nb.idx + base, nb.idx), nb.dist,
+                nb.valid)
+
+    ci = chunk_of.repeat_interleave(plan.chunk)
+    return NeighborBlock(*map_chunks(
+        inner, (queries, ci), (1e9, 0), (points, mask), plan))
+
+
+def tiled_payload_moments(queries: torch.Tensor, points: torch.Tensor,
+                          payload: torch.Tensor,  # [N, P]
+                          mask: torch.Tensor, plan: TilePlan, radius: float):
+    """Per query (in-radius count [Q], sum of the in-radius points'
+    payload rows [Q, P]): the accumulation behind the tiled Harris3D and
+    ISS3D responses."""
+    r2 = float(np.float32(radius * radius))
+
+    def inner(qs, ps):
+        (q,) = qs
+        p, pl, pm = ps
+        g, nq = q.shape[:2]
+        cnt = torch.empty((g, nq), dtype=torch.int64, device=q.device)
+        sums = torch.empty((g, nq, pl.shape[-1]), dtype=q.dtype,
+                           device=q.device)
+        for r0, r1 in row_steps(g, nq, p.shape[1]):
+            in_r = (sqdist(q[:, r0:r1], p) <= r2) & pm[:, None, :]
+            cnt[:, r0:r1] = in_r.sum(-1)
+            with full_fp32():
+                sums[:, r0:r1] = in_r.to(q.dtype) @ pl
+        return cnt, sums
+
+    return map_chunks(inner, (queries,), (1e9,), (points, payload, mask),
+                      plan, row_bytes=13 + 4 * payload.shape[1])
+
+
+def tiled_neighbor_max(queries: torch.Tensor, points: torch.Tensor,
+                       values: torch.Tensor,  # [N]
+                       mask: torch.Tensor, plan: TilePlan, radius: float,
+                       exclude_zero_dist: bool = False):
+    """Per query (in-radius count [Q], max in-radius value [Q]): the
+    non-max suppression of the tiled detectors."""
+    r2 = float(np.float32(radius * radius))
+
+    def inner(qs, ps):
+        (q,) = qs
+        p, v, pm = ps
+        g, nq = q.shape[:2]
+        cnt = torch.empty((g, nq), dtype=torch.int64, device=q.device)
+        vmax = torch.empty((g, nq), dtype=v.dtype, device=q.device)
+        for r0, r1 in row_steps(g, nq, p.shape[1]):
+            d2 = sqdist(q[:, r0:r1], p)
+            in_r = (d2 <= r2) & pm[:, None, :]
+            if exclude_zero_dist:
+                in_r = in_r & (d2 > 0)
+            cnt[:, r0:r1] = in_r.sum(-1)
+            vb = v[:, None, :].expand(in_r.shape)
+            vmax[:, r0:r1] = torch.where(in_r, vb, torch.full_like(
+                vb, float("-inf"))).amax(-1)
+        return cnt, vmax
+
+    return map_chunks(inner, (queries,), (1e9,), (points, values, mask),
+                      plan, row_bytes=17)
+
+
+def tiled_gaussian_smooth(queries: torch.Tensor, points: torch.Tensor,
+                          values: torch.Tensor,  # [N]
+                          mask: torch.Tensor, plan: TilePlan,
+                          sigma: float) -> torch.Tensor:
+    """Gaussian-weighted mean of the neighbours' values truncated at 3
+    sigma (SIFT3D's smoothing; the query's own value takes part when the
+    queries are the points)."""
+    s2 = float(np.float32(sigma * sigma))
+    cut = float(np.float32(9.0 * sigma * sigma))
+
+    def inner(qs, ps):
+        (q,) = qs
+        p, v, pm = ps
+        g, nq = q.shape[:2]
+        out = torch.empty((g, nq), dtype=v.dtype, device=q.device)
+        for r0, r1 in row_steps(g, nq, p.shape[1]):
+            d2 = sqdist(q[:, r0:r1], p)
+            K = torch.exp(-0.5 * d2 / s2)
+            K = torch.where((d2 <= cut) & pm[:, None, :], K,
+                            torch.zeros_like(K))
+            ks = torch.clamp(K.sum(-1), min=1e-12)
+            with full_fp32():
+                out[:, r0:r1] = (K @ v[..., None])[..., 0] / ks
+        return (out,)
+
+    return map_chunks(inner, (queries,), (1e9,), (points, values, mask),
+                      plan, row_bytes=17)[0]
+
+
+def tiled_sift_extrema(queries: torch.Tensor, points: torch.Tensor,
+                       layers: torch.Tensor,  # [N, L]
+                       mask: torch.Tensor, plan: TilePlan, radius: float):
+    """Per query (has a neighbour, min, max) of the neighbours' values over
+    every column of `layers` within the radius, the query itself excluded
+    -- queries are the sorted points, query i point i, excluded by index
+    (ops/keypoint_detectors.sift_extrema) -- and any point at distance 0:
+    SIFT3D's scale-space extremum test."""
+    r2 = float(np.float32(radius * radius))
+    inf = float("inf")
+    dev = points.device
+    q_index = torch.arange(queries.shape[0], device=dev)
+    p_index = torch.arange(points.shape[0], device=dev)
+
+    def inner(qs, ps):
+        q, qi = qs
+        p, lv, pm, pi = ps
+        g, nq = q.shape[:2]
+        any_nb = torch.empty((g, nq), dtype=torch.bool, device=q.device)
+        lo = torch.empty((g, nq), dtype=lv.dtype, device=q.device)
+        hi = torch.empty((g, nq), dtype=lv.dtype, device=q.device)
+        ell = lv.shape[-1]
+        for r0, r1 in row_steps(g * ell, nq, p.shape[1]):
+            d2 = sqdist(q[:, r0:r1], p)
+            nb = (d2 <= r2) & pm[:, None, :] & (d2 > 0) \
+                & (qi[:, r0:r1, None] != pi[:, None, :])
+            lb = lv[:, None, :, :].expand(nb.shape + (ell,))
+            lo[:, r0:r1] = torch.where(nb[..., None], lb, torch.full_like(
+                lb, inf)).amin((-2, -1))
+            hi[:, r0:r1] = torch.where(nb[..., None], lb, torch.full_like(
+                lb, -inf)).amax((-2, -1))
+            any_nb[:, r0:r1] = nb.any(-1)
+        return any_nb, lo, hi
+
+    return map_chunks(inner, (queries, q_index), (1e9, -1),
+                      (points, layers, mask, p_index), plan,
+                      row_bytes=21 + 4 * layers.shape[1])

@@ -6,10 +6,14 @@ worker.
     pool = JaxPool(3)
     job = pool.train(files, cfg)        # queued; up to 3 run at once
     want, seeds = job.result()          # .state.codebook / .state.dims_map
+    job = pool.call("zoo_jobs:features", cfg=cfg, files=files)
+    arrays = job.result()               # the function's dict of arrays
 
 Each job is a plain subprocess (no executor threads in the test process)
 that runs the JAX package on the CPU and writes numpy arrays to a file; a
-job past TIMEOUT is killed and the test fails.
+job past TIMEOUT is killed and the test fails.  Besides trainings, a pool
+calls any function of a module under tests/ that returns a dict of
+arrays (JaxPool.call).
 """
 
 import json
@@ -45,6 +49,8 @@ with ctx as seeds:
     ism.train()
 out = {"cb_" + k: np.asarray(v)
        for k, v in ism.state.codebook._asdict().items()}
+if ism.state.global_descriptors is not None:
+    out["glob_desc"] = np.asarray(ism.state.global_descriptors)
 keys = sorted(ism.state.dims_map)
 out["dims_keys"] = np.array(keys)
 out["dims_vals"] = np.array([ism.state.dims_map[k] for k in keys])
@@ -54,9 +60,24 @@ np.savez(sys.argv[2], **out)
 """ % (TESTS, TESTS)
 
 
+_CALL = """
+import importlib, json, os, sys
+import numpy as np
+sys.path[:0] = [%r, os.path.dirname(%r)]
+spec = json.load(open(sys.argv[1]))
+os.environ.update(spec["env"])
+import jax
+jax.config.update("jax_platforms", "cpu")
+mod, fn = spec["func"].split(":")
+out = getattr(importlib.import_module(mod), fn)(**spec["kwargs"])
+np.savez(sys.argv[2], **out)
+""" % (TESTS, TESTS)
+
+
 class _Job:
-    def __init__(self, pool, spec):
+    def __init__(self, pool, spec, code=_CODE):
         self._pool = pool
+        self._code = code
         self._dir = tempfile.mkdtemp(prefix="jax_job_")
         self._spec = os.path.join(self._dir, "spec.json")
         self._out = os.path.join(self._dir, "out.npz")
@@ -69,13 +90,14 @@ class _Job:
         env = dict(os.environ, JAX_PLATFORMS="cpu")
         self._err = open(os.path.join(self._dir, "stderr.txt"), "w")
         self._proc = subprocess.Popen(
-            [sys.executable, "-c", _CODE, self._spec, self._out], env=env,
+            [sys.executable, "-c", self._code, self._spec, self._out],
+            env=env,
             stdout=subprocess.DEVNULL, stderr=self._err)
 
     def result(self):
-        """(the trained model's state as numpy: .state.codebook and
-        .state.dims_map, the k-means seeds JAX's k-means++ picked when
-        recorded)."""
+        """(the trained model's state as numpy: .state.codebook,
+        .state.dims_map and .state.global_descriptors, the k-means seeds
+        JAX's k-means++ picked when recorded); a call's dict of arrays."""
         if self._result is None:
             self._pool._run_until(self)
             try:
@@ -93,13 +115,18 @@ class _Job:
             with np.load(self._out) as z:
                 a = dict(z)
             shutil.rmtree(self._dir, ignore_errors=True)
+            if self._code is _CALL:
+                self._result = a
+                self._pool._done(self)
+                return a
             cb = {k[3:]: v for k, v in a.items() if k.startswith("cb_")}
             dims = {int(k): tuple(float(x) for x in v)
                     for k, v in zip(a["dims_keys"], a["dims_vals"])}
             seeds = {int(k[5:]): v for k, v in a.items()
                      if k.startswith("seed_")}
             self._result = (SimpleNamespace(state=SimpleNamespace(
-                codebook=SimpleNamespace(**cb), dims_map=dims)), seeds)
+                codebook=SimpleNamespace(**cb), dims_map=dims,
+                global_descriptors=a.get("glob_desc"))), seeds)
             self._pool._done(self)
         return self._result
 
@@ -118,6 +145,17 @@ class JaxPool:
         descriptors)."""
         job = _Job(self, {"files": [list(f) for f in files], "cfg": cfg,
                           "env": dict(env), "record_seeds": record_seeds})
+        self._queued.append(job)
+        self._fill()
+        return job
+
+    def call(self, func, env=(("PCD_TRAIN_FUSED", "1"),
+                              ("PCD_DENSE_DESC", "1")), **kwargs):
+        """`func` ("module:function" of a module under tests/) called on
+        the CPU with the JSON-able `kwargs`; it returns a dict of numpy
+        arrays, which result() gives back."""
+        job = _Job(self, {"func": func, "kwargs": kwargs, "env": dict(env)},
+                   _CALL)
         self._queued.append(job)
         self._fill()
         return job

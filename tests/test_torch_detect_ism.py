@@ -275,13 +275,14 @@ def test_save_reference_round_trip(tmp_path):
 
 
 REFUSALS = {
-    "detector_keypoints": ({"Children": {"Keypoints": {
-        "Type": "ISS3D", "Parameters": {}}}}, "A15"),
+    "detector_keypoints": ({"Children": {
+        "Keypoints": {"Type": "ISS3D", "Parameters": {}},
+        "Features": {"Type": "NARF", "Parameters": {}}}}, "A15.4"),
     "descriptor": ({"Children": {"Features": {
-        "Type": "FPFH", "Parameters": {"Radius": 0.6}}}}, "A15"),
+        "Type": "PFH", "Parameters": {"Radius": 0.6}}}}, "A15.4"),
     "whole_cloud_globals": ({"Children": {
         "GlobalFeatures": {"Type": "ESF"},
-        "Voting": {"Parameters": {"UseGlobalFeatures": True}}}}, "A15"),
+        "Voting": {"Parameters": {"UseGlobalFeatures": True}}}}, "A15.4"),
 }
 
 

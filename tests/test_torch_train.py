@@ -441,9 +441,9 @@ def _set(cfg, path, value):
 @pytest.mark.parametrize("path,value,reason", [
     (("Children", "GlobalFeatures", "Type"), "ESF", "global features"),
     (("Children", "GlobalFeatures", "Type"), "CVFH", "CVFH"),
-    (("Children", "Features", "Type"), "FPFH", "FPFH"),
-    (("Children", "Keypoints"), {
-        "Type": "ISS3D", "Parameters": {"SalientRadius": 0.3}}, "ISS3D"),
+    (("Children", "Features", "Type"), "PFH", "PFH"),
+    (("Children", "Features", "Parameters", "ReferenceFrameType"), "BOARD",
+     "BOARD"),
     (("Parameters", "UseDeviceMesh"), True, "UseDeviceMesh"),
 ])
 def test_unported_training_configs_raise(path, value, reason):
