@@ -176,7 +176,19 @@ Phases (each prints its results; any failure raises and exits nonzero):
      features against JAX's, the maxima end to end; 12d Harris3D / ISS3D
      + FPFH on a 1e5-point scene (the tiled detectors, FPFH's doubled
      window; peak memory); 12e eval_classification.py -t / -d on the card
-     (the JAX CLI's labels).
+     (the JAX CLI's labels);
+ 13. the rest of the descriptor zoo against data/zoo2_reference.npz
+     (tests/zoo2_fixtures.py; configurations in tests/zoo2_data.py,
+     contracts in tests/zoo2_check.py): 13a quickstart.ism with BSHOT,
+     SHORT_SHOT_PCL, SpinImage, PFH, 3DSC, USC, RSD (both modes), RoPS and
+     ESF_LOCAL; 13b default.ism verified by ESF, VFH, GRSD, GASD with and
+     without colour, CVFH, OURCVFH and USC_GLOBAL, with COSPAIR, RIFT and
+     GASD as local types; 13c NARF on rendered camera views -- each
+     trained and detecting through ImplicitShapeModel (codebook, global
+     rows, BSHOT's bits in their band, the maxima end to end: 12a's firm
+     decisions on quickstart.ism, 12b's firm detections on default.ism);
+     13d K4 and K4m against their twins on each new descriptor's rows (D
+     up to 1980, negative entries).
 Every step of phases 4-8 also prints its peak device memory, and phase 2
 the bits (sha256) of K1's, K2's, K3's and K6's outputs and of K7's
 in-radius counts and histograms (tests/port_fingerprint.py prints the
@@ -347,6 +359,24 @@ PATH_KERNELS = {
     "zoo_scene_harris_fpfh": ("lrf_moments", "sign_votes"),
     "zoo_scene_iss_fpfh": ("lrf_moments", "sign_votes"),
     "zoo_eval": ("lrf_moments", "sign_votes", "chisq_topk"),
+    # phase 13: the rest of the zoo -- 13a quickstart.ism (ChiSquared:
+    # K4; the SHOT LRFs at the keypoints: K1 / K2; BSHOT and
+    # SHORT_SHOT_PCL through K7), 13b default.ism (Euclidean: no K4; CSHOT
+    # through K8 where it is the local type), 13c NARF (its own keypoints,
+    # no LRF: K4 only)
+    **{pre + name: ("lrf_moments", "sign_votes", "chisq_topk")
+       + (("shot_dense",) if name in ("bshot", "short_shot_pcl") else ())
+       for pre in ("zoo2_", "zoo2_train_")
+       for name in ("bshot", "short_shot_pcl", "spin_image", "pfh", "3dsc",
+                    "usc", "rsd", "rsd_min_max", "rops", "esf_local")},
+    **{pre + name: ("lrf_moments", "sign_votes")
+       + (("shot_hist",) if name.startswith("cshot_") else ())
+       for pre in ("zoo2_", "zoo2_train_")
+       for name in ("cospair_esf", "rift_vfh", "gasd_grsd", "cshot_gasd",
+                    "cshot_gasd_shape", "cshot_cvfh", "cshot_ourcvfh",
+                    "cshot_usc_global")},
+    "zoo2_narf": ("chisq_topk",),
+    "zoo2_train_narf": ("chisq_topk",),
 }
 
 # Least time of a kernel call: the larger of its bytes (inputs read once,
@@ -1486,6 +1516,9 @@ def main():
 
     # -- 12. the descriptor zoo and the keypoint detectors -------------------
     zoo_phase(launches, card, data, dev)
+
+    # -- 13. the rest of the descriptor zoo and the whole-cloud globals -------
+    zoo2_phase(launches, card, data, dev)
 
     # -- results ----------------------------------------------------------------
     total = {k: sum(run[k] for run in launches.values()) for k in KERNELS}
@@ -4372,10 +4405,17 @@ def zoo_detection(launches, card, dev, ref, name, what):
 
     dclouds, drgbs = zd.detection_set(name)
     if cfg.root.get("DistanceType", "Euclidean") == "ChiSquared":
-        k4_at_width(cb, extract_local_features_batch(
+        # K4 and K4m at the zoo descriptor's width (FPFH's D = 33, not a
+        # multiple of 4; SHORT_CSHOT's 512): four detection clouds'
+        # features against the trained codewords
+        fss = extract_local_features_batch(
             list(dclouds[:4]), [None] * 4,
             [None] * 4 if drgbs is None else list(drgbs[:4]), fcfg, kpp, nr,
-            cm, dev, is_training=False), dev, card, name)
+            cm, dev, is_training=False)
+        k4_on_rows(torch.from_numpy(np.concatenate(
+            [f.descriptors for f in fss])).to(dev),
+            torch.from_numpy(np.asarray(cb.codewords, np.float32)).to(dev),
+            torch.from_numpy(np.asarray(cb.cw_mask)).to(dev), card, name)
     phase(f"{what}: detect_batch of {len(dclouds)} clouds x "
           f"{dclouds.shape[1]} points ({card})")
     ism.detect_batch(list(dclouds[:2]), None,
@@ -4405,18 +4445,14 @@ def zoo_detection(launches, card, dev, ref, name, what):
         assert not bad, f"{name}: end to end vs JAX: {bad[:3]}"
 
 
-def k4_at_width(cb, fss, dev, card, what):
-    """K4 (k = 1) and K4m against their twins on the card at a zoo
-    descriptor's width (FPFH's D = 33, not a multiple of 4; SHORT_CSHOT's
-    512): four detection clouds' features against the trained codewords,
-    phase 2's tolerances (distances within rtol 1e-5, indices equal but at
-    ties; K4m's matrix within rtol 1e-5)."""
-    import numpy as np
+def k4_on_rows(a, b, m, card, what):
+    """K4 (k = 1) and K4m against their twins on the card on the rows a
+    [Q, D] against b [C, D] (live where m): phase 2's tolerances
+    (distances within rtol 1e-5, indices equal but at ties; K4m's matrix
+    within rtol 1e-5)."""
     import torch
     from point_cloud_donkey_tpu_torch.ops.kernels import chisq as kchisq
-    a = torch.from_numpy(np.concatenate([f.descriptors for f in fss])).to(dev)
-    b = torch.from_numpy(np.asarray(cb.codewords, np.float32)).to(dev)
-    m = torch.from_numpy(np.asarray(cb.cw_mask)).to(dev)
+    a, b, m = a.contiguous(), b.contiguous(), m.contiguous()
     d, i = kchisq.chisq_topk(a, b, m, 1)
     pd, pi = kchisq.chisq_topk_plain(a, b, m, 1)
     rel = float(((d - pd).abs() / pd.abs().clamp(min=1e-6)).max())
@@ -4426,10 +4462,11 @@ def k4_at_width(cb, fss, dev, card, what):
     fin = torch.isfinite(pmat)
     mrel = float(((mat - pmat).abs()[fin] / pmat.abs()[fin].clamp(min=1e-6)
                   ).max())
-    print(f"{what}: K4 and K4m at D = {a.shape[1]} ({a.shape[0]} features x "
-          f"{b.shape[0]} codewords, values up to {float(a.max()):.3g}): K4 "
-          f"rtol {rel:.2e}, {int(differ.sum())} tied indices differ; K4m "
-          f"rtol {mrel:.2e} ({card})")
+    print(f"{what}: K4 and K4m at D = {a.shape[1]} ({a.shape[0]} rows x "
+          f"{b.shape[0]}, values in [{float(a.min()):.3g}, "
+          f"{float(a.max()):.3g}], {float((a == 0).float().mean()):.2f} "
+          f"zero): K4 rtol {rel:.2e}, {int(differ.sum())} tied indices "
+          f"differ; K4m rtol {mrel:.2e} ({card})")
     assert rel <= 1e-5 and torch.allclose(d[differ], pd[differ], rtol=1e-5), \
         f"{what}: K4 off its twin at D = {a.shape[1]}"
     assert mrel <= 1e-5 and torch.equal(fin, torch.isfinite(mat)), \
@@ -4571,6 +4608,292 @@ def zoo_eval(launches, card, ref):
     missing = [k for k in PATH_KERNELS["zoo_eval"]
                if launches["zoo_eval"][k] == 0]
     assert not missing, f"12e: kernels not launched {missing}"
+
+
+# -- phase 13: the rest of the descriptor zoo and the whole-cloud globals -----
+
+def zoo2_phase(launches, card, data, dev):
+    """Phase 13: the rest of the descriptor zoo through ImplicitShapeModel
+    on the card, against data/zoo2_reference.npz (the JAX package on the
+    CPU, tests/zoo2_fixtures.py; configurations and inputs:
+    tests/zoo2_data.py):
+      13a quickstart.ism (x70, ChiSquared) with BSHOT, SHORT_SHOT_PCL,
+          SpinImage, PFH, 3DSC, USC, RSD (both modes), RoPS and ESF_LOCAL:
+          training on the five bench clouds, detect_batch of the 32 bench
+          clouds;
+      13b default.ism (x0.3) on 10a's 16 coloured scenes: COSPAIR + ESF,
+          RIFT + VFH, GASD (local) + GRSD, CSHOT + GASD with and without
+          colour, CVFH, OURCVFH and USC_GLOBAL (the SVM per maximum);
+      13c quickstart.ism with NARF on rendered camera views;
+      13d K4 and K4m against their twins on each new descriptor's rows
+          (13a-13c's detection features against the codebook, the global
+          rows against themselves): D = 1980, 984, 640, negative entries.
+    Each configuration: the codebook contract (the same codeword count,
+    masks and vote classes, >= 97% of the codewords at cosine > 0.999),
+    the global rows each at cosine > 0.999, BSHOT's bits against JAX's
+    within their rounding band (tests/zoo2_check.py, the count printed),
+    and end to end 12a's firm decisions (quickstart.ism) or 12b's firm
+    detections (default.ism, tests/bench_data.firm_mismatches) against
+    JAX's; each step prints its clouds/s, stage times, launches
+    and peak memory."""
+    import numpy as np
+    import zoo2_data as zd
+    t_phase = time.perf_counter()
+    with np.load(os.path.join(data, "zoo2_reference.npz")) as z:
+        ref = dict(z)
+    rows = []
+    for name in zd.CONFIGS:
+        part = "13a" if name in zd.LOCAL_13A else \
+            "13b" if name in zd.GLOBAL_13B else "13c"
+        rows += zoo2_step(launches, card, dev, ref, name, part)
+    phase(f"13d. K4 and K4m against their twins on the new descriptors' "
+          f"rows ({card})")
+    for what, a, b, m in rows:
+        k4_on_rows(a, b, m, card, what)
+    print(f"phase 13 wall time: {time.perf_counter() - t_phase:.1f} s "
+          f"({card})")
+
+
+def zoo2_step(launches, card, dev, ref, name, part):
+    """One configuration of 13a-13c (zoo2_phase); returns 13d's rows
+    [(what, rows, codewords, live)] on the device."""
+    import numpy as np
+    import torch
+    import zoo2_data as zd
+    from bench_data import (firm_decision, firm_mismatches, firm_rtol,
+                            unpack_maxima)
+    from point_cloud_donkey_tpu_torch.kernels import build
+    from point_cloud_donkey_tpu_torch.models.detect_batch import \
+        extract_local_features_batch
+    from point_cloud_donkey_tpu_torch.models.features import FeatureConfig
+    from point_cloud_donkey_tpu_torch.models.ism import (ImplicitShapeModel,
+                                                         _voting_params)
+    from point_cloud_donkey_tpu_torch.models.keypoints import KeypointParams
+    from point_cloud_donkey_tpu_torch.utils.config import IsmConfig
+    from point_cloud_donkey_tpu_torch.utils.io import save_pcd
+    cfg = IsmConfig.from_json(zd.zoo2_config(name))
+    clouds, labels, rgbs = zd.training_set(name)
+    fcfg = FeatureConfig.from_config(cfg.child("Features"))
+    gcfg = FeatureConfig.from_config(cfg.child("GlobalFeatures"))
+    phase(f"{part}. {zd.base_of(name)}.ism with {fcfg.type} (global "
+          f"{gcfg.type}): training on {len(clouds)} clouds ({card})")
+    pre = name + "_"
+    tmp = tempfile.mkdtemp(prefix="pcd_zoo2_")
+    try:
+        ism = ImplicitShapeModel(cfg, dev)
+        for i, (pts, cid) in enumerate(zip(clouds, labels)):
+            f = os.path.join(tmp, f"m{i}.pcd")
+            save_pcd(f, pts, rgb=None if rgbs is None else rgbs[i])
+            ism.add_training_model(f, int(cid), int(cid))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        build.reset_launch_counts()
+        t0 = time.perf_counter()
+        ism.train()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = build.launch_counts()
+        launches["zoo2_train_" + name] = counts
+    finally:
+        shutil.rmtree(tmp)
+    tt = {k: round(v * 1e3, 3) for k, v in ism.processing_times.items()
+          if k.startswith("train_")}
+    print(f"training: {len(clouds) / dt:.2f} clouds/s ({dt:.3f} s, host "
+          f"clock), stage ms {tt}, launches "
+          f"{ {k: v for k, v in counts.items() if v} }, peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB ({card})")
+    missing = [k for k in PATH_KERNELS["zoo2_train_" + name]
+               if counts[k] == 0]
+    assert not missing, f"{name} training: kernels not launched {missing}"
+
+    cb = ism.state.codebook
+    want = {k[len(pre) + 3:]: ref[k] for k in ref
+            if k.startswith(pre + "cb_")}
+    assert cb.codewords.shape == want["codewords"].shape, \
+        f"{name}: codebook {cb.codewords.shape}, JAX " \
+        f"{want['codewords'].shape}"
+    for k in ("cw_mask", "vote_mask", "vote_class"):
+        assert np.array_equal(getattr(cb, k), want[k]), f"{name}: {k}"
+    share, cmin = zoo2_cosines(cb.codewords, want["codewords"],
+                               zd.CODEWORD_ATOL.get(name))
+    print(f"codebook: {len(cb.codewords)} codewords as JAX's, "
+          f"{100 * share:.2f}% at cosine > 0.999"
+          + (f" or within atol {zd.CODEWORD_ATOL[name]}"
+             if name in zd.CODEWORD_ATOL else "")
+          + f" (min cosine {cmin:.5f}, max |delta| "
+          f"{np.abs(cb.codewords - want['codewords']).max():.3g})")
+    if name == "bshot":
+        # a flipped bit of ~100 ones moves the cosine below 0.999: BSHOT's
+        # codewords (its training features, Clustering None) are held to
+        # the bits' decision contract instead
+        zoo2_bshot_bits(clouds, ref, cfg, dev)
+    elif name == "pfh":
+        # a PFH codeword reads the normals of 64 neighbours: held feature by
+        # feature, each off JAX's explained by a normal off JAX's
+        zoo2_pfh_normals(clouds, ref, cfg, dev)
+    else:
+        assert share >= 0.97, f"{name}: codebook {share}"
+    glob = ism.state.global_descriptors
+    if pre + "glob" in ref:
+        assert glob is not None and glob.shape == ref[pre + "glob"].shape, \
+            f"{name}: global rows {None if glob is None else glob.shape}"
+        share, cmin = zoo2_cosines(glob, ref[pre + "glob"])
+        print(f"global descriptors: {len(glob)} {gcfg.type} rows as JAX's, "
+              f"min cosine {cmin:.6f}, max |delta| "
+              f"{np.abs(glob - ref[pre + 'glob']).max():.3g}")
+        assert cmin > 0.999, f"{name}: global rows off JAX's"
+
+    dclouds, drgbs = zd.detection_set(name)
+    phase(f"{part}. {name}: detect_batch of {len(dclouds)} clouds x "
+          f"{dclouds[0].shape[0]} points ({card})")
+    ism.detect_batch(dclouds[:2], None, None if drgbs is None
+                     else drgbs[:2])  # warm-up
+    got = timed_detect(ism, dclouds, drgbs, "zoo2_" + name, launches, card)
+    want = unpack_maxima({k[len(pre) + 4:]: v for k, v in ref.items()
+                          if k.startswith(pre + "max_")})[:len(got)]
+    same = sum(bool(g) == bool(w) and (not g or g[0].class_id
+                                       == int(w[0]["class_id"]))
+               for g, w in zip(got, want))
+    if zd.base_of(name) == "quickstart" or name in zd.DECISIONS_ONLY:
+        # 12a's contract: the firm decisions (margin > 0.1)
+        firm = [i for i, w in enumerate(want) if firm_decision(w)]
+        agree = [i for i in firm if got[i] and got[i][0].class_id
+                 == int(want[i][0]["class_id"])]
+        print(f"end to end: maxima[0].class_id equals JAX's on "
+              f"{len(agree)}/{len(firm)} firm clouds (margin > 0.1), the "
+              f"top class on {same}/{len(got)}; {sum(map(len, got))} maxima "
+              f"({sum(map(len, want))} JAX's)")
+        assert len(agree) == len(firm), \
+            f"{name}: decisions differ on {set(firm) - set(agree)}"
+    else:
+        # 12b's: the firm detections
+        vparams = _voting_params(ism.config.child("Voting"))
+        bw = ism.config.child("Voting").get("Bandwidth", 0.1)
+        bad = [(i, b) for i, (g, w) in enumerate(zip(got, want))
+               for b in [firm_mismatches(g, w, bw, firm_rtol(
+                   vparams.voting_type))] if b]
+        print(f"end to end: {len(got) - len(bad)}/{len(got)} clouds meet "
+              f"the detection contract, the top class as JAX's on {same}; "
+              f"{sum(map(len, got))} maxima ({sum(map(len, want))} JAX's)")
+        assert not bad, f"{name}: end to end vs JAX: {bad[:3]}"
+
+    kpp = KeypointParams.from_config(cfg.child("Keypoints"))
+    fss = extract_local_features_batch(
+        dclouds[:4], [None] * 4, [None] * 4 if drgbs is None else drgbs[:4],
+        fcfg, kpp, cfg.root.get("NormalRadius", 0.05),
+        cfg.root.get("ConsistentNormalsMethod", 2), dev, is_training=False)
+    a = np.concatenate([f.descriptors for f in fss])
+    out = [(f"{name} ({fcfg.type})", torch.from_numpy(a).to(dev),
+            torch.from_numpy(np.asarray(cb.codewords, np.float32)).to(dev),
+            torch.from_numpy(np.asarray(cb.cw_mask)).to(dev))]
+    if glob is not None:
+        g = torch.from_numpy(np.asarray(glob, np.float32)).to(dev)
+        out.append((f"{name} ({gcfg.type} rows)", g, g,
+                    torch.ones(len(g), dtype=torch.bool, device=dev)))
+    return out
+
+
+def zoo2_cosines(a, b, atol=None):
+    """(share of rows at cosine > 0.999 -- or, with `atol`, within it of
+    b's --, the least cosine)."""
+    import numpy as np
+    cos = (a * b).sum(1) / np.maximum(np.linalg.norm(a, axis=1)
+                                      * np.linalg.norm(b, axis=1), 1e-30)
+    ok = cos > 0.999
+    if atol is not None:
+        ok |= (np.abs(a - b) <= atol).all(1)
+    return float(ok.mean()), float(cos.min())
+
+
+def zoo2_pfh_normals(clouds, ref, cfg, dev):
+    """13a's PFH contract on each training cloud: the normals within 1e-3
+    of JAX's on >= 99.5% of the points (tests/test_torch_scene.py's
+    normals contract); the features at the keypoints both keep at cosine >
+    0.999 or within the golden atol 0.15 of JAX's, but where a neighbour
+    within the radius has a normal off JAX's by more than 1e-4 (a point
+    whose SHOT LRF's eigenvalues nearly tie turns its normal)."""
+    import numpy as np
+    import torch
+    import zoo2_data as zd
+    from point_cloud_donkey_tpu_torch.models.detect_batch import \
+        extract_local_features_batch
+    from point_cloud_donkey_tpu_torch.models.features import (
+        FeatureConfig, pad_cloud)
+    from point_cloud_donkey_tpu_torch.models.keypoints import KeypointParams
+    from point_cloud_donkey_tpu_torch.ops.neighbors import full_fp32
+    from point_cloud_donkey_tpu_torch.ops.normals import compute_normals
+    fcfg = FeatureConfig.from_config(cfg.child("Features"))
+    kpp = KeypointParams.from_config(cfg.child("Keypoints"))
+    nr = cfg.root.get("NormalRadius", 0.05)
+    cm = cfg.root.get("ConsistentNormalsMethod", 2)
+    none = [None] * len(clouds)
+    fss = extract_local_features_batch(clouds, none, none, fcfg, kpp, nr,
+                                       cm, dev)
+    off_rows = explained = turned = 0
+    for i, (xyz, fs) in enumerate(zip(clouds, fss)):
+        pts, mask = pad_cloud(xyz)
+        with full_fp32():
+            nrm = compute_normals(torch.from_numpy(pts)[None].to(dev),
+                                  torch.from_numpy(mask)[None].to(dev), nr,
+                                  cm).normals[0, :len(xyz)].cpu().numpy()
+        dots = np.abs((nrm * ref[f"pfh_normals{i}"]).sum(1))
+        assert (dots > 0.999).mean() >= 0.995, f"pfh cloud {i}: normals"
+        moved = xyz[dots < 1 - 1e-4]
+        turned += len(moved)
+        wpos = ref[f"pfh_feat_pos{i}"]
+        d2 = ((fs.positions[:, None] - wpos[None]) ** 2).sum(-1)
+        j = d2.argmin(1)
+        assert (d2[np.arange(len(j)), j] == 0).all(), f"pfh cloud {i}"
+        a, b = fs.descriptors, ref[f"pfh_feat_desc{i}"][j]
+        share, _ = zoo2_cosines(a, b, zd.CODEWORD_ATOL["pfh"])
+        cos = (a * b).sum(1) / np.maximum(np.linalg.norm(a, axis=1)
+                                          * np.linalg.norm(b, axis=1), 1e-30)
+        off = (cos <= 0.999) & ~(np.abs(a - b) <= 0.15).all(1)
+        for r in np.flatnonzero(off):
+            near = ((moved - fs.positions[r]) ** 2).sum(1) <= fcfg.radius ** 2
+            assert near.any(), f"pfh cloud {i} feature {r}: off JAX's " \
+                f"(cosine {cos[r]:.5f}) with every normal in its support " \
+                "as JAX's"
+        off_rows += int(off.sum())
+    print(f"13a PFH: {turned} normals of {sum(map(len, clouds))} off JAX's "
+          f"by > 1e-4; {off_rows} features off JAX's, each with such a "
+          "normal within its radius")
+
+
+def zoo2_bshot_bits(clouds, ref, cfg, dev):
+    """13a's decision contract of BSHOT's bits: on each training cloud,
+    the port's BSHOT (K7's SHOT binarised) against JAX's at the keypoints
+    both keep, each group that differs within its rounding band of JAX's
+    and the port's SHOT (tests/zoo2_check.bshot_near)."""
+    import dataclasses
+    import numpy as np
+    import zoo2_check as zc
+    from point_cloud_donkey_tpu_torch.models.detect_batch import \
+        extract_local_features_batch
+    from point_cloud_donkey_tpu_torch.models.features import FeatureConfig
+    from point_cloud_donkey_tpu_torch.models.keypoints import KeypointParams
+    fcfg = FeatureConfig.from_config(cfg.child("Features"))
+    kpp = KeypointParams.from_config(cfg.child("Keypoints"))
+    args = (cfg.root.get("NormalRadius", 0.05),
+            cfg.root.get("ConsistentNormalsMethod", 2), dev)
+    none = [None] * len(clouds)
+    bits = extract_local_features_batch(clouds, none, none, fcfg, kpp, *args)
+    shot = extract_local_features_batch(
+        clouds, none, none, dataclasses.replace(fcfg, type="SHOT"), kpp,
+        *args)
+    differ, near = [], []
+    for i, (fb, fs) in enumerate(zip(bits, shot)):
+        assert np.array_equal(fb.positions, fs.positions)
+        wpos = ref[f"bshot_feat_pos{i}"]
+        d2 = ((fb.positions[:, None] - wpos[None]) ** 2).sum(-1)
+        j = d2.argmin(1)
+        hit = d2[np.arange(len(j)), j] <= (1e-4 * kpp.leaf_size) ** 2
+        differ.append(zc.bits_differ(fb.descriptors[hit],
+                                     ref[f"bshot_feat_desc{i}"][j[hit]]))
+        near.append(zc.bshot_near(fs.descriptors[hit],
+                                  ref[f"bshot_shot_desc{i}"][j[hit]]))
+    zc.report("13a BSHOT groups on the training clouds",
+              np.concatenate(differ), np.concatenate(near))
 
 
 if __name__ == "__main__":

@@ -32,11 +32,15 @@
 //   then sum = fma(d * d, r, sum); no branch and no IEEE division.  The
 //   reciprocal's error is at most 1 ulp, so each term is within ~2 ulp of
 //   the correctly rounded d^2 / s, and a sum of positive terms within
-//   ~2^-22 relative of the plain twin's (rtol 1e-5 is the contract).  A
-//   subnormal s (0 < s < FLT_MIN) gives 0 as the division does: it needs
-//   |a|, |b| < 2^-102, so d * d underflows to 0 and d^2 / s = 0.  Inputs
-//   above 2^125 in magnitude are out of contract (ftz flushes 1 / s to 0
-//   there); descriptors are normalised histograms in [0, 1].
+//   ~2^-22 relative of the plain twin's (rtol 1e-5 is the contract).
+//   Entries may take either sign (RoPS's central moments and NARF's beams
+//   are negative, BSHOT's terms are mostly 0 + 0): a term with s <= 0
+//   counts 0, as the reference's a + b > 0 selects.  A subnormal s
+//   (0 < s < FLT_MIN) gives 0 as the division does, whatever the signs:
+//   s = a + b is a multiple of the smaller ulp of a and b, so it needs
+//   |a|, |b| < 2^-102, and then d * d underflows to 0 and d^2 / s = 0.
+//   Inputs above 2^125 in magnitude are out of contract (ftz flushes 1 / s
+//   to 0 there).
 // - Top-k.  Each thread keeps a running top-k of its own codewords for its
 //   4 descriptors in registers (a branch-free insertion in (distance,
 //   index) order).  At the end the 16 threads that share a descriptor merge

@@ -10,9 +10,9 @@ voxel-key order -> (VoxelGridCulling: the culling scores of the chunk on
 the device in one go, models/keypoints.culling_scores, then the
 thresholds and the refinement row by row on the host,
 models/keypoints.apply_culling_host) -> SHOT LRFs at the keypoints -> the
-descriptor of every keypoint on the dense [B, K] grid (SHOT through K7,
-CSHOT through K8, SHORT_SHOT through K9, FPFH and SHORT_CSHOT over
-neighbour gathers).  The normals are computed on the
+descriptor of every keypoint on the dense [B, K] grid (SHOT, BSHOT and
+SHORT_SHOT_PCL through K7, CSHOT through K8, SHORT_SHOT through K9, the
+rest over neighbour gathers: models/features.local_descriptors).  The normals are computed on the
 device (ops/normals.compute_normals; method 2: the full SHOT LRF of every
 point, PCA where it is invalid; methods 0 and 1: the oriented PCA normal)
 -- the JAX fused route -- unless a cloud of the chunk carries its own
@@ -28,9 +28,10 @@ device for the activation (:class:`FusedChunk`); the host reads one packed
 array per chunk to build the per-cloud feature sets.  With a keypoint
 detector (Harris3D, ISS3D, SIFT3D: the JAX per-cloud route) each cloud's
 keypoints come from models/keypoints.detector_mask over the chunk's
-normals, and the chunk's descriptors are computed on them.  The
-descriptors and LRFs the port does not compute are refused
-(:func:`extraction_unsupported`).
+normals, and the chunk's descriptors are computed on them.  NARF and GASD
+take the per-cloud route of the JAX package (models/features.
+narf_features, gasd_local_features).  The descriptors and LRFs the port
+does not compute are refused (:func:`extraction_unsupported`).
 """
 
 from __future__ import annotations
@@ -44,10 +45,10 @@ from ..ops import tiled
 from ..ops.neighbors import full_fp32
 from ..ops.normals import compute_normals
 from ..ops.voxel_grid import voxel_grid
-from .features import (DESCRIPTORS, FeatureConfig, bucket_groups,
-                       chunk_width, compute_cloud_normals,
-                       extract_local_features_scene, local_descriptors,
-                       padded_chunk)
+from .features import (DESCRIPTORS, PER_CLOUD_DESCRIPTORS, FeatureConfig,
+                       bucket_groups, chunk_width, compute_cloud_normals,
+                       extract_local_features_scene, gasd_local_features,
+                       local_descriptors, narf_features, padded_chunk)
 from .keypoints import (DETECTORS, KeypointParams, apply_culling_host,
                         check_culling_methods, culling_disabled,
                         culling_needs_normals, culling_scores,
@@ -56,13 +57,7 @@ from .types import FeatureSet, make_feature_set
 
 
 # the descriptors still to port, each with its ROADMAP queue item
-UNPORTED_DESCRIPTORS = {
-    **{t: "A15.4" for t in ("BSHOT", "PFH", "SpinImage", "3DSC", "USC",
-                            "USC_GLOBAL", "RSD", "RoPS", "COSPAIR", "RIFT",
-                            "ESF_LOCAL", "NARF", "SHORT_SHOT_PCL", "GASD",
-                            "ESF", "VFH", "GRSD", "CVFH", "OURCVFH")},
-    "CGF": "A15.5",
-}
+UNPORTED_DESCRIPTORS = {"CGF": "A15.5"}
 
 
 def extraction_unsupported(fcfg: FeatureConfig) -> Optional[str]:
@@ -280,6 +275,18 @@ def extract_local_features_batch(
     if col_cull and any(r is None for r in rgb_list):
         raise ValueError("color culling needs RGB data")
     out: List[Optional[FeatureSet]] = [None] * len(clouds)
+    if fcfg.type in PER_CLOUD_DESCRIPTORS:
+        for i, xyz in enumerate(clouds):
+            xyz = np.asarray(xyz, np.float32)
+            fs = narf_features(xyz, fcfg, device) if fcfg.type == "NARF" \
+                else gasd_local_features(xyz, rgb_list[i], fcfg, kp_params,
+                                         device, lrf_version, is_training)
+            out[i] = fs
+            if device_cache is not None:
+                device_cache.append(FusedChunk(
+                    desc=torch.from_numpy(fs.descriptors).to(device)[None],
+                    chunk=[i], keep=np.ones((1, len(fs.descriptors)), bool)))
+        return out  # type: ignore[return-value]
     small = [i for i, c in enumerate(clouds)
              if len(c) <= tiled.SCENE_TILE_THRESHOLD]
     for i in range(len(clouds)):

@@ -2,9 +2,8 @@
 chunk helpers and normals, and the global features (port of
 ``FeatureConfig``, ``bucket_size``, ``pad_cloud``,
 ``compute_cloud_normals`` and ``extract_global_features`` of
-point_cloud_donkey_tpu/models/features.py, for the descriptors the port
-computes: SHOT, CSHOT, SHORT_SHOT, SHORT_CSHOT and FPFH, and the *_GLOBAL
-forms of all but FPFH).
+point_cloud_donkey_tpu/models/features.py, for every descriptor of the
+JAX package but CGF).
 
 :func:`compute_cloud_normals` gives the normals of the JAX staged route
 (normals provided by the cloud files, ConsistentNormalsMethod 3's EMST
@@ -18,10 +17,17 @@ ReferenceFrameRadius, and a colour descriptor's keypoint colour is the
 cloud's mean colour.  The descriptor kernels take one radius a launch, so
 each cloud is one launch of K7, K8 or K9 (with its K1 / K2 LRF).
 
-FPFH and SHORT_CSHOT read fixed-capacity neighbour gathers
-(ops/neighbors.gather_radius_neighbors) of min(TpuNeighborCapacity, N)
-neighbours, N the padded cloud (a global descriptor: all of them), FPFH
-at most 128 (the JAX `_descriptor_fn`).
+The descriptors outside the SHOT family read fixed-capacity neighbour
+gathers (ops/neighbors.gather_radius_neighbors) of min(TpuNeighborCapacity,
+N) neighbours, N the padded cloud (a global descriptor: all of them), FPFH
+at most 128 and PFH at most 64 (the JAX `_descriptor_fn`).  NARF (its own
+keypoints on a range image) and GASD as a local feature (one whole-cloud
+row) run one cloud at a time (:func:`narf_features`,
+:func:`gasd_local_features`).  The whole-cloud globals -- ESF, VFH, GRSD,
+GASD (one row a cloud) and CVFH / OURCVFH (one a smooth region) -- run a
+chunk of clouds at a time, with the normals of the JAX batch route
+(ConsistentNormalsMethod 3 oriented by EMST; CVFH reads the curvature of
+its normal stage and a cloud's own normals where it has them).
 
 Scene scale (above ``ops.tiled.SCENE_TILE_THRESHOLD`` points, read at call
 time): :func:`scene_normals` and :func:`extract_local_features_scene` (the
@@ -32,9 +38,9 @@ grid (and its culling, models/keypoints.py) on the sorted cloud, so the
 keypoints' float sums are the JAX package's, then the keypoints sorted
 along the same axis in KEYPOINT_CHUNK chunks, planned at max(Radius,
 ReferenceFrameRadius) with a window of at least 4096 points -- twice that
-radius for FPFH, whose neighbours' own neighbourhoods take part: each
-group of chunks is one batch of K1 / K2 (the LRFs) and K7 / K8 / K9 (the
-descriptor) over the chunks' window slabs.  A scene's global descriptor
+radius for FPFH and RIFT, whose neighbours' own neighbourhoods take
+part: each group of chunks is one batch of K1 / K2 (the LRFs) and K7 / K8
+/ K9 (the descriptor) over the chunks' window slabs.  A scene's global descriptor
 takes its normals from the same tiled route; its one centroid keypoint
 stays dense.
 """
@@ -42,6 +48,7 @@ stays dense.
 from __future__ import annotations
 
 from dataclasses import dataclass
+import math
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -49,9 +56,19 @@ import numpy as np
 import torch
 
 from ..ops import tiled
+from ..ops.cospair import cospair_descriptor
+from ..ops.descriptors_misc import (bshot_binarize, pfh_descriptor,
+                                    spin_image_descriptor)
 from ..ops.fpfh import fpfh_descriptor
+from ..ops.cvfh import cvfh_descriptors
+from ..ops.global_descriptors import (esf_descriptor, gasd_descriptor,
+                                      grsd_descriptor, vfh_descriptor)
+from ..ops.narf import build_range_image, narf_descriptor, narf_keypoints
 from ..ops.lrf import shot_lrf
-from ..ops.neighbors import full_fp32, gather_radius_neighbors
+from ..ops.neighbors import full_fp32, gather_radius_neighbors, gather_rows
+from ..ops.rops import rops_descriptor
+from ..ops.shape_context import (intensity_gradients, rift_descriptor,
+                                 rsd_descriptor, shape_context_descriptor)
 from ..ops.normals import compute_normals, orient_emst
 from ..ops.kernels.shot_fused import shot_descriptor_fused
 from ..ops.shot import cshot_descriptor_dense
@@ -61,11 +78,29 @@ from ..ops.short_shot import (resolve_bins, resolve_color_bins,
 from ..utils.config import ComponentConfig
 from .types import FeatureSet, make_feature_set
 
-DESCRIPTORS = ("SHOT", "CSHOT", "SHORT_SHOT", "SHORT_CSHOT", "FPFH")
+# the local descriptors (NARF and GASD: one cloud at a time,
+# :func:`narf_features`, :func:`gasd_local_features`)
+DESCRIPTORS = ("SHOT", "CSHOT", "SHORT_SHOT", "SHORT_CSHOT", "FPFH",
+               "BSHOT", "SHORT_SHOT_PCL", "SpinImage", "PFH", "3DSC", "USC",
+               "RSD", "RIFT", "RoPS", "COSPAIR", "ESF_LOCAL", "NARF", "GASD")
+PER_CLOUD_DESCRIPTORS = ("NARF", "GASD")
+# whole-cloud descriptors (one row a cloud; CVFH / OURCVFH one a region)
+WHOLE_CLOUD_GLOBALS = ("ESF", "VFH", "GRSD", "GASD")
 GLOBAL_DESCRIPTORS = ("Dummy", "SHOT_GLOBAL", "CSHOT_GLOBAL",
-                      "SHORT_SHOT_GLOBAL", "SHORT_CSHOT_GLOBAL")
-# FPFH's neighbourhoods gather at most this many points
+                      "SHORT_SHOT_GLOBAL", "SHORT_CSHOT_GLOBAL",
+                      "USC_GLOBAL", "CVFH", "OURCVFH") + WHOLE_CLOUD_GLOBALS
+# the types that read no normals (the JAX FeatureConfig.needs_normals)
+NO_NORMALS = ("SHORT_SHOT", "SHORT_CSHOT", "SHORT_SHOT_PCL",
+              "SHORT_SHOT_GLOBAL", "SHORT_CSHOT_GLOBAL", "ESF", "ESF_LOCAL",
+              "GASD", "RoPS", "NARF", "Dummy")
+DIMS = {"SHORT_SHOT_PCL": 352, "BSHOT": 352, "FPFH": 33, "SpinImage": 153,
+        "PFH": 125, "ESF": 640, "ESF_LOCAL": 640, "VFH": 308, "CVFH": 308,
+        "OURCVFH": 308, "GRSD": 21, "3DSC": 1980, "USC": 1980,
+        "USC_GLOBAL": 1980, "RIFT": 32, "COSPAIR": 378, "RoPS": 135,
+        "NARF": 36, "Dummy": 1}
+# FPFH's neighbourhoods gather at most this many points, PFH's this many
 FPFH_CAPACITY = 128
+PFH_CAPACITY = 64
 
 
 def bucket_size(n: int, minimum: int = 256) -> int:
@@ -99,6 +134,18 @@ class FeatureConfig:
     # SHORT_CSHOT (features_short_cshot.cpp:23-34)
     short_color_shot_dims: int = 32
     short_color_hist_size: int = 15
+    gasd_with_color: bool = True  # GasdWithColor (features_gasd.cpp)
+    # CVFH / OURCVFH clustering (features_cvfh.cpp:47-53, PCL defaults)
+    cvfh_cluster_tolerance: float = 0.015
+    cvfh_eps_angle_deg: float = 10.0
+    cvfh_curv_threshold: float = 1.0
+    cvfh_min_points: int = 50
+    ourcvfh_axis_ratio: float = 0.8
+    rsd_use_hist: bool = True     # UseFullRSDHistogram (features_rsd.cpp)
+    # NARF's range image (features_narf.cpp:44-53 hardcodes a Kinect's)
+    narf_image_width: int = 640
+    narf_image_height: int = 480
+    narf_focal: float = 525.0
     # the gathers' capacity (TpuNeighborCapacity, not in the reference)
     neighbor_capacity: int = 2048
 
@@ -119,6 +166,16 @@ class FeatureConfig:
             use_min_radius=cfg.get("UseMinRadius", False),
             short_color_shot_dims=cfg.get("ShortColorShotDims", 32),
             short_color_hist_size=cfg.get("ShortColorShotHistSize", 15),
+            gasd_with_color=cfg.get("GasdWithColor", True),
+            cvfh_cluster_tolerance=cfg.get("CvfhClusterTolerance", 0.015),
+            cvfh_eps_angle_deg=cfg.get("CvfhEpsAngle", 10.0),
+            cvfh_curv_threshold=cfg.get("CvfhCurvatureThreshold", 1.0),
+            cvfh_min_points=cfg.get("CvfhMinPoints", 50),
+            ourcvfh_axis_ratio=cfg.get("OurcvfhAxisRatio", 0.8),
+            rsd_use_hist=cfg.get("UseFullRSDHistogram", True),
+            narf_image_width=cfg.get("NarfImageWidth", 640),
+            narf_image_height=cfg.get("NarfImageHeight", 480),
+            narf_focal=cfg.get("NarfFocalLength", 525.0),
             neighbor_capacity=cfg.get("TpuNeighborCapacity", 2048),
         )
 
@@ -130,10 +187,10 @@ class FeatureConfig:
             else self.type
 
     def needs_normals(self) -> bool:
-        return self.local_type not in ("SHORT_SHOT", "SHORT_CSHOT", "Dummy")
+        return self.type not in NO_NORMALS
 
     def needs_rgb(self) -> bool:
-        return self.local_type in ("CSHOT", "SHORT_CSHOT")
+        return self.local_type in ("CSHOT", "SHORT_CSHOT", "RIFT", "COSPAIR")
 
     def min_radius(self) -> float:
         """SHORT_*'s minimum radius: Radius * ShortShotMinRadius with
@@ -168,11 +225,13 @@ class FeatureConfig:
         if self.local_type == "SHORT_CSHOT":
             return self.short_shot_bins()[0] \
                 + self.color_bins()[0] * self.short_color_hist_size
-        if self.type == "FPFH":
-            return 33
-        raise NotImplementedError(
-            f"descriptor {self.type!r}: the port computes "
-            f"{', '.join(DESCRIPTORS + GLOBAL_DESCRIPTORS)}")
+        if self.type == "GASD":
+            return 984 if self.gasd_with_color else 512
+        if self.type == "RSD":
+            return 25 if self.rsd_use_hist else 2
+        if self.type in DIMS:
+            return DIMS[self.type]
+        raise ValueError(f"unsupported descriptor type {self.type!r}")
 
 
 def pad_cloud(xyz: np.ndarray, bucket: Optional[int] = None
@@ -261,40 +320,86 @@ def local_descriptors(fcfg: FeatureConfig, kp, kpm, kp_rgb, pts, nrm, rgb,
     """(descriptors [B, K, D], valid [B, K], frames [B, K, 3, 3]) of the
     keypoint rows `kp` [B, K, 3] (live where `kpm`) against their clouds
     [B, N]: the SHOT LRF at ReferenceFrameRadius (K1 / K2), then the
-    descriptor of `fcfg`'s local type at `radius` (K7, K8, K9; FPFH and
-    SHORT_CSHOT over gathers of min(`capacity`, N) neighbours, `capacity`
-    TpuNeighborCapacity unless given).  valid also requires a finite
-    descriptor; FPFH's does not require a valid frame (the JAX package
-    keeps its rows whatever their LRF)."""
+    descriptor of `fcfg`'s local type at `radius`: SHOT, BSHOT (SHOT
+    binarised) and SHORT_SHOT_PCL (SHOT with zero normals) through K7,
+    CSHOT through K8, SHORT_SHOT through K9, the others over gathers of
+    min(`capacity`, N) neighbours, `capacity` TpuNeighborCapacity unless
+    given (FPFH at most 128, PFH at most 64; the JAX `_descriptor_fn`).
+    A keypoint's normal (SpinImage's axis, COSPAIR's) is its nearest
+    neighbour's; RIFT's intensity the mean of the RGB channels.  valid
+    also requires a finite descriptor; only the SHOT family, the shape
+    contexts and the *_GLOBAL forms require a valid frame, as in the JAX
+    package."""
     lrf = shot_lrf(kp, kpm, pts, mask, fcfg.ref_frame_radius,
                    lrf_version=lrf_version)
     base = fcfg.local_type
     cap = min(fcfg.neighbor_capacity if capacity is None else capacity,
               pts.shape[1])
-    if base == "FPFH":
-        desc, valid = fpfh_descriptor(kp, kpm, pts, nrm, mask, radius,
-                                      capacity=min(cap, FPFH_CAPACITY))
-    elif base == "SHORT_CSHOT":
-        _, rb, eb, ab = fcfg.short_shot_bins()
-        _, crb, ceb, cab = fcfg.color_bins()
-        nbr = gather_radius_neighbors(kp, pts, mask, radius, cap)
-        desc, valid = short_cshot_descriptor(
-            kp, kp_rgb, lrf.frames, lrf.valid, pts, rgb, nbr, radius, rb, eb,
-            ab, crb, ceb, cab, fcfg.short_color_hist_size, fcfg.min_radius(),
-            fcfg.short_shot_log_radius)
-    elif base == "SHOT":
-        desc, valid = shot_descriptor_fused(kp, lrf.frames, lrf.valid, pts,
-                                            nrm, mask, radius)
+    if base in ("SHOT", "BSHOT", "SHORT_SHOT_PCL"):
+        desc, valid = shot_descriptor_fused(
+            kp, lrf.frames, lrf.valid, pts,
+            torch.zeros_like(nrm) if base == "SHORT_SHOT_PCL" else nrm, mask,
+            radius)
+        if base == "BSHOT":
+            desc = bshot_binarize(desc)
     elif base == "CSHOT":
         desc, valid = cshot_descriptor_dense(kp, kp_rgb, lrf.frames,
                                              lrf.valid, pts, nrm, rgb, mask,
                                              radius)
-    else:
+    elif base == "SHORT_SHOT":
         _, rb, eb, ab = fcfg.short_shot_bins()
         desc, valid = short_shot_descriptor_dense(
             kp, lrf.frames, lrf.valid, pts, mask, radius, rb, eb, ab,
             fcfg.min_radius(), fcfg.short_shot_log_radius)
+    elif base == "FPFH":
+        desc, valid = fpfh_descriptor(kp, kpm, pts, nrm, mask, radius,
+                                      capacity=min(cap, FPFH_CAPACITY))
+    elif base == "PFH":
+        nbr = gather_radius_neighbors(kp, pts, mask, radius,
+                                      min(cap, PFH_CAPACITY))
+        desc, valid = pfh_descriptor(kp, kpm, pts, nrm, nbr)
+    else:
+        nbr = gather_radius_neighbors(kp, pts, mask, radius, cap)
+        desc, valid = _gathered_descriptor(fcfg, base, kp, kpm, kp_rgb, lrf,
+                                           pts, nrm, rgb, mask, nbr, radius)
     return desc, valid & torch.isfinite(desc).all(-1), lrf.frames
+
+
+def _gathered_descriptor(fcfg, base, kp, kpm, kp_rgb, lrf, pts, nrm, rgb,
+                         mask, nbr, radius):
+    """The descriptors of :func:`local_descriptors` over one gather."""
+    if base == "SHORT_CSHOT":
+        _, rb, eb, ab = fcfg.short_shot_bins()
+        _, crb, ceb, cab = fcfg.color_bins()
+        return short_cshot_descriptor(
+            kp, kp_rgb, lrf.frames, lrf.valid, pts, rgb, nbr, radius, rb, eb,
+            ab, crb, ceb, cab, fcfg.short_color_hist_size, fcfg.min_radius(),
+            fcfg.short_shot_log_radius)
+    if base in ("3DSC", "USC"):
+        return shape_context_descriptor(kp, lrf.frames, lrf.valid, pts, nbr,
+                                        radius)
+    if base == "RSD":
+        return rsd_descriptor(kp, kpm, pts, nrm, nbr, radius,
+                              use_hist=fcfg.rsd_use_hist)
+    if base == "RoPS":
+        return rops_descriptor(kp, kpm, pts, nbr, radius)
+    if base == "RIFT":
+        grads = intensity_gradients(pts, nrm, rgb.mean(-1), mask, radius)
+        return rift_descriptor(kp, kpm, pts, grads, nbr, radius)
+    if base == "ESF_LOCAL":
+        # ESF over each keypoint's neighbourhood
+        # (features_esf_local.cpp:36-83)
+        b, k, m = nbr.idx.shape
+        sub = gather_rows(pts, nbr.idx).reshape(b * k, m, 3)
+        desc = esf_descriptor(sub, nbr.valid.reshape(b * k, m))
+        return desc.reshape(b, k, -1), kpm & (nbr.valid.sum(-1) >= 3)
+    kp_nrm = gather_rows(nrm, nbr.idx[..., 0])
+    if base == "SpinImage":
+        return spin_image_descriptor(kp, kp_nrm, kpm, pts, nbr, radius)
+    if base == "COSPAIR":
+        return cospair_descriptor(kp, kp_nrm, kpm, pts, nrm, rgb, nbr,
+                                  radius)
+    raise ValueError(f"unsupported descriptor type {fcfg.type!r}")
 
 
 def scene_normals(xyz: np.ndarray, normals_in: Optional[np.ndarray],
@@ -384,7 +489,7 @@ def extract_local_features_scene(
     kp_pad[:len(kp)] = kp
     kp_mask = np.zeros(k_bucket, bool)
     kp_mask[:len(kp)] = True
-    margin = 2.0 if fcfg.type == "FPFH" else 1.0
+    margin = 2.0 if fcfg.type in ("FPFH", "RIFT") else 1.0
     plan = tiled.plan_tiles(kp_pad[:, axis], kp_mask, pts[:, axis],
                             margin * max(fcfg.radius, fcfg.ref_frame_radius),
                             chunk, min_window=4096)
@@ -430,6 +535,148 @@ def extract_local_features_scene(
     return fs, desc[None], keep_h[None]
 
 
+def narf_features(xyz: np.ndarray, fcfg: FeatureConfig,
+                  device: torch.device) -> FeatureSet:
+    """A cloud's NARF features (the JAX ``_narf_features``): its own
+    keypoints on the range image of NarfImageWidth x NarfImageHeight at
+    NarfFocalLength, support Radius, identity frames, compact."""
+    img, _ = build_range_image(xyz, fcfg.narf_image_width,
+                               fcfg.narf_image_height, fcfg.narf_focal)
+    img_d = torch.from_numpy(img).to(device)
+    kp = narf_keypoints(img_d, float(fcfg.radius), focal=fcfg.narf_focal)
+    desc, valid = narf_descriptor(img_d, kp, float(fcfg.radius),
+                                  focal=fcfg.narf_focal)
+    k = desc.shape[0]
+    return make_feature_set(desc.cpu().numpy(), kp.xyz.cpu().numpy(),
+                            np.tile(np.eye(3, dtype=np.float32), (k, 1, 1)),
+                            valid.cpu().numpy()).compact()
+
+
+def gasd_local_features(xyz: np.ndarray, rgb: Optional[np.ndarray],
+                        fcfg: FeatureConfig, kp_params,
+                        device: torch.device, lrf_version: int = 1,
+                        is_training: bool = False) -> FeatureSet:
+    """GASD as the local descriptor (the JAX ``_gasd_local_features``):
+    one whole-cloud GASD row at the first keypoint with a valid SHOT LRF
+    (the first keypoint when none has one), with that LRF
+    (features_gasd.cpp:34-100, features.cpp:98-115)."""
+    from .keypoints import detect_keypoints
+    if fcfg.gasd_with_color and rgb is None:
+        raise ValueError("GASD with color needs RGB data "
+                         "(set GasdWithColor false)")
+    with full_fp32():
+        kp, _ = detect_keypoints(xyz, None, rgb, kp_params, device,
+                                 is_training)
+    pts, mask = pad_cloud(xyz)
+    kb = bucket_size(max(len(kp), 1), minimum=64)
+    kp_pad = np.full((kb, 3), 1e9, np.float32)
+    kp_pad[:len(kp)] = kp
+    kp_mask = np.arange(kb) < len(kp)
+    pts_d = torch.from_numpy(pts).to(device)[None]
+    mask_d = torch.from_numpy(mask).to(device)[None]
+    with full_fp32():
+        lrf = shot_lrf(torch.from_numpy(kp_pad).to(device)[None],
+                       torch.from_numpy(kp_mask).to(device)[None], pts_d,
+                       mask_d, fcfg.ref_frame_radius, lrf_version=lrf_version)
+        rgb_d = None
+        if fcfg.gasd_with_color:
+            rgb_p = np.zeros((len(pts), 3), np.float32)
+            rgb_p[:len(xyz)] = rgb
+            rgb_d = torch.from_numpy(rgb_p).to(device)[None]
+        desc = gasd_descriptor(pts_d, mask_d, rgb_d).cpu().numpy()
+    ok = lrf.valid[0].cpu().numpy() & kp_mask
+    first = int(np.argmax(ok)) if ok.any() else 0
+    cd = np.linalg.norm(kp_pad[first] - xyz.mean(axis=0), keepdims=True)
+    return make_feature_set(desc, kp_pad[first][None],
+                            lrf.frames[0, first][None].cpu().numpy(),
+                            np.isfinite(desc).all(1),
+                            cd.astype(np.float32)).compact()
+
+
+def _global_set(desc: np.ndarray, xyz: np.ndarray) -> FeatureSet:
+    """A whole-cloud feature set (not compacted, as the JAX package's):
+    the rows at the centroid with identity frames, valid where finite,
+    ``global_radius`` the cloud radius."""
+    g = desc.shape[0]
+    centroid = xyz.mean(axis=0).astype(np.float32)
+    radius = float(np.linalg.norm(xyz - centroid, axis=1).max())
+    return make_feature_set(
+        desc, np.tile(centroid, (g, 1)),
+        np.tile(np.eye(3, dtype=np.float32), (g, 1, 1)),
+        np.isfinite(desc).all(1), np.zeros(g, np.float32),
+        np.full(g, radius, np.float32))
+
+
+def _whole_cloud_chunk(clouds, normals_list, rgb_list, chunk, n, gcfg,
+                       normal_radius, cn_method, device, lrf_version):
+    """[b, D] ESF / VFH / GRSD / GASD of a chunk of clouds padded to n (the
+    JAX ``_whole_cloud_fn`` batched): normals as the JAX
+    ``_batch_normals`` gives them (method 3 oriented by EMST), GRSD at the
+    configured Radius."""
+    color = gcfg.type == "GASD" and gcfg.gasd_with_color
+    pts_b, mask_b, rgb_b = padded_chunk(clouds, chunk, n,
+                                        rgb_list if color else None)
+    pts = torch.from_numpy(pts_b).to(device)
+    mask = torch.from_numpy(mask_b).to(device)
+    with full_fp32():
+        if gcfg.type == "ESF":
+            return esf_descriptor(pts, mask)
+        if gcfg.type == "GASD":
+            return gasd_descriptor(
+                pts, mask,
+                None if rgb_b is None else torch.from_numpy(rgb_b).to(device))
+        if n > tiled.SCENE_TILE_THRESHOLD:
+            nrm_b = np.zeros(pts_b.shape, np.float32)
+            for r, ci in enumerate(chunk):
+                nrm_b[r, :len(clouds[ci])] = scene_normals(
+                    clouds[ci], normals_list[ci], normal_radius, cn_method,
+                    device, lrf_version)
+            nrm = torch.from_numpy(nrm_b).to(device)
+        else:
+            nrm = compute_cloud_normals(clouds, normals_list, chunk, pts,
+                                        mask, normal_radius, cn_method,
+                                        lrf_version)
+        if gcfg.type == "VFH":
+            return vfh_descriptor(pts, nrm, mask)
+        return grsd_descriptor(pts, nrm, mask, float(gcfg.radius))
+
+
+def _cvfh_chunk(clouds, normals_list, chunk, n, gcfg, normal_radius,
+                cn_method, device, lrf_version):
+    """The CVFH / OURCVFH rows of each cloud of a chunk (the JAX
+    ``_cvfh_global``): the curvature always from the normal stage of the
+    method, the normals a cloud's own where it has them."""
+    pts_b, mask_b, _ = padded_chunk(clouds, chunk, n)
+    pts = torch.from_numpy(pts_b).to(device)
+    mask = torch.from_numpy(mask_b).to(device)
+    with full_fp32():
+        nres = compute_normals(pts, mask, normal_radius, cn_method,
+                               lrf_version)
+    out = []
+    for r, ci in enumerate(chunk):
+        m = len(clouds[ci])
+        nrm_pad = nres.normals[r]
+        nl = normals_list[ci]
+        if nl is not None and len(nl) == m:
+            nrm = np.asarray(nl, np.float32)
+            pad = np.zeros((n, 3), np.float32)
+            pad[:m] = nrm
+            nrm_pad = torch.from_numpy(pad).to(device)
+        else:
+            nrm = nrm_pad[:m].cpu().numpy()
+        with full_fp32():
+            out.append(cvfh_descriptors(
+                clouds[ci], nrm, nres.curvature[r, :m].cpu().numpy(),
+                pts[r], nrm_pad, mask[r],
+                dist_tol=gcfg.cvfh_cluster_tolerance,
+                eps_angle=math.radians(gcfg.cvfh_eps_angle_deg),
+                curv_threshold=gcfg.cvfh_curv_threshold,
+                min_points=gcfg.cvfh_min_points,
+                with_sgurf=gcfg.type == "OURCVFH",
+                axis_ratio=gcfg.ourcvfh_axis_ratio))
+    return out
+
+
 def extract_global_features(
         clouds: Sequence[np.ndarray],
         normals_list: Sequence[Optional[np.ndarray]],
@@ -451,14 +698,31 @@ def extract_global_features(
                                  np.zeros((0, 3, 3), np.float32),
                                  np.zeros(0, bool)) for _ in clouds]
     if gcfg.type not in GLOBAL_DESCRIPTORS:
-        raise NotImplementedError(
-            f"global features {gcfg.type!r}: the port computes "
-            f"{', '.join(GLOBAL_DESCRIPTORS)}; the whole-cloud ones wait on "
-            "the descriptor zoo (ROADMAP A15.4)")
+        raise ValueError(f"unsupported global feature type {gcfg.type!r}")
     if gcfg.needs_rgb() and any(r is None for r in rgb_list):
         raise ValueError(f"{gcfg.type} needs RGB data but a cloud has none")
+    if gcfg.type == "GASD" and gcfg.gasd_with_color \
+            and any(r is None for r in rgb_list):
+        raise ValueError("GASD with color needs RGB data "
+                         "(set GasdWithColor false)")
     out: List[Optional[FeatureSet]] = [None] * len(clouds)
-    for n, chunk in bucket_groups(clouds, chunk_width(len(clouds))):
+    groups = bucket_groups(clouds, chunk_width(len(clouds)))
+    if gcfg.type in WHOLE_CLOUD_GLOBALS + ("CVFH", "OURCVFH"):
+        for n, chunk in groups:
+            if gcfg.type in WHOLE_CLOUD_GLOBALS:
+                desc = _whole_cloud_chunk(
+                    clouds, normals_list, rgb_list, chunk, n, gcfg,
+                    normal_radius, consistent_normals_method, device,
+                    lrf_version).cpu().numpy()
+                rows = [desc[r:r + 1] for r in range(len(chunk))]
+            else:
+                rows = _cvfh_chunk(clouds, normals_list, chunk, n, gcfg,
+                                   normal_radius, consistent_normals_method,
+                                   device, lrf_version)
+            for ci, d in zip(chunk, rows):
+                out[ci] = _global_set(d, np.asarray(clouds[ci]))
+        return out  # type: ignore[return-value]
+    for n, chunk in groups:
         pts_b, mask_b, rgb_b = padded_chunk(
             clouds, chunk, n, rgb_list if gcfg.needs_rgb() else None)
         pts = torch.from_numpy(pts_b).to(device)

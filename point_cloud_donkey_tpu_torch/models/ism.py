@@ -10,7 +10,9 @@ train() (implicit_shape_model.cpp:252-500), in MODEL_CHUNK-file slices:
   2. local features (models/detect_batch.py: the fused route, or its
      staged normals for files with normals and ConsistentNormalsMethod
      3), read from or written to the feature cache under CacheFeatures;
-  3. global features (models/features.extract_global_features);
+  3. global features (models/features.extract_global_features: the
+     *_GLOBAL descriptors at the centroid, the whole-cloud ESF, VFH,
+     GRSD, GASD, CVFH and OURCVFH);
 then, over every model: feature ranking (models/ranking.py), clustering
 (models/clustering.py), the codebook activation (models/codebook.py) on
 the device -- over the descriptors the extraction left there when the
@@ -20,9 +22,8 @@ descriptors (models/svm.py).  Stage wall times go to
 ``processing_times`` under the JAX package's ``train_*`` keys.
 
 What neither route trains raises NotImplementedError with the reason and
-the queue that ports it, before any cloud is read (the descriptors, LRFs
-and whole-cloud global descriptors still to port, several devices).  A cloud
-above ops.tiled.SCENE_TILE_THRESHOLD points takes the scene routes of the
+the queue that ports it, before any cloud is read (CGF, the LRF variants,
+several devices).  A cloud above ops.tiled.SCENE_TILE_THRESHOLD points takes the scene routes of the
 filters and the features (ops/tiled.py), decided per cloud.
 
 detect_batch() (implicit_shape_model.cpp:583-712), for a list of clouds:
@@ -139,16 +140,26 @@ def _voting_params(cfg: ComponentConfig) -> VotingParams:
                                              "Fixed"))
 
 
+def global_unsupported(gcfg: FeatureConfig) -> Optional[str]:
+    """Why the port cannot compute these global features, or None."""
+    if gcfg.type not in GLOBAL_DESCRIPTORS:
+        return f"global features {gcfg.type!r} (not a global descriptor: " \
+               f"the port computes {', '.join(GLOBAL_DESCRIPTORS)})"
+    if gcfg.type.endswith("_GLOBAL"):
+        why = extraction_unsupported(
+            dataclasses.replace(gcfg, type=gcfg.local_type))
+        if why:
+            return f"global features {gcfg.type!r}: {why}"
+    return None
+
+
 def detect_unsupported(fcfg: FeatureConfig, gcfg: FeatureConfig,
                        vparams: VotingParams) -> Optional[str]:
     """Why the port cannot detect with this configuration, with the queue
     that ports it, or None."""
     why = extraction_unsupported(fcfg)
-    if why is None and vparams.use_global_features \
-            and gcfg.type not in GLOBAL_DESCRIPTORS:
-        why = f"global features {gcfg.type!r} (the port computes " \
-              f"{', '.join(GLOBAL_DESCRIPTORS)}; the whole-cloud globals " \
-              "are ROADMAP A15.4)"
+    if why is None and vparams.use_global_features:
+        why = global_unsupported(gcfg)
     return why
 
 
@@ -337,15 +348,9 @@ class ImplicitShapeModel:
         why = extraction_unsupported(fcfg)
         if why:
             reasons.append(why)
-        if gcfg.type not in GLOBAL_DESCRIPTORS:
-            reasons.append(f"global features {gcfg.type!r} (the port "
-                           f"computes {', '.join(GLOBAL_DESCRIPTORS)}; the "
-                           "whole-cloud globals are ROADMAP A15.4)")
-        elif gcfg.type != "Dummy":
-            why = extraction_unsupported(
-                dataclasses.replace(gcfg, type=gcfg.local_type))
-            if why:
-                reasons.append(f"global features {gcfg.type!r}: {why}")
+        why = global_unsupported(gcfg)
+        if why:
+            reasons.append(why)
         if _mesh_requested(self.root):
             reasons.append("UseDeviceMesh true (training on several "
                            "devices is ROADMAP A16)")

@@ -16,7 +16,7 @@ import shapes
 K1_RADIUS = 0.25
 K1_CASES = ("padded_queries", "masked_nan_huge", "wide_extent", "ragged_n",
             "no_valid_queries")
-K4_DIMS = (32, 35, 352, 1344)
+K4_DIMS = (32, 35, 352, 1344, 1980)   # 1980: 3DSC / USC
 
 
 def _centre(p, m):

@@ -277,12 +277,13 @@ def test_save_reference_round_trip(tmp_path):
 REFUSALS = {
     "detector_keypoints": ({"Children": {
         "Keypoints": {"Type": "ISS3D", "Parameters": {}},
-        "Features": {"Type": "NARF", "Parameters": {}}}}, "A15.4"),
+        "Features": {"Type": "CGF", "Parameters": {}}}}, "A15.5"),
     "descriptor": ({"Children": {"Features": {
-        "Type": "PFH", "Parameters": {"Radius": 0.6}}}}, "A15.4"),
+        "Type": "CGF", "Parameters": {"Radius": 0.6}}}}, "A15.5"),
     "whole_cloud_globals": ({"Children": {
-        "GlobalFeatures": {"Type": "ESF"},
-        "Voting": {"Parameters": {"UseGlobalFeatures": True}}}}, "A15.4"),
+        "GlobalFeatures": {"Type": "USC_GLOBAL", "Parameters": {
+            "ReferenceFrameType": "BOARD"}},
+        "Voting": {"Parameters": {"UseGlobalFeatures": True}}}}, "A15.6"),
 }
 
 

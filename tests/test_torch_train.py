@@ -439,9 +439,10 @@ def _set(cfg, path, value):
 
 
 @pytest.mark.parametrize("path,value,reason", [
-    (("Children", "GlobalFeatures", "Type"), "ESF", "global features"),
-    (("Children", "GlobalFeatures", "Type"), "CVFH", "CVFH"),
-    (("Children", "Features", "Type"), "PFH", "PFH"),
+    (("Children", "GlobalFeatures", "Type"), "CGF", "global features"),
+    (("Children", "Features", "Type"), "CGF", "A15.5"),
+    (("Children", "Features", "Parameters", "ReferenceFrameType"), "FLARE",
+     "FLARE"),
     (("Children", "Features", "Parameters", "ReferenceFrameType"), "BOARD",
      "BOARD"),
     (("Parameters", "UseDeviceMesh"), True, "UseDeviceMesh"),
