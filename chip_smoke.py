@@ -188,7 +188,19 @@ Phases (each prints its results; any failure raises and exits nonzero):
      rows, BSHOT's bits in their band, the maxima end to end: 12a's firm
      decisions on quickstart.ism, 12b's firm detections on default.ism);
      13d K4 and K4m against their twins on each new descriptor's rows (D
-     up to 1980, negative entries).
+     up to 1980, negative entries);
+ 14. CGF, its embedding trainer and the LRF variants against
+     data/zoo3_reference.npz (tests/zoo3_fixtures.py; configurations in
+     tests/zoo3_data.py, contracts in tests/zoo2_check.py): 14a
+     quickstart.ism with SHOT under SHOTNA, BOARD and FLARE and SHORT_SHOT
+     under FLARE; 14b default.ism with CSHOT and CSHOT_GLOBAL + SVM under
+     BOARD; 14c quickstart.ism with CGF and the shipped embedding under
+     Euclidean distances (its raw rows on JAX's frames in their rounding
+     band) -- each trained and detecting through ImplicitShapeModel (the
+     codebook, the global rows, the maxima end to end); 14d K4 and K4m
+     against their twins on 14c's CGF rows; 14e train_cgf_embedding.py's
+     pairs generated on the card against the JAX tool's and 20 steps from
+     its pairs and initial weights against its losses.
 Every step of phases 4-8 also prints its peak device memory, and phase 2
 the bits (sha256) of K1's, K2's, K3's and K6's outputs and of K7's
 in-radius counts and histograms (tests/port_fingerprint.py prints the
@@ -377,6 +389,22 @@ PATH_KERNELS = {
                     "cshot_usc_global")},
     "zoo2_narf": ("chisq_topk",),
     "zoo2_train_narf": ("chisq_topk",),
+    # phase 14: the LRF variants (plain torch) beside the method-2
+    # normals' K1 / K2 (none for SHORT_SHOT), SHOT through K7 (14a,
+    # ChiSquared: K4), SHORT_SHOT through K9, CSHOT and CSHOT_GLOBAL
+    # through K8 (14b, Euclidean: no K4); CGF's own SHOT LRF and the
+    # normals through K1 / K2 (14c, Euclidean); the trainer's pairs (14e:
+    # the normals and CGF's LRF through K1 / K2)
+    **{pre + name: ("lrf_moments", "sign_votes", "shot_dense", "chisq_topk")
+       for pre in ("zoo3_", "zoo3_train_")
+       for name in ("shot_shotna", "shot_board", "shot_flare")},
+    **{pre + "short_shot_flare": ("histogram", "chisq_topk")
+       for pre in ("zoo3_", "zoo3_train_")},
+    **{pre + "cshot_board": ("lrf_moments", "sign_votes", "shot_hist")
+       for pre in ("zoo3_", "zoo3_train_")},
+    **{pre + "cgf": ("lrf_moments", "sign_votes")
+       for pre in ("zoo3_", "zoo3_train_")},
+    "zoo3_trainer": ("lrf_moments", "sign_votes"),
 }
 
 # Least time of a kernel call: the larger of its bytes (inputs read once,
@@ -1519,6 +1547,9 @@ def main():
 
     # -- 13. the rest of the descriptor zoo and the whole-cloud globals -------
     zoo2_phase(launches, card, data, dev)
+
+    # -- 14. CGF, its embedding trainer and the LRF variants -------------------
+    zoo3_phase(launches, card, data, dev)
 
     # -- results ----------------------------------------------------------------
     total = {k: sum(run[k] for run in launches.values()) for k in KERNELS}
@@ -4894,6 +4925,264 @@ def zoo2_bshot_bits(clouds, ref, cfg, dev):
                                   ref[f"bshot_shot_desc{i}"][j[hit]]))
     zc.report("13a BSHOT groups on the training clouds",
               np.concatenate(differ), np.concatenate(near))
+
+
+# -- phase 14: CGF, its embedding trainer and the LRF variants -----------------
+
+def zoo3_phase(launches, card, data, dev):
+    """Phase 14 (module docstring) against data/zoo3_reference.npz (the
+    JAX package on the CPU, tests/zoo3_fixtures.py; configurations and
+    inputs: tests/zoo3_data.py).  Each configuration: the codebook
+    contract (the same codeword count, masks and vote classes, >= 97% of
+    the codewords at cosine > 0.999), the global rows each at cosine >
+    0.999, 12a's firm decisions (quickstart.ism) or 12b's firm detections
+    (default.ism) end to end; CGF's raw rows on JAX's frames and normals
+    each equal or moved by pairs in their rounding band
+    (tests/zoo2_check.cgf_rows_near).  Each step prints its clouds/s,
+    stage times, launches, peak memory and the card."""
+    import numpy as np
+    import zoo3_data as zd
+    t_phase = time.perf_counter()
+    with np.load(os.path.join(data, "zoo3_reference.npz")) as z:
+        ref = dict(z)
+    rows = []
+    for name in zd.CONFIGS:
+        part = "14a" if name in zd.LRF_14A else \
+            "14b" if name == zd.CSHOT_BOARD else "14c"
+        rows += zoo3_step(launches, card, dev, ref, name, part)
+    phase(f"14d. K4 and K4m against their twins on 14c's CGF rows ({card})")
+    for what, a, b, m in rows:
+        k4_on_rows(a, b, m, card, what)
+    zoo3_trainer(launches, card, dev, ref)
+    print(f"phase 14 wall time: {time.perf_counter() - t_phase:.1f} s "
+          f"({card})")
+
+
+def zoo3_step(launches, card, dev, ref, name, part):
+    """One configuration of 14a-14c (zoo3_phase); returns 14d's rows
+    [(what, rows, codewords, live)] on the device (CGF's only)."""
+    import numpy as np
+    import torch
+    import zoo3_data as zd
+    from bench_data import (firm_decision, firm_mismatches, firm_rtol,
+                            unpack_maxima)
+    from point_cloud_donkey_tpu_torch.kernels import build
+    from point_cloud_donkey_tpu_torch.models.detect_batch import \
+        extract_local_features_batch
+    from point_cloud_donkey_tpu_torch.models.features import FeatureConfig
+    from point_cloud_donkey_tpu_torch.models.ism import (ImplicitShapeModel,
+                                                         _voting_params)
+    from point_cloud_donkey_tpu_torch.models.keypoints import KeypointParams
+    from point_cloud_donkey_tpu_torch.utils.config import IsmConfig
+    from point_cloud_donkey_tpu_torch.utils.io import save_pcd
+    cfg = IsmConfig.from_json(zd.zoo3_config(name))
+    clouds, labels, rgbs = zd.training_set(name)
+    fcfg = FeatureConfig.from_config(cfg.child("Features"))
+    gcfg = FeatureConfig.from_config(cfg.child("GlobalFeatures"))
+    phase(f"{part}. {zd.base_of(name)}.ism with {fcfg.type} under "
+          f"{fcfg.ref_frame_type} (global {gcfg.type}): training on "
+          f"{len(clouds)} clouds ({card})")
+    pre = name + "_"
+    tmp = tempfile.mkdtemp(prefix="pcd_zoo3_")
+    try:
+        ism = ImplicitShapeModel(cfg, dev)
+        for i, (pts, cid) in enumerate(zip(clouds, labels)):
+            f = os.path.join(tmp, f"m{i}.pcd")
+            save_pcd(f, pts, rgb=None if rgbs is None else rgbs[i])
+            ism.add_training_model(f, int(cid), int(cid))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        build.reset_launch_counts()
+        t0 = time.perf_counter()
+        ism.train()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = build.launch_counts()
+        launches["zoo3_train_" + name] = counts
+    finally:
+        shutil.rmtree(tmp)
+    tt = {k: round(v * 1e3, 3) for k, v in ism.processing_times.items()
+          if k.startswith("train_")}
+    print(f"training: {len(clouds) / dt:.2f} clouds/s ({dt:.3f} s, host "
+          f"clock), stage ms {tt}, launches "
+          f"{ {k: v for k, v in counts.items() if v} }, peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB ({card})")
+    missing = [k for k in PATH_KERNELS["zoo3_train_" + name]
+               if counts[k] == 0]
+    assert not missing, f"{name} training: kernels not launched {missing}"
+
+    cb = ism.state.codebook
+    want = {k[len(pre) + 3:]: ref[k] for k in ref
+            if k.startswith(pre + "cb_")}
+    assert cb.codewords.shape == want["codewords"].shape, \
+        f"{name}: codebook {cb.codewords.shape}, JAX " \
+        f"{want['codewords'].shape}"
+    for k in ("cw_mask", "vote_mask", "vote_class"):
+        assert np.array_equal(getattr(cb, k), want[k]), f"{name}: {k}"
+    share, cmin = zoo2_cosines(cb.codewords, want["codewords"])
+    print(f"codebook: {len(cb.codewords)} codewords as JAX's, "
+          f"{100 * share:.2f}% at cosine > 0.999 (min cosine {cmin:.5f}, "
+          f"max |delta| {np.abs(cb.codewords - want['codewords']).max():.3g})")
+    assert share >= 0.97, f"{name}: codebook {share}"
+    glob = ism.state.global_descriptors
+    if pre + "glob" in ref:
+        assert glob is not None and glob.shape == ref[pre + "glob"].shape, \
+            f"{name}: global rows {None if glob is None else glob.shape}"
+        _, gmin = zoo2_cosines(glob, ref[pre + "glob"])
+        print(f"global descriptors: {len(glob)} {gcfg.type} rows as JAX's, "
+              f"min cosine {gmin:.6f}")
+        assert gmin > 0.999, f"{name}: global rows off JAX's"
+    if name == zd.CGF:
+        zoo3_cgf_raw(ref, clouds, fcfg, dev)
+
+    dclouds, drgbs = zd.detection_set(name)
+    phase(f"{part}. {name}: detect_batch of {len(dclouds)} clouds x "
+          f"{dclouds[0].shape[0]} points ({card})")
+    ism.detect_batch(dclouds[:2], None, None if drgbs is None
+                     else drgbs[:2])  # warm-up
+    got = timed_detect(ism, dclouds, drgbs, "zoo3_" + name, launches, card)
+    want = unpack_maxima({k[len(pre) + 4:]: v for k, v in ref.items()
+                          if k.startswith(pre + "max_")})
+    assert len(got) == len(want)
+    same = sum(bool(g) == bool(w) and (not g or g[0].class_id
+                                       == int(w[0]["class_id"]))
+               for g, w in zip(got, want))
+    if zd.base_of(name) == "quickstart":
+        firm = [i for i, w in enumerate(want) if firm_decision(w)]
+        agree = [i for i in firm if got[i] and got[i][0].class_id
+                 == int(want[i][0]["class_id"])]
+        print(f"end to end: maxima[0].class_id equals JAX's on "
+              f"{len(agree)}/{len(firm)} firm clouds (margin > 0.1), the "
+              f"top class on {same}/{len(got)}; {sum(map(len, got))} maxima "
+              f"({sum(map(len, want))} JAX's)")
+        assert firm and len(agree) == len(firm), \
+            f"{name}: decisions differ on {set(firm) - set(agree)}"
+    else:
+        vparams = _voting_params(ism.config.child("Voting"))
+        bw = ism.config.child("Voting").get("Bandwidth", 0.1)
+        bad = [(i, b) for i, (g, w) in enumerate(zip(got, want))
+               for b in [firm_mismatches(g, w, bw, firm_rtol(
+                   vparams.voting_type))] if b]
+        print(f"end to end: {len(got) - len(bad)}/{len(got)} clouds meet "
+              f"the detection contract, the top class as JAX's on {same}; "
+              f"{sum(map(len, got))} maxima ({sum(map(len, want))} JAX's)")
+        assert not bad, f"{name}: end to end vs JAX: {bad[:3]}"
+    if name != zd.CGF:
+        return []
+    kpp = KeypointParams.from_config(cfg.child("Keypoints"))
+    fss = extract_local_features_batch(
+        dclouds[:4], [None] * 4, [None] * 4, fcfg, kpp,
+        cfg.root.get("NormalRadius", 0.05),
+        cfg.root.get("ConsistentNormalsMethod", 2), dev, is_training=False)
+    a = np.concatenate([f.descriptors for f in fss])
+    return [(f"{name} ({fcfg.type})", torch.from_numpy(a).to(dev),
+             torch.from_numpy(np.asarray(cb.codewords, np.float32)).to(dev),
+             torch.from_numpy(np.asarray(cb.cw_mask)).to(dev))]
+
+
+def zoo3_cgf_raw(ref, clouds, fcfg, dev):
+    """14c's raw-row contract on the first training clouds: the card's
+    cgf_raw_histogram on JAX's keypoints, frames and keypoint normals over
+    its own gather, each row equal to JAX's or moved by pairs in their
+    rounding band (tests/zoo2_check.cgf_rows_near)."""
+    import numpy as np
+    import torch
+    import zoo2_check as zc
+    import zoo3_data as zd
+    from point_cloud_donkey_tpu_torch.models.features import pad_cloud
+    from point_cloud_donkey_tpu_torch.ops.cgf import cgf_raw_histogram
+    from point_cloud_donkey_tpu_torch.ops.neighbors import \
+        gather_radius_neighbors
+    differ, near = [], []
+    for i in range(zd.CGF_RAW_CLOUDS):
+        pts, mask = pad_cloud(clouds[i])
+        kp = ref[f"cgf_raw_pos{i}"]
+        kpn = ref[f"cgf_raw_kpn{i}"]
+        frames = ref[f"cgf_raw_frames{i}"]
+        fvalid = ref[f"cgf_raw_fvalid{i}"]
+
+        def d(x):
+            return torch.from_numpy(np.ascontiguousarray(x)).to(dev)[None]
+
+        nbr = gather_radius_neighbors(d(kp), d(pts), d(mask), fcfg.radius,
+                                      min(fcfg.neighbor_capacity, len(pts)))
+        raw = cgf_raw_histogram(d(kp), d(kpn), d(frames), d(fvalid), d(pts),
+                                nbr, fcfg.radius)[0].cpu().numpy()
+        count = (nbr.valid & (nbr.dist > 1e-15)).sum(-1)[0].cpu().numpy()
+        want = ref[f"cgf_raw_rows{i}"]
+        differ.append(np.abs(raw - want).max(1) > 1e-6)
+        near.append(zc.cgf_rows_near(raw, want, count, kp, frames, kpn,
+                                     fvalid, clouds[i], fcfg.radius))
+    zc.report("14c CGF raw rows on JAX's frames (card)",
+              np.concatenate(differ), np.concatenate(near))
+
+
+def zoo3_trainer(launches, card, dev, ref):
+    """14e: train_cgf_embedding.py on the card -- its pairs
+    (generate_pairs, zoo3_data.TRAIN_PAIRS) against the JAX tool's at
+    cosine > 0.999 on >= 97% of the rows, then TRAIN_STEPS steps from the
+    JAX tool's pairs and initial weights (the port's draw of the seed with
+    the committed corrections: entries a few ulps off, from XLA's log1p):
+    each step's loss within rtol 1e-4 of JAX's, each final layer at
+    cosine > 0.9999 (w0 on its committed rows)."""
+    import numpy as np
+    import torch
+    import zoo3_data as zd
+    from point_cloud_donkey_tpu_torch import train_cgf_embedding as tce
+    from point_cloud_donkey_tpu_torch.kernels import build
+    phase(f"14e. train_cgf_embedding.py --device cuda: {zd.TRAIN_PAIRS} "
+          f"pairs, {zd.TRAIN_STEPS} steps ({card})")
+    a, p = ref["train_a"], ref["train_p"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launch_counts()
+    t0 = time.perf_counter()
+    ga, gp = tce.generate_pairs(zd.TRAIN_PAIRS, 1024, 0.6, zd.TRAIN_SEED,
+                                device=dev)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = build.launch_counts()
+    launches["zoo3_trainer"] = counts
+    missing = [k for k in PATH_KERNELS["zoo3_trainer"] if counts[k] == 0]
+    assert not missing, f"trainer pairs: kernels not launched {missing}"
+    assert ga.shape == a.shape and gp.shape == p.shape
+    share, _ = zoo2_cosines(np.concatenate([ga, gp]), np.concatenate([a, p]))
+    print(f"pairs: {len(ga)} in {dt:.3f} s ({2 * len(ga) / dt:.1f} raw "
+          f"rows/s, host clock), {100 * share:.2f}% of the rows at cosine > "
+          f"0.999 of JAX's, launches "
+          f"{ {k: v for k, v in counts.items() if v} }, peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB ({card})")
+    assert share >= 0.97, f"trainer pairs off JAX's: {share}"
+    init = tce.initial_layers(a.shape[1], zd.TRAIN_DIMS, zd.TRAIN_SEED)
+    for i, (w, _) in enumerate(init):
+        flat = w.reshape(-1)
+        flat[ref[f"train_fix_idx{i}"]] = ref[f"train_fix_val{i}"]
+    losses = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    final = tce.train(a, p, zd.TRAIN_DIMS, zd.TRAIN_STEPS, zd.TRAIN_BATCH,
+                      1e-3, zd.TRAIN_SEED, device=dev, init=init,
+                      losses=losses)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    rel = np.abs(np.array(losses) / ref["train_losses"] - 1.0)
+    cos = []
+    for i, (w, b) in enumerate(final):
+        if i == 0:
+            w = w[ref["train_w0_rows"]]
+        for x, y in ((w, ref[f"train_w{i}"]), (b, ref[f"train_b{i}"])):
+            cos.append(float((x * y).sum() / max(
+                np.linalg.norm(x) * np.linalg.norm(y), 1e-30)))
+    print(f"training: {zd.TRAIN_STEPS} steps in {dt:.3f} s "
+          f"({zd.TRAIN_STEPS * zd.TRAIN_BATCH / dt:.1f} pairs/s, host "
+          f"clock), peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB; losses "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f}, max rel off JAX's "
+          f"{rel.max():.2e}; final layers' min cosine {min(cos):.7f} "
+          f"({card})")
+    assert rel.max() <= 1e-4, f"trainer losses off JAX's: {rel}"
+    assert min(cos) > 0.9999, f"trainer final layers off JAX's: {cos}"
 
 
 if __name__ == "__main__":

@@ -12,7 +12,8 @@ thresholds and the refinement row by row on the host,
 models/keypoints.apply_culling_host) -> SHOT LRFs at the keypoints -> the
 descriptor of every keypoint on the dense [B, K] grid (SHOT, BSHOT and
 SHORT_SHOT_PCL through K7, CSHOT through K8, SHORT_SHOT through K9, the
-rest over neighbour gathers: models/features.local_descriptors).  The normals are computed on the
+rest over neighbour gathers: models/features.local_descriptors; the LRFs
+of ReferenceFrameType, CGF's own SHOT LRF).  The normals are computed on the
 device (ops/normals.compute_normals; method 2: the full SHOT LRF of every
 point, PCA where it is invalid; methods 0 and 1: the oriented PCA normal)
 -- the JAX fused route -- unless a cloud of the chunk carries its own
@@ -30,8 +31,10 @@ detector (Harris3D, ISS3D, SIFT3D: the JAX per-cloud route) each cloud's
 keypoints come from models/keypoints.detector_mask over the chunk's
 normals, and the chunk's descriptors are computed on them.  NARF and GASD
 take the per-cloud route of the JAX package (models/features.
-narf_features, gasd_local_features).  The descriptors and LRFs the port
-does not compute are refused (:func:`extraction_unsupported`).
+narf_features, gasd_local_features).  The JAX package trains CGF and the
+LRF variants (SHOTNA, FLARE, BOARD) on its staged route
+(`train_fused_eligible`), whose normals are those above; a name that is
+no local descriptor is refused (:func:`extraction_unsupported`).
 """
 
 from __future__ import annotations
@@ -56,23 +59,13 @@ from .keypoints import (DETECTORS, KeypointParams, apply_culling_host,
 from .types import FeatureSet, make_feature_set
 
 
-# the descriptors still to port, each with its ROADMAP queue item
-UNPORTED_DESCRIPTORS = {"CGF": "A15.5"}
-
-
 def extraction_unsupported(fcfg: FeatureConfig) -> Optional[str]:
-    """Why the port cannot extract this descriptor's features, with the
-    queue that ports it, or None.  A keypoint type or culling filter the
-    reference lacks raises ValueError when keypoints are detected or
-    scored, as in the JAX package."""
+    """Why the port cannot extract this descriptor's features, or None.  A
+    keypoint type or culling filter the reference lacks raises ValueError
+    when keypoints are detected or scored, as in the JAX package."""
     if fcfg.type not in DESCRIPTORS:
-        queue = UNPORTED_DESCRIPTORS.get(fcfg.type)
-        where = f"ROADMAP {queue}" if queue else "not a local descriptor"
         return f"descriptor {fcfg.type!r} (the port computes " \
-               f"{', '.join(DESCRIPTORS)}; {where})"
-    if fcfg.ref_frame_type != "SHOT":
-        return f"ReferenceFrameType {fcfg.ref_frame_type!r} (SHOT only; " \
-               "the LRF variants SHOTNA, BOARD and FLARE are ROADMAP A15.6)"
+               f"{', '.join(DESCRIPTORS)}; not a local descriptor)"
     return None
 
 

@@ -3,7 +3,7 @@ chunk helpers and normals, and the global features (port of
 ``FeatureConfig``, ``bucket_size``, ``pad_cloud``,
 ``compute_cloud_normals`` and ``extract_global_features`` of
 point_cloud_donkey_tpu/models/features.py, for every descriptor of the
-JAX package but CGF).
+JAX package).
 
 :func:`compute_cloud_normals` gives the normals of the JAX staged route
 (normals provided by the cloud files, ConsistentNormalsMethod 3's EMST
@@ -48,8 +48,11 @@ stays dense.
 from __future__ import annotations
 
 from dataclasses import dataclass
+import functools
 import math
+import os
 import time
+import warnings
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -64,7 +67,8 @@ from ..ops.cvfh import cvfh_descriptors
 from ..ops.global_descriptors import (esf_descriptor, gasd_descriptor,
                                       grsd_descriptor, vfh_descriptor)
 from ..ops.narf import build_range_image, narf_descriptor, narf_keypoints
-from ..ops.lrf import shot_lrf
+from ..ops.cgf import CgfEmbedding, cgf_descriptor, default_checkpoint_path
+from ..ops.lrf import board_lrf, flare_lrf, shot_lrf, shot_na_lrf
 from ..ops.neighbors import full_fp32, gather_radius_neighbors, gather_rows
 from ..ops.rops import rops_descriptor
 from ..ops.shape_context import (intensity_gradients, rift_descriptor,
@@ -82,7 +86,8 @@ from .types import FeatureSet, make_feature_set
 # :func:`narf_features`, :func:`gasd_local_features`)
 DESCRIPTORS = ("SHOT", "CSHOT", "SHORT_SHOT", "SHORT_CSHOT", "FPFH",
                "BSHOT", "SHORT_SHOT_PCL", "SpinImage", "PFH", "3DSC", "USC",
-               "RSD", "RIFT", "RoPS", "COSPAIR", "ESF_LOCAL", "NARF", "GASD")
+               "RSD", "RIFT", "RoPS", "COSPAIR", "ESF_LOCAL", "CGF", "NARF",
+               "GASD")
 PER_CLOUD_DESCRIPTORS = ("NARF", "GASD")
 # whole-cloud descriptors (one row a cloud; CVFH / OURCVFH one a region)
 WHOLE_CLOUD_GLOBALS = ("ESF", "VFH", "GRSD", "GASD")
@@ -134,6 +139,10 @@ class FeatureConfig:
     # SHORT_CSHOT (features_short_cshot.cpp:23-34)
     short_color_shot_dims: int = 32
     short_color_hist_size: int = 15
+    # CGF (features_cgf.cpp:24-52): the embedding's .npz (the shipped one
+    # where empty) and its output width
+    cgf_checkpoint: str = ""
+    cgf_output_dims: int = 32
     gasd_with_color: bool = True  # GasdWithColor (features_gasd.cpp)
     # CVFH / OURCVFH clustering (features_cvfh.cpp:47-53, PCL defaults)
     cvfh_cluster_tolerance: float = 0.015
@@ -166,6 +175,8 @@ class FeatureConfig:
             use_min_radius=cfg.get("UseMinRadius", False),
             short_color_shot_dims=cfg.get("ShortColorShotDims", 32),
             short_color_hist_size=cfg.get("ShortColorShotHistSize", 15),
+            cgf_checkpoint=cfg.get("CgfCheckpointPath", ""),
+            cgf_output_dims=cfg.get("CgfOutputDims", 32),
             gasd_with_color=cfg.get("GasdWithColor", True),
             cvfh_cluster_tolerance=cfg.get("CvfhClusterTolerance", 0.015),
             cvfh_eps_angle_deg=cfg.get("CvfhEpsAngle", 10.0),
@@ -229,6 +240,8 @@ class FeatureConfig:
             return 984 if self.gasd_with_color else 512
         if self.type == "RSD":
             return 25 if self.rsd_use_hist else 2
+        if self.type == "CGF":
+            return self.cgf_output_dims
         if self.type in DIMS:
             return DIMS[self.type]
         raise ValueError(f"unsupported descriptor type {self.type!r}")
@@ -314,25 +327,67 @@ def compute_cloud_normals(clouds: Sequence[np.ndarray],
     return torch.from_numpy(out).to(pts.device)
 
 
+def reference_frames(fcfg: FeatureConfig, kp, kpm, pts, nrm, mask,
+                     lrf_version: int = 1):
+    """The LRFs [B, K] at ReferenceFrameRadius of ReferenceFrameType (the
+    JAX `_descriptor_fn`): SHOTNA, FLARE (its tangent radius a fifth of
+    the frame radius) and BOARD in plain torch (ops/lrf.py), SHOT -- and
+    any other name -- through K1 / K2."""
+    rf, r = fcfg.ref_frame_type, fcfg.ref_frame_radius
+    if rf == "SHOTNA":
+        return shot_na_lrf(kp, kpm, pts, nrm, mask, r)
+    if rf == "FLARE":
+        return flare_lrf(kp, kpm, pts, nrm, mask, r,
+                         float(np.float32(r) / np.float32(5.0)))
+    if rf == "BOARD":
+        return board_lrf(kp, kpm, pts, nrm, mask, r)
+    return shot_lrf(kp, kpm, pts, mask, r, lrf_version=lrf_version)
+
+
+@functools.lru_cache(maxsize=8)
+def cgf_embedding(checkpoint: str, out_dims: int,
+                  device: str) -> CgfEmbedding:
+    """CGF's embedding on `device` (the JAX `_descriptor_fn`): the
+    CgfCheckpointPath .npz, which must exist, else the shipped one, else
+    -- with a warning -- the seeded random projection to `out_dims`."""
+    if checkpoint:
+        return CgfEmbedding.from_npz(checkpoint, device)
+    shipped = default_checkpoint_path()
+    if os.path.exists(shipped):
+        return CgfEmbedding.from_npz(shipped, device)
+    warnings.warn("CGF: no checkpoint (CgfCheckpointPath empty and the "
+                  "shipped cgf_embedding.npz is missing) -- falling back to "
+                  "a seeded random projection; descriptors are NOT "
+                  "comparable to trained CGF. Train one with python -m "
+                  "point_cloud_donkey_tpu_torch.train_cgf_embedding")
+    return CgfEmbedding.random_projection(out_dims, device=device)
+
+
 def local_descriptors(fcfg: FeatureConfig, kp, kpm, kp_rgb, pts, nrm, rgb,
                       mask, radius: float, lrf_version: int = 1,
                       capacity: Optional[int] = None):
     """(descriptors [B, K, D], valid [B, K], frames [B, K, 3, 3]) of the
     keypoint rows `kp` [B, K, 3] (live where `kpm`) against their clouds
-    [B, N]: the SHOT LRF at ReferenceFrameRadius (K1 / K2), then the
-    descriptor of `fcfg`'s local type at `radius`: SHOT, BSHOT (SHOT
-    binarised) and SHORT_SHOT_PCL (SHOT with zero normals) through K7,
-    CSHOT through K8, SHORT_SHOT through K9, the others over gathers of
-    min(`capacity`, N) neighbours, `capacity` TpuNeighborCapacity unless
-    given (FPFH at most 128, PFH at most 64; the JAX `_descriptor_fn`).
-    A keypoint's normal (SpinImage's axis, COSPAIR's) is its nearest
-    neighbour's; RIFT's intensity the mean of the RGB channels.  valid
-    also requires a finite descriptor; only the SHOT family, the shape
-    contexts and the *_GLOBAL forms require a valid frame, as in the JAX
-    package."""
-    lrf = shot_lrf(kp, kpm, pts, mask, fcfg.ref_frame_radius,
-                   lrf_version=lrf_version)
+    [B, N]: the LRFs of ReferenceFrameType (:func:`reference_frames`),
+    then the descriptor of `fcfg`'s local type at `radius`: SHOT, BSHOT
+    (SHOT binarised) and SHORT_SHOT_PCL (SHOT with zero normals) through
+    K7, CSHOT through K8, SHORT_SHOT through K9, the others over gathers
+    of min(`capacity`, N) neighbours, `capacity` TpuNeighborCapacity
+    unless given (FPFH at most 128, PFH at most 64; the JAX
+    `_descriptor_fn`).  CGF takes its own SHOT LRF at 0.75 x `radius`
+    (K1 / K2, features_cgf.cpp:52), whatever ReferenceFrameType says, and
+    returns those frames.  A keypoint's normal (SpinImage's axis,
+    COSPAIR's, CGF's frame flip) is its nearest neighbour's; RIFT's
+    intensity the mean of the RGB channels.  valid also requires a finite
+    descriptor; only the SHOT family, the shape contexts and the *_GLOBAL
+    forms require a valid frame, as in the JAX package."""
     base = fcfg.local_type
+    if base == "CGF":
+        lrf = shot_lrf(kp, kpm, pts, mask,
+                       float(np.float32(0.75) * np.float32(radius)),
+                       lrf_version=lrf_version)
+    else:
+        lrf = reference_frames(fcfg, kp, kpm, pts, nrm, mask, lrf_version)
     cap = min(fcfg.neighbor_capacity if capacity is None else capacity,
               pts.shape[1])
     if base in ("SHOT", "BSHOT", "SHORT_SHOT_PCL"):
@@ -399,6 +454,11 @@ def _gathered_descriptor(fcfg, base, kp, kpm, kp_rgb, lrf, pts, nrm, rgb,
     if base == "COSPAIR":
         return cospair_descriptor(kp, kp_nrm, kpm, pts, nrm, rgb, nbr,
                                   radius)
+    if base == "CGF":
+        return cgf_descriptor(kp, kp_nrm, lrf.frames, lrf.valid, pts, nbr,
+                              radius, cgf_embedding(
+                                  fcfg.cgf_checkpoint, fcfg.cgf_output_dims,
+                                  str(pts.device)))
     raise ValueError(f"unsupported descriptor type {fcfg.type!r}")
 
 

@@ -22,8 +22,8 @@ descriptors (models/svm.py).  Stage wall times go to
 ``processing_times`` under the JAX package's ``train_*`` keys.
 
 What neither route trains raises NotImplementedError with the reason and
-the queue that ports it, before any cloud is read (CGF, the LRF variants,
-several devices).  A cloud above ops.tiled.SCENE_TILE_THRESHOLD points takes the scene routes of the
+the queue that ports it, before any cloud is read (several devices, a
+global type that is no global descriptor, CGF among them).  A cloud above ops.tiled.SCENE_TILE_THRESHOLD points takes the scene routes of the
 filters and the features (ops/tiled.py), decided per cloud.
 
 detect_batch() (implicit_shape_model.cpp:583-712), for a list of clouds:

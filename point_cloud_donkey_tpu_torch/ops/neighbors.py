@@ -53,13 +53,20 @@ def full_fp32():
 
 def pairwise_sqdist(queries: torch.Tensor, points: torch.Tensor
                     ) -> torch.Tensor:
-    """Squared euclidean distances [Q, N] via q^2 + p^2 - 2 q.p in full
-    fp32, clamped at 0."""
-    q2 = torch.sum(queries * queries, dim=1)[:, None]
-    p2 = torch.sum(points * points, dim=1)[None, :]
+    """Squared euclidean distances [..., Q, N] of queries [..., Q, 3] and
+    points [..., N, 3] via q^2 + p^2 - 2 q.p in full fp32, clamped at 0."""
+    q2 = torch.sum(queries * queries, dim=-1)[..., None]
+    p2 = torch.sum(points * points, dim=-1)[..., None, :]
     with full_fp32():
-        cross = queries @ points.T
+        cross = queries @ points.transpose(-1, -2)
     return torch.clamp(q2 + p2 - 2.0 * cross, min=0.0)
+
+
+def row_steps(g: int, nq: int, w: int):
+    """Query ranges [r0, r1) of [g, r1 - r0, w] temporaries under
+    _PAIR_BUDGET elements."""
+    step = max(1, _PAIR_BUDGET // max(g * w, 1))
+    return [(r0, min(nq, r0 + step)) for r0 in range(0, nq, step)]
 
 
 class RadiusMoments(NamedTuple):

@@ -46,7 +46,9 @@ from .color import color_distance
 from .eigh3 import eigh3x3
 from .kernels import masked_centroid
 from .neighbors import (NeighborBlock, RadiusMoments, full_fp32,
-                        gather_radius_neighbors, radius_covariance)
+                        gather_radius_neighbors, radius_covariance,
+                        row_steps)
+from .neighbors import pairwise_sqdist as sqdist
 from .normals import NormalsResult, compute_normals_at
 
 # clouds above this size take the tiled scene path (features, filters,
@@ -59,8 +61,6 @@ KEYPOINT_CHUNK = 256
 
 # the largest [chunks, window, ...] slab tensor a stage builds at once
 SLAB_BYTES = 256 << 20
-# elements of a [chunks, rows, window] distance temporary
-_PAIR_BUDGET = 1 << 25
 
 
 class TilePlan(NamedTuple):
@@ -199,23 +199,6 @@ def check_lrf_version(lrf_version: int) -> None:
             f"SCENE_TILE_THRESHOLD ({SCENE_TILE_THRESHOLD}) points: the "
             "scene path runs the exact-difference LRF kernels (K1 / K2) "
             "only")
-
-
-def sqdist(q: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
-    """[G, Qc, W] squared distances by the matmul identity in full fp32,
-    clamped at 0 (ops/neighbors.pairwise_sqdist, batched)."""
-    q2 = torch.sum(q * q, dim=-1)[..., None]
-    p2 = torch.sum(p * p, dim=-1)[..., None, :]
-    with full_fp32():
-        cross = q @ p.transpose(-1, -2)
-    return torch.clamp(q2 + p2 - 2.0 * cross, min=0.0)
-
-
-def row_steps(g: int, nq: int, w: int):
-    """Query ranges [r0, r1) of [g, r1 - r0, w] temporaries under
-    _PAIR_BUDGET elements."""
-    step = max(1, _PAIR_BUDGET // max(g * w, 1))
-    return [(r0, min(nq, r0 + step)) for r0 in range(0, nq, step)]
 
 
 # ---------------------------------------------------------------------------

@@ -14,6 +14,16 @@ that runs the JAX package on the CPU and writes numpy arrays to a file; a
 job past TIMEOUT is killed and the test fails.  Besides trainings, a pool
 calls any function of a module under tests/ that returns a dict of
 arrays (JaxPool.call).
+
+Every reference subprocess of the port's tests -- these jobs and the
+interpret-mode runs of tests/torch_parity.py -- first takes one of
+slot_count() slots shared by the whole test run (lock files in a directory
+named by the run's PYTEST_XDIST_TESTRUNUID, held with fcntl.flock until the
+process exits), so however many xdist workers queue references, at most
+that many run at once, each pinned to CHILD_THREADS of the run's CPUs with
+its BLAS / OpenMP pools of that size (child_env).  Its time limit counts
+from the moment it holds a slot: past it, faulthandler prints the child's
+stacks and ends it, and the test fails with them (wait_child).
 """
 
 import json
@@ -22,14 +32,102 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import time
 from types import SimpleNamespace
 
 import numpy as np
 
 TIMEOUT = 600
 TESTS = os.path.dirname(os.path.abspath(__file__))
+# the CPUs each reference subprocess is pinned to
+CHILD_THREADS = 2
 
-_CODE = """
+
+def slot_count() -> int:
+    """Reference subprocesses that may run at once in the whole test run:
+    one per two of the CPUs this process may use (at least one)."""
+    return max(1, len(os.sched_getaffinity(0)) // CHILD_THREADS)
+
+
+def slot_dir() -> str:
+    """The run's slot directory (one per xdist run; per process
+    otherwise)."""
+    run = os.environ.get("PYTEST_XDIST_TESTRUNUID") or f"pid{os.getpid()}"
+    return os.path.join(tempfile.gettempdir(), f"pcd_ref_slots_{run}")
+
+
+# the first lines of every reference subprocess: wait for a free slot
+# (argv[-3] the slot directory, argv[-2] the slot count, argv[-1] the
+# time limit), pin the process to CHILD_THREADS CPUs of the slot, mark the
+# start (the file STARTED beside its output), and end with its stacks
+# printed once the limit has passed
+CHILD_PRELUDE = """
+import fcntl, faulthandler, os, sys, time
+_dir, _slots, _limit = sys.argv[-3], int(sys.argv[-2]), float(sys.argv[-1])
+del sys.argv[-3:]
+os.makedirs(_dir, exist_ok=True)
+_slot_fd = None
+while _slot_fd is None:
+    for _i in range(_slots):
+        _fd = os.open(os.path.join(_dir, "slot%%d" %% _i),
+                      os.O_CREAT | os.O_RDWR)
+        try:
+            fcntl.flock(_fd, fcntl.LOCK_EX | fcntl.LOCK_NB)
+        except OSError:
+            os.close(_fd)
+            continue
+        _slot_fd = _fd
+        _cpus = sorted(os.sched_getaffinity(0))
+        os.sched_setaffinity(0, {_cpus[(_i * %d + _k) %% len(_cpus)]
+                                 for _k in range(%d)})
+        break
+    else:
+        time.sleep(0.2)
+open(os.path.join(os.path.dirname(sys.argv[2]), "STARTED"), "w").close()
+faulthandler.dump_traceback_later(_limit, exit=True)
+""" % (CHILD_THREADS, CHILD_THREADS)
+
+
+def child_env(**extra) -> dict:
+    """The environment of a reference subprocess: JAX on the CPU, the
+    BLAS / OpenMP pools CHILD_THREADS wide."""
+    n = str(CHILD_THREADS)
+    return dict(os.environ, JAX_PLATFORMS="cpu", OMP_NUM_THREADS=n,
+                MKL_NUM_THREADS=n, OPENBLAS_NUM_THREADS=n, **extra)
+
+
+def child_args(limit: float) -> list:
+    """The arguments CHILD_PRELUDE reads, last on the command line."""
+    return [slot_dir(), str(slot_count()), str(limit)]
+
+
+def wait_child(proc: subprocess.Popen, out_path: str, limit: float,
+               what: str, log) -> str:
+    """Wait for a reference subprocess started with CHILD_PRELUDE and
+    return its standard error (`log`: the open file it writes to); fail
+    with its stacks where it ran past `limit` seconds after it took its
+    slot, or failed."""
+    started = os.path.join(os.path.dirname(out_path), "STARTED")
+    while proc.poll() is None:
+        if os.path.exists(started) and \
+                time.time() - os.path.getmtime(started) > limit + 60:
+            proc.kill()   # faulthandler should have ended it
+            proc.wait()
+            break
+        time.sleep(0.2)
+    log.flush()
+    with open(log.name) as f:
+        err = f.read()
+    if proc.returncode != 0:
+        over = "Timeout" in err or proc.returncode < 0
+        raise AssertionError(
+            (f"{what} ran past {limit:.0f} s after it took its slot; "
+             "its stacks:\n" if over else f"{what} failed:\n")
+            + err[-6000:])
+    return err
+
+
+_CODE = CHILD_PRELUDE + """
 import json, os, sys, contextlib
 import numpy as np
 sys.path[:0] = [%r, os.path.dirname(%r)]
@@ -60,7 +158,7 @@ np.savez(sys.argv[2], **out)
 """ % (TESTS, TESTS)
 
 
-_CALL = """
+_CALL = CHILD_PRELUDE + """
 import importlib, json, os, sys
 import numpy as np
 sys.path[:0] = [%r, os.path.dirname(%r)]
@@ -87,12 +185,11 @@ class _Job:
         self._result = None
 
     def start(self):
-        env = dict(os.environ, JAX_PLATFORMS="cpu")
         self._err = open(os.path.join(self._dir, "stderr.txt"), "w")
         self._proc = subprocess.Popen(
-            [sys.executable, "-c", self._code, self._spec, self._out],
-            env=env,
-            stdout=subprocess.DEVNULL, stderr=self._err)
+            [sys.executable, "-c", self._code, self._spec, self._out,
+             *child_args(TIMEOUT)],
+            env=child_env(), stdout=subprocess.DEVNULL, stderr=self._err)
 
     def result(self):
         """(the trained model's state as numpy: .state.codebook,
@@ -101,17 +198,10 @@ class _Job:
         if self._result is None:
             self._pool._run_until(self)
             try:
-                self._proc.wait(timeout=TIMEOUT)
-            except subprocess.TimeoutExpired:
-                self._proc.kill()
-                self._proc.wait()
-                raise AssertionError(f"a JAX reference training ran past "
-                                     f"{TIMEOUT} s")
+                wait_child(self._proc, self._out, TIMEOUT,
+                           "a JAX reference job", self._err)
             finally:
                 self._err.close()
-            with open(self._err.name) as f:
-                err = f.read()
-            assert self._proc.returncode == 0, err[-3000:]
             with np.load(self._out) as z:
                 a = dict(z)
             shutil.rmtree(self._dir, ignore_errors=True)

@@ -275,16 +275,21 @@ def test_save_reference_round_trip(tmp_path):
 
 
 REFUSALS = {
-    "detector_keypoints": ({"Children": {
-        "Keypoints": {"Type": "ISS3D", "Parameters": {}},
-        "Features": {"Type": "CGF", "Parameters": {}}}}, "A15.5"),
-    "descriptor": ({"Children": {"Features": {
-        "Type": "CGF", "Parameters": {"Radius": 0.6}}}}, "A15.5"),
-    "whole_cloud_globals": ({"Children": {
-        "GlobalFeatures": {"Type": "USC_GLOBAL", "Parameters": {
-            "ReferenceFrameType": "BOARD"}},
-        "Voting": {"Parameters": {"UseGlobalFeatures": True}}}}, "A15.6"),
+    "global_cgf": ({"Children": {
+        "GlobalFeatures": {"Type": "CGF", "Parameters": {}},
+        "Voting": {"Parameters": {"UseGlobalFeatures": True}}}},
+        "global features"),
 }
+
+
+def _changed_config(cfg: dict, change: dict) -> dict:
+    """`cfg` with each child of `change` given its Type and Parameters."""
+    for child, node in change.get("Children", {}).items():
+        base = cfg["ObjectConfig"]["Children"].setdefault(child, {})
+        if "Type" in node:
+            base["Type"] = node["Type"]
+        base.setdefault("Parameters", {}).update(node.get("Parameters", {}))
+    return cfg
 
 
 @pytest.mark.parametrize("case", sorted(REFUSALS) + ["observers"])
@@ -294,19 +299,59 @@ def test_unsupported_detection_is_refused(case):
         with pytest.raises(NotImplementedError, match="A13"):
             ism.connect(print)
         return
-    change, queue = REFUSALS[case]
-    cfg = ism.config.to_json()
-    for child, node in change.get("Children", {}).items():
-        base = cfg["ObjectConfig"]["Children"].setdefault(child, {})
-        if "Type" in node:
-            base["Type"] = node["Type"]
-        base.setdefault("Parameters", {}).update(node.get("Parameters", {}))
-    ism.config = IsmConfig.from_json(cfg)
+    change, reason = REFUSALS[case]
+    ism.config = IsmConfig.from_json(_changed_config(ism.config.to_json(),
+                                                     change))
     cloud = np.random.default_rng(0).uniform(-1, 1, (600, 3)).astype(
         np.float32)
     build.reset_launch_counts()
-    with pytest.raises(NotImplementedError, match=queue):
+    with pytest.raises(NotImplementedError, match=reason):
         ism.detect_batch([cloud])
+
+
+# what the port refused before it computed CGF (ROADMAP A15.5) and the
+# LRF variants (A15.6); tests/test_torch_cgf.py and
+# test_torch_lrf_variants.py hold them against the JAX package
+FORMERLY_REFUSED = {
+    "detector_keypoints": {"Children": {
+        "Keypoints": {"Type": "ISS3D", "Parameters": {
+            "SalientRadius": 0.2, "NonMaxRadius": 0.1, "MinNeighbors": 5}},
+        "Features": {"Type": "CGF", "Parameters": {}}}},
+    "descriptor": {"Children": {"Features": {
+        "Type": "CGF", "Parameters": {"Radius": 0.6}}}},
+    "whole_cloud_globals": {"Children": {
+        "GlobalFeatures": {"Type": "USC_GLOBAL", "Parameters": {
+            "Radius": 0.3, "ReferenceFrameRadius": 2.0,
+            "ReferenceFrameType": "BOARD"}},
+        "Voting": {"Parameters": {"UseGlobalFeatures": True}}}},
+}
+
+
+@pytest.mark.parametrize("case", sorted(FORMERLY_REFUSED))
+def test_formerly_refused_detection_runs(case, tmp_path):
+    """The bench model's config under each change trains on two shapes
+    and detects the first: its class on top, no kernel launched on the
+    CPU."""
+    cfg = _changed_config(ImplicitShapeModel.load(
+        CODEBOOK, device="cpu").config.to_json(), FORMERLY_REFUSED[case])
+    ism = ImplicitShapeModel(IsmConfig.from_json(cfg), "cpu")
+    rng = np.random.default_rng(3)
+    clouds = [shapes.make_instance(rng, c, n=1024, noise=0.005).astype(
+        np.float32) for c in (0, 1)]
+    for c, xyz in enumerate(clouds):
+        path = str(tmp_path / f"m{c}.pcd")
+        port_save_pcd(path, xyz)
+        ism.add_training_model(path, c, c)
+    ism.train()
+    dim = 1980 if case == "whole_cloud_globals" else 32
+    if case == "whole_cloud_globals":
+        assert ism.state.global_descriptors.shape[1] == dim
+    else:
+        assert ism.state.codebook.codewords.shape[1] == dim
+    build.reset_launch_counts()
+    maxima, times = ism.detect_batch([clouds[0]])[0]
+    assert set(build.launch_counts().values()) == {0}
+    assert maxima and maxima[0].class_id == 0 and times["complete"] > 0
 
 
 def _bench_detector(cfg):

@@ -155,6 +155,7 @@ def test_port_imports_neither_jax_nor_triton():
         "import importlib, pkgutil, sys\n"
         "sys.path.insert(0, 'tests')\n"
         "import bench_data, kinect_data, shapes, torch_fixtures\n"
+        "import zoo2_check, zoo3_data\n"
         "import point_cloud_donkey_tpu_torch as pkg\n"
         "mods = [m.name for m in pkgutil.walk_packages(pkg.__path__, "
         "pkg.__name__ + '.')]\n"
@@ -166,7 +167,8 @@ def test_port_imports_neither_jax_nor_triton():
         "'models.types', 'models.ranking', 'models.clustering', "
         "'utils.mesh', 'ops.hough', 'models.voting', 'models.classifier', "
         "'models.metrics', 'utils.boost_archive', 'utils.debug_utils', "
-        "'eval_detection', 'ops.tiled', 'ops.curvature']\n"
+        "'eval_detection', 'ops.tiled', 'ops.curvature', 'ops.cgf', "
+        "'ops.lrf', 'train_cgf_embedding', 'utils.shapes']\n"
         "assert all(pkg.__name__ + '.' + m in mods for m in new), mods\n"
         "from point_cloud_donkey_tpu_torch.ops import tiled\n"
         "owners = [m for m in mods if any(hasattr(sys.modules[m], c) for c "

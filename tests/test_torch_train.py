@@ -123,6 +123,18 @@ def decisions(codebook, descriptor, views):
     return n(scores).argmax(1)
 
 
+def assert_codebook_structure(got, want):
+    """The training contract's structure: the same codeword count and
+    vote structure (mask, class, instance), class sigmas within rtol
+    5e-2."""
+    assert got.codewords.shape == want.codewords.shape
+    for name in ("cw_mask", "vote_mask", "vote_class", "vote_instance"):
+        np.testing.assert_array_equal(getattr(got, name),
+                                      np.asarray(getattr(want, name)))
+    np.testing.assert_allclose(got.class_sigma, np.asarray(want.class_sigma),
+                               rtol=5e-2)
+
+
 def assert_codebooks_match(got, want):
     """The training contract: the same codeword count and vote structure
     (mask, class, instance), the codewords in the same order with >= 97%
@@ -440,11 +452,6 @@ def _set(cfg, path, value):
 
 @pytest.mark.parametrize("path,value,reason", [
     (("Children", "GlobalFeatures", "Type"), "CGF", "global features"),
-    (("Children", "Features", "Type"), "CGF", "A15.5"),
-    (("Children", "Features", "Parameters", "ReferenceFrameType"), "FLARE",
-     "FLARE"),
-    (("Children", "Features", "Parameters", "ReferenceFrameType"), "BOARD",
-     "BOARD"),
     (("Parameters", "UseDeviceMesh"), True, "UseDeviceMesh"),
 ])
 def test_unported_training_configs_raise(path, value, reason):
@@ -456,3 +463,106 @@ def test_unported_training_configs_raise(path, value, reason):
     ism.add_training_model("no_such_file.pcd", 0, 0)
     with pytest.raises(NotImplementedError, match=reason):
         ism.train()
+
+
+# what the port refused before it computed CGF (ROADMAP A15.5) and the
+# LRF variants (A15.6): (path, value) of each change to config()
+FORMERLY_UNPORTED = {
+    "CGF": (("Children", "Features", "Type"), "CGF"),
+    "FLARE": (("Children", "Features", "Parameters", "ReferenceFrameType"),
+              "FLARE"),
+    "BOARD": (("Children", "Features", "Parameters", "ReferenceFrameType"),
+              "BOARD"),
+}
+
+
+def _formerly_unported_config(name):
+    """config() with the change `name`; CGF under Euclidean distances (its
+    signed rows make chi-square's class sigma ill-conditioned, ROADMAP
+    C)."""
+    cfg = config()
+    _set(cfg, *FORMERLY_UNPORTED[name])
+    if name == "CGF":
+        cfg["ObjectConfig"]["Parameters"]["DistanceType"] = "Euclidean"
+    return cfg
+
+
+@pytest.fixture(scope="module", autouse=True)
+def formerly_unported_refs(model_files):
+    """The JAX trainings of FORMERLY_UNPORTED (its staged route), queued
+    when the module starts (tests/jax_jobs.py)."""
+    from jax_jobs import JaxPool
+    pool = JaxPool(3)
+    yield {name: pool.train(model_files, _formerly_unported_config(name))
+           for name in FORMERLY_UNPORTED}
+    pool.close()
+
+
+@pytest.mark.parametrize("name", sorted(FORMERLY_UNPORTED))
+def test_formerly_unported_configs_train_as_jax(model_files,
+                                                formerly_unported_refs, name):
+    """CGF and SHOT under FLARE and BOARD train as the JAX package trains
+    them: the codebook contract; under FLARE and BOARD a codeword counts
+    as at cosine > 0.999 also where its x neighbour's side of the azimuth
+    sector boundary explains it (tests/zoo2_check.sector_moved_near), and
+    >= 97% must (the rest: frame decisions)."""
+    ism = port_train(model_files, cfg=_formerly_unported_config(name))
+    want, _ = formerly_unported_refs[name].result()
+    got = ism.state.codebook
+    assert got.codewords.shape[1] == (32 if name == "CGF" else 352)
+    if name == "CGF":
+        assert_codebooks_match(got, want.state.codebook)
+        return
+    assert_codebook_structure(got, want.state.codebook)
+    explained = sector_explained(ism, model_files, name,
+                                 np.asarray(want.state.codebook.codewords))
+    print(f"{name}: {len(explained)} codewords, "
+          f"{int((~explained).sum())} unexplained")
+    assert explained.mean() >= 0.97
+
+
+def sector_explained(ism, files, kind, want_codewords):
+    """[C] per codeword (the training features in file order, Clustering
+    None): zoo2_check.sector_moved_near against JAX's codeword, the port's
+    SHOT recomputed by K7's twin at the feature's keypoint and frame."""
+    import zoo2_check as zc
+    from point_cloud_donkey_tpu_torch.models.detect_batch import \
+        extract_local_features_batch
+    from point_cloud_donkey_tpu_torch.models.features import FeatureConfig
+    from point_cloud_donkey_tpu_torch.models.keypoints import KeypointParams
+    from point_cloud_donkey_tpu_torch.ops.kernels.shot_fused import \
+        shot_descriptor_fused
+    from point_cloud_donkey_tpu_torch.ops.normals import compute_normals
+    from point_cloud_donkey_tpu_torch.utils.io import read_cloud
+    fcfg = FeatureConfig.from_config(ism.config.child("Features"))
+    kpp = KeypointParams.from_config(ism.config.child("Keypoints"))
+    nr = ism.root.get("NormalRadius", 0.25)
+    clouds = [read_cloud(p).xyz for p, _ in files]
+    fss = extract_local_features_batch(clouds, [None] * len(clouds),
+                                       [None] * len(clouds), fcfg, kpp, nr,
+                                       2, "cpu")
+    feats = np.concatenate([f.descriptors for f in fss])
+    cw = ism.state.codebook.codewords
+    # each codeword's feature (the same row up to the sums' order)
+    owner = np.abs(cw[:, None] - feats[None]).max(-1).argmin(1)
+    np.testing.assert_allclose(feats[owner], cw, atol=1e-6)
+    want_of = np.empty_like(feats)
+    want_of[owner] = want_codewords
+    out, row = [], 0
+    for xyz, fs in zip(clouds, fss):
+        pts = torch.from_numpy(xyz)[None]
+        mask = torch.ones(pts.shape[:2], dtype=torch.bool)
+        nrm = compute_normals(pts, mask, nr, 2).normals
+        for q, frame, d in zip(fs.positions, fs.frames, fs.descriptors):
+            def shot(moved, q=q, frame=frame):
+                res, _ = shot_descriptor_fused(
+                    torch.from_numpy(q)[None, None],
+                    torch.from_numpy(frame)[None, None],
+                    torch.ones((1, 1), dtype=torch.bool),
+                    torch.from_numpy(moved)[None], nrm, mask, fcfg.radius)
+                return n(res[0, 0])
+            out.append(zc.sector_moved_near(
+                kind, d, want_of[row], q, frame, xyz, n(nrm[0]),
+                fcfg.ref_frame_radius, fcfg.radius, shot))
+            row += 1
+    return np.array(out)[owner]

@@ -1,8 +1,10 @@
 """Shared helpers of the port's parity tests (tests/test_torch_*.py).
 
-Importing this module caps torch's intra-op threads at 2: tier-1 runs six
-xdist workers, each importing torch beside jax.  Inputs are made with
-numpy from a seed and handed to both frameworks as arrays.
+Importing this module caps torch's intra-op threads at the CPUs this
+process may use divided among the run's xdist workers (at most 2, at least
+1): tier-1 runs six workers, each importing torch beside jax, and the
+reference subprocesses take CPUs of their own (tests/jax_jobs.py).  Inputs
+are made with numpy from a seed and handed to both frameworks as arrays.
 
 The contracts below are the JAX package's own between its Pallas kernels
 and its XLA paths (tests/test_pallas_kernels.py, tests/test_shot_fused.py):
@@ -14,14 +16,15 @@ can settle either way.
 import os
 import subprocess
 import sys
-import time
-import warnings
 
 import numpy as np
 import pytest
 import torch
 
-torch.set_num_threads(2)
+from jax_jobs import CHILD_PRELUDE, child_args, child_env, wait_child
+
+torch.set_num_threads(max(1, min(2, len(os.sched_getaffinity(0)) // int(
+    os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1")))))
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
@@ -89,22 +92,20 @@ def assert_decisions_match(scores, ref):
 # The interpret-mode references are compile-bound (a second run in the
 # same process takes a few percent of the first) and take their share of a
 # busy CPU: the LRF v2 reference, 10-14 s alone, took 27-39 s six at once
-# beside 12 single-threaded busy processes on 8 cores.  What cut full runs
-# was a hang: 3 of 36 such runs never ended, a kernel's io_callback thread
-# and the main thread each dispatching an eager JAX op (stacks at
+# beside 12 single-threaded busy processes on 8 cores.  A run could hang:
+# 3 of 36 such runs never ended, a kernel's io_callback thread and the
+# main thread each dispatching an eager JAX op (stacks at
 # interpret_pallas_call.get and lrf_moments.py:655); synchronous CPU
 # dispatch and one XLA device did not prevent it
 # (experiments/interpret_contention.py).  So the main thread waits for
 # every computation with effects (the kernels' callbacks) to finish before
-# it goes on: none of 72 such runs hung.  A run past INTERPRET_TIMEOUT
-# (~8x the slowest reference alone, ~40 s) is still killed and run once
-# more in a fresh process.
+# it goes on: none of 72 such runs hung.  Each run holds one of the test
+# run's reference slots (tests/jax_jobs.py); one past INTERPRET_TIMEOUT
+# (~8x the slowest reference alone, ~40 s) after it took its slot ends
+# with its stacks, and its test fails with them.
 INTERPRET_TIMEOUT = 300
 
-_INTERPRET = """
-import faulthandler
-import sys
-faulthandler.dump_traceback_later(float(sys.argv[4]), exit=False)
+_INTERPRET = CHILD_PRELUDE + """
 import numpy as np
 import jax
 jax.config.update("jax_platforms", "cpu")
@@ -129,7 +130,6 @@ with pltpu.force_tpu_interpret_mode():
     scope = {"a": a}
     exec(sys.argv[3], scope)
 np.savez(sys.argv[2], **{k: np.asarray(v) for k, v in scope["out"].items()})
-faulthandler.cancel_dump_traceback_later()
 """
 
 
@@ -142,42 +142,26 @@ class InterpretRun:
         self._inp = os.path.join(workdir, "in.npz")
         self._outp = os.path.join(workdir, "out.npz")
         np.savez(self._inp, **arrays)
-        self._env = dict(os.environ, JAX_PLATFORMS="cpu",
-                         PYTHONPATH=os.pathsep.join(filter(None, [
-                             REPO, os.environ.get("PYTHONPATH")])))
-        self._cmd = [sys.executable, "-c", _INTERPRET, self._inp,
-                     self._outp, code, str(INTERPRET_TIMEOUT - 10)]
-        self._start = time.monotonic()
+        env = child_env(PYTHONPATH=os.pathsep.join(filter(None, [
+            REPO, os.path.dirname(os.path.abspath(__file__)),
+            os.environ.get("PYTHONPATH")])))
         # the output goes to a file: a pipe nobody reads before result()
         # would fill and stall the run
-        self._log = open(os.path.join(workdir, "stderr.txt"), "w+")
-        self._proc = subprocess.Popen(self._cmd, env=self._env,
-                                      stdout=subprocess.DEVNULL,
-                                      stderr=self._log)
+        self._log = open(os.path.join(workdir, "stderr.txt"), "w")
+        self._proc = subprocess.Popen(
+            [sys.executable, "-c", _INTERPRET, self._inp, self._outp, code,
+             *child_args(INTERPRET_TIMEOUT)],
+            env=env, stdout=subprocess.DEVNULL, stderr=self._log)
         self._out = None
 
     def result(self) -> dict:
         if self._out is not None:
             return self._out
-        left = INTERPRET_TIMEOUT - (time.monotonic() - self._start)
         try:
-            code = self._proc.wait(timeout=max(left, 1.0))
-            self._log.seek(0)
-            err = self._log.read()
-        except subprocess.TimeoutExpired:
-            self._proc.kill()
-            self._proc.wait()
-            self._log.seek(0)
-            err = self._log.read()
-            warnings.warn(f"an interpret-mode reference ran past "
-                          f"{INTERPRET_TIMEOUT} s and was rerun in a fresh "
-                          f"process; its stacks:\n{(err or '')[-6000:]}")
-            res = subprocess.run(self._cmd, env=self._env,
-                                 capture_output=True, text=True,
-                                 timeout=INTERPRET_TIMEOUT)
-            code, err = res.returncode, res.stderr
-        self._log.close()
-        assert code == 0, err[-3000:]
+            wait_child(self._proc, self._outp, INTERPRET_TIMEOUT,
+                       "an interpret-mode reference", self._log)
+        finally:
+            self._log.close()
         with np.load(self._outp) as z:
             self._out = {k: z[k] for k in z.files}
         return self._out
@@ -240,10 +224,8 @@ def pallas_interpret(code: str, workdir, **arrays) -> dict:
     it stalled now and then, so every interpret-mode reference of the
     port's tests runs here, out of the test process, and its main thread
     waits out each kernel's callbacks (see INTERPRET_TIMEOUT).  A run that
-    outlasts INTERPRET_TIMEOUT is killed and repeated once in a fresh
-    process (the reference is deterministic); the stacks it printed just
-    before the limit (faulthandler) go into a warning, to show where it
-    hung."""
+    outlasts INTERPRET_TIMEOUT after it took its slot fails, with the
+    stacks faulthandler printed, to show where it hung."""
     return InterpretRun(code, workdir, **arrays).result()
 
 

@@ -38,7 +38,25 @@ threshold --
     ACOS_ATOL of 1 (arccos amplifies the cosine's rounding by 1 / sin);
   * CVFH's region growing: a pair within the distance tolerance whose
     normals' cosine lies within COS_ATOL of cos(eps), or a curvature
-    within COS_ATOL of the threshold.
+    within COS_ATOL of the threshold;
+  * the LRF variants (ops/lrf.py), a frame off by more than 2e-3: SHOTNA
+    a sign vote (x on the offsets, z on the normals) at |plus - minus| <=
+    VOTE_BAND (one neighbour's dot at the rounding of 0 moves it by 2);
+    FLARE and BOARD the viewpoint dot z.(0 - q) within VIEW_RTOL |q| of 0,
+    or the argmax's runner-up within ARGMAX_RTOL of the best height
+    (FLARE) or cosine (BOARD), its candidates taken with the gate's
+    rounding band (a point within GATE_RTOL of the radius, BOARD's d^2 <=
+    1e-12 trap within IDENTITY_BAND); any of them where two eigenvalues
+    of the frame's covariance lie within EIG_RTOL;
+  * CGF's raw rows: a pair's log-radius, polar or azimuth bin value within
+    CGF_EDGE_ATOL of a bin edge moves one count between bins, and a point
+    within GATE_RTOL of the radius changes the row's count;
+  * SHOT under FLARE or BOARD (a row off by more than cosine 0.999): the
+    neighbour the x axis points at lies on the azimuth sector boundary
+    y_l = 0 by construction, and PCL's binning gives its radial, elevation
+    and cosine interpolation whole to one side, so rounding decides which:
+    the row agrees once that neighbour is moved SECTOR_MOVE x the radius
+    to either side of the boundary (sector_moved_near).
 
 Each function returns, per decision, whether it lies in its band; the
 tests and phase 13 count the decisions that differ, and fail on one that
@@ -56,6 +74,13 @@ GRSD_RTOL = 2e-3
 BIN_ATOL = 1e-4
 COS_ATOL = 1e-5
 ACOS_ATOL = 1e-5
+VOTE_BAND = 2
+VIEW_RTOL = 1e-5
+ARGMAX_RTOL = 1e-5
+GATE_RTOL = 1e-5
+IDENTITY_BAND = 1e-9
+CGF_EDGE_ATOL = 1e-4
+SECTOR_MOVE = 1e-4
 
 _PAIRS = ((0, 1), (0, 2), (0, 3), (1, 2), (1, 3), (2, 3))
 _TRIPLES = ((0, 1, 2), (0, 1, 3), (0, 2, 3), (1, 2, 3))
@@ -206,6 +231,150 @@ def cvfh_near(points: np.ndarray, normals: np.ndarray,
         count += int(((d2 <= dist_tol * dist_tol)
                       & (np.abs(cos - ce) <= COS_ATOL)).sum())
     return count
+
+
+def _votes_near(dots: np.ndarray, gate: np.ndarray) -> np.ndarray:
+    plus = (gate & (dots >= 0)).sum(-1)
+    return np.abs(2 * plus - gate.sum(-1)) <= VOTE_BAND
+
+
+def _top2_near(score: np.ndarray, strict: np.ndarray, loose: np.ndarray,
+               scale: np.ndarray) -> np.ndarray:
+    """[K] True where the argmax of `score` over the `strict` candidates
+    may differ from that over any set between `strict` and `loose`, or its
+    runner-up lies within ARGMAX_RTOL x `scale` of the best."""
+    s = np.where(strict, score, -np.inf)
+    top = np.sort(s, -1)[:, -2:]
+    near = top[:, 1] - top[:, 0] <= ARGMAX_RTOL * scale
+    best_loose = np.where(loose, score, -np.inf).max(-1)
+    return near | (best_loose > top[:, 1])
+
+
+def lrf_variant_near(kind: str, kp: np.ndarray, points: np.ndarray,
+                     normals: np.ndarray, frames: np.ndarray, radius: float,
+                     tangent_radius: float = 0.0) -> np.ndarray:
+    """[K] True where the frame `frames` [K, 3, 3] (rows x, y, z) of the
+    ReferenceFrameType `kind` at the keypoints kp [K, 3] on the live
+    points [N, 3] (normals [N, 3]) lies in its rounding band (module
+    docstring)."""
+    p = np.asarray(points, np.float64)
+    q = np.asarray(kp, np.float64)
+    f = np.asarray(frames, np.float64)
+    nrm = np.asarray(normals, np.float64)
+    rel = p[None] - q[:, None]
+    d2 = (rel * rel).sum(-1)
+    in_r = d2 <= radius * radius
+    loose_r = d2 <= radius * radius * (1 + GATE_RTOL) ** 2
+    if kind == "SHOTNA":
+        w = np.where(in_r, radius - np.sqrt(d2), 0.0)
+        cov = np.einsum("km,kma,kmb->kab", w, rel, rel) \
+            / np.maximum(w.sum(1), 1e-30)[:, None, None]
+        near = _eig_close(cov)
+        near |= _votes_near(np.einsum("kma,ka->km", rel, f[:, 0]), in_r)
+        near |= _votes_near(np.einsum("ma,ka->km", nrm, f[:, 2]), in_r)
+        return near
+    cnt = in_r.sum(1)
+    mean = (in_r.astype(np.float64) @ p) / np.maximum(cnt, 1)[:, None]
+    c = np.where(in_r[..., None], p[None] - mean[:, None], 0.0)
+    cov = np.einsum("kma,kmb->kab", c, c) / np.maximum(cnt, 1)[:, None,
+                                                               None]
+    z = f[:, 2]
+    near = _eig_close(cov)
+    near |= np.abs((z * q).sum(-1)) <= VIEW_RTOL * np.linalg.norm(q, axis=-1)
+    if kind == "FLARE":
+        t2 = tangent_radius * tangent_radius
+        h = np.einsum("kma,ka->km", rel, z)
+        scale = np.abs(h).max(-1) + np.linalg.norm(q, axis=-1)
+        near |= _top2_near(h, d2 <= t2, d2 <= t2 * (1 + GATE_RTOL) ** 2,
+                           scale)
+    else:
+        cosdev = np.einsum("ma,ka->km", nrm, z)
+        strict = in_r & (d2 > 1e-12)
+        loose = loose_r & (d2 > 1e-12 - IDENTITY_BAND)
+        near |= _top2_near(-cosdev, strict & (d2 > IDENTITY_BAND), loose,
+                           np.ones(len(q)))
+    return near
+
+
+def cgf_rows_near(rows_a: np.ndarray, rows_b: np.ndarray, count: np.ndarray,
+                  kp: np.ndarray, frames: np.ndarray, kp_normals: np.ndarray,
+                  frame_valid: np.ndarray, points: np.ndarray,
+                  radius: float) -> np.ndarray:
+    """[K] True where CGF raw rows a and b [K, 2244] agree within 1e-6 or
+    differ by what their rounding bands allow (module docstring): at most
+    2 / count of moved mass a pair at a bin edge, or any change with a
+    point within GATE_RTOL of the radius.  `count` [K] is a's neighbour
+    count; the frames are the rows' frame (flipped and replaced by the
+    identity as the rows did); `points` the live points."""
+    p = np.asarray(points, np.float64)
+    q = np.asarray(kp, np.float64)
+    f = np.asarray(frames, np.float64)
+    eye = np.broadcast_to(np.eye(3), f.shape)
+    f = np.where(np.asarray(frame_valid)[:, None, None], f, eye)
+    flip = ((f[:, 2] * np.asarray(kp_normals, np.float64)).sum(-1) < 0) \
+        & np.asarray(frame_valid)
+    f = np.where(flip[:, None, None], -f, f)
+    rel = p[None] - q[:, None]
+    d = np.sqrt((rel * rel).sum(-1))
+    use = (d <= radius) & (d > 1e-15)
+    loc = np.einsum("kma,kba->kmb", rel, f)
+    r = np.maximum(d, 1e-30)
+    rmin = 0.05 * radius
+    v_r = 16 * (np.log(r) - np.log(rmin)) / np.log(radius / rmin) + 1.0
+    v_t = 11 * np.degrees(np.arccos(np.clip(loc[..., 2] / r, -1, 1))) / 180
+    v_p = 12 * (np.degrees(np.arctan2(loc[..., 1], loc[..., 0])) + 180) / 360
+    edge = np.zeros(d.shape, bool)
+    for v in (v_r, v_t, v_p):
+        edge |= np.abs(v - np.round(v)) <= CGF_EDGE_ATOL
+    n_edge = (use & edge).sum(-1)
+    gate = (np.abs(d - radius) <= GATE_RTOL * radius).any(-1)
+    moved = np.abs(np.asarray(rows_a, np.float64)
+                   - np.asarray(rows_b, np.float64)).sum(-1) \
+        * np.asarray(count, np.float64)
+    same = np.abs(np.asarray(rows_a) - np.asarray(rows_b)).max(-1) <= 1e-6
+    return same | gate | (moved <= 2 * n_edge + 1e-3)
+
+
+def x_neighbour(kind: str, q: np.ndarray, frame: np.ndarray,
+                points: np.ndarray, normals: np.ndarray, radius: float,
+                tangent_radius: float) -> int:
+    """The index of the point FLARE's / BOARD's x axis of the frame
+    [3, 3] at q points at (ops/lrf.py), in float64."""
+    p = np.asarray(points, np.float64)
+    rel = p - np.asarray(q, np.float64)
+    d2 = (rel * rel).sum(1)
+    z = np.asarray(frame, np.float64)[2]
+    if kind == "FLARE":
+        cand, score = d2 <= tangent_radius ** 2, rel @ z
+    else:
+        cand = (d2 <= radius ** 2) & (d2 > 1e-12)
+        score = -(np.asarray(normals, np.float64) @ z)
+    return int(np.argmax(np.where(cand, score, -np.inf)))
+
+
+def sector_moved_near(kind: str, got: np.ndarray, want: np.ndarray,
+                      q: np.ndarray, frame: np.ndarray, points: np.ndarray,
+                      normals: np.ndarray, frame_radius: float,
+                      radius: float, shot) -> bool:
+    """True where the SHOT rows got and want agree at cosine > 0.999, or
+    agree so once FLARE's / BOARD's x neighbour is moved across y_l = 0
+    (module docstring): `shot(points)` recomputes the got side's row at q
+    in `frame` on the moved points."""
+    def cos(a, b):
+        return float((a * b).sum() / max(np.linalg.norm(a)
+                                         * np.linalg.norm(b), 1e-30))
+
+    if cos(got, want) > 0.999:
+        return True
+    j = x_neighbour(kind, q, frame, points, normals, frame_radius,
+                    frame_radius / 5.0)
+    for side in (1.0, -1.0):
+        moved = np.array(points, np.float32)
+        moved[j] += np.float32(side * SECTOR_MOVE * radius) \
+            * np.asarray(frame, np.float32)[1]
+        if cos(shot(moved), want) > 0.999:
+            return True
+    return False
 
 
 def report(what: str, differ: np.ndarray, near: np.ndarray) -> int:
