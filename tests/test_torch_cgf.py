@@ -13,7 +13,8 @@ trainer (train_cgf_embedding.py) against the JAX package's on the CPU:
     jax.random.normal's (ops/global_descriptors.normal);
   * training and detect_batch through ImplicitShapeModel on the bench
     config with CGF under Euclidean distances (signed rows: ROADMAP C):
-    the training contract of test_torch_train.py, the firm detections;
+    the training contract of test_torch_train.py, the firm detections on
+    the training models (fresh views vote nothing, ROADMAP C);
   * the scene route (ops.tiled's threshold and chunks patched to 512 / 64
     in both packages): the same keypoints, >= 97% of the rows at cosine >
     0.999;
@@ -73,48 +74,34 @@ def cgf_config() -> dict:
     return cfg
 
 
-def detect_files(files):
-    """The 3 views and the 4 training models: the shipped embedding's rows
-    lie ~1e-3 apart and the class sigma (a variance) ~1e-7, so the vote
-    gate |d| <= 2 sigma (codeword_distribution.cpp:131-135) passes a
-    training model's own features only, in both packages."""
-    models, views = files
-    return views + [p for p, _ in models]
-
-
 def cosines(a, b):
     return (a * b).sum(-1) / np.maximum(
         np.linalg.norm(a, axis=-1) * np.linalg.norm(b, axis=-1), 1e-30)
 
 
 @pytest.fixture(scope="module")
-def files(tmp_path_factory):
-    """4 training models of 2 classes and 3 fresh views, as PCD files:
-    ([(path, class)], [path])."""
+def models(tmp_path_factory):
+    """4 training models of 2 classes, as PCD files: [(path, class)]."""
     tmp = tmp_path_factory.mktemp("cgf")
     rng = np.random.default_rng(37)
-    models, views = [], []
-    for i in range(7):
+    out = []
+    for i in range(4):
         pts = shapes.make_instance(rng, i % 2, n=N_POINTS, rotate=True,
                                    noise=0.005).astype(np.float32)
         path = str(tmp / f"c{i}.pcd")
         save_pcd(path, pts)
-        if i < 4:
-            models.append((path, i % 2))
-        else:
-            views.append(path)
-    return models, views
+        out.append((path, i % 2))
+    return out
 
 
 @pytest.fixture(scope="module", autouse=True)
-def jax_refs(files):
-    """The JAX training and detection of cgf_config() and the JAX
-    trainer's run, queued at once."""
-    models, _ = files
+def jax_refs(models):
+    """The JAX training of cgf_config() with its detection of the models
+    and the JAX trainer's run, queued at once."""
     pool = JaxPool(2)
     jobs = {"detect": pool.call("zoo_jobs:train_detect", cfg=cgf_config(),
                                 files=[list(f) for f in models],
-                                detect_files=detect_files(files)),
+                                detect_files=[p for p, _ in models]),
             "trainer": pool.call("zoo3_fixtures:embedding_run",
                                  n_pairs=PAIRS, n_points=PAIR_POINTS,
                                  steps=STEPS, batch=BATCH)}
@@ -238,17 +225,19 @@ def test_cgf_embedding_matches_jax():
                                       np.asarray(ref.weights[0][1]))
 
 
-def test_cgf_trains_and_detects_as_jax(files, jax_refs):
-    """Training: the codebook contract; detect_batch of the views and the
-    models (detect_files): the firm detections of JAX's."""
-    models, _ = files
+def test_cgf_trains_and_detects_as_jax(models, jax_refs):
+    """Training: the codebook contract; detect_batch of the models: the
+    firm detections of JAX's.  The shipped embedding's rows lie ~1e-3
+    apart and the class sigma (a variance) ~1e-7, so the vote gate |d| <=
+    2 sigma (codeword_distribution.cpp:131-135) passes a model's own
+    features only, in both packages: fresh views detect nothing."""
     ism = port_train(models, cgf_config())
     want = jax_refs["detect"].result()
     assert ism.state.codebook.codewords.shape[1] == 32
     assert_codebooks_match(ism.state.codebook, SimpleNamespace(**{
         k[3:]: v for k, v in want.items() if k.startswith("cb_")}))
-    got = assert_detections_match(ism, detect_files(files), want)
-    assert all(got[3:])
+    got = assert_detections_match(ism, [p for p, _ in models], want)
+    assert all(got)
     print(f"CGF: {len(ism.state.codebook.codewords)} codewords, maxima "
           f"{[len(g) for g in got]}")
 
